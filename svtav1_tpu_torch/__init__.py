@@ -1,0 +1,32 @@
+"""svtav1_tpu_torch — the PyTorch + CUDA port of the AV1 engine in ``svtav1_tpu``.
+
+It runs the flat all-intra encode (8-bit 4:2:0, 32x32 luma / 16x16 chroma
+blocks, uniform deblocking) end to end on an NVIDIA Hopper card:
+
+- ``ops``     — plain PyTorch counterparts of the normative integer ops
+                (intra predictors, transforms, quantizer, deblocking).
+- ``encoder`` — the wavefront mode decision and ``IntraEncoder``.
+- ``csrc``    — the hand-written CUDA kernel of the intra wavefront, built
+                at first use by ``cuda.build`` and bound by ctypes in
+                ``cuda.wavefront_kernel``.
+- ``app``     — the Y4M -> IVF command line for the flat path.
+
+The JAX package stays the reference: the tests feed the same inputs to
+both and compare.  Host-only modules of ``svtav1_tpu`` that import no JAX
+(spec tables, entropy coder, headers, containers) are reused as they are.
+This package imports no JAX.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for `device`; raises if a CUDA device is asked for and
+    no card is present (there is no fallback to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but torch.cuda is not "
+                           "available")
+    return dev

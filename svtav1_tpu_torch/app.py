@@ -1,0 +1,128 @@
+"""Y4M in -> AV1 IVF out, flat all-intra path of the PyTorch port.
+
+Usage:
+  python -m svtav1_tpu_torch.app -i in.y4m -b out.ivf -q 100 --keyint 1 \
+      (--no-part-search | --preset 11..13) [--batch N] [--stat-report] \
+      [--device cuda|cpu]
+
+Reading, the device stage of batch k+1 and the entropy coding of batch k
+overlap as in ``svtav1_tpu/app.py``.  Any other mode (partition search,
+inter frames, 10-bit, CDEF/LR/CCSO) exits with status 2: the JAX package's
+``python -m svtav1_tpu.app`` has it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+
+
+def psnr(a: np.ndarray, b: np.ndarray, peak: int = 255) -> float:
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return 99.0 if mse == 0 else 10 * np.log10(peak * peak / mse)
+
+
+def _error(msg: str) -> int:
+    print(f"error: {msg}", file=sys.stderr)
+    return 2
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="svtav1_tpu_torch")
+    p.add_argument("-i", "--input", required=True, help="input .y4m")
+    p.add_argument("-b", "--output", required=True, help="output .ivf")
+    p.add_argument("-q", "--qp", type=int, default=100,
+                   help="base qindex 0-255")
+    p.add_argument("--keyint", type=int, default=64,
+                   help="key frame interval; the port supports 1 only")
+    p.add_argument("--no-part-search", action="store_true",
+                   help="flat 32x32 blocks (the only mode ported)")
+    p.add_argument("--preset", type=int, default=None, metavar="M",
+                   help="speed preset; the port supports 11..13")
+    p.add_argument("--batch", type=int, default=4,
+                   help="frames per device batch")
+    p.add_argument("--stat-report", action="store_true",
+                   help="print the mean PSNR of the reconstruction")
+    p.add_argument("--device", default="cuda", help="cuda or cpu")
+    args = p.parse_args(argv)
+    if not 0 <= args.qp <= 255:
+        return _error(f"-q/--qp must be 0..255 (got {args.qp})")
+    if args.keyint != 1:
+        return _error("the port encodes all-intra only (--keyint 1); "
+                      "python -m svtav1_tpu.app has inter coding")
+    if args.preset is None and not args.no_part_search:
+        return _error("the port has the flat path only: pass "
+                      "--no-part-search or --preset 11..13")
+    if args.preset is not None and not 11 <= args.preset <= 13:
+        return _error("the port supports presets 11..13 (flat path); "
+                      "python -m svtav1_tpu.app has the others")
+    if args.batch < 1:
+        return _error("--batch must be >= 1")
+
+    from svtav1_tpu.encoder.presets import apply_preset
+    from svtav1_tpu.utils.ivf import IvfWriter
+    from svtav1_tpu.utils.y4m import Y4mReader
+
+    from .encoder.intra_encoder import EncoderConfig, IntraEncoder
+
+    with open(args.input, "rb") as fin:
+        rdr = Y4mReader(fin)
+        info = rdr.info
+        if info.subsampling != "420":
+            return _error("4:2:0 input only")
+        cfg = EncoderConfig(info.width, info.height, qindex=args.qp,
+                            bit_depth=info.bit_depth, part_search=False)
+        if args.preset is not None:
+            cfg = apply_preset(cfg, args.preset)
+        try:
+            enc = IntraEncoder(cfg, device=args.device)
+        except (NotImplementedError, ValueError) as e:
+            return _error(str(e))
+
+        t0 = time.perf_counter()
+        n = total_bytes = 0
+        psnrs = []
+        frame_iter = rdr.frames()
+        with open(args.output, "wb") as fout:
+            ivf = IvfWriter(fout, info.width, info.height, info.fps_den,
+                            info.fps_num)
+
+            def finish(batch, dev):
+                nonlocal n, total_bytes
+                payloads, recons = enc.host_finish(dev)
+                for payload, src, rec in zip(payloads, batch, recons):
+                    ivf.write_frame(payload, n)
+                    n += 1
+                    total_bytes += len(payload)
+                    if args.stat_report:
+                        psnrs.append([psnr(a, r) for a, r in zip(src, rec)])
+
+            pending = None          # (batch, device outputs) in flight
+            while True:
+                batch = [f for _, f in zip(range(args.batch), frame_iter)]
+                if not batch:
+                    break
+                # queue this batch's device stage, then entropy-code the
+                # previous batch while it runs
+                dev = enc.device_encode(batch)
+                if pending is not None:
+                    finish(*pending)
+                pending = (batch, dev)
+            if pending is not None:
+                finish(*pending)
+            ivf.finalize()
+    dt = time.perf_counter() - t0
+    kbps = total_bytes * 8 * info.fps_num / info.fps_den / max(n, 1) / 1000
+    print(f"encoded {n} frames in {dt:.2f}s ({n / dt if dt else 0:.2f} fps)"
+          f", {kbps:.1f} kbps")
+    if psnrs:
+        m = np.mean(psnrs, axis=0)
+        print(f"PSNR Y {m[0]:.2f} U {m[1]:.2f} V {m[2]:.2f}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,255 @@
+"""All-intra AV1 encoder, flat path (8-bit 4:2:0, 32x32 luma blocks).
+
+Counterpart of the flat (part_search=False) path of
+``svtav1_tpu/encoder/intra_encoder.py``:
+  1. device stage (``device_encode``): one luma wavefront (32x32 blocks,
+     TX_32X32, 13 candidate modes), one paired U+V wavefront (16x16
+     blocks, TX_16X16, implied chroma tx types, one uv_mode per pair),
+     uniform deblocking.  On a CUDA device the wavefronts run the
+     hand-written kernel; nothing here synchronises, so the caller can
+     entropy-code batch k while batch k+1 runs.
+  2. host stage (``host_finish``): the native C tile coder of
+     ``svtav1_tpu.ec.native`` per frame in a thread pool, then the key
+     frame OBUs.
+Everything else (partition search, 10-bit, angle deltas, tile columns,
+CDEF/LR/CCSO) raises NotImplementedError: the JAX package has it.
+"""
+
+from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, replace
+
+import numpy as np
+import torch
+
+from svtav1_tpu.ec import native
+from svtav1_tpu.encoder.geometry import check_dims, pad64, pad_plane_bottom
+from svtav1_tpu.encoder.headers import (FrameConfig, SequenceConfig,
+                                        assemble_key_frame)
+from svtav1_tpu.spec import tables as tbl
+from svtav1_tpu.spec.cdf import CdfContext
+from svtav1_tpu.spec.txfm import DCT_DCT, TX_16X16, TX_32X32
+
+from .. import resolve_device
+from ..ops import intra
+from ..ops.deblock import deblock_plane_uniform
+from .wavefront import encode_plane_wavefront, expand_candidates
+
+BLK = 32          # luma block size
+CBLK = 16         # chroma block size (4:2:0)
+
+CAND_MODES = (intra.DC_PRED, intra.V_PRED, intra.H_PRED,
+              intra.D45_PRED, intra.D135_PRED, intra.D113_PRED,
+              intra.D157_PRED, intra.D203_PRED, intra.D67_PRED,
+              intra.SMOOTH_PRED, intra.SMOOTH_V_PRED, intra.SMOOTH_H_PRED,
+              intra.PAETH_PRED)
+
+
+@dataclass
+class EncoderConfig:
+    """The JAX package's EncoderConfig, field for field."""
+    width: int
+    height: int
+    qindex: int = 100
+    bit_depth: int = 8
+    cdf_update: bool = True
+    lf_level: int = -1          # -1 -> derive from qindex; 0 -> off
+    angle_deltas: tuple = (0,)
+    part_search: bool = True
+    tile_cols: int = 1
+    enable_cdef: bool = False
+    enable_lr: bool = False
+    enable_ccso: bool = False
+    tx_search: bool = True
+    filter_search: bool = True
+    film_grain: int = 0         # grain synthesis strength 0 (off)..50
+    metadata: bytes = b""       # pre-wrapped OBU_METADATA bytes, first TU
+    gm_search: bool = True
+
+
+def _unsupported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported to svtav1_tpu_torch (flat 8-bit all-intra "
+        "path only); the JAX package svtav1_tpu has it")
+
+
+class IntraEncoder:
+    # capped CRF: frames over cap_bits re-encode at a higher qindex
+    # (set by a caller; 0 disables)
+    cap_bits: int = 0
+    _CAP_QSTEPS = (24, 48, 88)
+
+    def __init__(self, cfg: EncoderConfig, device="cuda"):
+        if cfg.part_search:
+            raise _unsupported("part_search=True (partition search)")
+        if cfg.bit_depth != 8:
+            raise _unsupported(f"bit_depth={cfg.bit_depth}")
+        if tuple(cfg.angle_deltas) != (0,):
+            raise _unsupported(f"angle_deltas={tuple(cfg.angle_deltas)}")
+        if cfg.tile_cols != 1:
+            raise _unsupported(f"tile_cols={cfg.tile_cols}")
+        if cfg.enable_cdef or cfg.enable_lr or cfg.enable_ccso:
+            raise _unsupported("CDEF/LR/CCSO")
+        check_dims(cfg.width, cfg.height, cfg.part_search)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        # the source is padded to SB multiples; the bitstream signals the
+        # true frame size and bottom-row blocks overhang it
+        self.ph = pad64(cfg.height)
+        self.seq = SequenceConfig(cfg.width, cfg.height, cfg.bit_depth,
+                                  film_grain_params_present=(
+                                      cfg.film_grain > 0))
+        self._first = True
+        self._fg_params = None       # estimated on the first source frame
+        self._fg_n = 0               # per-frame grain_seed counter
+        self._ec_pool = None
+        # host_finish codes frames in threads, but the native coder's
+        # library and the scan tables it reads load lazily and not
+        # thread-safely (a first build with gcc, npz reads): load them
+        # here, on the constructing thread; a failure raises
+        native._load()
+        for txs in (TX_32X32, TX_16X16):
+            tbl.scan(txs, DCT_DCT)
+
+    def film_grain_for(self, frame):
+        """Per-frame film_grain header dict (or None); the grain model is
+        estimated from the first frame seen."""
+        cfg = self.cfg
+        if not cfg.film_grain:
+            return None
+        if self._fg_params is None:
+            from svtav1_tpu.encoder.noise_model import estimate_grain_params
+            p = estimate_grain_params(frame[0], frame[1], frame[2],
+                                      strength=cfg.film_grain / 8.0)
+            self._fg_params = p if p is not None else False
+        if self._fg_params is False:
+            return None
+        self._fg_n += 1
+        seed = (7391 + 3461 * self._fg_n) & 0xFFFF
+        return dict(self._fg_params, grain_seed=seed, random_seed=seed)
+
+    def lf_levels(self):
+        """(y_vert, y_horz, u, v) filter levels (heuristic from qindex)."""
+        if self.cfg.lf_level == 0:
+            return (0, 0, 0, 0)
+        if self.cfg.lf_level > 0:
+            l = min(self.cfg.lf_level, 63)
+        else:
+            q = self.cfg.qindex
+            l = max(0, min(63, (q * q // 1100) + q // 12 - 2))
+        lc = max(0, l * 3 // 4)
+        return (l, l, lc, lc)
+
+    def _capped_recode(self, frames, payloads, recons, first0: bool):
+        if not self.cap_bits:
+            return payloads, recons
+        for b, p in enumerate(payloads):
+            if len(p) * 8 <= self.cap_bits:
+                continue
+            q0 = self.cfg.qindex
+            for step in self._CAP_QSTEPS:
+                q2 = min(255, q0 + step)
+                sub = IntraEncoder(replace(self.cfg, qindex=q2),
+                                   device=self.device)
+                sub._first = first0 and b == 0
+                sub._fg_params = self._fg_params
+                ps, rs = sub.host_finish(sub.device_encode([frames[b]]))
+                if len(ps[0]) * 8 <= self.cap_bits or q2 >= 255:
+                    break
+            payloads[b] = ps[0]
+            recons[b] = rs[0]
+        return payloads, recons
+
+    def encode_frame(self, y: np.ndarray, u: np.ndarray, v: np.ndarray):
+        payloads, recons = self.encode_frames([(y, u, v)])
+        return payloads[0], recons[0]
+
+    def encode_frames(self, frames):
+        return self.host_finish(self.device_encode(frames))
+
+    def _upload(self, planes: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(planes, np.uint8))
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def device_encode(self, frames):
+        """Queue the device stage of a batch of (y, u, v) uint8 frames and
+        return its outputs without waiting for the device."""
+        cfg = self.cfg
+        yb = pad_plane_bottom(np.stack([f[0] for f in frames]), self.ph)
+        uvb = pad_plane_bottom(np.concatenate(
+            [np.stack([f[1] for f in frames]),
+             np.stack([f[2] for f in frames])]), self.ph // 2)
+        vh = None if self.ph == cfg.height else cfg.height
+        vhc = None if vh is None else vh // 2
+        y_mi, y_lev, y_rec = encode_plane_wavefront(
+            self._upload(yb), BLK, TX_32X32, cfg.qindex, CAND_MODES, 8,
+            valid_h=vh)
+        # U and V ride one wavefront on the batch axis; paired=True makes
+        # each (u, v) pair agree on one uv_mode
+        uv_mi, uv_lev, uv_rec = encode_plane_wavefront(
+            self._upload(uvb), CBLK, TX_16X16, cfg.qindex, CAND_MODES, 8,
+            valid_h=vhc, paired=True, kf="uv", uv_tx=True)
+        lf = self.lf_levels()
+        if lf[0] or lf[1]:
+            y_rec = deblock_plane_uniform(y_rec, BLK, 14, lf[0], lf[1],
+                                          bd=8, valid_h=vh)
+            uv_rec = deblock_plane_uniform(uv_rec, CBLK, 6, lf[2], lf[2],
+                                           bd=8, valid_h=vhc)
+        return {"n": len(frames), "y_mi": y_mi, "uv_mi": uv_mi,
+                "y_lev": y_lev, "uv_lev": uv_lev,
+                "y_rec": y_rec.to(torch.uint8),
+                "uv_rec": uv_rec.to(torch.uint8), "frames": frames}
+
+    def host_finish(self, dev):
+        """Entropy-code a device batch (waits for its device work).
+        Returns (payloads, recons) with recons as uint8 numpy planes."""
+        cfg = self.cfg
+        first0 = self._first
+        n, frames = dev["n"], dev["frames"]
+        y_mi = dev["y_mi"].cpu().numpy()
+        uv_mi = dev["uv_mi"].cpu().numpy()[:n]     # halves agree (paired)
+        y_lev = dev["y_lev"].cpu().numpy()
+        uv_lev = dev["uv_lev"].cpu().numpy()
+        y_rec = dev["y_rec"].cpu().numpy()
+        uv_rec = dev["uv_rec"].cpu().numpy()
+        u_lev, v_lev = uv_lev[:n], uv_lev[n:]
+        u_rec, v_rec = uv_rec[:n], uv_rec[n:]
+        cand_mode = np.array([m for m, _ in expand_candidates(CAND_MODES)],
+                             np.int32)
+        # one default CDF set, loaded on this thread (not thread-safe); the
+        # coder copies its tables
+        cdf = CdfContext(cfg.qindex)
+
+        def code_one(b):
+            return native.encode_tile_intra(
+                cfg.width, self.ph, cfg.cdf_update, cand_mode[y_mi[b]],
+                y_lev[b], u_lev[b], v_lev[b], cdf, true_h=cfg.height,
+                uv_modes=cand_mode[uv_mi[b]])
+
+        # frames have independent CDF contexts: the native coder releases
+        # the GIL, so frames code in parallel threads
+        if n > 1:
+            if self._ec_pool is None:
+                self._ec_pool = ThreadPoolExecutor(max_workers=4)
+            tiles = list(self._ec_pool.map(code_one, range(n)))
+        else:
+            tiles = [code_one(0)]
+
+        lfv = self.lf_levels()
+        ch, cch = cfg.height, cfg.height // 2
+        payloads, recons = [], []
+        for b in range(n):
+            fr = FrameConfig(base_q_idx=cfg.qindex,
+                             disable_cdf_update=not cfg.cdf_update,
+                             filter_level=(lfv[0], lfv[1]),
+                             filter_level_u=lfv[2], filter_level_v=lfv[3],
+                             film_grain=self.film_grain_for(frames[b]))
+            payloads.append(assemble_key_frame(
+                self.seq, fr, tiles[b], first=self._first,
+                metadata=cfg.metadata if self._first else b""))
+            self._first = False
+            recons.append((y_rec[b][:ch], u_rec[b][:cch], v_rec[b][:cch]))
+        return self._capped_recode(frames, payloads, recons, first0)

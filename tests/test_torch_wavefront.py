@@ -1,0 +1,198 @@
+"""The port's wavefront against the JAX package's (the XLA twin of the
+Pallas kernel), and the host-side tables the CUDA kernel reads against the
+port's plain ops.
+
+The wavefront bar is the one the Pallas kernel is held to: >= 99% of
+blocks choose the same candidate, levels equal wherever the candidate
+agrees, recon equal when every candidate agrees (float RD-cost sums may
+break near-ties differently).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from svtav1_tpu.encoder import wavefront as jwf
+from svtav1_tpu.encoder.intra_encoder import CAND_MODES
+from svtav1_tpu.spec import txfm as T
+from svtav1_tpu_torch.cuda import wavefront_kernel as wk
+from svtav1_tpu_torch.encoder import wavefront as twf
+from svtav1_tpu_torch.ops import intra, transforms
+from svtav1_tpu_torch.ops.intra_dir import dr_pred
+
+
+def _src(rng, B, h, w):
+    yy, xx = np.mgrid[0:h, 0:w]
+    out = []
+    for b in range(B):
+        f = np.clip(120 + 60 * np.sin((xx + 7 * b) / 17.0) +
+                    40 * np.cos((yy + 3 * b) / 11.0) +
+                    rng.randint(-6, 7, (h, w)), 0, 255)
+        out.append(f)
+    return np.stack(out).astype(np.uint8)
+
+
+def _agree(ref, got, label):
+    mi_r, lev_r, rec_r = [np.asarray(a) for a in ref]
+    mi_g, lev_g, rec_g = [np.asarray(a) for a in got]
+    same = mi_r == mi_g
+    frac = same.mean()
+    assert frac >= 0.99, f"{label}: only {frac:.4f} of modes agree"
+    np.testing.assert_array_equal(lev_r[same], lev_g[same],
+                                  err_msg=f"{label} levels")
+    if frac == 1.0:
+        np.testing.assert_array_equal(rec_r.astype(np.int32),
+                                      rec_g.astype(np.int32),
+                                      err_msg=f"{label} recon")
+
+
+# the three configs of tests/test_wavefront_pallas.py
+WF_CASES = {
+    "luma": (0, 2, 128, 192, 32, T.TX_32X32, 100, {}),
+    "valid_h": (1, 1, 128, 128, 32, T.TX_32X32, 120, {"valid_h": 100}),
+    "chroma": (2, 4, 64, 96, 16, T.TX_16X16, 100,
+               {"paired": True, "kf": "uv", "uv_tx": True}),
+}
+
+
+@pytest.mark.parametrize("label", list(WF_CASES))
+def test_wavefront_matches_jax(label, monkeypatch):
+    monkeypatch.delenv("SVT_TPU_LAMBDA_SCALE", raising=False)
+    seed, B, h, w, bs, txs, q, kw = WF_CASES[label]
+    src = _src(np.random.RandomState(seed), B, h, w)
+    ref = jwf.encode_plane_wavefront(src, bs, txs, q, CAND_MODES, 8, **kw)
+    got = twf.encode_plane_wavefront(torch.from_numpy(src), bs, txs, q,
+                                     CAND_MODES, 8, **kw)
+    assert got[0].shape == (B, h // bs, w // bs)
+    assert got[1].shape == (B, h // bs, w // bs, bs, bs)
+    assert got[2].shape == (B, h, w)
+    assert all(a.dtype == torch.int32 for a in got)
+    _agree(ref, [a.numpy() for a in got], label)
+
+
+@pytest.mark.parametrize("qindex,kf,scale", [
+    (100, True, None), (120, True, None), (100, "uv", None),
+    (200, "uv", "0.5")])
+def test_rd_params_match_jax(qindex, kf, scale, monkeypatch):
+    if scale is None:
+        monkeypatch.delenv("SVT_TPU_LAMBDA_SCALE", raising=False)
+    else:
+        monkeypatch.setenv("SVT_TPU_LAMBDA_SCALE", scale)
+    cands = twf.expand_candidates(CAND_MODES)
+    assert cands == jwf.expand_candidates(CAND_MODES)
+    ref = twf.rd_from_numpy(*[np.asarray(a) for a in
+                              jwf.rd_params(qindex, 8, cands, kf=kf)])
+    got = twf.rd_params(qindex, 8, cands, kf=kf)
+    for r, g in zip(ref, got):
+        assert r.dtype == g.dtype and r.shape == g.shape
+        assert torch.equal(r, g)
+    # the f32 lambda bit for bit
+    assert ref[2].view(torch.int32).item() == got[2].view(torch.int32).item()
+
+
+def test_quad_tables_match_jax():
+    for bh, bw in ((4, 6), (34, 60)):
+        for a, b in zip(twf._quad_tables(bh, bw), jwf._quad_tables(bh, bw)):
+            np.testing.assert_array_equal(a, b)
+
+
+# ---- the CUDA kernel's host-side tables, emulated in numpy ----------- #
+
+
+@pytest.mark.parametrize("bs", [16, 32])
+def test_linear_pred_maps_match_predictors(bs):
+    """pred = (E[i0]*(32-sh) + E[i1]*sh + 16) >> 5 over E = [corner,
+    above_ext, left_ext] reproduces V, H and every directional mode."""
+    rng = np.random.RandomState(bs)
+    above_ext = rng.randint(0, 256, (5, 2 * bs)).astype(np.int32)
+    left_ext = rng.randint(0, 256, (5, 2 * bs)).astype(np.int32)
+    corner = rng.randint(0, 256, 5).astype(np.int32)
+    E = np.concatenate([corner[:, None], above_ext, left_ext], axis=1)
+    cands = twf.expand_candidates(CAND_MODES)
+    maps = wk.linear_pred_maps(bs, cands)
+    t = torch.from_numpy
+    checked = 0
+    for ci, (mode, delta) in enumerate(cands):
+        if not 1 <= mode <= 8:
+            assert not maps[ci].any()
+            continue
+        i0, i1, sh = maps[ci] & 0xFF, (maps[ci] >> 8) & 0xFF, \
+            (maps[ci] >> 16) & 0x3F
+        got = np.clip((E[:, i0] * (32 - sh) + E[:, i1] * sh + 16) >> 5, 0,
+                      255).reshape(5, bs, bs)
+        if mode in (intra.V_PRED, intra.H_PRED):
+            want = intra.predict(mode, t(above_ext[:, :bs]),
+                                 t(left_ext[:, :bs]), t(corner))
+        else:
+            want = dr_pred(mode, delta, t(above_ext), t(left_ext), t(corner),
+                           bs)
+        np.testing.assert_array_equal(got, want.numpy(), err_msg=str(mode))
+        checked += 1
+    assert checked == 8
+
+
+def _net(x, tab, nst, cos_bit, clamp_bit, cols):
+    """One 1D network as the kernel runs it: x [R, n, n]; cols=True runs
+    down the columns (vector index = row)."""
+    half = 1 << (cos_bit - 1)
+    x = x.astype(np.int64)
+    for st in range(nst):
+        ia, wa, ib, wb, mode = tab[st].T
+        if cols:
+            va, vb, wa, wb, mode = (x[:, ia, :], x[:, ib, :], wa[:, None],
+                                    wb[:, None], mode[:, None])
+        else:
+            va, vb = x[:, :, ia], x[:, :, ib]
+        lin = wa * va + wb * vb
+        out = np.where(mode == T.MODE_BTF, (lin + half) >> cos_bit, lin)
+        if clamp_bit:
+            lim = 1 << (clamp_bit - 1)
+            out = np.where(mode == T.MODE_ADD_CLAMP,
+                           np.clip(lin, -lim, lim - 1), out)
+        x = out
+    return x
+
+
+def _rshift(x, s):
+    return (x + (1 << (s - 1))) >> s if s > 0 else x * (1 << -s)
+
+
+@pytest.mark.parametrize("tx_size,tx_type", [
+    (T.TX_32X32, T.DCT_DCT), (T.TX_16X16, T.DCT_DCT),
+    (T.TX_16X16, T.ADST_DCT), (T.TX_16X16, T.DCT_ADST),
+    (T.TX_16X16, T.ADST_ADST)])
+def test_stage_tables_match_transforms(tx_size, tx_type):
+    """The kernel's 2D transform flow over stage_tables/tx_params equals
+    the port's fwd_txfm2d and inv_txfm2d."""
+    bs = T.TX_W[tx_size]
+    rk, ck = wk._kinds_of(tx_type)
+    tab, nst = wk.stage_tables(bs, sorted({rk, ck}))
+    p = wk.tx_params(bs)
+    rng = np.random.RandomState(tx_type)
+    resid = rng.randint(-255, 256, (4, bs, bs)).astype(np.int32)
+    v = _rshift(resid.astype(np.int64), p["fwd_s0"])
+    v = _net(v, tab[0 + ck], nst[0 + ck], p["fwd_cos_col"], 0, True)
+    v = _rshift(v, p["fwd_s1"])
+    v = _net(v, tab[2 + rk], nst[2 + rk], p["fwd_cos_row"], 0, False)
+    v = _rshift(v, p["fwd_s2"])
+    want = transforms.fwd_txfm2d(torch.from_numpy(resid), tx_size, tx_type)
+    np.testing.assert_array_equal(v, want.numpy())
+
+    coef = (v // 7).clip(-(1 << 15), (1 << 15) - 1)
+    u = _net(coef, tab[4 + rk], nst[4 + rk], p["inv_cos"],
+             p["inv_clamp_row"], False)
+    u = np.clip(_rshift(u, p["inv_s0"]), -(1 << 15), (1 << 15) - 1)
+    u = _net(u, tab[4 + ck], nst[4 + ck], p["inv_cos"], p["inv_clamp_col"],
+             True)
+    u = _rshift(u, p["inv_s1"])
+    want = transforms.inv_txfm2d(torch.from_numpy(coef.astype(np.int32)),
+                                 tx_size, tx_type)
+    np.testing.assert_array_equal(u, want.numpy())
+
+
+def test_kernel_wrapper_rejects_cpu_tensors():
+    cands = twf.expand_candidates(CAND_MODES)
+    rd = twf.rd_params(100, 8, cands)
+    src = torch.zeros((1, 64, 64), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="CUDA"):
+        wk.wavefront_cuda(src, rd, 32, T.TX_32X32, CAND_MODES)
