@@ -5,20 +5,25 @@
 Phases (any failure raises, so the script exits non-zero and never prints
 its last line):
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  1. build the wavefront kernel from svtav1_tpu_torch/csrc;
+  1. build the kernels from svtav1_tpu_torch/csrc (and the native tile
+     coder); registers, spills and CTAs per SM of the wavefront kernel;
   2. the kernel against its plain PyTorch version on the card, under the
      agreement bar of the wavefront tests (>= 99% equal modes, levels
      equal where the mode agrees, recon equal when every mode agrees), at
-     the test shapes and at the 1080p shapes of the main path; kernel and
-     plain times at 1080p;
+     the test shapes and at the 1080p shapes of the main path; every
+     shape runs the kernel 3 times and requires identical outputs and a
+     clear error word each time; kernel and plain times and the kernel's
+     bound at 1080p;
   3. the main path: IntraEncoder(1920, 1080, qindex=100,
      part_search=False) on 12 synthetic frames, batch 4, device stage of
      batch k+1 overlapped with the entropy coding of batch k.  Checks the
      kernel launch count, that every payload parses as OBUs, luma PSNR >
      30 dB, and byte-identical payloads against the plain version on the
-     card when every mode agrees; prints e2e and device-only fps.
+     card when every mode agrees; prints e2e and device-only fps;
+  4. a torch.profiler window over one device_encode batch: device time by
+     kernel, device busy share of the window.
 Then one JSON line of kernel results and, last, one JSON line naming the
-device.  Imports nothing of JAX.
+device.  Imports nothing of JAX or of the JAX package.
 """
 
 import json
@@ -29,18 +34,14 @@ import time
 import numpy as np
 import torch
 
-if not torch.cuda.is_available():
-    sys.exit("chip_smoke: torch.cuda is not available - this needs a CUDA "
-             "card")
-
-from bench import synth_frames  # noqa: E402
-from svtav1_tpu.utils.obu import OBU_FRAME, parse_obus  # noqa: E402
-from svtav1_tpu.spec.txfm import TX_16X16, TX_32X32  # noqa: E402
-from svtav1_tpu_torch.cuda import build  # noqa: E402
-from svtav1_tpu_torch.cuda import wavefront_kernel as wk  # noqa: E402
-from svtav1_tpu_torch.encoder import intra_encoder as ie  # noqa: E402
-from svtav1_tpu_torch.encoder.wavefront import (  # noqa: E402
+from svtav1_tpu_torch.cuda import build
+from svtav1_tpu_torch.cuda import wavefront_kernel as wk
+from svtav1_tpu_torch.ec import native
+from svtav1_tpu_torch.encoder import intra_encoder as ie
+from svtav1_tpu_torch.encoder.wavefront import (
     _wavefront_body, expand_candidates, rd_params)
+from svtav1_tpu_torch.spec.txfm import TX_16X16, TX_32X32
+from svtav1_tpu_torch.utils.obu import OBU_FRAME, parse_obus
 
 DEV = torch.device("cuda")
 W, H = 1920, 1080
@@ -52,6 +53,25 @@ def card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
+
+
+def synth_frames(width, height, n, seed=0):
+    """The JAX benchmark's synthetic 1080p clip (bench.py), frame for
+    frame: a moving sine/cosine pattern plus uniform noise."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:height, 0:width]
+    frames = []
+    for t in range(n):
+        y = np.clip(110 + 70 * np.sin((xx + 5 * t) / 19.0) +
+                    50 * np.cos((yy + 3 * t) / 13.0) +
+                    rng.randint(-4, 5, (height, width)), 0,
+                    255).astype(np.uint8)
+        u = np.clip(120 + 40 * np.sin((xx[::2, ::2] + 2 * t) / 23.0), 0,
+                    255).astype(np.uint8)
+        v = np.clip(135 + 35 * np.cos((yy[::2, ::2] + t) / 27.0), 0,
+                    255).astype(np.uint8)
+        frames.append((y, u, v))
+    return frames
 
 
 def plane_src(seed, B, h, w):
@@ -101,9 +121,18 @@ def cuda_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
+def run_checked(fn):
+    """One kernel call, synchronised, with the error word read."""
+    out = fn()
+    torch.cuda.synchronize()
+    wk.raise_on_error(DEV)
+    return out
+
+
 def phase_compare():
     """Kernel vs plain on the card.  Returns (max_abs_err, kernel ms,
-    plain ms) of one batch's luma + chroma wavefronts at 1080p."""
+    plain ms, bound ms, bound basis) of one batch's luma + chroma
+    wavefronts at 1080p (the main path's shapes)."""
     cases = [  # label, seed, B, h, w, bs, q, chroma, valid_h, timed
         ("luma 2x128x192 q100", 0, 2, 128, 192, 32, 100, False, None, 0),
         ("luma 1x128x128 q120 valid_h=100", 1, 1, 128, 128, 32, 120, False,
@@ -117,33 +146,43 @@ def phase_compare():
         ("chroma paired 8x544x960 q100 (main path)", 6, 8, 544, 960, 16, 100,
          True, 540, 2),
     ]
-    max_err, ms, plain_ms = 0, 0.0, 0.0
+    max_err, ms, plain_ms, bound, basis = 0, 0.0, 0.0, 0.0, set()
     for label, seed, B, h, w, bs, q, chroma, vh, timed in cases:
         src = torch.from_numpy(plane_src(seed, B, h, w)).to(DEV)
         rd, pos, kw = wf_args(bs, q, chroma, vh)
         kern = lambda: wk.wavefront_cuda(src, rd, *pos, **kw)
         plain = lambda: _wavefront_body(src, rd, *pos, **kw)
-        got = kern()
-        torch.cuda.synchronize()
+        got = run_checked(kern)
+        for rep in range(2):        # a race shows as a run that differs
+            again = run_checked(kern)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{label}: run {rep + 2} differs "
+                                     "from run 1")
         ref = plain()
         torch.cuda.synchronize()
         frac, err = agree(ref, got, label)
         max_err = max(max_err, err)
-        line = f"compare {label}: modes agree {frac:.4f}, max_abs_err {err}"
+        line = (f"compare {label}: modes agree {frac:.4f}, max_abs_err {err}"
+                ", 3 identical kernel runs, error word clear")
         if timed:
             # plain, kernel, kernel, plain on one card
             p1 = cuda_ms(plain, 1)
-            k1 = cuda_ms(kern, 5)
-            k2 = cuda_ms(kern, 5)
+            k1 = cuda_ms(kern, 10)
+            k2 = cuda_ms(kern, 10)
             p2 = cuda_ms(plain, 1)
+            wk.raise_on_error(DEV)
             k, p = (k1 + k2) / 2, (p1 + p2) / 2
+            b_ms, b_by = wk.bound_ms(bs, B, h, w, ie.CAND_MODES, chroma)
             line += (f"; kernel {k:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
-                     f"{p:.3f} ms ({p1:.3f}, {p2:.3f}) [{CARD}]")
+                     f"{p:.3f} ms ({p1:.3f}, {p2:.3f}), bound {b_ms:.3f} ms "
+                     f"({b_by}), {100 * b_ms / k:.1f}% of it [{CARD}]")
             if timed == 2:
                 ms += k
                 plain_ms += p
+                bound += b_ms
+                basis.add(b_by)
         print(line, flush=True)
-    return max_err, ms, plain_ms
+    return max_err, ms, plain_ms, bound, "+".join(sorted(basis))
 
 
 def plain_wavefront(src, bs, tx_size, qindex, modes, bd=8, angle_deltas=(0,),
@@ -193,7 +232,8 @@ def phase_main_path():
     recons += rs
     marks.append(time.perf_counter())
     launches = wk.LAUNCHES
-    want = 2 * 248 * 2 * (len(frames) // BATCH)
+    wk.raise_on_error(DEV)
+    want = 2 * (len(frames) // BATCH)     # one launch per plane call
     print(f"main path: {len(payloads)} frames, {sum(map(len, payloads))} "
           f"bytes, kernel launches {launches} (expected {want}), "
           "device_encode queued without a host sync", flush=True)
@@ -238,9 +278,41 @@ def phase_main_path():
     for _ in range(3):
         device_only()
     dev_fps = 3 * BATCH / (time.perf_counter() - t0)
+    wk.raise_on_error(DEV)
     print(f"main path: e2e {e2e_fps:.3f} fps steady (batches 2-3, batch "
           f"{BATCH}), device-only {dev_fps:.3f} fps [{CARD}]", flush=True)
-    return launches
+    return launches, enc, frames[:BATCH]
+
+
+def phase_profile(enc, batch):
+    """One device_encode batch under torch.profiler: host enqueue time,
+    device time by kernel and the device's busy share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        enc.device_encode(batch)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    wk.raise_on_error(DEV)
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((dev_us, e.key, e.count))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    window_ms = 1e3 * (t2 - t0)
+    print(f"profile: device_encode batch {len(batch)}: host enqueue "
+          f"{1e3 * (t1 - t0):.3f} ms, window to synchronize {window_ms:.3f}"
+          f" ms, device busy {busy_ms:.3f} ms ({100 * busy_ms / window_ms:.1f}"
+          f"% of the window) [{CARD}]", flush=True)
+    for dev_us, key, count in rows[:10]:
+        print(f"profile:   {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}",
+              flush=True)
 
 
 CARD = ""
@@ -248,6 +320,9 @@ CARD = ""
 
 def main():
     global CARD
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda is not available - this needs a "
+                 "CUDA card")
     CARD = card()
     print(CARD)                     # nvidia-smi's name, power.limit
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
@@ -255,19 +330,26 @@ def main():
           flush=True)
     t0 = time.perf_counter()
     so, log = build.build()
-    print(f"build: {time.perf_counter() - t0:.1f} s -> {so.name}")
+    native._load()
+    print(f"build: {time.perf_counter() - t0:.1f} s -> {so.name} and "
+          f"{native.library_path().name}")
     for line in log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
-    wk._lib()
-    max_err, ms, plain_ms = phase_compare()
-    launches = phase_main_path()
+    C = len(expand_candidates(ie.CAND_MODES))
+    for bs in (32, 16):
+        print(f"wf_plane_kernel<{bs}>, {C} candidates: "
+              f"{wk.kernel_info(bs, C)}", flush=True)
+    max_err, ms, plain_ms, bound, basis = phase_compare()
+    launches, enc, batch = phase_main_path()
+    phase_profile(enc, batch)
     print(json.dumps({"kernels": [{
         "name": "wavefront", "route": "cuda",
         "source": "svtav1_tpu_torch/csrc/wavefront.cu",
         "replaces": "svtav1_tpu/pallas/wavefront_kernel.py:550",
         "launches": launches, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms}]}))
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": basis,
+        "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

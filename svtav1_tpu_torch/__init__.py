@@ -9,12 +9,16 @@ blocks, uniform deblocking) end to end on an NVIDIA Hopper card:
 - ``csrc``    — the hand-written CUDA kernel of the intra wavefront, built
                 at first use by ``cuda.build`` and bound by ctypes in
                 ``cuda.wavefront_kernel``.
+- ``spec``, ``ec``, ``utils``, ``native`` — the host side: normative
+                tables and their data files, the native C tile coder
+                (built by gcc at first use into ``build/``), OBU and
+                container writers.
 - ``app``     — the Y4M -> IVF command line for the flat path.
 
-The JAX package stays the reference: the tests feed the same inputs to
-both and compare.  Host-only modules of ``svtav1_tpu`` that import no JAX
-(spec tables, entropy coder, headers, containers) are reused as they are.
-This package imports no JAX.
+The JAX package ``svtav1_tpu`` stays the reference: the tests feed the
+same inputs to both and compare.  This package imports nothing of it, not
+even its JAX-free host modules: it keeps its own copies of those, cut to
+what the flat path uses, and imports no JAX.
 """
 
 from __future__ import annotations

@@ -62,11 +62,10 @@ def main(argv=None) -> int:
     if args.batch < 1:
         return _error("--batch must be >= 1")
 
-    from svtav1_tpu.encoder.presets import apply_preset
-    from svtav1_tpu.utils.ivf import IvfWriter
-    from svtav1_tpu.utils.y4m import Y4mReader
-
     from .encoder.intra_encoder import EncoderConfig, IntraEncoder
+    from .encoder.presets import apply_preset
+    from .utils.ivf import IvfWriter
+    from .utils.y4m import Y4mReader
 
     with open(args.input, "rb") as fin:
         rdr = Y4mReader(fin)

@@ -1,4 +1,5 @@
-// Flat intra wavefront: mode decision + reconstruction of a whole plane.
+// Flat intra wavefront: mode decision + reconstruction of a whole plane,
+// as one persistent dataflow launch per plane call.
 //
 // Replaces the Pallas TPU kernel svtav1_tpu/pallas/wavefront_kernel.py
 // (_make_kernel(...).kernel, launched by pl.pallas_call in
@@ -11,45 +12,90 @@
 // first minimum (joint over each U/V pair when paired), update the
 // boundary buffers.
 //
-// What bounds it on an H100: the schedule is 4 * nsteps dependent
-// sub-steps (248 per 1080p plane), each with only B * D * C blocks of work
-// (780 CTAs for luma at B = 4: 60 lanes x 13 candidates).  It is launch-
-// and latency-bound, not FLOP- or byte-bound: a 32x32 block's whole chain
-// is ~40 dependent shared-memory stages.
+// What bounds it on an H100.  The operations: ~106 int32 operations per
+// pixel and candidate (the four 1D networks counted from their stage
+// tables, plus prediction, quantizer and reconstruction; work() in
+// cuda/wavefront_kernel.py): 1.15e10 for a 1080p luma batch of 4 (13
+// candidates), 0.69 ms at the card's 16.7 Tops/s of int32 (64 lanes x
+// 132 SMs x 1.98 GHz).  The bytes (source in, levels and recon out,
+// 75 MB) take 0.02 ms.  But a plane is a chain of ~200 dependent blocks
+// (the wavefront's sub-steps), so what one block takes from its last
+// neighbour's flag to its own flag, times ~200, is what the plane takes:
+// the kernel is bound by that latency, not by the ALUs.
 //
-// What the design does about it: the TPU grid ran (step, candidate) in
-// order with the boundary state and the running best in VMEM; here the
-// step axis is a host loop and each sub-step is two launches on the
-// caller's stream, with no host synchronisation in between:
-//   wf_eval   grid (B*D lanes, C candidates), one CTA = one candidate of
-//             one block, one thread per pixel, the whole integer chain in
-//             shared memory; writes cost/levels/recon of every candidate
-//             to scratch.
-//   wf_select grid (B*D lanes): first-minimum over the candidates, writes
-//             the winner into the final outputs and the boundary buffers.
-// Every candidate of a sub-step runs in parallel (the TPU ran them in
-// sequence), and invalid schedule lanes exit at once.  A persistent
-// kernel or a CUDA graph of the launches is later work.
+// What the design does about it:
+//   * One persistent launch per plane call, no host step loop.  The host
+//     lists the blocks once, in the wavefront's sub-step order (a
+//     topological order of the dependencies), with the raster ids of the
+//     blocks whose boundary pixels each one reads.  A ticket (block k of
+//     unit u = frame or U/V pair) is taken with atomicAdd; the source
+//     block is loaded, then the CTA waits with acquire loads on the ready
+//     flags of exactly those neighbours, computes the block and publishes
+//     its own flag with a release store.  Tickets go out in topological
+//     order and only running CTAs take them, so every flag waited on
+//     belongs to a running CTA or a finished block: no deadlock.  Frames
+//     of a batch and lanes of a diagonal run ahead on their own.  The
+//     boundary buffers are write-once per cell, so there is no
+//     write-after-read hazard; they are read with ld.global.cg (L2, never
+//     a stale L1 line).  A wait longer than SPIN_CAP polls sets the sticky
+//     error word; the launch then runs to its end without waiting and the
+//     host raises.
+//   * All candidates of a block in one thread block cluster of K CTAs
+//     (K = 4 on the main path), select fused: warp w of CTA rank runs
+//     candidate w * K + rank, so a block's 13 candidate chains run on four
+//     SMs at once; for 16x16 chroma lanes 0-15 hold the U block and lanes
+//     16-31 the V block of a pair, so the paired cost is one shuffle.
+//     Costs meet through distributed shared memory after one cluster
+//     barrier; every CTA takes the first minimum in candidate order, and
+//     the CTA that ran the winner writes its boundary row and column,
+//     publishes the flag, then writes levels and recon from shared
+//     memory.  No global candidate scratch.
+//   * Transforms in registers: a lane owns one column of 32 (16) values,
+//     runs the 1D network as straight-line code (csrc/txfm_nets.cuh,
+//     generated from spec.txfm.compiled_stages), goes through one
+//     transpose in padded shared memory ([n][n+1] ints, __syncwarp only,
+//     conflict-free) and then owns one row.  The per-pixel phases
+//     (prediction, quantizer, reconstruction) are loops, and each network
+//     is inlined once for both passes: fully unrolled, the code did not
+//     fit the instruction cache (10.5k SASS instructions, a warp at ~5
+//     cycles per instruction).  The deadzone division is a multiply by a
+//     host-computed reciprocal (exact for every dividend below 2^31).  DC
+//     sums its edges once per block with a shuffle tree.  The predictor
+//     maps live in shared memory: an acquire load invalidates L1, so read
+//     from global they came from L2 for every block.
+//   * Not used: wgmma (the transforms round after every butterfly stage,
+//     so they are not a matrix product, and a tensor-core product would
+//     not be bit-exact); TMA (a block's source is 1 KB; it is loaded
+//     before the flag wait instead, with plain loads, and a cp.async
+//     prefetch of the next ticket's source was not tried).
+//   * Resources (wf_info, printed by chip_smoke.py): 128 registers a
+//     thread, no spills; luma 4 warps and 47.9 KB of shared memory a CTA,
+//     4 CTAs an SM; chroma 4 warps and 14.9 KB.
 //
 // Predictors are integer arithmetic: DC, SMOOTH* and PAETH directly, V, H
 // and the six directional modes through per-(candidate, pixel) tables of
-// (i0, i1, shift) into the edge array [corner, above_ext, left_ext].  The
-// butterfly networks are the stage tables of
-// svtav1_tpu.spec.txfm.compiled_stages; products are taken in 64 bits and
-// narrowed, which equals the reference's int32 results (they never
-// overflow for 8-bit input).  Floating-point steps of the RD cost use the
-// _rn intrinsics so no multiply-add is contracted.
+// (i0, i1, shift) into the edge array [corner, above_ext, left_ext].
+// Floating-point steps of the RD cost use the _rn intrinsics so no
+// multiply-add is contracted.
 
+#include <algorithm>
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "txfm_nets.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int MAXC = 16;     // candidates
-constexpr int MAXST = 12;    // butterfly stages of one 1D network
-constexpr int NNET = 6;      // fwd col DCT/ADST, fwd row DCT/ADST, inv DCT/ADST
-constexpr int MODE_ADD_CLAMP = 0;
-constexpr int MODE_BTF = 1;
+constexpr int MAXC = 16;      // candidates (one warp each)
+constexpr int MAXDEP = 8;     // neighbours one block waits on
+constexpr int BLKCOLS = 4 + MAXDEP;
+constexpr int SPIN_CAP = 1 << 22;
+constexpr int ERR_SPIN = 1;
+constexpr int TRACE_COLS = 16;
+constexpr unsigned FULL = 0xffffffffu;
 
 }  // namespace
 
@@ -58,22 +104,22 @@ struct WfParams {
   const uint8_t* src;      // [B, h, w]
   int* rowbuf;             // [B, bh, w]  bottom row of each coded block
   int* colbuf;             // [B, h, bw]  right column of each coded block
-  const int* sched;        // [S, D, 5]   r, c, valid, has_tr, has_bl
+  const int* blocks;       // [nblk, BLKCOLS] ticket order: r, c, has_tr,
+                           //   has_bl, raster ids of the deps (-1 pad)
   const int* dirmap;       // [C, bs*bs]  i0 | i1 << 8 | shift << 16
   const int* smw;          // [bs]        smooth weights
-  const int* stages;       // [NNET, MAXST, bs, 5] ia, wa, ib, wb, mode
-  float* cost;             // [C, B*D]
-  int16_t* lev_scr;        // [C, B*D, bs*bs]
-  uint8_t* rec_scr;        // [C, B*D, bs*bs]
+  int* sync;               // [1 + NU*nblk] ticket counter, ready flags
+  int* err;                // [1] sticky error word
   int* mode_idx;           // [B, bh, bw]
   int* levels;             // [B, bh, bw, bs*bs]
   int* recon;              // [B, h, w]
-  int s, D, B, h, w, bh, bw, vh, C, paired;
+  unsigned long long* trace;     // [NU*nblk, 16] or null: see launch()
+  unsigned long long mdc, mac;   // reciprocals of the dc/ac steps
+  int sdc, sac;                  // and their shifts
+  int B, NU, h, w, bh, bw, vh, C, paired, nblk;
   int dqdc, dqac, qshift;
-  int fwd_cos_col, fwd_cos_row, inv_cos, inv_clamp_row, inv_clamp_col;
-  int fwd_s0, fwd_s1, fwd_s2, inv_s0, inv_s1;
+  int fwd_s0, fwd_s1, fwd_s2, inv_s0, inv_s1, inv_lo, inv_hi;
   float lam;
-  int nst[NNET];
   int cand_mode[MAXC];
   int cand_kind[MAXC];     // row kind | col kind << 1 (0 DCT, 1 ADST)
   float rate[MAXC];
@@ -81,8 +127,22 @@ struct WfParams {
 
 namespace {
 
-__device__ __forceinline__ int clampi(long long v, int lo, int hi) {
-  return (int)(v < lo ? lo : (v > hi ? hi : v));
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long gtime() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
 }
 
 // Round2 for s > 0, multiply by 2^-s for s < 0 (round_shift_array).
@@ -92,266 +152,472 @@ __device__ __forceinline__ int rshift_signed(int x, int s) {
   return x;
 }
 
-// One 1D network over the block held one value per thread.  COLS: the
-// vector runs down a column (index = row), else along a row.  Double
-// buffered in shared memory, one barrier per stage.
-template <int BS, bool COLS>
-__device__ int run_net(int v, int* buf, const int* net, int nst, int cos_bit,
-                       int clamp_bit, int t, int pi, int pj) {
-  constexpr int N = BS * BS;
-  int cur = 0;
-  buf[t] = v;
-  __syncthreads();
-  const int k = COLS ? pi : pj;
-  const long long half = 1LL << (cos_bit - 1);
-  const int lo = clamp_bit ? -(1 << (clamp_bit - 1)) : 0;
-  const int hi = clamp_bit ? (1 << (clamp_bit - 1)) - 1 : 0;
-  for (int st = 0; st < nst; ++st) {
-    const int* e = net + (st * BS + k) * 5;
-    const int ia = __ldg(e), wa = __ldg(e + 1), ib = __ldg(e + 2);
-    const int wb = __ldg(e + 3), mode = __ldg(e + 4);
-    const int* in = buf + cur * N;
-    const int va = COLS ? in[ia * BS + pj] : in[pi * BS + ia];
-    const int vb = COLS ? in[ib * BS + pj] : in[pi * BS + ib];
-    const long long lin = (long long)wa * va + (long long)wb * vb;
-    int o;
-    if (mode == MODE_BTF)
-      o = (int)((lin + half) >> cos_bit);
-    else if (mode == MODE_ADD_CLAMP && clamp_bit)
-      o = clampi(lin, lo, hi);
-    else
-      o = (int)lin;
-    cur ^= 1;
-    buf[cur * N + t] = o;
-    __syncthreads();
-  }
-  return buf[cur * N + t];
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return min(max(v, lo), hi);
 }
 
-// Block-wide sums (int, int, float) in a fixed tree order.
+#define WF_HD __host__ __device__ constexpr
+template <int BS> WF_HD int halves() { return 32 / BS; }
+template <int BS> WF_HD int n_edge() { return 4 * BS + 1; }
+template <int BS> WF_HD int t_ints() { return halves<BS>() * BS * (BS + 1); }
+// int16 row stride of a candidate's levels: conflict-free row writes
+template <int BS> WF_HD int lev_stride() { return BS + 2; }
+template <int BS> WF_HD int lev_elems() {
+  return halves<BS>() * BS * lev_stride<BS>();
+}
+template <int BS> WF_HD int rec_bytes() { return halves<BS>() * BS * BS; }
+#undef WF_HD
+
+// Shared bytes of a CTA of `wpc` candidate warps.
 template <int BS>
-__device__ void block_sums(int& a, int& b, float& f, int* red_i, float* red_f,
-                           int t) {
-  constexpr int NW = BS * BS / 32;
-  for (int o = 16; o > 0; o >>= 1) {
-    a += __shfl_down_sync(0xffffffffu, a, o);
-    b += __shfl_down_sync(0xffffffffu, b, o);
-    f = __fadd_rn(f, __shfl_down_sync(0xffffffffu, f, o));
-  }
-  const int warp = t >> 5, lane = t & 31;
-  if (lane == 0) {
-    red_i[warp] = a;
-    red_i[32 + warp] = b;
-    red_f[warp] = f;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    a = lane < NW ? red_i[lane] : 0;
-    b = lane < NW ? red_i[32 + lane] : 0;
-    f = lane < NW ? red_f[lane] : 0.f;
-    for (int o = 16; o > 0; o >>= 1) {
-      a += __shfl_down_sync(0xffffffffu, a, o);
-      b += __shfl_down_sync(0xffffffffu, b, o);
-      f = __fadd_rn(f, __shfl_down_sync(0xffffffffu, f, o));
-    }
-  }
+size_t smem_bytes(int wpc) {
+  return (size_t)wpc * (t_ints<BS>() * 4 + lev_elems<BS>() * 2 +
+                        rec_bytes<BS>()) +
+         rec_bytes<BS>() + halves<BS>() * n_edge<BS>() * 4 + 2 * MAXC * 4 +
+         8 + (size_t)wpc * BS * BS * 4 + BS * 4;
 }
 
+// One value of the edge array E = [corner, above(BS), above-right(BS),
+// left(BS), below-left(BS)] of frame f's block (r, cb) (§7.11.2).
 template <int BS>
-__global__ void __launch_bounds__(BS * BS)
-wf_eval_kernel(const WfParams p) {
-  constexpr int N = BS * BS;
-  constexpr int A = 1, L = 2 * BS + 1;   // above_ext[0], left_ext[0] in E
-  const int l = blockIdx.x, c = blockIdx.y;
-  const int b = l / p.D, i = l % p.D;
-  const int* sc = p.sched + (p.s * p.D + i) * 5;
-  if (!sc[2]) return;                    // invalid lane: no block
-  const int r = sc[0], cb = sc[1], has_tr = sc[3], has_bl = sc[4];
-  const int t = threadIdx.x, pi = t / BS, pj = t % BS;
-  const int y = r * BS, x = cb * BS;
-
-  __shared__ int E[4 * BS + 1];
-  __shared__ int buf[2 * N];
-  __shared__ int red_i[64];
-  __shared__ float red_f[32];
-
-  // ---- edges: E = [corner, above(BS), above-right(BS), left(BS),
-  //      below-left(BS)] from the boundary buffers (§7.11.2)
-  const int* rb = p.rowbuf + (size_t)b * p.bh * p.w;
-  const int* cbf = p.colbuf + (size_t)b * p.h * p.bw;
+__device__ int edge_value(const WfParams& p, int f, int r, int cb,
+                          int has_tr, int has_bl, int q) {
+  constexpr int A = 1, L = 2 * BS + 1;
+  const int* rb = p.rowbuf + (size_t)f * p.bh * p.w;
+  const int* cbf = p.colbuf + (size_t)f * p.h * p.bw;
   const bool ha = r > 0, hl = cb > 0;
   const int rm1 = max(r - 1, 0), cm1 = max(cb - 1, 0);
+  const int y = r * BS, x = cb * BS;
   const int base = 128;
-  if (t < 4 * BS + 1) {
-    auto above_real = [&](int j) { return rb[rm1 * p.w + x + j]; };
-    auto left_real = [&](int j) {
-      return cbf[min(y + j, p.vh - 1) * p.bw + cm1];
-    };
-    auto above_at = [&](int j) {
-      return ha ? above_real(j) : (hl ? left_real(0) : base - 1);
-    };
-    auto left_at = [&](int j) {
-      return hl ? left_real(j) : (ha ? above_real(0) : base + 1);
-    };
-    int v;
-    if (t == 0) {
-      v = (ha && hl) ? rb[rm1 * p.w + max(x - 1, 0)]
-                     : (ha ? above_real(0) : (hl ? left_real(0) : base));
-    } else if (t < L) {
-      const int k = t - A;
-      if (k < BS)
-        v = above_at(k);
-      else
-        v = has_tr ? rb[rm1 * p.w + min(x + BS, p.w - BS) + (k - BS)]
-                   : above_at(BS - 1);
-    } else {
-      const int k = t - L;
-      if (k < BS)
-        v = left_at(k);
-      else
-        v = has_bl ? cbf[min(min(y + BS, p.h - BS) + (k - BS), p.vh - 1) *
-                             p.bw + cm1]
-                   : left_at(BS - 1);
-    }
-    E[t] = v;
+  auto above_real = [&](int j) { return __ldcg(rb + rm1 * p.w + x + j); };
+  auto left_real = [&](int j) {
+    return __ldcg(cbf + min(y + j, p.vh - 1) * p.bw + cm1);
+  };
+  auto above_at = [&](int j) {
+    return ha ? above_real(j) : (hl ? left_real(0) : base - 1);
+  };
+  auto left_at = [&](int j) {
+    return hl ? left_real(j) : (ha ? above_real(0) : base + 1);
+  };
+  if (q == 0)
+    return (ha && hl) ? __ldcg(rb + rm1 * p.w + max(x - 1, 0))
+                      : (ha ? above_real(0) : (hl ? left_real(0) : base));
+  if (q < L) {
+    const int k = q - A;
+    if (k < BS) return above_at(k);
+    return has_tr ? __ldcg(rb + rm1 * p.w + min(x + BS, p.w - BS) + (k - BS))
+                  : above_at(BS - 1);
   }
-  __syncthreads();
+  const int k = q - L;
+  if (k < BS) return left_at(k);
+  return has_bl ? __ldcg(cbf + min(min(y + BS, p.h - BS) + (k - BS),
+                                   p.vh - 1) * p.bw + cm1)
+                : left_at(BS - 1);
+}
 
-  // ---- prediction of candidate c at pixel (pi, pj)
-  const int mode = p.cand_mode[c];
-  int pred;
-  if (mode == 0) {                                  // DC
-    int sa = 0, sl = 0;
-    for (int k = 0; k < BS; ++k) {
-      sa += E[A + k];
-      sl += E[L + k];
-    }
-    if (ha && hl)
-      pred = (sa + sl + BS) / (2 * BS);
-    else if (ha)
-      pred = (sa + BS / 2) / BS;
-    else if (hl)
-      pred = (sl + BS / 2) / BS;
-    else
-      pred = base;
-  } else if (mode <= 8) {                           // V, H, directional
-    const int m = __ldg(p.dirmap + (size_t)c * N + t);
-    const int i0 = m & 0xFF, i1 = (m >> 8) & 0xFF, sh = (m >> 16) & 0x3F;
-    pred = min(max((E[i0] * (32 - sh) + E[i1] * sh + 16) >> 5, 0), 255);
-  } else if (mode == 12) {                          // PAETH
-    const int top = E[A + pj], left = E[L + pi], tl = E[0];
-    const int pb = top + left - tl;
-    const int p_t = abs(pb - top), p_l = abs(pb - left), p_tl = abs(pb - tl);
-    pred = (p_l <= p_t && p_l <= p_tl) ? left : (p_t <= p_tl ? top : tl);
-  } else {                                          // SMOOTH, _V, _H
-    const int wh = __ldg(p.smw + pi), ww = __ldg(p.smw + pj);
-    const int below = E[L + BS - 1], right = E[A + BS - 1];
-    if (mode == 9)
-      pred = (wh * E[A + pj] + (256 - wh) * below + ww * E[L + pi] +
-              (256 - ww) * right + 256) >> 9;
-    else if (mode == 10)
-      pred = (wh * E[A + pj] + (256 - wh) * below + 128) >> 8;
-    else
-      pred = (ww * E[L + pi] + (256 - ww) * right + 128) >> 8;
-  }
-
-  // ---- forward transform (columns, then rows)
-  const int srcpix = p.src[((size_t)b * p.h + y + pi) * p.w + x + pj];
-  const int kind = p.cand_kind[c];
-  const int rk = kind & 1, ck = (kind >> 1) & 1;
-  const int* nets = p.stages;
-  const int netsz = MAXST * BS * 5;
-  int v = rshift_signed(srcpix - pred, p.fwd_s0);
-  v = run_net<BS, true>(v, buf, nets + (0 + ck) * netsz, p.nst[0 + ck],
-                        p.fwd_cos_col, 0, t, pi, pj);
-  v = rshift_signed(v, p.fwd_s1);
-  v = run_net<BS, false>(v, buf, nets + (2 + rk) * netsz, p.nst[2 + rk],
-                         p.fwd_cos_row, 0, t, pi, pj);
-  v = rshift_signed(v, p.fwd_s2);
-
-  // ---- deadzone quantizer and normative dequantizer
-  const int dqv = (t == 0) ? p.dqdc : p.dqac;
-  const int scaled = abs(v) << p.qshift;
-  const int lv = min((scaled + ((dqv * 48) >> 7)) / dqv, (1 << 15) - 1);
-  const int lev = v < 0 ? -lv : lv;
-  int dq = ((lv * dqv) & 0xFFFFFF) >> p.qshift;
-  dq = v < 0 ? -dq : dq;
-  dq = min(max(dq, -(1 << 15)), (1 << 15) - 1);     // ±2^(bd+7), bd = 8
-
-  // ---- inverse transform (rows, then columns) and reconstruction
-  int u = min(max(dq, -(1 << 15)), (1 << 15) - 1);  // bd + 8 bits
-  u = run_net<BS, false>(u, buf, nets + (4 + rk) * netsz, p.nst[4 + rk],
-                         p.inv_cos, p.inv_clamp_row, t, pi, pj);
-  u = rshift_signed(u, p.inv_s0);
-  u = min(max(u, -(1 << 15)), (1 << 15) - 1);       // max(bd + 6, 16) bits
-  u = run_net<BS, true>(u, buf, nets + (4 + ck) * netsz, p.nst[4 + ck],
-                        p.inv_cos, p.inv_clamp_col, t, pi, pj);
-  u = rshift_signed(u, p.inv_s1);
-  const int res_max = (1 << 15) - 1 + (914 << 1);
-  u = min(max(u, -res_max - 1), res_max);
-  const int rec = min(max(pred + u, 0), 255);
-
-  // ---- RD cost
-  const int d = srcpix - rec;
-  int sse = d * d, nnz = lev != 0;
-  float lbits = log2f(1.0f + (float)lv);
-  block_sums<BS>(sse, nnz, lbits, red_i, red_f, t);
-  const int BD = p.B * p.D;
-  const size_t slot = ((size_t)c * BD + l) * N + t;
-  p.lev_scr[slot] = (int16_t)lev;
-  p.rec_scr[slot] = (uint8_t)rec;
-  if (t == 0) {
-    const float fn = (float)nnz;
-    float est;
-    if (BS >= 32)
-      est = __fadd_rn(__fadd_rn(25.7f, __fmul_rn(2.43f, fn)),
-                      __fmul_rn(1.83f, lbits));
-    else
-      est = __fadd_rn(__fadd_rn(16.2f, __fmul_rn(2.47f, fn)),
-                      __fmul_rn(1.58f, lbits));
-    const float rbits = nnz > 0 ? est : 1.0f;
-    p.cost[(size_t)c * BD + l] =
-        __fadd_rn((float)sse, __fmul_rn(p.lam, __fadd_rn(p.rate[c], rbits)));
+// Forward network of pass 0 (columns) or 1 (rows); 32x32 has one, its
+// column and row cos bits being equal.
+template <int BS>
+__device__ __forceinline__ void fwd_net(int* v, int pass, int kind) {
+  if constexpr (BS == 32) net_fwd_dct32(v);
+  else if (pass) {
+    if (kind) net_fwd_row_adst16(v);
+    else net_fwd_row_dct16(v);
+  } else {
+    if (kind) net_fwd_col_adst16(v);
+    else net_fwd_col_dct16(v);
   }
 }
 
 template <int BS>
-__global__ void __launch_bounds__(BS * BS)
-wf_select_kernel(const WfParams p) {
-  constexpr int N = BS * BS;
-  const int l = blockIdx.x;
-  const int b = l / p.D, i = l % p.D;
-  const int* sc = p.sched + (p.s * p.D + i) * 5;
-  if (!sc[2]) return;
-  const int r = sc[0], cb = sc[1];
-  const int BD = p.B * p.D;
-  int lu = l, lv = l;
-  if (p.paired) {                 // U lanes in the first half of the batch
-    const int hb = p.B / 2;
-    lu = (b % hb) * p.D + i;
-    lv = lu + hb * p.D;
+__device__ __forceinline__ void inv_net(int* v, int kind, int lo, int hi) {
+  if constexpr (BS == 32) net_inv_dct32(v, lo, hi);
+  else if (kind) net_inv_adst16(v, lo, hi);
+  else net_inv_dct16(v, lo, hi);
+}
+
+template <int BS, int MAXW>
+__global__ void __launch_bounds__(32 * MAXW, 1)
+wf_plane_kernel(const WfParams p) {
+  constexpr int H = halves<BS>(), NE = n_edge<BS>(), N = BS * BS;
+  constexpr int A = 1, L = 2 * BS + 1, TP = BS + 1, LSTR = lev_stride<BS>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, nthr = blockDim.x, wpc = nthr >> 5;
+  int* sT = reinterpret_cast<int*>(smem);                // [wpc][H][BS][TP]
+  int16_t* sLev = reinterpret_cast<int16_t*>(sT + wpc * t_ints<BS>());
+  uint8_t* sRec = reinterpret_cast<uint8_t*>(sLev + wpc * lev_elems<BS>());
+  uint8_t* sSrc = sRec + wpc * rec_bytes<BS>();            // [H][BS][BS]
+  int* sE = reinterpret_cast<int*>(sSrc + rec_bytes<BS>());  // [H][NE]
+  float* sCost = reinterpret_cast<float*>(sE + H * NE);  // [C], own only
+  float* sAll = sCost + MAXC;                            // [C], gathered
+  int* sMisc = reinterpret_cast<int*>(sAll + MAXC);      // ticket, pad
+  int* sDir = sMisc + 2;                 // [wpc][N] this CTA's pred maps
+  int* sSmw = sDir + wpc * N;            // [BS] smooth weights
+
+  // the cluster's K CTAs share each ticket: CTA `rank` runs candidates
+  // rank, rank + K, ...; rank 0 takes the tickets
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank(), K = (int)cl.num_blocks();
+  const int warp = tid >> 5, lane = tid & 31;
+  const int hf = lane / BS, j = lane % BS;   // this lane's block and column
+  const int ntick = p.NU * p.nblk;
+  volatile int* verr = p.err;
+  int* counter = p.sync;
+  int* flags = p.sync + 1;
+
+  // The predictor tables go to shared memory once: every acquire load of
+  // a ready flag invalidates L1, so read from global they would come
+  // from L2 for every block.
+  for (int e = tid; e < wpc * N; e += nthr) {
+    const int cc = (e / N) * K + rank;
+    sDir[e] = cc < p.C ? __ldg(p.dirmap + (size_t)cc * N + e % N) : 0;
   }
-  float best = 0.f;
-  int bi = 0;
-  for (int cc = 0; cc < p.C; ++cc) {
-    float v = p.cost[(size_t)cc * BD + lu];
-    if (p.paired) v = __fadd_rn(v, p.cost[(size_t)cc * BD + lv]);
-    if (cc == 0 || v < best) {    // first minimum
-      best = v;
-      bi = cc;
+  for (int e = tid; e < BS; e += nthr) sSmw[e] = __ldg(p.smw + e);
+  __syncthreads();
+
+  for (;;) {
+    if (tid == 0 && rank == 0) {
+      const int t = atomicAdd(counter, 1);
+      sMisc[0] = *verr ? ntick : t;
+    }
+    cl.sync();
+    const int t = *cl.map_shared_rank(sMisc, 0);
+    if (t >= ntick) break;
+    unsigned long long* tr = p.trace ? p.trace + (size_t)t * TRACE_COLS : nullptr;
+    const bool lead = tid == 0 && rank == 0;
+    if (tr && lead) tr[0] = gtime();
+    const int k = t / p.NU, u = t % p.NU;
+    const int* bl = p.blocks + k * BLKCOLS;
+    const int r = bl[0], cb = bl[1], has_tr = bl[2], has_bl = bl[3];
+    const int y = r * BS, x = cb * BS;
+    // U lanes come first in a paired batch: pair u is frames u, u + B/2
+    const int fr1 = (H == 2 && p.paired) ? u + p.B / 2 : u;
+
+    // the source block(s), loaded before the wait
+    for (int e = tid; e < H * N / 4; e += nthr) {
+      const int hh = e / (N / 4), q = e % (N / 4);
+      const int f = hh ? fr1 : u;
+      const uint32_t* s = reinterpret_cast<const uint32_t*>(
+          p.src + ((size_t)f * p.h + y + q / (BS / 4)) * p.w + x) +
+          q % (BS / 4);
+      reinterpret_cast<uint32_t*>(sSrc)[e] = __ldg(s);
+    }
+    // wait for the blocks whose boundary pixels this one reads.  Past
+    // the cap (or once another CTA has set the error word) it stops
+    // waiting and runs on with whatever the buffers hold, so every CTA of
+    // the cluster reaches the same barriers and the launch ends; the
+    // next ticket it takes ends the loop.
+    if (tid < MAXDEP) {
+      const int d = bl[4 + tid];
+      if (d >= 0) {
+        const int* fl = flags + (size_t)u * p.nblk + d;
+        int it = 0;
+        while (ld_acquire(fl) == 0 && !*verr) {
+          if (++it > SPIN_CAP) {
+            atomicOr(p.err, ERR_SPIN);
+            break;
+          }
+          __nanosleep(64);
+        }
+      }
+    }
+    __syncthreads();
+    if (tr && lead) tr[1] = gtime();
+    for (int e = tid; e < H * NE; e += nthr)
+      sE[e] = edge_value<BS>(p, e < NE ? u : fr1, r, cb, has_tr, has_bl,
+                             e % NE);
+    __syncthreads();
+
+    // ---- warp `warp`: candidate c of the block(s)
+    const int c = warp * K + rank;
+    // per-phase stamps of one warp (warp 1 of rank 0) in trace[4..10]
+    unsigned long long* ws = (tr && rank == 0 && warp == 1 && lane == 0)
+                                 ? tr + 4 : nullptr;
+    if (ws) ws[0] = gtime();
+    if (c < p.C) {
+      const int mode = p.cand_mode[c], kind = p.cand_kind[c];
+      const int rk = kind & 1, ck = (kind >> 1) & 1;
+      const int* E = sE + hf * NE;
+      const uint8_t* S = sSrc + hf * N;
+      const bool ha = r > 0, hl = cb > 0;
+      int dcv = 128;
+      if (mode == 0) {                                 // DC: one tree
+        int sa = E[A + j], sl = E[L + j];
+#pragma unroll
+        for (int o = BS / 2; o > 0; o >>= 1) {
+          sa += __shfl_xor_sync(FULL, sa, o);
+          sl += __shfl_xor_sync(FULL, sl, o);
+        }
+        dcv = (ha && hl) ? (sa + sl + BS) / (2 * BS)
+                         : ha ? (sa + BS / 2) / BS
+                              : hl ? (sl + BS / 2) / BS : 128;
+      }
+      const int* dm = sDir + warp * N;
+      const int wj = sSmw[j];
+      auto pred_at = [&](int i) -> int {
+        if (mode == 0) return dcv;
+        if (mode <= 8) {                               // V, H, directional
+          const int m = dm[i * BS + j];
+          const int i0 = m & 0xFF, i1 = (m >> 8) & 0xFF;
+          const int sh = (m >> 16) & 0x3F;
+          return clampi((E[i0] * (32 - sh) + E[i1] * sh + 16) >> 5, 0, 255);
+        }
+        if (mode == 12) {                              // PAETH
+          const int top = E[A + j], left = E[L + i], tl = E[0];
+          const int pb = top + left - tl;
+          const int p_t = abs(pb - top), p_l = abs(pb - left);
+          const int p_tl = abs(pb - tl);
+          return (p_l <= p_t && p_l <= p_tl) ? left
+                                             : (p_t <= p_tl ? top : tl);
+        }
+        const int wi = sSmw[i];                        // SMOOTH, _V, _H
+        const int below = E[L + BS - 1], right = E[A + BS - 1];
+        if (mode == 9)
+          return (wi * E[A + j] + (256 - wi) * below + wj * E[L + i] +
+                  (256 - wj) * right + 256) >> 9;
+        if (mode == 10) return (wi * E[A + j] + (256 - wi) * below + 128) >> 8;
+        return (wj * E[L + i] + (256 - wj) * right + 128) >> 8;
+      };
+
+      // Column j of the prediction (kept in Rw until the reconstruction)
+      // and of the residual (in Tw).  The per-pixel loops stay loops:
+      // unrolled 32 times, the predictors, quantizer and reconstruction
+      // would be code the instruction cache cannot hold.
+      int* Tw = sT + warp * t_ints<BS>() + hf * BS * TP;
+      uint8_t* Rw = sRec + warp * rec_bytes<BS>() + hf * N;
+#pragma unroll 8
+      for (int i = 0; i < BS; ++i) {
+        const int pr = pred_at(i);
+        Rw[i * BS + j] = (uint8_t)pr;
+        Tw[i * TP + j] = rshift_signed((int)S[i * BS + j] - pr, p.fwd_s0);
+      }
+
+      if (ws) ws[1] = gtime();
+      // forward transform in place in Tw: pass 0 column j, pass 1 row j,
+      // each network in registers
+      int v[BS];
+#pragma unroll 1
+      for (int pass = 0; pass < 2; ++pass) {
+        const int base = pass ? j * TP : j, step = pass ? 1 : TP;
+        const int s = pass ? p.fwd_s2 : p.fwd_s1;
+        __syncwarp();
+#pragma unroll
+        for (int i = 0; i < BS; ++i) v[i] = Tw[base + i * step];
+        fwd_net<BS>(v, pass, pass ? rk : ck);
+#pragma unroll
+        for (int i = 0; i < BS; ++i) Tw[base + i * step] = rshift_signed(v[i],
+                                                                         s);
+      }
+
+      // deadzone quantizer and normative dequantizer of row j, in place
+      if (ws) ws[2] = gtime();
+      int nnz = 0;
+      float lbits = 0.f;
+      int16_t* Lw = sLev + warp * lev_elems<BS>() + (hf * BS + j) * LSTR;
+      int* Trow = Tw + j * TP;
+#pragma unroll 8
+      for (int i = 0; i < BS; ++i) {
+        const int co = Trow[i];
+        const bool dc = (j == 0 && i == 0);
+        const int dqv = dc ? p.dqdc : p.dqac;
+        const unsigned n = ((unsigned)abs(co) << p.qshift) +
+                           (unsigned)((dqv * 48) >> 7);
+        const int lv = min((int)(((unsigned long long)n * (dc ? p.mdc : p.mac))
+                                 >> (dc ? p.sdc : p.sac)), (1 << 15) - 1);
+        Lw[i] = (int16_t)(co < 0 ? -lv : lv);
+        int dq = ((lv * dqv) & 0xFFFFFF) >> p.qshift;
+        dq = co < 0 ? -dq : dq;
+        Trow[i] = clampi(dq, -(1 << 15), (1 << 15) - 1);  // ±2^(bd+7)
+        nnz += lv != 0;
+        lbits = __fadd_rn(lbits, log2f(1.0f + (float)lv));
+      }
+
+      if (ws) ws[3] = gtime();
+      // inverse transform in place: pass 0 row j (then the 16-bit clamp),
+      // pass 1 column j (then the residual clamp); reconstruction
+      constexpr int res_max = (1 << 15) - 1 + (914 << 1);
+#pragma unroll 1
+      for (int pass = 0; pass < 2; ++pass) {
+        const int base = pass ? j : j * TP, step = pass ? TP : 1;
+        const int s = pass ? p.inv_s1 : p.inv_s0;
+        const int lo = pass ? -res_max - 1 : -(1 << 15);
+        const int hi = pass ? res_max : (1 << 15) - 1;
+        __syncwarp();
+#pragma unroll
+        for (int i = 0; i < BS; ++i) v[i] = Tw[base + i * step];
+        inv_net<BS>(v, pass ? ck : rk, p.inv_lo, p.inv_hi);
+#pragma unroll
+        for (int i = 0; i < BS; ++i)
+          Tw[base + i * step] = clampi(rshift_signed(v[i], s), lo, hi);
+      }
+      if (ws) ws[4] = gtime();
+      int sse = 0;
+#pragma unroll 4
+      for (int i = 0; i < BS; ++i) {
+        const int rec = clampi((int)Rw[i * BS + j] + Tw[i * TP + j], 0, 255);
+        Rw[i * BS + j] = (uint8_t)rec;
+        const int d = (int)S[i * BS + j] - rec;
+        sse += d * d;
+      }
+
+      if (ws) ws[5] = gtime();
+      // RD cost of each block, paired sum, first minimum below
+#pragma unroll
+      for (int o = BS / 2; o > 0; o >>= 1) {
+        sse += __shfl_xor_sync(FULL, sse, o);
+        nnz += __shfl_xor_sync(FULL, nnz, o);
+        lbits = __fadd_rn(lbits, __shfl_xor_sync(FULL, lbits, o));
+      }
+      const float fn = (float)nnz;
+      float est;
+      if (BS >= 32)
+        est = __fadd_rn(__fadd_rn(25.7f, __fmul_rn(2.43f, fn)),
+                        __fmul_rn(1.83f, lbits));
+      else
+        est = __fadd_rn(__fadd_rn(16.2f, __fmul_rn(2.47f, fn)),
+                        __fmul_rn(1.58f, lbits));
+      const float rbits = nnz > 0 ? est : 1.0f;
+      float cost = __fadd_rn((float)sse,
+                             __fmul_rn(p.lam, __fadd_rn(p.rate[c], rbits)));
+      if constexpr (H == 2) {
+        const float cv = __shfl_sync(FULL, cost, BS);
+        if (p.paired) cost = __fadd_rn(cost, cv);
+      }
+      if (lane == 0) sCost[c] = cost;
+      if (ws) ws[6] = gtime();
+    }
+    cl.sync();
+    if (tid < p.C) sAll[tid] = cl.map_shared_rank(sCost, tid % K)[tid];
+    __syncthreads();
+    if (tr && lead) tr[2] = gtime();
+
+    // ---- first minimum; the CTA that ran the winner writes it out: the
+    // boundary row and column, the flag, then levels and recon, which no
+    // other block reads
+    int best = 0;
+    float bv = sAll[0];
+    for (int cc = 1; cc < p.C; ++cc)
+      if (sAll[cc] < bv) {
+        bv = sAll[cc];
+        best = cc;
+      }
+    if (best % K != rank) continue;
+    const int nh = (H == 2 && !p.paired) ? 1 : H;  // unpaired 16: lower half
+    const int16_t* Lb = sLev + (best / K) * lev_elems<BS>();
+    const uint8_t* Rb = sRec + (best / K) * rec_bytes<BS>();
+    for (int e = tid; e < nh * 2 * BS; e += nthr) {
+      const int hh = e / (2 * BS), q = e % (2 * BS);
+      const int f = hh ? fr1 : u;
+      const uint8_t* R = Rb + hh * N;
+      if (q < BS)
+        p.rowbuf[((size_t)f * p.bh + r) * p.w + x + q] = R[(BS - 1) * BS + q];
+      else
+        p.colbuf[((size_t)f * p.h + y + q - BS) * p.bw + cb] =
+            R[(q - BS) * BS + BS - 1];
+    }
+    // the barrier orders the CTA's boundary stores before thread 0's
+    // release store (release is cumulative), so no fence is needed
+    __syncthreads();
+    if (tid == 0) {
+      st_release(flags + (size_t)u * p.nblk + r * p.bw + cb, 1);
+      if (tr) tr[3] = gtime();
+    }
+    for (int e = tid; e < nh * N; e += nthr) {
+      const int hh = e / N, q = e % N, i = q / BS, jj = q % BS;
+      const int f = hh ? fr1 : u;
+      const size_t blk = ((size_t)f * p.bh + r) * p.bw + cb;
+      p.levels[blk * N + q] = Lb[(hh * BS + i) * LSTR + jj];
+      p.recon[((size_t)f * p.h + y + i) * p.w + x + jj] = Rb[hh * N + q];
+      if (q == 0) p.mode_idx[blk] = best;
     }
   }
-  const int t = threadIdx.x, pi = t / BS, pj = t % BS;
-  const int y = r * BS, x = cb * BS;
-  const size_t slot = ((size_t)bi * BD + l) * N + t;
-  const int rec = p.rec_scr[slot];
-  const size_t blk = ((size_t)b * p.bh + r) * p.bw + cb;
-  if (t == 0) p.mode_idx[blk] = bi;
-  p.levels[blk * N + t] = p.lev_scr[slot];
-  p.recon[((size_t)b * p.h + y + pi) * p.w + x + pj] = rec;
-  if (pi == BS - 1) p.rowbuf[((size_t)b * p.bh + r) * p.w + x + pj] = rec;
-  if (pj == BS - 1) p.colbuf[((size_t)b * p.h + y + pi) * p.bw + cb] = rec;
+  cl.sync();   // no CTA leaves while another may read its shared memory
 }
+
+// Launch geometry for C candidates in clusters of K CTAs: warps per CTA,
+// shared bytes per CTA, CTAs per SM and the clusters that fit on the card
+// at once.
+template <int BS, int MAXW>
+int configure(int C, int K, int* wpc, size_t* smem, int* per_sm,
+              int* clusters) {
+  *wpc = (C + K - 1) / K;
+  *smem = smem_bytes<BS>(*wpc);
+  cudaError_t e = cudaFuncSetAttribute(
+      wf_plane_kernel<BS, MAXW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)*smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, wf_plane_kernel<BS, MAXW>, 32 * *wpc, *smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(K);
+  cfg.blockDim = dim3(32 * *wpc);
+  cfg.dynamicSmemBytes = *smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaOccupancyMaxActiveClusters(clusters, wf_plane_kernel<BS, MAXW>,
+                                     &cfg);
+  if (e != cudaSuccess) return (int)e;
+  return *clusters > 0 ? 0 : (int)cudaErrorInvalidConfiguration;
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
+}
+
+template <int BS, int MAXW>
+int launch(const WfParams* p, int K, cudaStream_t st) {
+  int wpc, per_sm, clusters;
+  size_t smem;
+  int e = configure<BS, MAXW>(p->C, K, &wpc, &smem, &per_sm, &clusters);
+  if (e) return e;
+  const int ntick = p->NU * p->nblk;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(K * std::min(ntick, clusters));
+  cfg.blockDim = dim3(32 * wpc);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = (int)cudaLaunchKernelEx(&cfg, wf_plane_kernel<BS, MAXW>, *p);
+  return e ? e : (int)cudaGetLastError();
+}
+
+template <int BS, int MAXW>
+int info(int C, int K, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, wf_plane_kernel<BS, MAXW>);
+  if (e != cudaSuccess) return (int)e;
+  int wpc, per_sm, clusters;
+  size_t smem;
+  const int r = configure<BS, MAXW>(C, K, &wpc, &smem, &per_sm, &clusters);
+  if (r) return r;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = per_sm;
+  out[3] = (int)smem;
+  out[4] = sm_count();
+  out[5] = clusters;
+  out[6] = wpc;
+  return 0;
+}
+
+// CTAs of up to 4 warps get a kernel built for 128 threads, which may
+// use up to 255 registers a thread; larger ones the 512-thread build.
+bool small_cta(int C, int K) { return (C + K - 1) / K <= 4; }
 
 }  // namespace
 
@@ -359,28 +625,32 @@ extern "C" {
 
 int wf_params_size() { return (int)sizeof(WfParams); }
 
-int wf_eval(const WfParams* p, int bs, void* stream) {
-  const dim3 grid(p->B * p->D, p->C);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (bs == 32)
-    wf_eval_kernel<32><<<grid, 32 * 32, 0, st>>>(*p);
-  else if (bs == 16)
-    wf_eval_kernel<16><<<grid, 16 * 16, 0, st>>>(*p);
-  else
+// One plane call: the persistent kernel on the caller's stream, in
+// clusters of K CTAs (1, 2 or 4).
+int wf_plane(const WfParams* p, int bs, int K, void* stream) {
+  if (p->C < 1 || p->C > MAXC || (K != 1 && K != 2 && K != 4))
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool sm = small_cta(p->C, K);
+  if (bs == 32)
+    return sm ? launch<32, 4>(p, K, st) : launch<32, MAXC>(p, K, st);
+  if (bs == 16)
+    return sm ? launch<16, 4>(p, K, st) : launch<16, MAXC>(p, K, st);
+  return (int)cudaErrorInvalidValue;
 }
 
-int wf_select(const WfParams* p, int bs, void* stream) {
-  const dim3 grid(p->B * p->D);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (bs == 32)
-    wf_select_kernel<32><<<grid, 32 * 32, 0, st>>>(*p);
-  else if (bs == 16)
-    wf_select_kernel<16><<<grid, 16 * 16, 0, st>>>(*p);
-  else
+// Registers per thread, local (spill) bytes per thread, CTAs per SM,
+// shared bytes per CTA, the SM count, clusters resident at once and warps
+// per CTA, for C candidates in clusters of K.
+int wf_info(int bs, int C, int K, int* out) {
+  if (C < 1 || C > MAXC || (K != 1 && K != 2 && K != 4))
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  const bool sm = small_cta(C, K);
+  if (bs == 32)
+    return sm ? info<32, 4>(C, K, out) : info<32, MAXC>(C, K, out);
+  if (bs == 16)
+    return sm ? info<16, 4>(C, K, out) : info<16, MAXC>(C, K, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

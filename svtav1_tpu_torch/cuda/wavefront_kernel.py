@@ -3,11 +3,19 @@
 ``wavefront_cuda`` has the contract of ``encoder.wavefront
 ._wavefront_body`` for a uint8 plane stack on a CUDA device.  It checks
 what the kernel takes and raises on anything else, allocates every output
-and scratch buffer with ``torch.empty``, and launches on the current
-stream without synchronising: per sub-step of the schedule one
-``wf_eval`` launch (every candidate of every lane) and one ``wf_select``
-launch (first-minimum select, outputs, boundary update).  ``LAUNCHES``
-counts the kernel launches.
+with ``torch.empty`` and the ticket counter and ready flags with one
+``torch.zeros``, and makes one persistent launch on the current stream
+without synchronising.  ``LAUNCHES`` counts the kernel launches.
+
+The kernel sets a sticky error word on the device when a wait for a
+neighbour's flag exceeds its cap; ``raise_on_error`` reads it (a host
+copy, so call it where the caller copies to the host anyway).
+
+Host-side tables, built once per (shape, candidate list): the block list
+in ticket order with each block's dependencies (``schedule``), the
+predictor maps (``linear_pred_maps``), the deadzone reciprocals
+(``reciprocal``) and the transform shifts (``tx_params``).  ``work``
+counts the operations and bytes of one call for the kernel's bound.
 """
 
 from __future__ import annotations
@@ -18,33 +26,36 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from svtav1_tpu.spec import tables as tbl
-from svtav1_tpu.spec import txfm as T
-
 from ..encoder.wavefront import _quad_tables, _tx_types, expand_candidates
 from ..ops.intra import SM_WEIGHTS
 from ..ops.intra_dir import MODE_ANGLE, _z1_maps, _z2_maps, _z3_maps
+from ..spec import tables as tbl
+from ..spec import txfm as T
 
-LAUNCHES = 0          # kernel launches (wf_eval + wf_select) so far
+LAUNCHES = 0          # kernel launches so far
 
 MAXC = 16             # must match csrc/wavefront.cu
-MAXST = 12
-NNET = 6
+MAXDEP = 8
 _TX_OF_BS = {16: T.TX_16X16, 32: T.TX_32X32}
 _KIND_NAME = {T.DCT_1D: "dct", T.ADST_1D: "adst"}
+
+# the H100 SXM's int32 ALU rate (64 lanes x 132 SMs x 1.98 GHz boost
+# clock) and HBM rate (NVIDIA's data sheet), for the kernel's bound
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+HBM_BYTES_PER_S = 3.35e12
 
 
 class _Params(ctypes.Structure):
     """Field-for-field mirror of struct WfParams in csrc/wavefront.cu."""
     _fields_ = ([(n, ctypes.c_void_p) for n in (
-        "src", "rowbuf", "colbuf", "sched", "dirmap", "smw", "stages",
-        "cost", "lev_scr", "rec_scr", "mode_idx", "levels", "recon")] +
+        "src", "rowbuf", "colbuf", "blocks", "dirmap", "smw", "sync", "err",
+        "mode_idx", "levels", "recon", "trace")] +
+        [("mdc", ctypes.c_uint64), ("mac", ctypes.c_uint64)] +
         [(n, ctypes.c_int) for n in (
-            "s", "D", "B", "h", "w", "bh", "bw", "vh", "C", "paired",
-            "dqdc", "dqac", "qshift", "fwd_cos_col", "fwd_cos_row",
-            "inv_cos", "inv_clamp_row", "inv_clamp_col", "fwd_s0", "fwd_s1",
-            "fwd_s2", "inv_s0", "inv_s1")] +
-        [("lam", ctypes.c_float), ("nst", ctypes.c_int * NNET),
+            "sdc", "sac", "B", "NU", "h", "w", "bh", "bw", "vh", "C",
+            "paired", "nblk", "dqdc", "dqac", "qshift", "fwd_s0", "fwd_s1",
+            "fwd_s2", "inv_s0", "inv_s1", "inv_lo", "inv_hi")] +
+        [("lam", ctypes.c_float),
          ("cand_mode", ctypes.c_int * MAXC),
          ("cand_kind", ctypes.c_int * MAXC),
          ("rate", ctypes.c_float * MAXC)])
@@ -59,11 +70,53 @@ def _lib():
     if lib.wf_params_size() != ctypes.sizeof(_Params):
         raise RuntimeError("WfParams layout differs between csrc/"
                            "wavefront.cu and _Params")
-    for fn in (lib.wf_eval, lib.wf_select):
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int,
-                       ctypes.c_void_p]
+    lib.wf_plane.restype = ctypes.c_int
+    lib.wf_plane.argtypes = [ctypes.POINTER(_Params), ctypes.c_int,
+                             ctypes.c_int, ctypes.c_void_p]
+    lib.wf_info.restype = ctypes.c_int
+    lib.wf_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                            ctypes.POINTER(ctypes.c_int)]
     return lib
+
+
+# CTAs that share one block's candidates (a thread block cluster): 4
+# measured fastest of 1, 2 and 4 at every 1080p shape of the main path
+# (probe_wavefront.py)
+CLUSTER = 4
+
+
+def kernel_info(bs: int, C: int, cluster: int = CLUSTER) -> dict:
+    """Registers and local (spill) bytes per thread, CTAs per SM, dynamic
+    shared bytes per CTA, the SM count, clusters resident at once and
+    warps per CTA of the kernel for bs, C."""
+    out = (ctypes.c_int * 7)()
+    err = _lib().wf_info(bs, C, cluster, out)
+    if err:
+        raise RuntimeError(f"wf_info failed: CUDA error {err}")
+    return dict(zip(("regs", "local_bytes", "ctas_per_sm", "smem_bytes",
+                     "sms", "clusters", "warps_per_cta"), out))
+
+
+@lru_cache(maxsize=None)
+def _error_word_on(device: str) -> torch.Tensor:
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def _error_word(device) -> torch.Tensor:
+    """The sticky error word of one card ("cuda" is the current one)."""
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    return _error_word_on(str(dev))
+
+
+def raise_on_error(device) -> None:
+    """Raise if a kernel on `device` set its error word (reads it to the
+    host, which waits for the work queued before)."""
+    word = int(_error_word(device).item())
+    if word:
+        raise RuntimeError(f"wavefront kernel error word {word:#x}: a wait "
+                           "for a neighbour's ready flag ran past its cap")
 
 
 def linear_pred_maps(bs: int, cands) -> np.ndarray:
@@ -102,40 +155,66 @@ def linear_pred_maps(bs: int, cands) -> np.ndarray:
     return out.reshape(len(cands), bs * bs)
 
 
-def stage_tables(bs: int, kinds):
-    """([NNET, MAXST, bs, 5] int32, nst[NNET]) butterfly tables: nets
-    0/1 forward column DCT/ADST, 2/3 forward row DCT/ADST, 4/5 inverse
-    DCT/ADST.  Only the kinds in `kinds` are filled."""
-    wi = bs.bit_length() - 3
-    cos = (T.FWD_COS_BIT_COL[wi][wi], T.FWD_COS_BIT_ROW[wi][wi],
-           T.INV_COS_BIT)
-    tab = np.zeros((NNET, MAXST, bs, 5), np.int32)
-    nst = [0] * NNET
-    for g, direction in enumerate(("fwd", "fwd", "inv")):
-        for kind in kinds:
-            net = 2 * g + kind
-            stages = T.compiled_stages(_KIND_NAME[kind], bs, direction,
-                                       cos[g])
-            for st, (ia, wa, ib, wb, mode) in enumerate(stages):
-                tab[net, st] = np.stack([ia, wa, ib, wb, mode], axis=-1)
-            nst[net] = len(stages)
-    return tab, nst
+def block_deps(bs: int, h: int, w: int, vh: int, r: int, c: int,
+               has_tr: bool, has_bl: bool) -> list:
+    """Raster ids (row * bw + col) of the blocks whose boundary pixels
+    block (r, c) reads: above-left, above, above-right (has_tr), and the
+    blocks of the left and below-left (has_bl) columns, whose rows clamp
+    at vh - 1."""
+    bw = w // bs
+    cells = []
+    if r > 0:
+        cells += [(r - 1, c)] + ([(r - 1, c - 1)] if c > 0 else [])
+        if has_tr:
+            cells.append((r - 1, min(c + 1, bw - 1)))
+    if c > 0:
+        y = r * bs
+        rows = [min(y + k, vh - 1) for k in range(bs)]
+        if has_bl:
+            rows += [min(min(y + bs, h - bs) + k, vh - 1) for k in range(bs)]
+        cells += [(yy // bs, c - 1) for yy in rows]
+    return sorted({rr * bw + cc for rr, cc in cells})
+
+
+@lru_cache(maxsize=None)
+def schedule(bs: int, h: int, w: int, vh: int) -> np.ndarray:
+    """[nblk, 4 + MAXDEP] int32: every block in the wavefront's sub-step
+    order (valid lanes of each sub-step in lane order) as r, c, has_tr,
+    has_bl and the raster ids of its dependencies, -1 padded.  Tickets go
+    out in this order, so it must be a topological order."""
+    rs, cs, valid, has_tr, has_bl = (
+        a.reshape(-1, a.shape[-1]) for a in _quad_tables(h // bs, w // bs))
+    rows = []
+    for k in range(rs.shape[0]):
+        for i in np.flatnonzero(valid[k]):
+            r, c = int(rs[k, i]), int(cs[k, i])
+            tr, bl = bool(has_tr[k, i]), bool(has_bl[k, i])
+            deps = block_deps(bs, h, w, vh, r, c, tr, bl)
+            if len(deps) > MAXDEP:
+                raise AssertionError(f"block ({r}, {c}): {len(deps)} deps")
+            rows.append([r, c, int(tr), int(bl)] + deps +
+                        [-1] * (MAXDEP - len(deps)))
+    return np.asarray(rows, np.int32)
+
+
+def reciprocal(d: int) -> tuple:
+    """(m, s) with (n * m) >> s == n // d for every 0 <= n < 2**31
+    (Granlund and Montgomery's round-up reciprocal, l = ceil(log2 d))."""
+    l = (d - 1).bit_length()
+    return (1 << (31 + l)) // d + 1, 31 + l
 
 
 def tx_params(bs: int, bd: int = 8) -> dict:
-    """The kernel's transform and quantizer constants for bs x bs blocks
-    (shifts s in round_shift_array form: s > 0 rounds right, s < 0
-    scales left)."""
+    """The kernel's transform constants for bs x bs blocks (shifts s in
+    round_shift_array form: s > 0 rounds right, s < 0 scales left)."""
     fwd, inv = T.FWD_SHIFT[(bs, bs)], T.INV_SHIFT[(bs, bs)]
-    wi = bs.bit_length() - 3
+    clamp = T.opt_range(bd, False)
+    if T.opt_range(bd, True) != clamp:
+        raise NotImplementedError("row and column clamps differ")
     return dict(qshift=tbl.tx_scale_shift(_TX_OF_BS[bs]),
-                fwd_cos_col=T.FWD_COS_BIT_COL[wi][wi],
-                fwd_cos_row=T.FWD_COS_BIT_ROW[wi][wi],
-                inv_cos=T.INV_COS_BIT,
-                inv_clamp_row=T.opt_range(bd, False),
-                inv_clamp_col=T.opt_range(bd, True),
                 fwd_s0=-fwd[0], fwd_s1=-fwd[1], fwd_s2=-fwd[2],
-                inv_s0=-inv[0], inv_s1=-inv[1])
+                inv_s0=-inv[0], inv_s1=-inv[1],
+                inv_lo=-(1 << (clamp - 1)), inv_hi=(1 << (clamp - 1)) - 1)
 
 
 def _kinds_of(tx_type: int):
@@ -145,25 +224,64 @@ def _kinds_of(tx_type: int):
     return rk, ck
 
 
+def _net_ops(kind: str, n: int, direction: str) -> int:
+    """int32 operations of one 1D network on n values: a butterfly 2
+    multiplies, 2 adds and a shift; an add 1 (3 with the inverse clamp);
+    a negation 1; a pass-through 0."""
+    ops = 0
+    for ia, wa, ib, wb, mode in T.compiled_stages(kind, n, direction,
+                                                  T.INV_COS_BIT):
+        for r in range(n):
+            if mode[r] == T.MODE_BTF:
+                ops += 5
+            elif mode[r] == T.MODE_ADD_CLAMP:
+                ops += 3 if direction == "inv" else 1
+            elif wb[r] or wa[r] != 1 or ia[r] != r:
+                ops += 1
+    return ops
+
+
+# per pixel and candidate besides the networks: prediction, the shifts
+# and clamps around the networks, quantizer, dequantizer, reconstruction,
+# SSE and the bit estimate
+_PIXEL_OPS = 30
+
+
+def work(bs: int, B: int, h: int, w: int, modes, uv_tx: bool = False):
+    """(int32 operations, bytes) of one call: every candidate's chain on
+    every pixel, the source read once and the outputs written once."""
+    per_px = 0.0
+    for tt in _tx_types(expand_candidates(modes), _TX_OF_BS[bs], uv_tx):
+        rk, ck = (_KIND_NAME[k] for k in _kinds_of(tt))
+        per_px += (_net_ops(ck, bs, "fwd") + _net_ops(rk, bs, "fwd") +
+                   _net_ops(rk, bs, "inv") + _net_ops(ck, bs, "inv")) / bs
+        per_px += _PIXEL_OPS
+    px = B * h * w
+    return int(per_px * px), px * (1 + 4 + 4) + 4 * px // (bs * bs)
+
+
+def bound_ms(bs: int, B: int, h: int, w: int, modes, uv_tx=False):
+    """(least time on the card in ms, "operations" or "bytes")."""
+    ops, nbytes = work(bs, B, h, w, modes, uv_tx)
+    t_ops, t_bytes = ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
 @lru_cache(maxsize=None)
-def _tables(bs: int, cands: tuple, uv_tx: bool, bh: int, bw: int,
+def _tables(bs: int, cands: tuple, uv_tx: bool, h: int, w: int, vh: int,
             device: str):
-    """Device tables of one (shape, candidate list) — uploaded once."""
-    rs, cs, valid, has_tr, has_bl = _quad_tables(bh, bw)
-    nsteps, _, D = rs.shape
-    sched = np.stack([rs, cs, valid, has_tr, has_bl], axis=-1).astype(
-        np.int32).reshape(nsteps * 4, D, 5)
+    """Device tables of one (shape, candidate list), uploaded once."""
     kinds = [_kinds_of(tt) for tt in _tx_types(cands, _TX_OF_BS[bs], uv_tx)]
     if bs == 32 and any(T.ADST_1D in k for k in kinds):
         raise NotImplementedError("32-point ADST does not exist in AV1")
-    stab, nst = stage_tables(bs, sorted({k for rk_ck in kinds
-                                         for k in rk_ck}))
     dev = torch.device(device)
     up = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
-    return {"sched": up(sched), "dirmap": up(linear_pred_maps(bs, cands)),
-            "smw": up(SM_WEIGHTS[bs:2 * bs]), "stages": up(stab),
-            "nst": nst, "kind": [rk | (ck << 1) for rk, ck in kinds],
-            "S": sched.shape[0], "D": D}
+    blocks = schedule(bs, h, w, vh)
+    return {"blocks": up(blocks), "dirmap": up(linear_pred_maps(bs, cands)),
+            "smw": up(np.asarray(SM_WEIGHTS[bs:2 * bs], np.int32)),
+            "kind": [rk | (ck << 1) for rk, ck in kinds],
+            "nblk": blocks.shape[0]}
 
 
 def wavefront_cuda(src, rd, bs: int, tx_size: int, modes, bd: int = 8,
@@ -172,6 +290,20 @@ def wavefront_cuda(src, rd, bs: int, tx_size: int, modes, bd: int = 8,
     """Run the wavefront kernel: src [B, h, w] uint8 on a CUDA device ->
     (mode_idx [B, bh, bw] int32, levels [B, bh, bw, bs, bs] int32,
     recon [B, h, w] int32).  Asynchronous on the current stream."""
+    return launch(src, rd, bs, tx_size, modes, bd, angle_deltas, valid_h,
+                  paired, uv_tx)[:3]
+
+
+def launch(src, rd, bs: int, tx_size: int, modes, bd: int = 8,
+           angle_deltas=(0,), valid_h: int = None, paired: bool = False,
+           uv_tx: bool = False, trace: bool = False,
+           cluster: int = CLUSTER):
+    """wavefront_cuda, plus the kernel's per-ticket timestamps when trace
+    is set: (mode_idx, levels, recon, trace) with trace [NU * nblk, 16]
+    int64 %globaltimer ns in ticket order, or None: columns 0-3 ticket
+    taken, neighbours ready, costs chosen, flag published; 4-10 one
+    warp's phases (start, prediction, forward transform, quantizer,
+    inverse transform, reconstruction, cost)."""
     global LAUNCHES
     if src.device.type != "cuda":
         raise ValueError(f"wavefront_cuda needs a CUDA tensor, got "
@@ -182,6 +314,8 @@ def wavefront_cuda(src, rd, bs: int, tx_size: int, modes, bd: int = 8,
     if bs not in _TX_OF_BS or tx_size != _TX_OF_BS[bs]:
         raise NotImplementedError(f"bs {bs} / tx_size {tx_size}: the kernel "
                                   "takes 16/TX_16X16 and 32/TX_32X32")
+    if paired and bs != 16:
+        raise NotImplementedError("paired planes run as 16x16 blocks")
     if bd != 8 or tuple(angle_deltas) != (0,):
         raise NotImplementedError("the CUDA wavefront covers bd=8 and "
                                   "angle_deltas=(0,); svtav1_tpu has the rest")
@@ -197,46 +331,40 @@ def wavefront_cuda(src, rd, bs: int, tx_size: int, modes, bd: int = 8,
     if C > MAXC:
         raise ValueError(f"{C} candidates > {MAXC}")
     dqdc, dqac, lam, mode_rate = rd
+    dqdc, dqac = int(dqdc), int(dqac)
     bh, bw = h // bs, w // bs
-    tabs = _tables(bs, cands, bool(uv_tx), bh, bw, str(src.device))
-    D, S = tabs["D"], tabs["S"]
-    BD = B * D
     dev = src.device
-    cost = torch.empty((C, BD), dtype=torch.float32, device=dev)
-    lev_scr = torch.empty((C, BD, bs * bs), dtype=torch.int16, device=dev)
-    rec_scr = torch.empty((C, BD, bs * bs), dtype=torch.uint8, device=dev)
+    tabs = _tables(bs, cands, bool(uv_tx), h, w, vh, str(dev))
+    NU = B // 2 if paired else B
+    sync = torch.zeros(1 + NU * tabs["nblk"], dtype=torch.int32, device=dev)
     rowbuf = torch.empty((B, bh, w), dtype=torch.int32, device=dev)
     colbuf = torch.empty((B, h, bw), dtype=torch.int32, device=dev)
     mode_idx = torch.empty((B, bh, bw), dtype=torch.int32, device=dev)
     levels = torch.empty((B, bh, bw, bs, bs), dtype=torch.int32, device=dev)
     recon = torch.empty((B, h, w), dtype=torch.int32, device=dev)
+    (mdc, sdc), (mac, sac) = reciprocal(dqdc), reciprocal(dqac)
+    tr = torch.zeros((NU * tabs["nblk"], 16), dtype=torch.int64,
+                     device=dev) if trace else None
 
     p = _Params(
         src=src.data_ptr(), rowbuf=rowbuf.data_ptr(),
-        colbuf=colbuf.data_ptr(), sched=tabs["sched"].data_ptr(),
+        colbuf=colbuf.data_ptr(), blocks=tabs["blocks"].data_ptr(),
         dirmap=tabs["dirmap"].data_ptr(), smw=tabs["smw"].data_ptr(),
-        stages=tabs["stages"].data_ptr(), cost=cost.data_ptr(),
-        lev_scr=lev_scr.data_ptr(), rec_scr=rec_scr.data_ptr(),
+        sync=sync.data_ptr(), err=_error_word(dev).data_ptr(),
         mode_idx=mode_idx.data_ptr(), levels=levels.data_ptr(),
-        recon=recon.data_ptr(),
-        s=0, D=D, B=B, h=h, w=w, bh=bh, bw=bw, vh=vh, C=C,
-        paired=int(bool(paired)), dqdc=int(dqdc), dqac=int(dqac),
+        recon=recon.data_ptr(), trace=tr.data_ptr() if trace else None,
+        mdc=mdc, mac=mac, sdc=sdc, sac=sac,
+        B=B, NU=NU, h=h, w=w, bh=bh, bw=bw, vh=vh, C=C,
+        paired=int(bool(paired)), nblk=tabs["nblk"], dqdc=dqdc, dqac=dqac,
         lam=float(lam), **tx_params(bs, bd))
-    p.nst[:] = tabs["nst"]
     p.cand_mode[:C] = [m for m, _ in cands]
     p.cand_kind[:C] = tabs["kind"]
     p.rate[:C] = [float(v) for v in np.asarray(mode_rate, np.float32)]
 
-    lib = _lib()
-    ref = ctypes.byref(p)
     with torch.cuda.device(dev):
-        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        for s in range(S):
-            p.s = s
-            for fn in (lib.wf_eval, lib.wf_select):
-                err = fn(ref, bs, stream)
-                if err:
-                    raise RuntimeError(f"{fn.__name__} launch failed: CUDA "
-                                       f"error {err} at sub-step {s}")
-                LAUNCHES += 1
-    return mode_idx, levels, recon
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().wf_plane(ctypes.byref(p), bs, cluster, stream)
+    if err:
+        raise RuntimeError(f"wf_plane launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    return mode_idx, levels, recon, tr

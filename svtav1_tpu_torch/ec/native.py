@@ -1,0 +1,131 @@
+"""ctypes binding of the native tile entropy coder (``native/tile_coder.c``).
+
+Copy of ``svtav1_tpu/ec/native.py`` with its own copy of the C source
+beside it.  gcc builds the source at first use into the git-ignored
+``svtav1_tpu_torch/build/``, keyed by a hash of the source and the flags
+(not by mtime, which a copy of the tree can reset).  A failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+import numpy as np
+
+from ..spec import tables as tbl
+
+_PKG = Path(__file__).resolve().parent.parent
+_SRC = _PKG / "native" / "tile_coder.c"
+_BUILD_DIR = _PKG / "build"
+_CFLAGS = ("-O3", "-fPIC", "-shared")
+
+_u16p = ctypes.POINTER(ctypes.c_uint16)
+_i16p = ctypes.POINTER(ctypes.c_int16)
+
+
+class _Tables(ctypes.Structure):
+    _fields_ = [(n, _u16p) for n in
+                ("txb_skip", "eob_flag16", "eob_flag32", "eob_flag64",
+                 "eob_flag128", "eob_flag256", "eob_flag512", "eob_flag1024",
+                 "eob_extra", "coeff_base_eob", "coeff_base", "coeff_br",
+                 "dc_sign", "partition", "skip", "kf_y", "uv_mode",
+                 "angle_delta")] + [("scan32", _i16p), ("scan16", _i16p)]
+
+
+_lib = None
+
+
+def library_path() -> Path:
+    """Where the library built from the current source and flags lives."""
+    h = hashlib.sha256(" ".join(_CFLAGS).encode())
+    h.update(_SRC.read_bytes())
+    return _BUILD_DIR / f"libtilecoder_{h.hexdigest()[:16]}.so"
+
+
+def _load():
+    global _lib
+    if _lib is not None:
+        return _lib
+    so = library_path()
+    if not so.exists():
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        r = subprocess.run(["gcc", *_CFLAGS, "-o", str(tmp), str(_SRC)],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"native build failed: {r.stderr[:500]}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    lib.encode_tile_intra.restype = ctypes.c_long
+    lib.encode_tile_intra.argtypes = [
+        ctypes.c_char_p, ctypes.c_long, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int,
+        np.ctypeslib.ndpointer(np.int32), np.ctypeslib.ndpointer(np.int32),
+        np.ctypeslib.ndpointer(np.int32), np.ctypeslib.ndpointer(np.int32),
+        ctypes.POINTER(_Tables), ctypes.c_int,
+        np.ctypeslib.ndpointer(np.int32)]
+    _lib = lib
+    return lib
+
+
+def encode_tile_intra(width: int, height: int, update_cdf: bool,
+                      y_modes: np.ndarray, y_lev: np.ndarray,
+                      u_lev: np.ndarray, v_lev: np.ndarray, cdf,
+                      true_h: int = 0, uv_modes: np.ndarray = None) -> bytes:
+    """cdf: spec.cdf.CdfContext (its tables are copied, not mutated).
+    true_h: signaled frame height when `height` is the SB-padded plane
+    height (0 → equal); bottom-edge geometry per encoder/geometry.py."""
+    lib = _load()
+    keep = []  # keep arrays alive
+
+    def u16(arr):
+        a = np.ascontiguousarray(arr, np.uint16).copy()
+        keep.append(a)
+        return a.ctypes.data_as(_u16p)
+
+    def i16(arr):
+        a = np.ascontiguousarray(arr, np.int16)
+        keep.append(a)
+        return a.ctypes.data_as(_i16p)
+
+    t = _Tables(
+        txb_skip=u16(cdf.txb_skip_cdf),
+        eob_flag16=u16(cdf.eob_flag_cdf16),
+        eob_flag32=u16(cdf.eob_flag_cdf32),
+        eob_flag64=u16(cdf.eob_flag_cdf64),
+        eob_flag128=u16(cdf.eob_flag_cdf128),
+        eob_flag256=u16(cdf.eob_flag_cdf256),
+        eob_flag512=u16(cdf.eob_flag_cdf512),
+        eob_flag1024=u16(cdf.eob_flag_cdf1024),
+        eob_extra=u16(cdf.eob_extra_cdf),
+        coeff_base_eob=u16(cdf.coeff_base_eob_cdf),
+        coeff_base=u16(cdf.coeff_base_cdf),
+        coeff_br=u16(cdf.coeff_br_cdf),
+        dc_sign=u16(cdf.dc_sign_cdf),
+        partition=u16(cdf.partition_cdf),
+        skip=u16(cdf.skip_cdfs),
+        kf_y=u16(cdf.kf_y_cdf),
+        uv_mode=u16(cdf.uv_mode_cdf),
+        angle_delta=u16(cdf.angle_delta_cdf),
+        scan32=i16(tbl.scan(3, 0)),
+        scan16=i16(tbl.scan(2, 0)),
+    )
+    cap = width * height * 4 + (1 << 16)
+    dst = ctypes.create_string_buffer(cap)
+    if uv_modes is None:
+        uv_modes = np.zeros_like(np.ascontiguousarray(y_modes, np.int32))
+    n = lib.encode_tile_intra(
+        dst, cap, width, height, int(update_cdf),
+        np.ascontiguousarray(y_modes, np.int32),
+        np.ascontiguousarray(y_lev, np.int32),
+        np.ascontiguousarray(u_lev, np.int32),
+        np.ascontiguousarray(v_lev, np.int32), ctypes.byref(t),
+        int(true_h), np.ascontiguousarray(uv_modes, np.int32))
+    if n <= 0:
+        raise RuntimeError("native tile coder failed")
+    return dst.raw[:n]

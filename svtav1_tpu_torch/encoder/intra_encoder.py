@@ -8,9 +8,8 @@ Counterpart of the flat (part_search=False) path of
      uniform deblocking.  On a CUDA device the wavefronts run the
      hand-written kernel; nothing here synchronises, so the caller can
      entropy-code batch k while batch k+1 runs.
-  2. host stage (``host_finish``): the native C tile coder of
-     ``svtav1_tpu.ec.native`` per frame in a thread pool, then the key
-     frame OBUs.
+  2. host stage (``host_finish``): the native C tile coder
+     (``ec.native``) per frame in a thread pool, then the key frame OBUs.
 Everything else (partition search, 10-bit, angle deltas, tile columns,
 CDEF/LR/CCSO) raises NotImplementedError: the JAX package has it.
 """
@@ -23,17 +22,15 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from svtav1_tpu.ec import native
-from svtav1_tpu.encoder.geometry import check_dims, pad64, pad_plane_bottom
-from svtav1_tpu.encoder.headers import (FrameConfig, SequenceConfig,
-                                        assemble_key_frame)
-from svtav1_tpu.spec import tables as tbl
-from svtav1_tpu.spec.cdf import CdfContext
-from svtav1_tpu.spec.txfm import DCT_DCT, TX_16X16, TX_32X32
-
 from .. import resolve_device
+from ..ec import native
 from ..ops import intra
 from ..ops.deblock import deblock_plane_uniform
+from ..spec import tables as tbl
+from ..spec.cdf import CdfContext
+from ..spec.txfm import DCT_DCT, TX_16X16, TX_32X32
+from .geometry import check_dims, pad64, pad_plane_bottom
+from .headers import FrameConfig, SequenceConfig, assemble_key_frame
 from .wavefront import encode_plane_wavefront, expand_candidates
 
 BLK = 32          # luma block size
@@ -119,7 +116,7 @@ class IntraEncoder:
         if not cfg.film_grain:
             return None
         if self._fg_params is None:
-            from svtav1_tpu.encoder.noise_model import estimate_grain_params
+            from .noise_model import estimate_grain_params
             p = estimate_grain_params(frame[0], frame[1], frame[2],
                                       strength=cfg.film_grain / 8.0)
             self._fg_params = p if p is not None else False
@@ -215,6 +212,10 @@ class IntraEncoder:
         uv_lev = dev["uv_lev"].cpu().numpy()
         y_rec = dev["y_rec"].cpu().numpy()
         uv_rec = dev["uv_rec"].cpu().numpy()
+        if self.device.type == "cuda":
+            # the kernel's error word; the copies above already waited
+            from ..cuda.wavefront_kernel import raise_on_error
+            raise_on_error(self.device)
         u_lev, v_lev = uv_lev[:n], uv_lev[n:]
         u_rec, v_rec = uv_rec[:n], uv_rec[n:]
         cand_mode = np.array([m for m, _ in expand_candidates(CAND_MODES)],

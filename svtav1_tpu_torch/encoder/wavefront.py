@@ -24,13 +24,13 @@ import os
 import numpy as np
 import torch
 
-from svtav1_tpu.spec import tables as tbl
-from svtav1_tpu.spec.txfm import DCT_DCT, uv_intra_tx_type
-
 from ..ops import intra
 from ..ops.intra_dir import dr_pred
 from ..ops.quant import dequantize_dq, quantize_dq
 from ..ops.transforms import add_residual_clip, fwd_txfm2d, inv_txfm2d
+from ..spec import tables as tbl
+from ..spec.cdf import CdfContext
+from ..spec.txfm import DCT_DCT, uv_intra_tx_type
 
 
 def expand_candidates(modes, angle_deltas=(0,)):
@@ -106,7 +106,6 @@ def _cdf_bits(table, sym: int) -> float:
 def intra_mode_rate_table(cands, qindex: int, kf=True) -> np.ndarray:
     """Per-candidate mode-signaling bits from the default CDFs; kf="uv"
     takes the uv_mode CDF of the paired chroma wavefront."""
-    from svtav1_tpu.spec.cdf import CdfContext
     cdf = CdfContext(qindex)
     out = np.zeros(len(cands), np.float32)
     for i, (mode, delta) in enumerate(cands):
@@ -183,6 +182,46 @@ def _tx_types(cands, tx_size: int, uv_tx: bool):
     return [DCT_DCT] * len(cands)
 
 
+def _edges(rowbuf, colbuf, rs, cs, has_tr, has_bl, bs: int, vh: int,
+           base: int):
+    """§7.11.2 edges of the blocks (rs[i], cs[i]) of every frame from the
+    boundary buffers rowbuf [B, bh, w] and colbuf [B, h, bw]; left rows
+    clamp at vh - 1.  Returns above [B, D, bs], left [B, D, bs], corner
+    [B, D], above_ext [B, D, 2bs], left_ext [B, D, 2bs]."""
+    h, w = colbuf.shape[1], rowbuf.shape[2]
+    ar = torch.arange(bs, device=rowbuf.device)
+    y, x = rs * bs, cs * bs
+    ha = (rs > 0)[None, :, None]                           # [1, D, 1]
+    hl = (cs > 0)[None, :, None]
+    rm1 = (rs - 1).clamp(min=0)
+    cm1 = (cs - 1).clamp(min=0)
+    above_real = rowbuf[:, rm1[:, None], x[:, None] + ar[None, :]]
+    lrows = (y[:, None] + ar[None, :]).clamp(max=vh - 1)
+    left_real = colbuf[:, lrows, cm1[:, None]]
+    corner_real = rowbuf[:, rm1, (x - 1).clamp(min=0)]
+    above = torch.where(ha, above_real,
+                        torch.where(hl, left_real[..., 0:1], base - 1))
+    left = torch.where(hl, left_real,
+                       torch.where(ha, above_real[..., 0:1], base + 1))
+    ha1, hl1 = ha[..., 0], hl[..., 0]
+    corner = torch.where(
+        ha1 & hl1, corner_real,
+        torch.where(ha1, above_real[..., 0],
+                    torch.where(hl1, left_real[..., 0], base)))
+    tr_real = rowbuf[:, rm1[:, None],
+                     (x + bs).clamp(max=w - bs)[:, None] + ar[None, :]]
+    brows = ((y + bs).clamp(max=h - bs)[:, None] +
+             ar[None, :]).clamp(max=vh - 1)
+    bl_real = colbuf[:, brows, cm1[:, None]]
+    above_ext = torch.cat(
+        [above, torch.where(has_tr[None, :, None], tr_real,
+                            above[..., -1:])], dim=-1)
+    left_ext = torch.cat(
+        [left, torch.where(has_bl[None, :, None], bl_real,
+                           left[..., -1:])], dim=-1)
+    return above, left, corner, above_ext, left_ext
+
+
 def _wavefront_body(src, rd, bs: int, tx_size: int, modes=DEFAULT_MODES,
                     bd: int = 8, angle_deltas=(0,), valid_h: int = None,
                     paired: bool = False, uv_tx: bool = False):
@@ -226,36 +265,9 @@ def _wavefront_body(src, rd, bs: int, tx_size: int, modes=DEFAULT_MODES,
         rs, cs = rs_f[k, :D], cs_f[k, :D]
         has_tr, has_bl = htr_f[k, :D], hbl_f[k, :D]
         y, x = rs * bs, cs * bs
-        ha = (rs > 0)[None, :, None]                       # [1, D, 1]
-        hl = (cs > 0)[None, :, None]
-        rm1 = (rs - 1).clamp(min=0)
-        cm1 = (cs - 1).clamp(min=0)
-
-        # edges from the boundary buffers; rows clamp at vh-1
-        above_real = rowbuf[:, rm1[:, None], x[:, None] + ar[None, :]]
-        lrows = (y[:, None] + ar[None, :]).clamp(max=vh - 1)
-        left_real = colbuf[:, lrows, cm1[:, None]]
-        corner_real = rowbuf[:, rm1, (x - 1).clamp(min=0)]
-        above = torch.where(ha, above_real,
-                            torch.where(hl, left_real[..., 0:1], base - 1))
-        left = torch.where(hl, left_real,
-                           torch.where(ha, above_real[..., 0:1], base + 1))
-        ha1, hl1 = ha[..., 0], hl[..., 0]
-        corner = torch.where(
-            ha1 & hl1, corner_real,
-            torch.where(ha1, above_real[..., 0],
-                        torch.where(hl1, left_real[..., 0], base)))
-        tr_real = rowbuf[:, rm1[:, None],
-                         (x + bs).clamp(max=w - bs)[:, None] + ar[None, :]]
-        brows = ((y + bs).clamp(max=h - bs)[:, None] +
-                 ar[None, :]).clamp(max=vh - 1)
-        bl_real = colbuf[:, brows, cm1[:, None]]
-        above_ext = torch.cat(
-            [above, torch.where(has_tr[None, :, None], tr_real,
-                                above[..., -1:])], dim=-1)
-        left_ext = torch.cat(
-            [left, torch.where(has_bl[None, :, None], bl_real,
-                               left[..., -1:])], dim=-1)
+        ha1, hl1 = rs > 0, cs > 0
+        above, left, corner, above_ext, left_ext = _edges(
+            rowbuf, colbuf, rs, cs, has_tr, has_bl, bs, vh, base)
         blocks = src_b[:, rs, cs]                          # [B, D, bs, bs]
 
         # flatten batch x lane for the candidate stack

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from svtav1_tpu.spec import tables as tbl
+from ..spec import tables as tbl
 
 
 def _dqv(dc, ac, h: int, w: int, device):

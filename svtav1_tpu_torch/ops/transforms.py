@@ -3,7 +3,7 @@
 Counterpart of ``svtav1_tpu/ops/transforms.py`` for what the flat intra
 path uses: square DCT/ADST transforms at n = 16 and 32 (no flips, no
 identity, no 4-point ADST).  Each 1D butterfly stage of
-``svtav1_tpu.spec.txfm.compiled_stages`` is a gather + int32 multiply-add
+``spec.txfm.compiled_stages`` is a gather + int32 multiply-add
 over the last axis, batched over the leading axes.  As in the JAX package,
 int32 products do not overflow for 8/10-bit coefficient ranges (clamped
 stage ranges <= 18 bits times cospi <= 13 bits).
@@ -15,7 +15,7 @@ from functools import lru_cache
 
 import torch
 
-from svtav1_tpu.spec import txfm as T
+from ..spec import txfm as T
 
 
 def round2(x, bit: int):

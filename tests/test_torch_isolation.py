@@ -1,0 +1,64 @@
+"""The port stands on its own: no module of ``svtav1_tpu_torch`` and not
+``chip_smoke.py`` imports JAX, the JAX package or its benchmark, and the
+port encodes with all three blocked.
+"""
+
+import ast
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+BLOCKED = ("jax", "jaxlib", "svtav1_tpu", "bench")
+
+
+def _imported(path: Path):
+    """Top-level module names that `path` imports (absolute imports)."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module.split(".")[0]
+
+
+def test_no_module_of_the_port_imports_the_reference():
+    files = sorted((ROOT / "svtav1_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    bad = [f"{f.relative_to(ROOT)}:{line} imports {name}"
+           for f in files for line, name in _imported(f) if name in BLOCKED]
+    assert not bad, "\n".join(bad)
+
+
+_ENCODE_BLOCKED = textwrap.dedent("""
+    import sys
+    for name in {blocked!r}:
+        sys.modules[name] = None          # any import of it raises
+    import numpy as np
+    from svtav1_tpu_torch.encoder.intra_encoder import (EncoderConfig,
+                                                        IntraEncoder)
+    from svtav1_tpu_torch.utils.obu import OBU_FRAME, parse_obus
+    rng = np.random.RandomState(0)
+    frames = [(rng.randint(0, 256, (64, 128)).astype(np.uint8),
+               rng.randint(0, 256, (32, 64)).astype(np.uint8),
+               rng.randint(0, 256, (32, 64)).astype(np.uint8))
+              for _ in range(2)]
+    enc = IntraEncoder(EncoderConfig(128, 64, part_search=False),
+                       device="cpu")
+    payloads, recons = enc.encode_frames(frames)
+    assert len(payloads) == 2 and all(len(p) > 100 for p in payloads)
+    for p in payloads:
+        assert any(t == OBU_FRAME for t, _, _, _ in parse_obus(p))
+    assert recons[1][0].shape == (64, 128)
+    print("ISOLATED_OK")
+""")
+
+
+def test_port_encodes_with_the_reference_blocked():
+    code = _ENCODE_BLOCKED.format(blocked=BLOCKED)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "ISOLATED_OK" in r.stdout

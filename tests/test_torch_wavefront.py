@@ -8,6 +8,9 @@ agrees, recon equal when every candidate agrees (float RD-cost sums may
 break near-ties differently).
 """
 
+import ctypes
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +18,7 @@ import torch
 from svtav1_tpu.encoder import wavefront as jwf
 from svtav1_tpu.encoder.intra_encoder import CAND_MODES
 from svtav1_tpu.spec import txfm as T
+from svtav1_tpu_torch.cuda import gen_txfm_nets as gen
 from svtav1_tpu_torch.cuda import wavefront_kernel as wk
 from svtav1_tpu_torch.encoder import wavefront as twf
 from svtav1_tpu_torch.ops import intra, transforms
@@ -131,25 +135,44 @@ def test_linear_pred_maps_match_predictors(bs):
     assert checked == 8
 
 
-def _net(x, tab, nst, cos_bit, clamp_bit, cols):
-    """One 1D network as the kernel runs it: x [R, n, n]; cols=True runs
-    down the columns (vector index = row)."""
-    half = 1 << (cos_bit - 1)
-    x = x.astype(np.int64)
-    for st in range(nst):
-        ia, wa, ib, wb, mode = tab[st].T
-        if cols:
-            va, vb, wa, wb, mode = (x[:, ia, :], x[:, ib, :], wa[:, None],
-                                    wb[:, None], mode[:, None])
-        else:
-            va, vb = x[:, :, ia], x[:, :, ib]
-        lin = wa * va + wb * vb
-        out = np.where(mode == T.MODE_BTF, (lin + half) >> cos_bit, lin)
-        if clamp_bit:
-            lim = 1 << (clamp_bit - 1)
-            out = np.where(mode == T.MODE_ADD_CLAMP,
-                           np.clip(lin, -lim, lim - 1), out)
-        x = out
+@pytest.fixture(scope="module")
+def nets_lib(tmp_path_factory):
+    """csrc/txfm_nets.cuh compiled by gcc as C, one entry per network:
+    run(which, x, lo, hi) applies network `which` of gen.NETS to x[n]."""
+    cases = []
+    for k, (name, _, _, direction, _) in enumerate(gen.NETS):
+        args = "x, lo, hi" if direction == "inv" else "x"
+        cases.append(f"    case {k}: {name}({args}); break;")
+    src = ("#include \"txfm_nets.cuh\"\n"
+           "void run(int which, int *x, int lo, int hi) {\n"
+           "  switch (which) {\n" + "\n".join(cases) + "\n  }\n}\n")
+    d = tmp_path_factory.mktemp("nets")
+    (d / "nets.c").write_text(src)
+    so = d / "libnets.so"
+    subprocess.run(["gcc", "-O1", "-shared", "-fPIC", "-I",
+                    str(gen.HEADER.parent), "-o", str(so), str(d / "nets.c")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.run.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_int]
+    lib.run.restype = None
+    return lib
+
+
+def _net(lib, name, x, cols, lo=0, hi=0):
+    """Apply the generated network `name` to every column (cols=True) or
+    row of x [R, n, n] int64."""
+    which = [n[0] for n in gen.NETS].index(name)
+    x = np.array(x, np.int64)
+    for b in range(x.shape[0]):
+        for k in range(x.shape[1]):
+            vec = np.ascontiguousarray(x[b, :, k] if cols else x[b, k],
+                                       np.int32)
+            lib.run(which, vec.ctypes.data, lo, hi)
+            if cols:
+                x[b, :, k] = vec
+            else:
+                x[b, k] = vec
     return x
 
 
@@ -161,33 +184,103 @@ def _rshift(x, s):
     (T.TX_32X32, T.DCT_DCT), (T.TX_16X16, T.DCT_DCT),
     (T.TX_16X16, T.ADST_DCT), (T.TX_16X16, T.DCT_ADST),
     (T.TX_16X16, T.ADST_ADST)])
-def test_stage_tables_match_transforms(tx_size, tx_type):
-    """The kernel's 2D transform flow over stage_tables/tx_params equals
-    the port's fwd_txfm2d and inv_txfm2d."""
+def test_stage_tables_match_transforms(tx_size, tx_type, nets_lib):
+    """The kernel's 2D transform flow over the generated networks of
+    csrc/txfm_nets.cuh (compiled by gcc) and tx_params equals the port's
+    fwd_txfm2d and inv_txfm2d."""
     bs = T.TX_W[tx_size]
-    rk, ck = wk._kinds_of(tx_type)
-    tab, nst = wk.stage_tables(bs, sorted({rk, ck}))
+    rk, ck = (wk._KIND_NAME[k] for k in wk._kinds_of(tx_type))
     p = wk.tx_params(bs)
     rng = np.random.RandomState(tx_type)
     resid = rng.randint(-255, 256, (4, bs, bs)).astype(np.int32)
     v = _rshift(resid.astype(np.int64), p["fwd_s0"])
-    v = _net(v, tab[0 + ck], nst[0 + ck], p["fwd_cos_col"], 0, True)
+    col, row = (("net_fwd_dct32",) * 2 if bs == 32 else
+                (f"net_fwd_col_{ck}{bs}", f"net_fwd_row_{rk}{bs}"))
+    v = _net(nets_lib, col, v, True)
     v = _rshift(v, p["fwd_s1"])
-    v = _net(v, tab[2 + rk], nst[2 + rk], p["fwd_cos_row"], 0, False)
+    v = _net(nets_lib, row, v, False)
     v = _rshift(v, p["fwd_s2"])
     want = transforms.fwd_txfm2d(torch.from_numpy(resid), tx_size, tx_type)
     np.testing.assert_array_equal(v, want.numpy())
 
+    lo, hi = p["inv_lo"], p["inv_hi"]
     coef = (v // 7).clip(-(1 << 15), (1 << 15) - 1)
-    u = _net(coef, tab[4 + rk], nst[4 + rk], p["inv_cos"],
-             p["inv_clamp_row"], False)
+    u = _net(nets_lib, f"net_inv_{rk}{bs}", coef, False, lo, hi)
     u = np.clip(_rshift(u, p["inv_s0"]), -(1 << 15), (1 << 15) - 1)
-    u = _net(u, tab[4 + ck], nst[4 + ck], p["inv_cos"], p["inv_clamp_col"],
-             True)
+    u = _net(nets_lib, f"net_inv_{ck}{bs}", u, True, lo, hi)
     u = _rshift(u, p["inv_s1"])
     want = transforms.inv_txfm2d(torch.from_numpy(coef.astype(np.int32)),
                                  tx_size, tx_type)
     np.testing.assert_array_equal(u, want.numpy())
+
+
+def test_checked_in_header_matches_generator():
+    assert gen.HEADER.read_text() == gen.emit(), \
+        "run python -m svtav1_tpu_torch.cuda.gen_txfm_nets"
+
+
+# (bs, h, w, valid_h): the three test configs and the 1080p planes
+SCHED_CASES = {
+    "luma": (32, 128, 192, 128), "valid_h": (32, 128, 128, 100),
+    "chroma": (16, 64, 96, 64), "luma_1080p": (32, 1088, 1920, 1080),
+    "chroma_1080p": (16, 544, 960, 540),
+}
+
+
+@pytest.mark.parametrize("label", list(SCHED_CASES))
+def test_schedule_is_topological(label):
+    """The ticket list is a permutation of the plane's blocks and every
+    block's dependencies come before it."""
+    bs, h, w, vh = SCHED_CASES[label]
+    bh, bw = h // bs, w // bs
+    sched = wk.schedule(bs, h, w, vh)
+    ids = sched[:, 0] * bw + sched[:, 1]
+    assert sorted(ids.tolist()) == list(range(bh * bw))
+    pos = np.empty(bh * bw, int)
+    pos[ids] = np.arange(len(ids))
+    for k, row in enumerate(sched):
+        deps = row[4:][row[4:] >= 0]
+        assert (pos[deps] < k).all(), (label, row)
+
+
+@pytest.mark.parametrize("label", list(SCHED_CASES))
+def test_deps_cover_plain_edge_reads(label):
+    """Every boundary pixel the plain body's edge assembly reads for a
+    block was written by one of the block's dependencies, and every
+    dependency is read: the buffers hold a code of each cell's position
+    and the edges are decoded back to the blocks that wrote them."""
+    bs, h, w, vh = SCHED_CASES[label]
+    bh, bw = h // bs, w // bs
+    sched = wk.schedule(bs, h, w, vh)
+    ROW, COL = 1 << 20, 1 << 21
+    rr, xx = np.mgrid[0:bh, 0:w]
+    yy, cc = np.mgrid[0:h, 0:bw]
+    rowbuf = torch.from_numpy((ROW + rr * w + xx)[None].astype(np.int32))
+    colbuf = torch.from_numpy((COL + yy * bw + cc)[None].astype(np.int32))
+    t = lambda a: torch.from_numpy(a.astype(np.int64))
+    edges = twf._edges(rowbuf, colbuf, t(sched[:, 0]), t(sched[:, 1]),
+                       t(sched[:, 2]).bool(), t(sched[:, 3]).bool(), bs, vh,
+                       128)
+    vals = np.concatenate([e[0].reshape(len(sched), -1).numpy()
+                           for e in edges], axis=1)
+    for row, v in zip(sched, vals):
+        r_code = v[(v >= ROW) & (v < COL)] - ROW
+        c_code = v[v >= COL] - COL
+        writers = set(((r_code // w) * bw + (r_code % w) // bs).tolist())
+        writers |= set(((c_code // bw) // bs * bw + c_code % bw).tolist())
+        deps = set(row[4:][row[4:] >= 0].tolist())
+        assert writers == deps, (label, row[:4], writers, deps)
+
+
+def test_reciprocal_divides_exactly():
+    """The kernel's deadzone division by a multiply and a shift."""
+    rng = np.random.RandomState(0)
+    for d in list(range(1, 2100)) + [4096, 21387, 65535]:
+        m, s = wk.reciprocal(d)
+        for n in [0, 1, d - 1, d, d + 1, (1 << 31) - 1] + \
+                rng.randint(0, 1 << 31, 8).tolist():
+            assert (n * m) >> s == n // d, (n, d)
+            assert n * m < 1 << 64
 
 
 def test_kernel_wrapper_rejects_cpu_tensors():
