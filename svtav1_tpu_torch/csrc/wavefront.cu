@@ -57,7 +57,7 @@
 //     conflict-free) and then owns one row.  The per-pixel phases
 //     (prediction, quantizer, reconstruction) are loops, and each network
 //     is inlined once for both passes: fully unrolled, the code did not
-//     fit the instruction cache (10.5k SASS instructions, a warp at ~5
+//     fit the instruction cache (10.3k SASS instructions, a warp at ~5
 //     cycles per instruction).  The deadzone division is a multiply by a
 //     host-computed reciprocal (exact for every dividend below 2^31).  DC
 //     sums its edges once per block with a shuffle tree.  The predictor
@@ -68,9 +68,9 @@
 //     not be bit-exact); TMA (a block's source is 1 KB; it is loaded
 //     before the flag wait instead, with plain loads, and a cp.async
 //     prefetch of the next ticket's source was not tried).
-//   * Resources (wf_info, printed by chip_smoke.py): 128 registers a
-//     thread, no spills; luma 4 warps and 47.9 KB of shared memory a CTA,
-//     4 CTAs an SM; chroma 4 warps and 14.9 KB.
+//   * Resources (wf_info and -Xptxas -v, printed by chip_smoke.py): 124
+//     to 128 registers a thread, no spills; 4 warps a CTA, 4 CTAs an SM;
+//     47.9 KB of shared memory a CTA for luma, 20.7 KB for chroma.
 //
 // Predictors are integer arithmetic: DC, SMOOTH* and PAETH directly, V, H
 // and the six directional modes through per-(candidate, pixel) tables of
@@ -283,7 +283,8 @@ wf_plane_kernel(const WfParams p) {
     cl.sync();
     const int t = *cl.map_shared_rank(sMisc, 0);
     if (t >= ntick) break;
-    unsigned long long* tr = p.trace ? p.trace + (size_t)t * TRACE_COLS : nullptr;
+    unsigned long long* tr =
+        p.trace ? p.trace + (size_t)t * TRACE_COLS : nullptr;
     const bool lead = tid == 0 && rank == 0;
     if (tr && lead) tr[0] = gtime();
     const int k = t / p.NU, u = t % p.NU;
@@ -352,44 +353,52 @@ wf_plane_kernel(const WfParams p) {
                          : ha ? (sa + BS / 2) / BS
                               : hl ? (sl + BS / 2) / BS : 128;
       }
-      const int* dm = sDir + warp * N;
-      const int wj = sSmw[j];
-      auto pred_at = [&](int i) -> int {
-        if (mode == 0) return dcv;
-        if (mode <= 8) {                               // V, H, directional
-          const int m = dm[i * BS + j];
-          const int i0 = m & 0xFF, i1 = (m >> 8) & 0xFF;
-          const int sh = (m >> 16) & 0x3F;
-          return clampi((E[i0] * (32 - sh) + E[i1] * sh + 16) >> 5, 0, 255);
-        }
-        if (mode == 12) {                              // PAETH
-          const int top = E[A + j], left = E[L + i], tl = E[0];
-          const int pb = top + left - tl;
-          const int p_t = abs(pb - top), p_l = abs(pb - left);
-          const int p_tl = abs(pb - tl);
-          return (p_l <= p_t && p_l <= p_tl) ? left
-                                             : (p_t <= p_tl ? top : tl);
-        }
-        const int wi = sSmw[i];                        // SMOOTH, _V, _H
-        const int below = E[L + BS - 1], right = E[A + BS - 1];
-        if (mode == 9)
-          return (wi * E[A + j] + (256 - wi) * below + wj * E[L + i] +
-                  (256 - wj) * right + 256) >> 9;
-        if (mode == 10) return (wi * E[A + j] + (256 - wi) * below + 128) >> 8;
-        return (wj * E[L + i] + (256 - wj) * right + 128) >> 8;
-      };
-
       // Column j of the prediction (kept in Rw until the reconstruction)
-      // and of the residual (in Tw).  The per-pixel loops stay loops:
+      // and of the residual (in Tw), one loop per predictor family so
+      // each is a straight loop.  The per-pixel loops stay loops:
       // unrolled 32 times, the predictors, quantizer and reconstruction
       // would be code the instruction cache cannot hold.
       int* Tw = sT + warp * t_ints<BS>() + hf * BS * TP;
       uint8_t* Rw = sRec + warp * rec_bytes<BS>() + hf * N;
-#pragma unroll 8
-      for (int i = 0; i < BS; ++i) {
-        const int pr = pred_at(i);
+      auto put = [&](int i, int pr) {
         Rw[i * BS + j] = (uint8_t)pr;
         Tw[i * TP + j] = rshift_signed((int)S[i * BS + j] - pr, p.fwd_s0);
+      };
+      if (mode == 0) {                                 // DC
+#pragma unroll 8
+        for (int i = 0; i < BS; ++i) put(i, dcv);
+      } else if (mode <= 8) {                          // V, H, directional
+        const int* dm = sDir + warp * N + j;
+#pragma unroll 8
+        for (int i = 0; i < BS; ++i) {
+          const int m = dm[i * BS];
+          const int i0 = m & 0xFF, i1 = (m >> 8) & 0xFF;
+          const int sh = (m >> 16) & 0x3F;
+          put(i, clampi((E[i0] * (32 - sh) + E[i1] * sh + 16) >> 5, 0, 255));
+        }
+      } else if (mode == 12) {                         // PAETH
+        const int top = E[A + j], tl = E[0];
+#pragma unroll 8
+        for (int i = 0; i < BS; ++i) {
+          const int left = E[L + i];
+          const int pb = top + left - tl;
+          const int p_t = abs(pb - top), p_l = abs(pb - left);
+          const int p_tl = abs(pb - tl);
+          put(i, (p_l <= p_t && p_l <= p_tl) ? left
+                                             : (p_t <= p_tl ? top : tl));
+        }
+      } else {                                         // SMOOTH, _V, _H
+        const int wj = sSmw[j], top = E[A + j];
+        const int below = E[L + BS - 1], right = E[A + BS - 1];
+#pragma unroll 8
+        for (int i = 0; i < BS; ++i) {
+          const int wi = sSmw[i], left = E[L + i];
+          const int v = (wi * top + (256 - wi) * below + 128) >> 8;
+          const int hz = (wj * left + (256 - wj) * right + 128) >> 8;
+          put(i, mode == 9 ? (wi * top + (256 - wi) * below + wj * left +
+                              (256 - wj) * right + 256) >> 9
+                           : mode == 10 ? v : hz);
+        }
       }
 
       if (ws) ws[1] = gtime();
