@@ -298,12 +298,13 @@ def launch(src, rd, bs: int, tx_size: int, modes, bd: int = 8,
            angle_deltas=(0,), valid_h: int = None, paired: bool = False,
            uv_tx: bool = False, trace: bool = False,
            cluster: int = CLUSTER):
-    """wavefront_cuda, plus the kernel's per-ticket timestamps when trace
-    is set: (mode_idx, levels, recon, trace) with trace [NU * nblk, 16]
-    int64 %globaltimer ns in ticket order, or None: columns 0-3 ticket
-    taken, neighbours ready, costs chosen, flag published; 4-10 one
-    warp's phases (start, prediction, forward transform, quantizer,
-    inverse transform, reconstruction, cost)."""
+    """wavefront_cuda in clusters of `cluster` CTAs (1, 2 or 4), plus the
+    kernel's per-ticket timestamps when trace is set.  Returns (mode_idx,
+    levels, recon, trace): trace is [NU * nblk, 16] int64 %globaltimer ns
+    in ticket order, or None; columns 0-3 ticket taken, neighbours ready,
+    costs chosen, flag published; 4-10 one warp's phases (start,
+    prediction, forward transform, quantizer, inverse transform,
+    reconstruction, cost)."""
     global LAUNCHES
     if src.device.type != "cuda":
         raise ValueError(f"wavefront_cuda needs a CUDA tensor, got "

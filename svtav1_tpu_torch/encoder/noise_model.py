@@ -1,8 +1,9 @@
 """Film grain estimation from source frames.
 
-Copy of ``svtav1_tpu/encoder/noise_model.py``.  Maps the reference's noise-model flow (noise_model.c:392-505: flat-block
-selection, AR coefficient least-squares fit, strength-LUT fit) onto a
-compact numpy pipeline:
+Copy of ``svtav1_tpu/encoder/noise_model.py``.  Maps the reference's
+noise-model flow (noise_model.c:392-505: flat-block selection, AR
+coefficient least-squares fit, strength-LUT fit) onto a compact numpy
+pipeline:
 
 1. high-pass residual = source - 5x5 box mean;
 2. flat 16x16 blocks chosen by low smoothed-gradient energy (the
