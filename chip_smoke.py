@@ -21,13 +21,14 @@ its last line):
      30 dB, and byte-identical payloads against the plain version on the
      card when every mode agrees; prints e2e and device-only fps;
   4. a torch.profiler window over one device_encode batch: device time by
-     kernel, device busy share of the window.
+     kernel and the device's busy share of the window, both from the
+     events that ran on the card (kernels, copies, memsets), the busy time
+     as the union of their intervals.
 Then one JSON line of kernel results and, last, one JSON line naming the
 device.  Imports nothing of JAX or of the JAX package.
 """
 
 import json
-import subprocess
 import sys
 import time
 
@@ -36,6 +37,8 @@ import torch
 
 from svtav1_tpu_torch.cuda import build
 from svtav1_tpu_torch.cuda import wavefront_kernel as wk
+from svtav1_tpu_torch.cuda.inputs import (SHAPES_1080P, card, plane_src,
+                                          synth_frames)
 from svtav1_tpu_torch.ec import native
 from svtav1_tpu_torch.encoder import intra_encoder as ie
 from svtav1_tpu_torch.encoder.wavefront import (
@@ -46,41 +49,6 @@ from svtav1_tpu_torch.utils.obu import OBU_FRAME, parse_obus
 DEV = torch.device("cuda")
 W, H = 1920, 1080
 BATCH = 4
-
-
-def card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip().splitlines()[0]
-
-
-def synth_frames(width, height, n, seed=0):
-    """The JAX benchmark's synthetic 1080p clip (bench.py), frame for
-    frame: a moving sine/cosine pattern plus uniform noise."""
-    rng = np.random.RandomState(seed)
-    yy, xx = np.mgrid[0:height, 0:width]
-    frames = []
-    for t in range(n):
-        y = np.clip(110 + 70 * np.sin((xx + 5 * t) / 19.0) +
-                    50 * np.cos((yy + 3 * t) / 13.0) +
-                    rng.randint(-4, 5, (height, width)), 0,
-                    255).astype(np.uint8)
-        u = np.clip(120 + 40 * np.sin((xx[::2, ::2] + 2 * t) / 23.0), 0,
-                    255).astype(np.uint8)
-        v = np.clip(135 + 35 * np.cos((yy[::2, ::2] + t) / 27.0), 0,
-                    255).astype(np.uint8)
-        frames.append((y, u, v))
-    return frames
-
-
-def plane_src(seed, B, h, w):
-    rng = np.random.RandomState(seed)
-    yy, xx = np.mgrid[0:h, 0:w]
-    out = [np.clip(120 + 60 * np.sin((xx + 7 * b) / 17.0) +
-                   40 * np.cos((yy + 3 * b) / 11.0) +
-                   rng.randint(-6, 7, (h, w)), 0, 255) for b in range(B)]
-    return np.stack(out).astype(np.uint8)
 
 
 def agree(ref, got, label):
@@ -138,14 +106,9 @@ def phase_compare():
         ("luma 1x128x128 q120 valid_h=100", 1, 1, 128, 128, 32, 120, False,
          100, 0),
         ("chroma paired 4x64x96 q100", 2, 4, 64, 96, 16, 100, True, None, 0),
-        ("luma 1x1088x1920 q100", 3, 1, 1088, 1920, 32, 100, False, 1080, 1),
-        ("chroma paired 2x544x960 q100", 4, 2, 544, 960, 16, 100, True, 540,
-         1),
-        ("luma 4x1088x1920 q100 (main path)", 5, 4, 1088, 1920, 32, 100,
-         False, 1080, 2),
-        ("chroma paired 8x544x960 q100 (main path)", 6, 8, 544, 960, 16, 100,
-         True, 540, 2),
-    ]
+    ] + [(label + " q100" + (" (main path)" if main else ""), seed, B, h, w,
+          bs, 100, chroma, vh, 2 if main else 1)
+         for label, seed, B, h, w, bs, chroma, vh, main in SHAPES_1080P]
     max_err, ms, plain_ms, bound, basis = 0, 0.0, 0.0, 0.0, set()
     for label, seed, B, h, w, bs, q, chroma, vh, timed in cases:
         src = torch.from_numpy(plane_src(seed, B, h, w)).to(DEV)
@@ -284,6 +247,25 @@ def phase_main_path():
     return launches, enc, frames[:BATCH]
 
 
+def device_events(prof):
+    """(start us, end us, name) of every event the profiler recorded on
+    the card: kernels, copies and memsets, not the host ops that queued
+    them."""
+    from torch.autograd import DeviceType
+    return [(e.time_range.start, e.time_range.end, e.name)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def busy_us(spans):
+    """Length of the union of [start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(spans):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
 def phase_profile(enc, batch):
     """One device_encode batch under torch.profiler: host enqueue time,
     device time by kernel and the device's busy share of the window."""
@@ -296,22 +278,24 @@ def phase_profile(enc, batch):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
     wk.raise_on_error(DEV)
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            rows.append((dev_us, e.key, e.count))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
+    events = device_events(prof)
+    if not events:
+        raise AssertionError("the profiler recorded no event on the card")
+    by_name = {}
+    for s, e, name in events:
+        tot, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (tot + e - s, n + 1)
+    busy_ms = busy_us([(s, e) for s, e, _ in events]) / 1e3
     window_ms = 1e3 * (t2 - t0)
     print(f"profile: device_encode batch {len(batch)}: host enqueue "
           f"{1e3 * (t1 - t0):.3f} ms, window to synchronize {window_ms:.3f}"
           f" ms, device busy {busy_ms:.3f} ms ({100 * busy_ms / window_ms:.1f}"
-          f"% of the window) [{CARD}]", flush=True)
-    for dev_us, key, count in rows[:10]:
-        print(f"profile:   {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}",
+          f"% of the window; union of {len(events)} device events) "
+          f"[{CARD}]", flush=True)
+    rows = sorted(((t, n, name) for name, (t, n) in by_name.items()),
+                  reverse=True)
+    for t, n, name in rows[:10]:
+        print(f"profile:   {t / 1e3:9.3f} ms  x{n:<5d} {name[:90]}",
               flush=True)
 
 

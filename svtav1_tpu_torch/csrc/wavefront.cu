@@ -40,10 +40,11 @@
 //     a stale L1 line).  A wait longer than SPIN_CAP polls sets the sticky
 //     error word; the launch then runs to its end without waiting and the
 //     host raises.
-//   * All candidates of a block in one thread block cluster of K CTAs
-//     (K = 4 on the main path), select fused: warp w of CTA rank runs
-//     candidate w * K + rank, so a block's 13 candidate chains run on four
-//     SMs at once; for 16x16 chroma lanes 0-15 hold the U block and lanes
+//   * All candidates of a block in one thread block cluster of
+//     CLUSTER = 4 CTAs, select fused: warp w of CTA rank runs candidate
+//     w * 4 + rank, so a block's 13 candidate chains run on four SMs at
+//     once (4 measured faster than clusters of 1 or 2 at every 1080p
+//     shape, PERF.md); for 16x16 chroma lanes 0-15 hold the U block and lanes
 //     16-31 the V block of a pair, so the paired cost is one shuffle.
 //     Costs meet through distributed shared memory after one cluster
 //     barrier; every CTA takes the first minimum in candidate order, and
@@ -90,6 +91,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int MAXC = 16;      // candidates (one warp each)
+constexpr int CLUSTER = 4;    // CTAs sharing one block's candidates
+constexpr int MAXW = MAXC / CLUSTER;   // warps a CTA at most
 constexpr int MAXDEP = 8;     // neighbours one block waits on
 constexpr int BLKCOLS = 4 + MAXDEP;
 constexpr int SPIN_CAP = 1 << 22;
@@ -236,7 +239,7 @@ __device__ __forceinline__ void inv_net(int* v, int kind, int lo, int hi) {
   else net_inv_dct16(v, lo, hi);
 }
 
-template <int BS, int MAXW>
+template <int BS>
 __global__ void __launch_bounds__(32 * MAXW, 1)
 wf_plane_kernel(const WfParams p) {
   constexpr int H = halves<BS>(), NE = n_edge<BS>(), N = BS * BS;
@@ -254,10 +257,11 @@ wf_plane_kernel(const WfParams p) {
   int* sDir = sMisc + 2;                 // [wpc][N] this CTA's pred maps
   int* sSmw = sDir + wpc * N;            // [BS] smooth weights
 
-  // the cluster's K CTAs share each ticket: CTA `rank` runs candidates
-  // rank, rank + K, ...; rank 0 takes the tickets
+  // the cluster's CTAs share each ticket: CTA `rank` runs candidates
+  // rank, rank + CLUSTER, ...; rank 0 takes the tickets
+  constexpr int K = CLUSTER;
   cg::cluster_group cl = cg::this_cluster();
-  const int rank = (int)cl.block_rank(), K = (int)cl.num_blocks();
+  const int rank = (int)cl.block_rank();
   const int warp = tid >> 5, lane = tid & 31;
   const int hf = lane / BS, j = lane % BS;   // this lane's block and column
   const int ntick = p.NU * p.nblk;
@@ -543,34 +547,31 @@ wf_plane_kernel(const WfParams p) {
   cl.sync();   // no CTA leaves while another may read its shared memory
 }
 
-// Launch geometry for C candidates in clusters of K CTAs: warps per CTA,
-// shared bytes per CTA, CTAs per SM and the clusters that fit on the card
-// at once.
-template <int BS, int MAXW>
-int configure(int C, int K, int* wpc, size_t* smem, int* per_sm,
-              int* clusters) {
-  *wpc = (C + K - 1) / K;
+// Launch geometry for C candidates: warps per CTA, shared bytes per CTA,
+// CTAs per SM and the clusters that fit on the card at once.
+template <int BS>
+int configure(int C, int* wpc, size_t* smem, int* per_sm, int* clusters) {
+  *wpc = (C + CLUSTER - 1) / CLUSTER;
   *smem = smem_bytes<BS>(*wpc);
   cudaError_t e = cudaFuncSetAttribute(
-      wf_plane_kernel<BS, MAXW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wf_plane_kernel<BS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)*smem);
   if (e != cudaSuccess) return (int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, wf_plane_kernel<BS, MAXW>, 32 * *wpc, *smem);
+      per_sm, wf_plane_kernel<BS>, 32 * *wpc, *smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = K;
+  attr[0].val.clusterDim.x = CLUSTER;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(K);
+  cfg.gridDim = dim3(CLUSTER);
   cfg.blockDim = dim3(32 * *wpc);
   cfg.dynamicSmemBytes = *smem;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaOccupancyMaxActiveClusters(clusters, wf_plane_kernel<BS, MAXW>,
-                                     &cfg);
+  e = cudaOccupancyMaxActiveClusters(clusters, wf_plane_kernel<BS>, &cfg);
   if (e != cudaSuccess) return (int)e;
   return *clusters > 0 ? 0 : (int)cudaErrorInvalidConfiguration;
 }
@@ -582,37 +583,37 @@ int sm_count() {
   return n;
 }
 
-template <int BS, int MAXW>
-int launch(const WfParams* p, int K, cudaStream_t st) {
+template <int BS>
+int launch(const WfParams* p, cudaStream_t st) {
   int wpc, per_sm, clusters;
   size_t smem;
-  int e = configure<BS, MAXW>(p->C, K, &wpc, &smem, &per_sm, &clusters);
+  int e = configure<BS>(p->C, &wpc, &smem, &per_sm, &clusters);
   if (e) return e;
   const int ntick = p->NU * p->nblk;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = K;
+  attr[0].val.clusterDim.x = CLUSTER;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(K * std::min(ntick, clusters));
+  cfg.gridDim = dim3(CLUSTER * std::min(ntick, clusters));
   cfg.blockDim = dim3(32 * wpc);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = (int)cudaLaunchKernelEx(&cfg, wf_plane_kernel<BS, MAXW>, *p);
+  e = (int)cudaLaunchKernelEx(&cfg, wf_plane_kernel<BS>, *p);
   return e ? e : (int)cudaGetLastError();
 }
 
-template <int BS, int MAXW>
-int info(int C, int K, int* out) {
+template <int BS>
+int info(int C, int* out) {
   cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, wf_plane_kernel<BS, MAXW>);
+  cudaError_t e = cudaFuncGetAttributes(&a, wf_plane_kernel<BS>);
   if (e != cudaSuccess) return (int)e;
   int wpc, per_sm, clusters;
   size_t smem;
-  const int r = configure<BS, MAXW>(C, K, &wpc, &smem, &per_sm, &clusters);
+  const int r = configure<BS>(C, &wpc, &smem, &per_sm, &clusters);
   if (r) return r;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
@@ -624,41 +625,28 @@ int info(int C, int K, int* out) {
   return 0;
 }
 
-// CTAs of up to 4 warps get a kernel built for 128 threads, which may
-// use up to 255 registers a thread; larger ones the 512-thread build.
-bool small_cta(int C, int K) { return (C + K - 1) / K <= 4; }
-
 }  // namespace
 
 extern "C" {
 
 int wf_params_size() { return (int)sizeof(WfParams); }
 
-// One plane call: the persistent kernel on the caller's stream, in
-// clusters of K CTAs (1, 2 or 4).
-int wf_plane(const WfParams* p, int bs, int K, void* stream) {
-  if (p->C < 1 || p->C > MAXC || (K != 1 && K != 2 && K != 4))
-    return (int)cudaErrorInvalidValue;
+// One plane call: the persistent kernel on the caller's stream.
+int wf_plane(const WfParams* p, int bs, void* stream) {
+  if (p->C < 1 || p->C > MAXC) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const bool sm = small_cta(p->C, K);
-  if (bs == 32)
-    return sm ? launch<32, 4>(p, K, st) : launch<32, MAXC>(p, K, st);
-  if (bs == 16)
-    return sm ? launch<16, 4>(p, K, st) : launch<16, MAXC>(p, K, st);
+  if (bs == 32) return launch<32>(p, st);
+  if (bs == 16) return launch<16>(p, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // Registers per thread, local (spill) bytes per thread, CTAs per SM,
 // shared bytes per CTA, the SM count, clusters resident at once and warps
-// per CTA, for C candidates in clusters of K.
-int wf_info(int bs, int C, int K, int* out) {
-  if (C < 1 || C > MAXC || (K != 1 && K != 2 && K != 4))
-    return (int)cudaErrorInvalidValue;
-  const bool sm = small_cta(C, K);
-  if (bs == 32)
-    return sm ? info<32, 4>(C, K, out) : info<32, MAXC>(C, K, out);
-  if (bs == 16)
-    return sm ? info<16, 4>(C, K, out) : info<16, MAXC>(C, K, out);
+// per CTA, for C candidates.
+int wf_info(int bs, int C, int* out) {
+  if (C < 1 || C > MAXC) return (int)cudaErrorInvalidValue;
+  if (bs == 32) return info<32>(C, out);
+  if (bs == 16) return info<16>(C, out);
   return (int)cudaErrorInvalidValue;
 }
 

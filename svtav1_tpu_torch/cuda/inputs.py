@@ -1,0 +1,60 @@
+"""Inputs and the card query shared by the scripts that run the port on a
+CUDA card (``chip_smoke.py``, ``cuda/probe_wavefront.py``,
+``cuda/compare_trees.py``).
+
+numpy and the standard library only, so a script can load it beside a
+checkout of another version of the port.
+"""
+
+from __future__ import annotations
+
+import subprocess
+
+import numpy as np
+
+# the wavefront's 1080p shapes: one frame and the main path's batch of 4
+# (luma 32x32 blocks, valid_h 1080; paired chroma 16x16, valid_h 540):
+# label, seed, B, h, w, bs, chroma, valid_h, on the main path
+SHAPES_1080P = [
+    ("luma 1x1088x1920", 3, 1, 1088, 1920, 32, False, 1080, False),
+    ("chroma paired 2x544x960", 4, 2, 544, 960, 16, True, 540, False),
+    ("luma 4x1088x1920", 5, 4, 1088, 1920, 32, False, 1080, True),
+    ("chroma paired 8x544x960", 6, 8, 544, 960, 16, True, 540, True),
+]
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+
+
+def plane_src(seed, B, h, w):
+    """[B, h, w] uint8 planes: a sine/cosine pattern plus uniform noise."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    out = [np.clip(120 + 60 * np.sin((xx + 7 * b) / 17.0) +
+                   40 * np.cos((yy + 3 * b) / 11.0) +
+                   rng.randint(-6, 7, (h, w)), 0, 255) for b in range(B)]
+    return np.stack(out).astype(np.uint8)
+
+
+def synth_frames(width, height, n, seed=0):
+    """The JAX benchmark's synthetic 1080p clip (bench.py), frame for
+    frame: a moving sine/cosine pattern plus uniform noise."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:height, 0:width]
+    frames = []
+    for t in range(n):
+        y = np.clip(110 + 70 * np.sin((xx + 5 * t) / 19.0) +
+                    50 * np.cos((yy + 3 * t) / 13.0) +
+                    rng.randint(-4, 5, (height, width)), 0,
+                    255).astype(np.uint8)
+        u = np.clip(120 + 40 * np.sin((xx[::2, ::2] + 2 * t) / 23.0), 0,
+                    255).astype(np.uint8)
+        v = np.clip(135 + 35 * np.cos((yy[::2, ::2] + t) / 27.0), 0,
+                    255).astype(np.uint8)
+        frames.append((y, u, v))
+    return frames

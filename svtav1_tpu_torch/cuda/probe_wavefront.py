@@ -1,24 +1,23 @@
 """Where the wavefront kernel's time goes, on one CUDA card.
 
-    python3 -m svtav1_tpu_torch.cuda.probe_wavefront [--clusters 4,2,1]
+    python3 -m svtav1_tpu_torch.cuda.probe_wavefront
 
 Prints the card (nvidia-smi name and power limit), the SASS instruction
 count of each kernel instantiation, and for each 1080p shape of the main
 path (luma 1x and 4x 1088x1920, paired chroma 2x and 8x 544x960, q100):
-  * the kernel time for each cluster size (CTAs sharing one block's
-    candidates), CUDA events over rounds of 10 calls in turn, with
-    outputs required to be identical to the first size's;
-  * from the kernel's per-ticket %globaltimer stamps: the span, the mean
-    time a CTA waits for its neighbours, computes (edges to chosen costs)
-    and writes out (to the published flag), the flag latency (a block's
-    ready time minus its last neighbour's publish time), and the chain
-    that set the span: walking back from the last block published to the
-    neighbour it waited for last, its length in blocks and mean link.
+  * the kernel time without and with its per-ticket timestamps (CUDA
+    events over rounds of 10 calls in turn), so the second is what the
+    stamps cost; a traced call must give the untraced call's outputs;
+  * from the stamps: the span, the mean time a CTA waits for its
+    neighbours, computes (edges to chosen costs) and writes out (to the
+    published flag), the flag latency (a block's ready time minus its
+    last neighbour's publish time), and the chain that set the span:
+    walking back from the last block published to the neighbour it
+    waited for last, its length in blocks and mean link.
 """
 
 from __future__ import annotations
 
-import argparse
 import re
 import subprocess
 from pathlib import Path
@@ -31,20 +30,7 @@ from ..encoder.wavefront import expand_candidates, rd_params
 from ..spec.txfm import TX_16X16, TX_32X32
 from . import build
 from . import wavefront_kernel as wk
-
-SHAPES = [  # label, B, h, w, bs, chroma, valid_h
-    ("luma 1x1088x1920", 1, 1088, 1920, 32, False, 1080),
-    ("luma 4x1088x1920", 4, 1088, 1920, 32, False, 1080),
-    ("chroma 2x544x960", 2, 544, 960, 16, True, 540),
-    ("chroma 8x544x960", 8, 544, 960, 16, True, 540),
-]
-
-
-def card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip().splitlines()[0]
+from .inputs import SHAPES_1080P, card, plane_src
 
 
 def sass_counts(so: Path) -> dict:
@@ -62,15 +48,6 @@ def sass_counts(so: Path) -> dict:
         elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
             counts[name] += 1
     return counts
-
-
-def plane(seed, B, h, w):
-    rng = np.random.RandomState(seed)
-    yy, xx = np.mgrid[0:h, 0:w]
-    out = [np.clip(120 + 60 * np.sin((xx + 7 * b) / 17.0) +
-                   40 * np.cos((yy + 3 * b) / 11.0) +
-                   rng.randint(-6, 7, (h, w)), 0, 255) for b in range(B)]
-    return np.stack(out).astype(np.uint8)
 
 
 def chain_stats(trace: np.ndarray, sched: np.ndarray, NU: int, bw: int):
@@ -108,13 +85,7 @@ def chain_stats(trace: np.ndarray, sched: np.ndarray, NU: int, bw: int):
                 us_per_link=span / 1e3 / (chain + 1), **phases)
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--clusters", default="4,2,1",
-                    help="cluster sizes to compare (the first is the "
-                         "reference for identical outputs)")
-    args = ap.parse_args(argv)
-    opts = [int(k) for k in args.clusters.split(",")]
+def main():
     name = card()
     print(name, flush=True)
     so, _ = build.build()
@@ -122,49 +93,39 @@ def main(argv=None):
         print(f"sass: {n} instructions in {fn}", flush=True)
     cands = expand_candidates(CAND_MODES)
     for bs in (32, 16):
-        for k in opts:
-            info = wk.kernel_info(bs, len(cands), k)
-            print(f"bs {bs} cluster {k}: {info}", flush=True)
-    for seed, (label, B, h, w, bs, chroma, vh) in enumerate(SHAPES):
-        src = torch.from_numpy(plane(seed, B, h, w)).cuda()
+        print(f"bs {bs}: {wk.kernel_info(bs, len(cands))}", flush=True)
+    for label, seed, B, h, w, bs, chroma, vh, _ in SHAPES_1080P:
+        src = torch.from_numpy(plane_src(seed, B, h, w)).cuda()
         rd = rd_params(100, 8, cands, kf="uv" if chroma else True)
-        args_ = (src, rd, bs, TX_16X16 if chroma else TX_32X32, CAND_MODES,
-                 8, (0,), vh, chroma, chroma)
-
-        def run(k, trace=False):
-            return wk.launch(*args_, trace=trace, cluster=k)
-
-        ref = run(opts[0])[:3]
-        for o in opts:
-            got = run(o)[:3]
-            torch.cuda.synchronize()
-            wk.raise_on_error("cuda")
-            if not all(torch.equal(a, b) for a, b in zip(ref, got)):
-                raise AssertionError(f"{label}: cluster {o} changes the "
-                                     "output")
-        times = {o: [] for o in opts}
+        args = (src, rd, bs, TX_16X16 if chroma else TX_32X32, CAND_MODES,
+                8, (0,), vh, chroma, chroma)
+        ref = wk.launch(*args)[:3]
+        got = wk.launch(*args, trace=True)[:3]
+        torch.cuda.synchronize()
+        wk.raise_on_error("cuda")
+        if not all(torch.equal(a, b) for a, b in zip(ref, got)):
+            raise AssertionError(f"{label}: the trace changes the output")
+        times = {False: [], True: []}
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         for rnd in range(4):
-            for o in (opts if rnd % 2 == 0 else opts[::-1]):
+            for trace in ((False, True) if rnd % 2 == 0 else (True, False)):
                 ev[0].record()
                 for _ in range(10):
-                    run(o)
+                    wk.launch(*args, trace=trace)
                 ev[1].record()
                 torch.cuda.synchronize()
-                times[o].append(ev[0].elapsed_time(ev[1]) / 10)
+                times[trace].append(ev[0].elapsed_time(ev[1]) / 10)
         wk.raise_on_error("cuda")
-        line = ", ".join(f"cluster {o}: {np.mean(v):.3f} ms" for o, v in
-                         times.items())
-        print(f"{label}: {line} [{name}]", flush=True)
-        sched = wk.schedule(bs, h, w, vh)
-        NU = B // 2 if chroma else B
-        for o in opts:
-            tr = run(o, trace=True)[3]
-            torch.cuda.synchronize()
-            st = chain_stats(tr.cpu().numpy(), sched, NU, w // bs)
-            print(f"{label} cluster {o} trace: " + ", ".join(
-                f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"
-                for k, v in st.items()) + f" [{name}]", flush=True)
+        plain_ms, traced_ms = np.mean(times[False]), np.mean(times[True])
+        print(f"{label}: kernel {plain_ms:.3f} ms, traced {traced_ms:.3f} ms "
+              f"[{name}]", flush=True)
+        tr = wk.launch(*args, trace=True)[3]
+        torch.cuda.synchronize()
+        st = chain_stats(tr.cpu().numpy(), wk.schedule(bs, h, w, vh),
+                         B // 2 if chroma else B, w // bs)
+        print(f"{label} trace: " + ", ".join(
+            f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in st.items()) + f" [{name}]", flush=True)
 
 
 if __name__ == "__main__":

@@ -72,25 +72,19 @@ def _lib():
                            "wavefront.cu and _Params")
     lib.wf_plane.restype = ctypes.c_int
     lib.wf_plane.argtypes = [ctypes.POINTER(_Params), ctypes.c_int,
-                             ctypes.c_int, ctypes.c_void_p]
+                             ctypes.c_void_p]
     lib.wf_info.restype = ctypes.c_int
-    lib.wf_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    lib.wf_info.argtypes = [ctypes.c_int, ctypes.c_int,
                             ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
-# CTAs that share one block's candidates (a thread block cluster): 4
-# measured fastest of 1, 2 and 4 at every 1080p shape of the main path
-# (probe_wavefront.py)
-CLUSTER = 4
-
-
-def kernel_info(bs: int, C: int, cluster: int = CLUSTER) -> dict:
+def kernel_info(bs: int, C: int) -> dict:
     """Registers and local (spill) bytes per thread, CTAs per SM, dynamic
     shared bytes per CTA, the SM count, clusters resident at once and
     warps per CTA of the kernel for bs, C."""
     out = (ctypes.c_int * 7)()
-    err = _lib().wf_info(bs, C, cluster, out)
+    err = _lib().wf_info(bs, C, out)
     if err:
         raise RuntimeError(f"wf_info failed: CUDA error {err}")
     return dict(zip(("regs", "local_bytes", "ctas_per_sm", "smem_bytes",
@@ -296,10 +290,9 @@ def wavefront_cuda(src, rd, bs: int, tx_size: int, modes, bd: int = 8,
 
 def launch(src, rd, bs: int, tx_size: int, modes, bd: int = 8,
            angle_deltas=(0,), valid_h: int = None, paired: bool = False,
-           uv_tx: bool = False, trace: bool = False,
-           cluster: int = CLUSTER):
-    """wavefront_cuda in clusters of `cluster` CTAs (1, 2 or 4), plus the
-    kernel's per-ticket timestamps when trace is set.  Returns (mode_idx,
+           uv_tx: bool = False, trace: bool = False):
+    """wavefront_cuda plus the kernel's per-ticket timestamps when trace
+    is set.  Returns (mode_idx,
     levels, recon, trace): trace is [NU * nblk, 16] int64 %globaltimer ns
     in ticket order, or None; columns 0-3 ticket taken, neighbours ready,
     costs chosen, flag published; 4-10 one warp's phases (start,
@@ -364,7 +357,7 @@ def launch(src, rd, bs: int, tx_size: int, modes, bd: int = 8,
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().wf_plane(ctypes.byref(p), bs, cluster, stream)
+        err = _lib().wf_plane(ctypes.byref(p), bs, stream)
     if err:
         raise RuntimeError(f"wf_plane launch failed: CUDA error {err}")
     LAUNCHES += 1

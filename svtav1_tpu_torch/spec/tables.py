@@ -47,8 +47,17 @@ def _quant_npz():
     return np.load(_DATA / "quant_tables.npz")
 
 
+@lru_cache(maxsize=None)
+def dc_q(bd: int = 8) -> np.ndarray:
+    return _quant_npz()[f"dc_{bd}"]
+
+
+@lru_cache(maxsize=None)
+def ac_q(bd: int = 8) -> np.ndarray:
+    return _quant_npz()[f"ac_{bd}"]
+
+
 def qindex_to_dq(qindex: int, bd: int = 8):
     """(dc_dequant, ac_dequant) step sizes for a base qindex (no deltas)."""
     q = int(np.clip(qindex, 0, 255))
-    d = _quant_npz()
-    return int(d[f"dc_{bd}"][q]), int(d[f"ac_{bd}"][q])
+    return int(dc_q(bd)[q]), int(ac_q(bd)[q])
