@@ -1,4 +1,6 @@
-"""Drive the PyTorch port's flat all-intra 1080p encode once on one CUDA card.
+"""Drive the PyTorch port's all-intra 1080p encode on one CUDA card: the flat
+path through the hand-written wavefront kernel, and the partition path (the
+encoder's default) as plain PyTorch on the card.
 
     python3 chip_smoke.py
 
@@ -23,7 +25,21 @@ its last line):
   4. a torch.profiler window over one device_encode batch: device time by
      kernel and the device's busy share of the window, both from the
      events that ran on the card (kernels, copies, memsets), the busy time
-     as the union of their intervals.
+     as the union of their intervals;
+  5. the partition path: IntraEncoder(1920, 1080, qindex=100) with its
+     defaults (64/32/16 partition search, tx-type search, DLF level
+     search) on one batch of 2 frames of the synthetic clip with busy
+     bands (the clip alone codes as 64x64 blocks); wall time of each stage
+     after a synchronize (luma and chroma wavefronts, DLF search, deblock,
+     tile coder per frame) and e2e fps; every payload parses as OBUs,
+     luma PSNR > 30 dB, the maps hold 32x32 NONE and SPLIT and a non-DCT
+     tx type; the count of 64x64 SB NONE blocks;
+  6. the partition path at 256x128 (2 frames) on the card and on the CPU:
+     the agreement fraction of each decision map, and byte-identical
+     payloads whenever every map agrees;
+  7. one luma partition wavefront call on a 1920x128 crop under
+     torch.profiler: device events per scan step and the device's busy
+     share of the window (the plain scan is launch-bound).
 Then one JSON line of kernel results and, last, one JSON line naming the
 device.  Imports nothing of JAX or of the JAX package.
 """
@@ -37,12 +53,14 @@ import torch
 
 from svtav1_tpu_torch.cuda import build
 from svtav1_tpu_torch.cuda import wavefront_kernel as wk
-from svtav1_tpu_torch.cuda.inputs import (SHAPES_1080P, card, plane_src,
-                                          synth_frames)
+from svtav1_tpu_torch.cuda.inputs import (SHAPES_1080P, banded_frames,
+                                          card, plane_src, synth_frames)
 from svtav1_tpu_torch.ec import native
 from svtav1_tpu_torch.encoder import intra_encoder as ie
+from svtav1_tpu_torch.encoder import wavefront2 as wf2
+from svtav1_tpu_torch.encoder.geometry import bottom_force_masks
 from svtav1_tpu_torch.encoder.wavefront import (
-    _wavefront_body, expand_candidates, rd_params)
+    _quad_tables, _wavefront_body, expand_candidates, rd_params)
 from svtav1_tpu_torch.spec.txfm import TX_16X16, TX_32X32
 from svtav1_tpu_torch.utils.obu import OBU_FRAME, parse_obus
 
@@ -256,6 +274,16 @@ def device_events(prof):
             for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
+def kineto_device_spans(prof):
+    """(start us, end us) of every event that ran on the card, read from
+    the profiler's raw results: a scan of ~1M launches is too many for
+    prof.events(), which builds a Python event tree first."""
+    from torch.autograd import DeviceType
+    return [(e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
 def busy_us(spans):
     """Length of the union of [start, end) intervals."""
     total, end = 0.0, float("-inf")
@@ -299,6 +327,153 @@ def phase_profile(enc, batch):
               flush=True)
 
 
+def check_payloads(payloads, frames, recons, label):
+    """Every payload holds an OBU_FRAME and luma PSNR > 30 dB."""
+    for k, p in enumerate(payloads):
+        obus = list(parse_obus(p))
+        if not p or not any(t == OBU_FRAME and len(d) for t, _, _, d in obus):
+            raise AssertionError(f"{label}: frame {k}: no OBU_FRAME")
+    ps_y = [psnr(f[0], r[0]) for f, r in zip(frames, recons)]
+    if min(ps_y) <= 30.0:
+        raise AssertionError(f"{label}: luma PSNR {min(ps_y):.2f} dB <= 30")
+    return ps_y
+
+
+class StageClock:
+    """Wraps the partition path's stage functions in the encoder module:
+    each call is timed on the host clock between two synchronizes."""
+    NAMES = ("encode_plane_wavefront_part", "dlf_sse_part",
+             "deblock_plane_part")
+
+    def __init__(self):
+        self.ms = {}
+        self.saved = {}
+
+    def _wrap(self, name, fn):
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            key = name
+            if name == "encode_plane_wavefront_part":
+                key = "luma wavefront" if a[1] == 32 else "chroma wavefront"
+            self.ms[key] = self.ms.get(key, 0.0) + \
+                1e3 * (time.perf_counter() - t0)
+            return out
+        return timed
+
+    def __enter__(self):
+        for n in self.NAMES:
+            self.saved[n] = getattr(ie, n)
+            setattr(ie, n, self._wrap(n, self.saved[n]))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(ie, n, fn)
+
+
+def part_maps(dev):
+    """The partition path's decision maps of a device_encode result."""
+    return {k: dev[i].cpu().numpy() for k, i in (
+        ("part", 2), ("part_sb", 16), ("y_mi", 3), ("y_smi", 5),
+        ("y_stx", 11), ("uv_mi", 21))}
+
+
+def phase_partition():
+    """The partition path at 1080p on the card, stage by stage."""
+    n = 2
+    frames = banded_frames(W, H, n)
+    enc = ie.IntraEncoder(ie.EncoderConfig(W, H, qindex=100), device="cuda")
+    t0 = time.perf_counter()
+    with StageClock() as clock:
+        dev = enc.device_encode(frames)
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    payloads, recons = enc.host_finish(dev)
+    t2 = time.perf_counter()
+    maps = part_maps(dev)
+    ps_y = check_payloads(payloads, frames, recons, "partition path")
+    split_sb = np.repeat(np.repeat(maps["part_sb"], 2, 1), 2, 2) == 1
+    in_tree = maps["part"][split_sb]
+    leaves = (np.repeat(maps["part"][..., None], 4, -1) == 1) & \
+        split_sb[..., None]
+    n_none32, n_split32 = int((in_tree == 0).sum()), int((in_tree == 1).sum())
+    n_stx = int((maps["y_stx"][leaves] != 0).sum())
+    stages = ", ".join(f"{k} {v:.1f} ms" for k, v in clock.ms.items())
+    print(f"partition path: {W}x{H} q100 defaults, batch {n}: device "
+          f"stage {1e3 * (t1 - t0):.1f} ms ({stages}); tile coder "
+          f"{1e3 * (t2 - t1) / n:.1f} ms per frame; e2e {n / (t2 - t0):.4f} "
+          f"fps [{CARD}]", flush=True)
+    print(f"partition path: {sum(map(len, payloads))} bytes, DLF level "
+          f"{dev[24][0]}, luma PSNR min {min(ps_y):.2f} dB; 64x64 SB NONE "
+          f"{int((maps['part_sb'] == 0).sum())} of {maps['part_sb'].size}, "
+          f"32x32 NONE {n_none32} / SPLIT {n_split32} in split SBs, non-DCT "
+          f"16x16 leaves {n_stx}", flush=True)
+    if not (n_none32 and n_split32 and n_stx):
+        raise AssertionError("partition path: the maps lack 32x32 NONE, "
+                             "32x32 SPLIT or a non-DCT tx type")
+
+
+def phase_card_vs_cpu():
+    """The partition path at 256x128 on the card and on the CPU."""
+    w, h = 256, 128
+    frames = banded_frames(w, h, 2, seed=0)
+    out = {}
+    for d in ("cuda", "cpu"):
+        enc = ie.IntraEncoder(ie.EncoderConfig(w, h, qindex=100), device=d)
+        t0 = time.perf_counter()
+        dev = enc.device_encode(frames)
+        payloads, recons = enc.host_finish(dev)
+        out[d] = (part_maps(dev), payloads, time.perf_counter() - t0)
+        check_payloads(payloads, frames, recons, f"{w}x{h} on {d}")
+    fracs = {k: float((out["cuda"][0][k] == out["cpu"][0][k]).mean())
+             for k in out["cuda"][0]}
+    same = all(f == 1.0 for f in fracs.values())
+    equal = out["cuda"][1] == out["cpu"][1]
+    print(f"card vs CPU, partition path {w}x{h} x2: map agreement "
+          + ", ".join(f"{k} {v:.4f}" for k, v in fracs.items())
+          + f"; payloads byte-identical: {equal} (card {out['cuda'][2]:.1f} "
+          f"s, CPU {out['cpu'][2]:.1f} s)", flush=True)
+    if same and not equal:
+        raise AssertionError("maps agree but the payloads differ")
+
+
+def phase_part_launches():
+    """One luma partition wavefront call on a 1920x128 crop under
+    torch.profiler: device events per scan step."""
+    from torch.profiler import ProfilerActivity, profile
+    h = 128
+    src = torch.from_numpy(plane_src(7, 1, h, W)).to(DEV)
+    fp, fsb = (torch.from_numpy(a[None].copy()).to(DEV) for a in
+               bottom_force_masks(h // 32, W // 32, h // 64, W // 64, h // 4))
+    steps = len(_quad_tables(h // 32, W // 32)[0])
+    steps_1080 = len(_quad_tables(1088 // 32, W // 32)[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        # the scan queues its work without a host sync (this raises on one)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            wf2.encode_plane_wavefront_part(src, 32, 100, fp, fsb,
+                                            tx_search=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    events = kineto_device_spans(prof)
+    busy_ms = busy_us(events) / 1e3
+    window_ms = 1e3 * (t1 - t0)
+    share = 100 * busy_ms / window_ms
+    print(f"partition launches: luma 1x{h}x{W} wavefront, {steps} scan "
+          f"steps: {len(events)} device events ({len(events) / steps:.0f} a "
+          f"step), window {window_ms:.1f} ms ({window_ms / steps:.2f} ms a "
+          f"step), device busy {busy_ms:.1f} ms ({share:.1f}% of the "
+          f"window); a 1080p plane call has {steps_1080} steps; queued "
+          f"without a host sync [{CARD}]", flush=True)
+
+
 CARD = ""
 
 
@@ -324,9 +499,21 @@ def main():
     for bs in (32, 16):
         print(f"wf_plane_kernel<{bs}>, {C} candidates: "
               f"{wk.kernel_info(bs, C)}", flush=True)
-    max_err, ms, plain_ms, bound, basis = phase_compare()
-    launches, enc, batch = phase_main_path()
-    phase_profile(enc, batch)
+    clock = [time.perf_counter()]
+
+    def phase(fn, *args):
+        out = fn(*args)
+        clock.append(time.perf_counter())
+        print(f"phase {fn.__name__}: {clock[-1] - clock[-2]:.1f} s",
+              flush=True)
+        return out
+
+    max_err, ms, plain_ms, bound, basis = phase(phase_compare)
+    launches, enc, batch = phase(phase_main_path)
+    phase(phase_profile, enc, batch)
+    phase(phase_partition)
+    phase(phase_card_vs_cpu)
+    phase(phase_part_launches)
     print(json.dumps({"kernels": [{
         "name": "wavefront", "route": "cuda",
         "source": "svtav1_tpu_torch/csrc/wavefront.cu",

@@ -1,11 +1,16 @@
 """svtav1_tpu_torch — the PyTorch + CUDA port of the AV1 engine in ``svtav1_tpu``.
 
-It runs the flat all-intra encode (8-bit 4:2:0, 32x32 luma / 16x16 chroma
-blocks, uniform deblocking) end to end on an NVIDIA Hopper card:
+It runs the all-intra encode (8-bit 4:2:0) end to end on an NVIDIA Hopper
+card, on both intra paths: the partition path that is the default
+(64x64 / 32x32 / 16x16 blocks, tx-type search, partition-aware deblocking
+with a DLF level search, the Python tile coder) and the flat path of
+presets M11-M13 (32x32 luma / 16x16 chroma blocks, uniform deblocking,
+the native tile coder):
 
 - ``ops``     — plain PyTorch counterparts of the normative integer ops
                 (intra predictors, transforms, quantizer, deblocking).
-- ``encoder`` — the wavefront mode decision and ``IntraEncoder``.
+- ``encoder`` — the two wavefront mode decisions, the tile coder and
+                ``IntraEncoder``.
 - ``csrc``    — the hand-written CUDA kernel of the intra wavefront, built
                 at first use by ``cuda.build`` and bound by ctypes in
                 ``cuda.wavefront_kernel``.
@@ -13,16 +18,17 @@ blocks, uniform deblocking) end to end on an NVIDIA Hopper card:
                 tables and their data files, the native C tile coder
                 (built by gcc at first use into ``build/``), OBU and
                 container writers.
-- ``app``     — the Y4M -> IVF command line for the flat path.
+- ``app``     — the Y4M -> IVF command line.
 
 The JAX package ``svtav1_tpu`` stays the reference: the tests feed the
 same inputs to both and compare.  This package imports nothing of it, not
 even its JAX-free host modules: it keeps its own copies of those, cut to
-what the flat path uses, and imports no JAX.
+what the port's paths use, and imports no JAX.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -34,3 +40,12 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(f"device {dev} requested but torch.cuda is not "
                            "available")
     return dev
+
+
+def upload(a, device) -> torch.Tensor:
+    """numpy array -> tensor on `device`.  A CUDA copy goes through pinned
+    memory without blocking, so it never synchronises the stream."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t

@@ -1,14 +1,17 @@
-"""Y4M in -> AV1 IVF out, flat all-intra path of the PyTorch port.
+"""Y4M in -> AV1 IVF out, all-intra, with the PyTorch port.
 
 Usage:
   python -m svtav1_tpu_torch.app -i in.y4m -b out.ivf -q 100 --keyint 1 \
-      (--no-part-search | --preset 11..13) [--batch N] [--stat-report] \
+      [--no-part-search | --preset 10..13] [--batch N] [--stat-report] \
       [--device cuda|cpu]
 
-Reading, the device stage of batch k+1 and the entropy coding of batch k
-overlap as in ``svtav1_tpu/app.py``.  Any other mode (partition search,
-inter frames, 10-bit, CDEF/LR/CCSO) exits with status 2: the JAX package's
-``python -m svtav1_tpu.app`` has it.
+With no preset and no --no-part-search it runs the partition path (the
+default of EncoderConfig, as in ``svtav1_tpu/app.py``); --preset 10 is the
+partition path without the tx-type search, --no-part-search and presets
+11..13 the flat path.  Reading, the device stage of batch k+1 and the
+entropy coding of batch k overlap as in ``svtav1_tpu/app.py``.  Any other
+mode (presets 0..9, inter frames, 10-bit, CDEF/LR/CCSO) exits with status
+2: the JAX package's ``python -m svtav1_tpu.app`` has it.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+from dataclasses import replace
 
 import numpy as np
 
@@ -39,9 +43,9 @@ def main(argv=None) -> int:
     p.add_argument("--keyint", type=int, default=64,
                    help="key frame interval; the port supports 1 only")
     p.add_argument("--no-part-search", action="store_true",
-                   help="flat 32x32 blocks (the only mode ported)")
+                   help="flat 32x32 blocks instead of the partition search")
     p.add_argument("--preset", type=int, default=None, metavar="M",
-                   help="speed preset; the port supports 11..13")
+                   help="speed preset; the port supports 10..13")
     p.add_argument("--batch", type=int, default=4,
                    help="frames per device batch")
     p.add_argument("--stat-report", action="store_true",
@@ -53,11 +57,8 @@ def main(argv=None) -> int:
     if args.keyint != 1:
         return _error("the port encodes all-intra only (--keyint 1); "
                       "python -m svtav1_tpu.app has inter coding")
-    if args.preset is None and not args.no_part_search:
-        return _error("the port has the flat path only: pass "
-                      "--no-part-search or --preset 11..13")
-    if args.preset is not None and not 11 <= args.preset <= 13:
-        return _error("the port supports presets 11..13 (flat path); "
+    if args.preset is not None and not 10 <= args.preset <= 13:
+        return _error("the port supports presets 10..13; "
                       "python -m svtav1_tpu.app has the others")
     if args.batch < 1:
         return _error("--batch must be >= 1")
@@ -73,9 +74,12 @@ def main(argv=None) -> int:
         if info.subsampling != "420":
             return _error("4:2:0 input only")
         cfg = EncoderConfig(info.width, info.height, qindex=args.qp,
-                            bit_depth=info.bit_depth, part_search=False)
+                            bit_depth=info.bit_depth,
+                            part_search=not args.no_part_search)
         if args.preset is not None:
             cfg = apply_preset(cfg, args.preset)
+            if args.no_part_search:     # an explicit flag over the preset
+                cfg = replace(cfg, part_search=False)
         try:
             enc = IntraEncoder(cfg, device=args.device)
         except (NotImplementedError, ValueError) as e:

@@ -58,3 +58,21 @@ def synth_frames(width, height, n, seed=0):
                     255).astype(np.uint8)
         frames.append((y, u, v))
     return frames
+
+
+def banded_frames(width, height, n, seed=0):
+    """synth_frames with a busy texture (a fine sine plus uniform noise)
+    added to the luma of every other of six vertical bands.  The synthetic
+    clip alone is smooth at the 64x64 scale and the partition path codes it
+    as 64x64 blocks at q100; the busy bands split to 32x32 and 16x16 blocks
+    with non-DCT tx types, so a run takes every decision of the path."""
+    rng = np.random.RandomState(seed + 1)
+    yy, xx = np.mgrid[0:height, 0:width]
+    band = (xx // (width // 6)) % 2 == 1
+    out = []
+    for y, u, v in synth_frames(width, height, n, seed):
+        busy = (y + 20 * np.sin(xx / 2.0 + yy / 3.0) +
+                rng.randint(-16, 17, (height, width)))
+        out.append((np.clip(np.where(band, busy, y), 0,
+                            255).astype(np.uint8), u, v))
+    return out

@@ -22,16 +22,21 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, upload
 from ..ec import native
 from ..ops import intra
-from ..ops.deblock import deblock_plane_uniform
+from ..ops.deblock import (deblock_plane_part, deblock_plane_uniform,
+                           dlf_sse_part)
 from ..spec import tables as tbl
 from ..spec.cdf import CdfContext
 from ..spec.txfm import DCT_DCT, TX_16X16, TX_32X32
-from .geometry import check_dims, pad64, pad_plane_bottom
+from .geometry import (bottom_force_masks, check_dims, pad64,
+                       pad_plane_bottom)
 from .headers import FrameConfig, SequenceConfig, assemble_key_frame
+from .tile_codec import TileCoder
 from .wavefront import encode_plane_wavefront, expand_candidates
+from .wavefront2 import (CHROMA_SB_MODES, CHROMA_SUB_MODES, CHROMA_TOP_MODES,
+                         SUB_MODES, encode_plane_wavefront_part)
 
 BLK = 32          # luma block size
 CBLK = 16         # chroma block size (4:2:0)
@@ -67,8 +72,8 @@ class EncoderConfig:
 
 def _unsupported(what: str):
     return NotImplementedError(
-        f"{what} is not ported to svtav1_tpu_torch (flat 8-bit all-intra "
-        "path only); the JAX package svtav1_tpu has it")
+        f"{what} is not ported to svtav1_tpu_torch (8-bit all-intra, one "
+        "tile column, deblocking only); the JAX package svtav1_tpu has it")
 
 
 class IntraEncoder:
@@ -78,8 +83,6 @@ class IntraEncoder:
     _CAP_QSTEPS = (24, 48, 88)
 
     def __init__(self, cfg: EncoderConfig, device="cuda"):
-        if cfg.part_search:
-            raise _unsupported("part_search=True (partition search)")
         if cfg.bit_depth != 8:
             raise _unsupported(f"bit_depth={cfg.bit_depth}")
         if tuple(cfg.angle_deltas) != (0,):
@@ -101,13 +104,14 @@ class IntraEncoder:
         self._fg_params = None       # estimated on the first source frame
         self._fg_n = 0               # per-frame grain_seed counter
         self._ec_pool = None
-        # host_finish codes frames in threads, but the native coder's
-        # library and the scan tables it reads load lazily and not
-        # thread-safely (a first build with gcc, npz reads): load them
-        # here, on the constructing thread; a failure raises
-        native._load()
-        for txs in (TX_32X32, TX_16X16):
-            tbl.scan(txs, DCT_DCT)
+        if not cfg.part_search:
+            # host_finish codes frames in threads, but the native coder's
+            # library and the scan tables it reads load lazily and not
+            # thread-safely (a first build with gcc, npz reads): load them
+            # here, on the constructing thread; a failure raises
+            native._load()
+            for txs in (TX_32X32, TX_16X16):
+                tbl.scan(txs, DCT_DCT)
 
     def film_grain_for(self, frame):
         """Per-frame film_grain header dict (or None); the grain model is
@@ -172,9 +176,12 @@ class IntraEncoder:
         return t.to(self.device, non_blocking=True)
 
     def device_encode(self, frames):
-        """Queue the device stage of a batch of (y, u, v) uint8 frames and
-        return its outputs without waiting for the device."""
+        """The device stage of a batch of (y, u, v) uint8 frames.  On the
+        flat path it is queued without waiting for the device; the
+        partition path waits once, for the DLF level search."""
         cfg = self.cfg
+        if cfg.part_search:
+            return self._device_encode_part(frames)
         yb = pad_plane_bottom(np.stack([f[0] for f in frames]), self.ph)
         uvb = pad_plane_bottom(np.concatenate(
             [np.stack([f[1] for f in frames]),
@@ -200,9 +207,108 @@ class IntraEncoder:
                 "y_rec": y_rec.to(torch.uint8),
                 "uv_rec": uv_rec.to(torch.uint8), "frames": frames}
 
+    def _device_encode_part(self, frames):
+        """Partition-path device stage.  Returns the JAX package's "part"
+        tuple, with tensors on the encoder's device and the recon planes
+        as uint8."""
+        cfg = self.cfg
+        B = len(frames)
+        yb = pad_plane_bottom(np.stack([f[0] for f in frames]), self.ph)
+        uvb = pad_plane_bottom(np.concatenate(
+            [np.stack([f[1] for f in frames]),
+             np.stack([f[2] for f in frames])]), self.ph // 2)
+        h, w = yb.shape[1:]
+        bh, bw, sh, sw = h // BLK, w // BLK, h // 64, w // 64
+        vh = None if self.ph == cfg.height else cfg.height
+        vhc = None if vh is None else vh // 2
+        fp, fsb = (upload(np.ascontiguousarray(np.broadcast_to(
+            a, (B,) + a.shape)), self.device) for a in bottom_force_masks(
+                bh, bw, sh, sw, cfg.height // 4))
+        y_src = self._upload(yb)
+        (part, y_mi, y_lev, y_smi, y_slev, y_stx, y_rec,
+         part_sb, y_mi_sb, y_lev_sb) = encode_plane_wavefront_part(
+            y_src, BLK, cfg.qindex, fp, fsb, tx_search=cfg.tx_search,
+            valid_h=vh)
+        # U and V ride one paired wavefront: the partition tree is forced
+        # by luma and each (u, v) pair picks one uv_mode
+        two = lambda a: torch.cat([a, a])
+        (_, uv_mi, uv_lev, uv_smi, uv_slev, _, uv_rec,
+         _, uv_mi_sb, uv_lev_sb) = encode_plane_wavefront_part(
+            self._upload(uvb), CBLK, cfg.qindex, two(part), two(part_sb),
+            chroma=True, valid_h=vhc)
+        u_lev, v_lev = uv_lev[:B], uv_lev[B:]
+        u_slev, v_slev = uv_slev[:B], uv_slev[B:]
+        u_lev_sb, v_lev_sb = uv_lev_sb[:B], uv_lev_sb[B:]
+        u_rec, v_rec = uv_rec[:B], uv_rec[B:]
+        lf = self.lf_levels()
+        if cfg.lf_level < 0:
+            # frame-level DLF level search: luma levels around the
+            # heuristic, SSE summed over the batch; the level is picked on
+            # the host (the path's one read from the device)
+            base = lf[0]
+            cand = [0, max(1, base // 2), max(1, base * 3 // 4),
+                    max(1, base), base * 5 // 4 + 1, base * 3 // 2 + 1]
+            cand = [min(63, c) for c in cand]
+            sse = dlf_sse_part(y_rec, y_src, part, cand, BLK, 14,
+                               part_sb=part_sb, valid_h=vh).cpu().numpy()
+            l = int(cand[int(np.argmin(sse))])
+            lc = max(0, l * 3 // 4)
+            lf = (l, l, lc, lc)
+        if lf[0] or lf[1]:
+            y_rec = deblock_plane_part(y_rec, part, BLK, 14, lf[0], lf[1],
+                                       part_sb=part_sb, valid_h=vh)
+            u_rec = deblock_plane_part(u_rec, part, CBLK, 6, lf[2], lf[2],
+                                       part_sb=part_sb, valid_h=vhc)
+            v_rec = deblock_plane_part(v_rec, part, CBLK, 6, lf[3], lf[3],
+                                       part_sb=part_sb, valid_h=vhc)
+        u8 = lambda a: a.to(torch.uint8)
+        return ("part", B, part, y_mi, y_lev, y_smi, y_slev, u_lev, u_slev,
+                v_lev, v_slev, y_stx, u8(y_rec), u8(u_rec), u8(v_rec),
+                frames, part_sb, y_mi_sb, y_lev_sb, u_lev_sb, v_lev_sb,
+                uv_mi[:B], uv_smi[:B], uv_mi_sb[:B], lf)
+
+    def _host_finish_part(self, dev):
+        """Partition-path host stage: the Python tile coder per frame."""
+        first0 = self._first
+        cfg = self.cfg
+        n, frames, lfv = dev[1], dev[15], dev[24]
+        (part, y_mi, y_lev, y_smi, y_slev, u_lev, u_slev, v_lev, v_slev,
+         y_stx, y_rec, u_rec, v_rec) = (t.cpu().numpy() for t in dev[2:15])
+        (part_sb, y_mi_sb, y_lev_sb, u_lev_sb, v_lev_sb, uv_mi, uv_smi,
+         uv_mi_sb) = (t.cpu().numpy() for t in dev[16:24])
+        uv_mode = lambda modes, mi: np.array(
+            [m for m, _ in expand_candidates(modes)], np.int32)[mi]
+        uv_top = uv_mode(CHROMA_TOP_MODES, uv_mi)
+        uv_sub = uv_mode(CHROMA_SUB_MODES, uv_smi)
+        uv_sb = uv_mode(CHROMA_SB_MODES, uv_mi_sb)
+        cands = expand_candidates(CAND_MODES)
+        cands_sub = expand_candidates(SUB_MODES)
+        ch, cch = cfg.height, cfg.height // 2
+        payloads, recons = [], []
+        for b in range(n):
+            tile, _ = TileCoder(cfg.width, self.ph, cfg.qindex,
+                                cfg.cdf_update, true_h=cfg.height).encode(
+                part[b], y_mi[b], y_lev[b], u_lev[b], v_lev[b], y_smi[b],
+                y_slev[b], u_slev[b], v_slev[b], cands, cands_sub, y_stx[b],
+                part_sb[b], y_mi_sb[b], y_lev_sb[b], u_lev_sb[b],
+                v_lev_sb[b], uv_top[b], uv_sub[b], uv_sb[b])
+            fr = FrameConfig(base_q_idx=cfg.qindex,
+                             disable_cdf_update=not cfg.cdf_update,
+                             filter_level=(lfv[0], lfv[1]),
+                             filter_level_u=lfv[2], filter_level_v=lfv[3],
+                             film_grain=self.film_grain_for(frames[b]))
+            payloads.append(assemble_key_frame(
+                self.seq, fr, tile, first=self._first,
+                metadata=cfg.metadata if self._first else b""))
+            self._first = False
+            recons.append((y_rec[b][:ch], u_rec[b][:cch], v_rec[b][:cch]))
+        return self._capped_recode(frames, payloads, recons, first0)
+
     def host_finish(self, dev):
         """Entropy-code a device batch (waits for its device work).
         Returns (payloads, recons) with recons as uint8 numpy planes."""
+        if isinstance(dev, tuple) and dev and dev[0] == "part":
+            return self._host_finish_part(dev)
         cfg = self.cfg
         first0 = self._first
         n, frames = dev["n"], dev["frames"]

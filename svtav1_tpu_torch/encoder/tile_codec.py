@@ -1,0 +1,221 @@
+"""Tile entropy coder of the partition path: key frames, 64x64 NONE or
+SPLIT into 32x32 blocks, each NONE or SPLIT into 16x16 leaves (chroma
+32/16/8).
+
+Counterpart of ``svtav1_tpu/encoder/tile_codec.py``, cut to key frames of
+a single tile: no inter branch, no mv prediction, no CDEF / CCSO / loop
+restoration syntax, no 16x8 bottom strip (``geometry.check_dims`` and the
+bottom force masks exclude it on this path).  The reference analogue is
+svt_aom_write_sb's recursive partition walk (EbEntropyCoding.c:5440).
+Pure Python over numpy: it runs on the host.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..ec import modes as M
+from ..ec.coeffs import write_coeffs_txb
+from ..ec.range_coder import RangeEncoder
+from ..spec.cdf import CdfContext
+from ..spec.txfm import DCT_DCT, TX_8X8, TX_16X16, TX_32X32, TX_64X64
+from .wavefront2 import TX_SEARCH_TYPES
+
+SB = 64
+
+
+class TileCoder:
+    """One key frame's tile (the whole frame)."""
+
+    def __init__(self, width, height, qindex, cdf_update, true_h=None):
+        """width/height are the padded (SB-aligned) plane dims the block
+        maps were produced at; true_h (<= height, multiple of 8) is the
+        signalled frame height: blocks whose top-left falls outside it are
+        not coded and blocks crossing it use the spec's inferred edge
+        partitions (split_or_horz)."""
+        self.w, self.h = width, height
+        self.true_h = true_h if true_h is not None else height
+        self.mi_cols, self.mi_rows = width // 4, self.true_h // 4
+        self.enc = RangeEncoder()
+        self.cdf = CdfContext(qindex, update=cdf_update)
+        self.above_part = np.zeros(self.mi_cols, np.uint8)
+        self.skip_grid = np.zeros((self.mi_rows, self.mi_cols), np.uint8)
+        self.mode_grid = np.zeros((self.mi_rows, self.mi_cols), np.uint8)
+        self.above_cul = {0: np.zeros(width // 4, np.uint8),
+                          1: np.zeros(width // 8, np.uint8),
+                          2: np.zeros(width // 8, np.uint8)}
+        self.above_av = {p: np.zeros_like(self.above_cul[p], bool)
+                         for p in range(3)}
+
+    def encode(self, part, mi_top, lev_top_y, lev_top_u, lev_top_v,
+               mi_sub, lev_sub_y, lev_sub_u, lev_sub_v, cands_top,
+               cands_sub, stx_sub, part_sb, mi_sb, lev_sb_y, lev_sb_u,
+               lev_sb_v, uv_top, uv_sub, uv_sb):
+        """part [bh, bw] 0/1; *_top at 32-block granularity; *_sub indexed
+        [bh, bw, 4 (z), ...]; stx_sub [bh, bw, 4] indexes TX_SEARCH_TYPES.
+        part_sb [sbh, sbw] (0 = 64x64 NONE, 1 = split): a NONE SB codes one
+        64x64 block whose luma TXB is TX_64X64 with the 32x32 coded area
+        lev_sb_y, chroma TX_32X32 (lev_sb_u/v).  uv_top [bh, bw] / uv_sub
+        [bh, bw, 4] / uv_sb [sbh, sbw]: the chroma modes.  Returns
+        (tile bytes, the adapted CdfContext)."""
+        self._uv_top, self._uv_sub = uv_top, uv_sub
+        enc, cdf = self.enc, self.cdf
+        sb_cols = self.w // SB
+        sb_rows = (self.mi_rows + 15) // 16
+        for sb_r in range(sb_rows):
+            self.left_part = np.zeros(SB // 4, np.uint8)
+            self.left_cul = {0: np.zeros(SB // 4, np.uint8),
+                             1: np.zeros(SB // 8, np.uint8),
+                             2: np.zeros(SB // 8, np.uint8)}
+            self.left_av = {p: np.zeros_like(self.left_cul[p], bool)
+                            for p in range(3)}
+            for sb_c in range(sb_cols):
+                ctx = M.partition_plane_ctx(int(self.above_part[sb_c * 16]),
+                                            int(self.left_part[0]), SB)
+                sb_has_rows = sb_r * 16 + 8 < self.mi_rows
+                if not part_sb[sb_r, sb_c] and sb_has_rows:
+                    M.write_partition(enc, cdf, ctx, M.PARTITION_NONE, SB)
+                    self._code_block(sb_r * 16, sb_c * 16, 64,
+                                     int(mi_sb[sb_r, sb_c]), cands_top,
+                                     lev_sb_y[sb_r, sb_c],
+                                     lev_sb_u[sb_r, sb_c],
+                                     lev_sb_v[sb_r, sb_c], TX_64X64,
+                                     TX_32X32, uv_mode=int(uv_sb[sb_r, sb_c]))
+                    a, l = M.partition_ctx_value(64, 64)
+                    self.above_part[sb_c * 16:sb_c * 16 + 16] = a
+                    self.left_part[:] = l
+                    continue
+                if sb_has_rows:
+                    M.write_partition(enc, cdf, ctx, M.PARTITION_SPLIT, SB)
+                else:
+                    M.write_partition_edge(enc, cdf, ctx, True, SB,
+                                           False, True)
+                for qr, qc in ((0, 0), (0, 1), (1, 0), (1, 1)):
+                    br, bc = sb_r * 2 + qr, sb_c * 2 + qc
+                    if br * 8 >= self.mi_rows:
+                        continue       # 32-quad entirely below the frame
+                    self._code_32(br, bc, qr, part, mi_top, lev_top_y,
+                                  lev_top_u, lev_top_v, mi_sub, lev_sub_y,
+                                  lev_sub_u, lev_sub_v, cands_top, cands_sub,
+                                  stx_sub)
+        return enc.done(), cdf
+
+    # ---------------------------------------------------------------- #
+
+    def _code_32(self, br, bc, qr, part, mi_top, ly, lu, lv, mi_sub, sly,
+                 slu, slv, cands_top, cands_sub, stx_sub):
+        enc, cdf = self.enc, self.cdf
+        mi_r, mi_c = br * 8, bc * 8
+        ctx = M.partition_plane_ctx(int(self.above_part[mi_c]),
+                                    int(self.left_part[qr * 8]), 32)
+        has_rows32 = mi_r + 4 < self.mi_rows
+        if not part[br, bc] and has_rows32:
+            M.write_partition(enc, cdf, ctx, M.PARTITION_NONE, 32)
+            self._code_block(mi_r, mi_c, 32, int(mi_top[br, bc]), cands_top,
+                             ly[br, bc], lu[br, bc], lv[br, bc], TX_32X32,
+                             TX_16X16, uv_mode=int(self._uv_top[br, bc]))
+            a, l = M.partition_ctx_value(32, 32)
+            self.above_part[mi_c:mi_c + 8] = a
+            self.left_part[qr * 8:qr * 8 + 8] = l
+            return
+        if has_rows32:
+            M.write_partition(enc, cdf, ctx, M.PARTITION_SPLIT, 32)
+        else:
+            M.write_partition_edge(enc, cdf, ctx, True, 32, False, True)
+        for z, (sr, sc) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+            smr, smc = mi_r + sr * 4, mi_c + sc * 4
+            if smr >= self.mi_rows:
+                continue               # 16-leaf below the frame
+            if smr + 2 >= self.mi_rows:
+                raise ValueError("a 16x16 leaf crossing the frame bottom "
+                                 "needs a 16x8 strip block (not ported)")
+            lctx = M.partition_plane_ctx(
+                int(self.above_part[smc]),
+                int(self.left_part[qr * 8 + sr * 4]), 16)
+            M.write_partition(enc, cdf, lctx, M.PARTITION_NONE, 16)
+            stx = TX_SEARCH_TYPES[int(stx_sub[br, bc, z])]
+            self._code_block(smr, smc, 16, int(mi_sub[br, bc, z]), cands_sub,
+                             sly[br, bc, z], slu[br, bc, z], slv[br, bc, z],
+                             TX_16X16, TX_8X8, y_tx_type=stx,
+                             uv_mode=int(self._uv_sub[br, bc, z]))
+            a, l = M.partition_ctx_value(16, 16)
+            self.above_part[smc:smc + 4] = a
+            self.left_part[qr * 8 + sr * 4:qr * 8 + sr * 4 + 4] = l
+
+    # ---------------------------------------------------------------- #
+
+    def _code_block(self, mi_r, mi_c, bs, idx, cands, y_lev, u_lev, v_lev,
+                    tx_y, tx_uv, y_tx_type=DCT_DCT, uv_mode: int = 0):
+        enc, cdf = self.enc, self.cdf
+        bw4 = bs // 4
+        have_above, have_left = mi_r > 0, mi_c > 0
+        skip = int(not (y_lev.any() or u_lev.any() or v_lev.any()))
+
+        a_skip = int(self.skip_grid[mi_r - 1, mi_c]) if have_above else 0
+        l_skip = int(self.skip_grid[mi_r, mi_c - 1]) if have_left else 0
+        M.write_skip(enc, cdf, a_skip + l_skip, skip)
+
+        mode, delta = cands[idx]
+        a_mode = int(self.mode_grid[mi_r - 1, mi_c]) if have_above else 0
+        l_mode = int(self.mode_grid[mi_r, mi_c - 1]) if have_left else 0
+        M.write_kf_y_mode(enc, cdf, a_mode, l_mode, mode)
+        if M.is_directional(mode):
+            M.write_angle_delta(enc, cdf, mode, delta)
+        # CfL is allowed for blocks <= 32x32 only (spec 5.11.5
+        # intra_frame_mode_info); 64x64 blocks use the 13-symbol CDF
+        M.write_uv_mode(enc, cdf, bs <= 32, mode, uv_mode)
+        if M.is_directional(uv_mode):
+            M.write_angle_delta(enc, cdf, uv_mode, 0)
+        self.mode_grid[mi_r:mi_r + bw4, mi_c:mi_c + bw4] = mode
+
+        self._code_residuals(mi_r, mi_c, bs, skip, mode, y_lev, u_lev,
+                             v_lev, tx_y, tx_uv, y_tx_type)
+        self.skip_grid[mi_r:mi_r + bw4, mi_c:mi_c + bw4] = skip
+
+    def _code_residuals(self, mi_r, mi_c, bs, skip, y_mode, y_lev, u_lev,
+                        v_lev, tx_y, tx_uv, y_tx_type=DCT_DCT):
+        enc, cdf = self.enc, self.cdf
+        sb_mi_r = mi_r % 16
+        for plane, lev, txs in ((0, y_lev, tx_y), (1, u_lev, tx_uv),
+                                (2, v_lev, tx_uv)):
+            shift = 0 if plane == 0 else 1
+            units = (bs >> shift) // 4
+            # txbs overhanging the frame bottom: contexts are read over the
+            # in-frame units only, and the beyond-edge left entries reset
+            # to 0 after coding (EbDecParseBlock.c:2117-2133, :1644-1654)
+            row_px = (mi_r * 4) >> shift
+            valid_px = (self.mi_rows * 4) >> shift
+            units_v = min(units, max(0, (valid_px - row_px) // 4))
+            au0 = ((mi_c * 4) >> shift) // 4
+            lu0 = ((sb_mi_r * 4) >> shift) // 4
+            if skip:
+                self.above_cul[plane][au0:au0 + units] = 0
+                self.above_av[plane][au0:au0 + units] = True
+                self.left_cul[plane][lu0:lu0 + units] = 0
+                self.left_av[plane][lu0:lu0 + units] = True
+                continue
+            a_cul = self.above_cul[plane][au0:au0 + units]
+            a_av = self.above_av[plane][au0:au0 + units]
+            l_cul = self.left_cul[plane][lu0:lu0 + units_v]
+            l_av = self.left_av[plane][lu0:lu0 + units_v]
+            if plane == 0:
+                tctx = 0
+            else:
+                tctx = 7 + int(((a_cul & 0x3F)[a_av] != 0).any()) + \
+                    int(((l_cul & 0x3F)[l_av] != 0).any())
+            signs = 0
+            for culs, avs in ((a_cul, a_av), (l_cul, l_av)):
+                for cl, av in zip(culs, avs):
+                    if av:
+                        s = int(cl) >> 6
+                        signs += 1 if s == 2 else (-1 if s == 1 else 0)
+            dctx = 2 if signs > 0 else (1 if signs < 0 else 0)
+            cul = write_coeffs_txb(enc, cdf, lev, txs,
+                                   y_tx_type if plane == 0 else DCT_DCT,
+                                   min(plane, 1), tctx, dctx,
+                                   intra_mode=y_mode)
+            self.above_cul[plane][au0:au0 + units] = cul
+            self.above_av[plane][au0:au0 + units] = True
+            self.left_cul[plane][lu0:lu0 + units_v] = cul
+            self.left_cul[plane][lu0 + units_v:lu0 + units] = 0
+            self.left_av[plane][lu0:lu0 + units] = True

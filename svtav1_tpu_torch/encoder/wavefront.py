@@ -103,10 +103,12 @@ def _cdf_bits(table, sym: int) -> float:
     return -np.log2(p)
 
 
-def intra_mode_rate_table(cands, qindex: int, kf=True) -> np.ndarray:
-    """Per-candidate mode-signaling bits from the default CDFs; kf="uv"
-    takes the uv_mode CDF of the paired chroma wavefront."""
-    cdf = CdfContext(qindex)
+def intra_mode_rate_table(cands, qindex: int, kf=True,
+                          cdf: CdfContext = None) -> np.ndarray:
+    """Per-candidate mode-signaling bits from the default CDFs (`cdf`, or
+    a new CdfContext); kf="uv" takes the uv_mode CDF of the paired chroma
+    wavefront."""
+    cdf = cdf or CdfContext(qindex)
     out = np.zeros(len(cands), np.float32)
     for i, (mode, delta) in enumerate(cands):
         if kf == "uv":

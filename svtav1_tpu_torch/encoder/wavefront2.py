@@ -1,0 +1,498 @@
+"""Partition wavefront: 64x64 SB NONE vs the 32x32 tree, and each 32x32
+block NONE vs SPLIT into four 16x16 leaves, decided by closed-loop RD in
+one z-order scan.
+
+Counterpart of ``svtav1_tpu/encoder/wavefront2.py``, cut to the intra
+key-frame form: no inter candidates (n_extra = 0), every block may be
+intra, and the lambda map is all ones.  Each quad step of the flat path's
+2:1 wavefront (``wavefront._quad_tables``) evaluates the superblock as one
+block (``eval_sb``) from the boundary state as the step finds it, then the
+four z-order blocks (``sub_step``): the whole block with every candidate,
+and its four sub-blocks with the Z2-safe mode set, their neighbour recon
+threaded through a local buffer; the cheaper tree wins at each depth, and
+the boundary buffers end the step holding the chosen content.
+
+Every candidate runs the normative integer chain, so levels and recon are
+bit-final, and the float32 RD sums keep the JAX package's association.
+Used for luma (bs=32, tx search on the 16x16 leaves) and for paired U+V
+chroma (bs=16, partition forced by luma).
+
+The scan is plain PyTorch on src's device: the JAX package runs it as
+XLA code, with no Pallas kernel.  Its tables are built on the host and
+uploaded once a call without a synchronisation, and the scan itself reads
+nothing back, so on a CUDA device the whole call only queues work.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import upload
+from ..ec.coeffs import EXT_TX_IND
+from ..ec.modes import PARTITION_NONE, PARTITION_SPLIT
+from ..ops import intra
+from ..ops.intra_dir import dr_pred
+from ..ops.quant import dequantize_dq, quantize_dq_opt
+from ..ops.transforms import add_residual_clip, fwd_txfm2d, inv_txfm2d
+from ..spec import tables as tbl
+from ..spec.cdf import CdfContext
+from ..spec.txfm import (DCT_DCT, TX_8X8, TX_16X16, TX_32X32, TX_64X64,
+                         uv_intra_tx_type)
+from .wavefront import (DEFAULT_MODES, DIRECTIONAL, _edges, _lambda,
+                        _quad_tables, _resid_bits, expand_candidates,
+                        intra_mode_rate_table)
+
+# sub-block intra modes: everything that never reads the above-right /
+# below-left extended edges (Z2 directional keeps above/left/corner only)
+SUB_MODES = (intra.DC_PRED, intra.V_PRED, intra.H_PRED,
+             intra.D135_PRED, intra.D113_PRED, intra.D157_PRED,
+             intra.SMOOTH_PRED, intra.SMOOTH_V_PRED, intra.SMOOTH_H_PRED,
+             intra.PAETH_PRED)
+
+# chroma mode lists of the paired U+V wavefront: 32x32-tree blocks sit at
+# quad z-positions with full extended-edge availability; 8x8 sub-blocks
+# and the SB-depth block keep the Z2-safe set
+CHROMA_TOP_MODES = (intra.DC_PRED, intra.V_PRED, intra.H_PRED,
+                    intra.D45_PRED, intra.D135_PRED, intra.D113_PRED,
+                    intra.D157_PRED, intra.D203_PRED, intra.D67_PRED,
+                    intra.SMOOTH_PRED, intra.SMOOTH_V_PRED,
+                    intra.SMOOTH_H_PRED, intra.PAETH_PRED)
+CHROMA_SUB_MODES = SUB_MODES
+CHROMA_SB_MODES = SUB_MODES
+
+# tx types searched on 16x16 intra luma leaves: the reduced intra set
+# EXT_TX_SET_DTT4_IDTX (DCT, ADST_ADST, ADST_DCT, DCT_ADST, IDTX)
+TX_SEARCH_TYPES = (0, 3, 1, 2, 9)
+
+BD = 8                        # bit depth (the port codes 8-bit only)
+# square tx size of an n x n block
+_SQ_TX = {8: TX_8X8, 16: TX_16X16, 32: TX_32X32, 64: TX_64X64}
+
+
+def _cdf_sym_bits(table, sym: int, nsyms: int = None) -> float:
+    """-log2 P(sym) from a default [icdf..., counter] table slice."""
+    hi = 32768 if sym == 0 else int(table[sym - 1])
+    lo = 0 if nsyms is not None and sym >= nsyms - 1 else int(table[sym])
+    return -np.log2(max(hi - lo, 1) / 32768.0)
+
+
+def txt_rate_table(qindex: int, cdf: CdfContext = None) -> np.ndarray:
+    """[13 intra modes, 5 search types] signalling bits of the 16x16
+    intra tx-type symbol from the default CDFs (intra_ext_tx_cdf set 2)."""
+    cdf = cdf or CdfContext(qindex)
+    out = np.zeros((13, len(TX_SEARCH_TYPES)), np.float32)
+    sq = tbl.txsize_sqr(TX_16X16)
+    for mode in range(13):
+        t = cdf.intra_ext_tx_cdf[2][sq][mode]
+        for i, tt in enumerate(TX_SEARCH_TYPES):
+            out[mode, i] = _cdf_sym_bits(t, EXT_TX_IND[2][tt], 5)
+    return out
+
+
+def partition_bits(qindex: int, bs: int, cdf: CdfContext = None):
+    """(bits_none, bits_split_total) at the top block size from the default
+    partition CDFs (the split total includes the four leaf NONE symbols)."""
+    cdf = cdf or CdfContext(qindex)
+    bsl_top = {32: 2, 16: 1}[bs]
+    t_top = cdf.partition_cdf[bsl_top * 4]
+    t_leaf = cdf.partition_cdf[(bsl_top - 1) * 4]
+    b_none = _cdf_sym_bits(t_top, PARTITION_NONE)
+    b_split = _cdf_sym_bits(t_top, PARTITION_SPLIT) + \
+        4 * _cdf_sym_bits(t_leaf, PARTITION_NONE)
+    return float(b_none), float(b_split)
+
+
+def partition_bits_sb(qindex: int, bs2: int, cdf: CdfContext = None):
+    """(bits_none, bits_split) of the superblock-level partition symbol
+    alone (the sub-tree costs already include their own partition bits)."""
+    cdf = cdf or CdfContext(qindex)
+    t = cdf.partition_cdf[{64: 3, 32: 2}[bs2] * 4]
+    return (float(_cdf_sym_bits(t, PARTITION_NONE)),
+            float(_cdf_sym_bits(t, PARTITION_SPLIT)))
+
+
+def rd_params_part(qindex: int, bs: int, cands_top, cands_sub, cands_sbl,
+                   uv_rates: bool = False):
+    """RD inputs of a partition wavefront call, as numpy on the host: (dc
+    step, ac step, lambda, top / sub / SB mode-rate tables, NONE and SPLIT
+    bits at the 32 and the SB depth, the tx-type rate table, the sub
+    candidates' mode ids)."""
+    cdf = CdfContext(qindex)
+    dc, ac = tbl.qindex_to_dq(qindex, BD)
+    kf = "uv" if uv_rates else True
+    rate = lambda c: intra_mode_rate_table(c, qindex, kf=kf, cdf=cdf)
+    f32 = np.float32
+    bn, bsp = partition_bits(qindex, bs, cdf)
+    bn2, bsp2 = partition_bits_sb(qindex, 2 * bs, cdf)
+    return dict(dc=dc, ac=ac, lam=f32(_lambda(qindex)),
+                rate_top=rate(cands_top), rate_sub=rate(cands_sub),
+                rate_sb=rate(cands_sbl), bits_none=f32(bn),
+                bits_split=f32(bsp), bits_none_sb=f32(bn2),
+                bits_split_sb=f32(bsp2), txt=txt_rate_table(qindex, cdf),
+                mode_ids=np.array([m for m, _ in cands_sub], np.int64))
+
+
+def encode_plane_wavefront_part(src, bs: int, qindex: int, force_part,
+                                force_sb, chroma: bool = False,
+                                tx_search: bool = False,
+                                valid_h: int = None):
+    """src [B, h, w] uint8 tensor (h, w multiples of 2*bs) ->
+    (part [B, bh, bw] int32 (1 = SPLIT), mi_top [B, bh, bw],
+    lev_top [B, bh, bw, bs, bs], mi_sub [B, bh, bw, 4],
+    lev_sub [B, bh, bw, 4, bs/2, bs/2], stx_sub [B, bh, bw, 4] (index into
+    TX_SEARCH_TYPES), recon [B, h, w], part_sb [B, sh, sw] (1 = split),
+    mi_sb [B, sh, sw], lev_sb [B, sh, sw, nC, nC]), with bs x bs blocks
+    transformed at bs, their sub-blocks at bs/2 and the SB at 2*bs, and nC
+    the SB's coded area (TX_64X64 codes its low 32x32 band).
+
+    force_part [B, bh, bw] / force_sb [B, sh, sw] int32: -1 free, 0 NONE,
+    1 SPLIT.  chroma: src stacks [U..., V...] and each (u, v) pair picks
+    one candidate from the chroma mode lists, with uv_mode rates and each
+    candidate's implied tx type; otherwise luma with the 13 DEFAULT_MODES
+    at the 32x32 and SB depths and SUB_MODES below.  tx_search: RD-refine
+    the tx type of the sub-block winners over TX_SEARCH_TYPES.  valid_h:
+    true (unpadded) frame height; left edge rows clamp at valid_h-1."""
+    if chroma:
+        modes = (CHROMA_TOP_MODES, CHROMA_SUB_MODES, CHROMA_SB_MODES)
+    else:
+        modes = (DEFAULT_MODES, SUB_MODES, DEFAULT_MODES)
+    cands_top, cands_sub, cands_sbl = (expand_candidates(m) for m in modes)
+    rd = rd_params_part(qindex, bs, cands_top, cands_sub, cands_sbl, chroma)
+    dev = src.device
+    rd_t = {k: (v if k in ("dc", "ac") else upload(np.asarray(v), dev))
+            for k, v in rd.items()}
+    return _wavefront_part_impl(src, rd_t, force_part.to(dev),
+                                force_sb.to(dev), bs, cands_top, cands_sub,
+                                cands_sbl, tx_search, valid_h, chroma)
+
+
+def _intra_pred(mode, delta, above, left, corner, ha, hl, n, bd,
+                above_ext=None, left_ext=None):
+    """One intra candidate's prediction [BD, n, n]; ha/hl [BD] bool."""
+    if mode == intra.DC_PRED:
+        p = [intra.dc_pred(above, left, a, l, bd)
+             for a, l in ((True, True), (True, False), (False, True),
+                          (False, False))]
+        haa, hll = ha[:, None, None], hl[:, None, None]
+        return torch.where(haa & hll, p[0],
+                           torch.where(haa, p[1],
+                                       torch.where(hll, p[2], p[3])))
+    if mode in DIRECTIONAL and (delta != 0 or mode not in
+                                (intra.V_PRED, intra.H_PRED)):
+        if above_ext is None:
+            above_ext = torch.cat([above, above[..., -1:].expand(
+                above.shape[:-1] + (n,))], -1)
+            left_ext = torch.cat([left, left[..., -1:].expand(
+                left.shape[:-1] + (n,))], -1)
+        return dr_pred(mode, delta, above_ext, left_ext, corner, n, bd)
+    return intra.predict(mode, above, left, corner)
+
+
+def _wavefront_part_impl(src, rd, force_part, force_sb, bs: int, cands_top,
+                         cands_sub, cands_sbl, tx_search: bool,
+                         valid_h: int, chroma: bool):
+    """The scan, plain PyTorch on src's device; rd holds rd_params_part's
+    tables as tensors on that device (dc and ac as ints).  chroma: paired
+    U/V lanes and implied uv tx types."""
+    dqdc, dqac, lam = rd["dc"], rd["ac"], rd["lam"]
+    bd, paired, uv_tx = BD, chroma, chroma
+    dev = src.device
+    B, h, w = src.shape
+    vh = h if valid_h is None else valid_h
+    hs, bs2 = bs // 2, 2 * bs
+    tx_top, tx_sub, tx_sb = _SQ_TX[bs], _SQ_TX[hs], _SQ_TX[bs2]
+    bh, bw = h // bs, w // bs
+    sh, sw = h // bs2, w // bs2
+    nC = 32 if bs2 == 64 else bs2          # coded coefficient area of tx_sb
+    base = 1 << (bd - 1)
+    i32 = torch.int32
+    # tx-type signalling overhead per coded luma txb (key frames)
+    txb_top = 0.0 if bs >= 32 else 1.0
+    txb_sub = 2.4
+    n_mode_ids = len(cands_sub)
+    rs_t, cs_t, valid_t, has_tr_t, has_bl_t = _quad_tables(bh, bw)
+    # the valid lanes of a step are a prefix, the same for its four z
+    n_valid = valid_t[:, 0].sum(1)
+    rs_a, cs_a, htr_a, hbl_a = (upload(a, dev) for a in (
+        rs_t.astype(np.int64), cs_t.astype(np.int64), has_tr_t, has_bl_t))
+
+    src = src.to(i32)
+    src_b = src.reshape(B, bh, bs, bw, bs).permute(0, 1, 3, 2, 4)
+    src_sb = src.reshape(B, sh, bs2, sw, bs2).permute(0, 1, 3, 2, 4)
+    ar = torch.arange(bs, device=dev)
+    ar2 = torch.arange(bs2, device=dev)
+
+    # coding-order boundary state: bottom row of every completed block
+    # (rowbuf [B, bh, w]) and its right column (colbuf [B, h, bw])
+    rowbuf = torch.zeros((B, bh, w), dtype=i32, device=dev)
+    colbuf = torch.zeros((B, h, bw), dtype=i32, device=dev)
+    zeros = lambda *s: torch.zeros((B,) + s, dtype=i32, device=dev)
+    part, mi_top = zeros(bh, bw), zeros(bh, bw)
+    lev_top = zeros(bh, bw, bs, bs)
+    mi_sub, lev_sub = zeros(bh, bw, 4), zeros(bh, bw, 4, hs, hs)
+    stx_sub = zeros(bh, bw, 4)
+    part_sb, mi_sb = zeros(sh, sw), zeros(sh, sw)
+    lev_sb = zeros(sh, sw, nC, nC)
+    rec_sb = zeros(sh, sw, bs2, bs2)
+
+    def txq(pred, f_src, tx_size, n, tx_bits, tx_type=DCT_DCT):
+        lev = quantize_dq_opt(fwd_txfm2d(f_src - pred, tx_size, tx_type, bd),
+                              tx_size, dqdc, dqac, lam, bd)
+        dq = dequantize_dq(lev, tx_size, dqdc, dqac, bd)
+        recb = add_residual_clip(pred, inv_txfm2d(dq, tx_size, tx_type, bd),
+                                 bd)
+        sse = ((f_src - recb) ** 2).sum((-1, -2)).to(torch.float32)
+        rb = _resid_bits(lev, n)
+        if tx_bits:
+            nnz = (lev != 0).sum((-1, -2))
+            rb = rb + torch.where(nnz > 0, tx_bits, 0.0)
+        return lev, recb, sse, rb
+
+    def txq_sb(pred, f_src):
+        coeff = fwd_txfm2d(f_src - pred, tx_sb, DCT_DCT, bd)
+        if bs2 == 64:
+            # TX_64X64 codes only its low 32x32 band
+            coeff[..., nC:, :] = 0
+            coeff[..., :, nC:] = 0
+        lev = quantize_dq_opt(coeff, tx_sb, dqdc, dqac, lam, bd)
+        dq = dequantize_dq(lev, tx_sb, dqdc, dqac, bd)
+        recb = add_residual_clip(pred, inv_txfm2d(dq, tx_sb, DCT_DCT, bd),
+                                 bd)
+        sse = ((f_src - recb) ** 2).sum((-1, -2)).to(torch.float32)
+        lev_c = lev[..., :nC, :nC]
+        return lev_c, recb, sse, _resid_bits(lev_c, 32)   # txb bits 0 (kf)
+
+    def stack_eval(preds, rates, f_src, txq_fn, tx_types=None):
+        """All candidates through one txq chain per distinct tx type; the
+        first minimum of the RD cost wins.  paired: the u/v halves of the
+        lane axis pick one candidate on the pair's summed cost.  Returns
+        (cost, mi, lev, rec, pred, rcost) of the winners."""
+        C, BD, n = len(preds), preds[0].shape[0], preds[0].shape[-1]
+        pred_s = torch.stack(preds)                    # [C, BD, n, n]
+        if tx_types is None or len(set(tx_types)) == 1:
+            tt0 = DCT_DCT if tx_types is None else tx_types[0]
+            lev, recb, sse, rb = txq_fn(pred_s.reshape(C * BD, n, n),
+                                        f_src.repeat(C, 1, 1), tt0)
+            lev = lev.reshape((C, BD) + lev.shape[1:])
+            recb, sse, rb = (recb.reshape(C, BD, n, n), sse.reshape(C, BD),
+                             rb.reshape(C, BD))
+        else:
+            outs = [None] * 4
+            for tt in sorted(set(tx_types)):
+                idx = [i for i, t in enumerate(tx_types) if t == tt]
+                o = txq_fn(pred_s[idx].reshape(len(idx) * BD, n, n),
+                           f_src.repeat(len(idx), 1, 1), tt)
+                for k, a in enumerate(o):
+                    if outs[k] is None:
+                        outs[k] = a.new_empty((C, BD) + a.shape[1:])
+                    outs[k][idx] = a.reshape((len(idx), BD) + a.shape[1:])
+            lev, recb, sse, rb = outs
+        rcost_s = sse + lam * rb
+        cost_s = rcost_s + lam * rates[:, None]
+        if paired:
+            cp = cost_s.reshape(C, 2, BD // 2).sum(1)
+            mi = torch.argmin(cp, 0).repeat(2)
+        else:
+            mi = torch.argmin(cost_s, 0)               # first minimum
+        lanes = torch.arange(BD, device=dev)
+        return (cost_s[mi, lanes], mi.to(i32), lev[mi, lanes],
+                recb[mi, lanes], pred_s[mi, lanes], rcost_s[mi, lanes])
+
+    def eval_set(f_src, above, left, corner, ha, hl, n, tx_size):
+        """Best sub-block candidate, then (tx_search) the RD tx-type
+        refinement of the winner.  Returns (cost, mi, lev, rec, tx_idx)."""
+        preds = [_intra_pred(m, d, above, left, corner, ha, hl, n, bd)
+                 for m, d in cands_sub]
+        ttypes = ([uv_intra_tx_type(m, tx_size) for m, _ in cands_sub]
+                  if uv_tx else None)
+        cost, mi, lev, recb, pred, rcost = stack_eval(
+            preds, rd["rate_sub"], f_src,
+            lambda p, s, tt: txq(p, s, tx_size, n, txb_sub, tt), ttypes)
+        tx_idx = torch.zeros_like(mi)
+        if tx_search:
+            m_ids = rd["mode_ids"][mi.clamp(0, n_mode_ids - 1)]
+            txt = rd["txt"][m_ids]                     # [BD, 5]
+            cur_eff = rcost + lam * txt[:, 0]
+            for ti in range(1, len(TX_SEARCH_TYPES)):
+                lev2, recb2, sse2, rb2 = txq(pred, f_src, tx_size, n, 0.0,
+                                             TX_SEARCH_TYPES[ti])
+                new_eff = sse2 + lam * (rb2 + txt[:, ti])
+                take = new_eff < cur_eff
+                t3 = take[:, None, None]
+                cost = torch.where(take, cost - cur_eff + new_eff, cost)
+                lev = torch.where(t3, lev2, lev)
+                recb = torch.where(t3, recb2, recb)
+                tx_idx = torch.where(take, ti, tx_idx)
+                cur_eff = torch.where(take, new_eff, cur_eff)
+        return cost, mi, lev, recb, tx_idx
+
+    def sub_step(rs, cs, has_tr, has_bl):
+        """One z-position's blocks (rs[i], cs[i]): NONE over every top
+        candidate against SPLIT into four sub-blocks.  Writes the block's
+        outputs and boundary rows; returns (tree cost [B, D], recon
+        [B, D, bs, bs])."""
+        D = rs.shape[0]
+        y, x = rs * bs, cs * bs
+        above, left, corner, above_ext, left_ext = _edges(
+            rowbuf, colbuf, rs, cs, has_tr, has_bl, bs, vh, base)
+        fb = lambda t: t.reshape((B * D,) + t.shape[2:])
+        f_src = fb(src_b[:, rs, cs])
+        f_above, f_left, f_corner = fb(above), fb(left), fb(corner)
+        f_above_ext, f_left_ext = fb(above_ext), fb(left_ext)
+        f_ha = (rs > 0).expand(B, D).reshape(-1)
+        f_hl = (cs > 0).expand(B, D).reshape(-1)
+
+        # whole-block (NONE) evaluation, extended-edge modes included
+        preds_t = [_intra_pred(m, d, f_above, f_left, f_corner, f_ha, f_hl,
+                               bs, bd, f_above_ext, f_left_ext)
+                   for m, d in cands_top]
+        tt_top = ([uv_intra_tx_type(m, tx_top) for m, _ in cands_top]
+                  if uv_tx else None)
+        best_top = stack_eval(
+            preds_t, rd["rate_top"], f_src,
+            lambda p, s, tt: txq(p, s, tx_top, bs, txb_top, tt), tt_top)
+
+        # SPLIT evaluation: 4 z-order sub-blocks
+        loc = torch.zeros((B * D, bs, bs), dtype=i32, device=dev)
+        one = torch.ones_like(f_ha)
+        sub_cost = 0.0
+        sub_mi, sub_lev, sub_tx = [], [], []
+        for sr, sc in ((0, 0), (0, 1), (1, 0), (1, 1)):
+            oy, ox = sr * hs, sc * hs
+            s_src = f_src[:, oy:oy + hs, ox:ox + hs]
+            if sr == 0:
+                s_above_real, s_ha = f_above[..., ox:ox + hs], f_ha
+            else:
+                s_above_real, s_ha = loc[:, oy - 1, ox:ox + hs], one
+            if sc == 0:
+                s_left_real, s_hl = f_left[..., oy:oy + hs], f_hl
+            else:
+                s_left_real, s_hl = loc[:, oy:oy + hs, ox - 1], one
+            if sr == 0 and sc == 0:
+                s_corner = f_corner
+            elif sr == 0:
+                s_corner = f_above[..., ox - 1]
+            elif sc == 0:
+                s_corner = f_left[..., oy - 1]
+            else:
+                s_corner = loc[:, oy - 1, ox - 1]
+            s_above = torch.where(
+                s_ha[:, None], s_above_real,
+                torch.where(s_hl[:, None], s_left_real[..., 0:1], base - 1))
+            s_left = torch.where(
+                s_hl[:, None], s_left_real,
+                torch.where(s_ha[:, None], s_above_real[..., 0:1], base + 1))
+            s_corner = torch.where(
+                s_ha & s_hl, s_corner,
+                torch.where(s_ha, s_above_real[..., 0],
+                            torch.where(s_hl, s_left_real[..., 0], base)))
+            cost, mi, lev, recb, stx = eval_set(
+                s_src, s_above, s_left, s_corner, s_ha, s_hl, hs, tx_sub)
+            sub_cost = sub_cost + cost
+            sub_mi.append(mi)
+            sub_lev.append(lev)
+            sub_tx.append(stx)
+            loc[:, oy:oy + hs, ox:ox + hs] = recb
+
+        # choose
+        cost_none = best_top[0] + lam * rd["bits_none"]
+        cost_split = sub_cost + lam * rd["bits_split"]
+        fp = force_part[:, rs, cs].reshape(-1)
+        split = torch.where(fp < 0, cost_split < cost_none, fp == 1)
+        cost_tree = torch.minimum(cost_none, cost_split)
+        rec_d = torch.where(split[:, None, None], loc,
+                            best_top[3]).reshape(B, D, bs, bs)
+
+        part[:, rs, cs] = split.to(i32).reshape(B, D)
+        mi_top[:, rs, cs] = best_top[1].reshape(B, D)
+        lev_top[:, rs, cs] = best_top[2].reshape(B, D, bs, bs)
+        mi_sub[:, rs, cs] = torch.stack(sub_mi, -1).reshape(B, D, 4)
+        lev_sub[:, rs, cs] = torch.stack(sub_lev, -3).reshape(
+            B, D, 4, hs, hs)
+        stx_sub[:, rs, cs] = torch.stack(sub_tx, -1).reshape(B, D, 4)
+        rowbuf[:, rs[:, None], x[:, None] + ar[None, :]] = rec_d[:, :, -1]
+        colbuf[:, y[:, None] + ar[None, :], cs[:, None]] = rec_d[..., -1]
+        return cost_tree.reshape(B, D), rec_d
+
+    def eval_sb(sbr, sbc):
+        """The SB (2bs x 2bs) as one block with a single tx_sb transform,
+        from the boundary buffers as the step finds them: the SB's above
+        row is the bottom row of block-row 2*sbr-1, its left column the
+        right column of block-column 2*sbc-1; above-right exists when
+        sbr > 0 and sbc + 1 < sw, below-left never (replicated).
+        Returns (cost [B*D], mi [B*D], lev [B*D, nC, nC], rec)."""
+        D = sbr.shape[0]
+        y, x = sbr * bs2, sbc * bs2
+        ha = (sbr > 0)[None, :, None]
+        hl = (sbc > 0)[None, :, None]
+        rm1 = (2 * sbr - 1).clamp(min=0)
+        cm1 = (2 * sbc - 1).clamp(min=0)
+        above_real = rowbuf[:, rm1[:, None], x[:, None] + ar2[None, :]]
+        lrows = (y[:, None] + ar2[None, :]).clamp(max=vh - 1)
+        left_real = colbuf[:, lrows, cm1[:, None]]
+        corner_real = rowbuf[:, rm1, (x - 1).clamp(min=0)]
+        above = torch.where(ha, above_real,
+                            torch.where(hl, left_real[..., 0:1], base - 1))
+        left = torch.where(hl, left_real,
+                           torch.where(ha, above_real[..., 0:1], base + 1))
+        ha1, hl1 = ha[..., 0], hl[..., 0]
+        corner = torch.where(
+            ha1 & hl1, corner_real,
+            torch.where(ha1, above_real[..., 0],
+                        torch.where(hl1, left_real[..., 0], base)))
+        htr = (ha1 & (sbc + 1 < sw)[None, :])[..., None]
+        tr_real = rowbuf[:, rm1[:, None],
+                         (x + bs2).clamp(max=w - bs2)[:, None] + ar2[None, :]]
+        above_ext = torch.cat(
+            [above, torch.where(htr, tr_real, above[..., -1:])], -1)
+        left_ext = torch.cat(
+            [left, left[..., -1:].expand(left.shape[:-1] + (bs2,))], -1)
+
+        fb = lambda t: t.reshape((B * D,) + t.shape[2:])
+        f_src = fb(src_sb[:, sbr, sbc])
+        f_ha = ha1.expand(B, D).reshape(-1)
+        f_hl = hl1.expand(B, D).reshape(-1)
+        preds = [_intra_pred(m, d, fb(above), fb(left), fb(corner), f_ha,
+                             f_hl, bs2, bd, fb(above_ext), fb(left_ext))
+                 for m, d in cands_sbl]
+        return stack_eval(preds, rd["rate_sb"], f_src,
+                          lambda p, s, tt: txq_sb(p, s))[:4]
+
+    for k in range(len(n_valid)):
+        D = int(n_valid[k])
+        rs4, cs4 = rs_a[k, :, :D], cs_a[k, :, :D]
+        sbr, sbc = rs4[0] // 2, cs4[0] // 2
+        sb_cost, sb_mi, sb_lev, sb_rec = eval_sb(sbr, sbc)
+        cost_tot = 0.0
+        recs = []
+        for z in range(4):
+            cz, rz = sub_step(rs4[z], cs4[z], htr_a[k, z, :D],
+                              hbl_a[k, z, :D])
+            cost_tot = cost_tot + cz
+            recs.append(rz)
+        quad = torch.cat([torch.cat([recs[0], recs[1]], -1),
+                          torch.cat([recs[2], recs[3]], -1)], -2)
+        cost_none = sb_cost.reshape(B, D) + lam * rd["bits_none_sb"]
+        cost_split = cost_tot + lam * rd["bits_split_sb"]
+        fsb = force_sb[:, sbr, sbc]
+        use_sb = torch.where(fsb < 0, cost_none < cost_split, fsb == 0)
+        rec_fin = torch.where(use_sb[..., None, None],
+                              sb_rec.reshape(B, D, bs2, bs2), quad)
+        # the boundary buffers take the chosen content (the SB-NONE recon
+        # replaces the quad tree's rows and columns when it wins)
+        x, y = sbc * bs2, sbr * bs2
+        cols2 = x[:, None] + ar2[None, :]
+        rows2 = y[:, None] + ar2[None, :]
+        rowbuf[:, (2 * sbr)[:, None], cols2] = rec_fin[:, :, bs - 1, :]
+        rowbuf[:, (2 * sbr + 1)[:, None], cols2] = rec_fin[:, :, bs2 - 1, :]
+        colbuf[:, rows2, (2 * sbc)[:, None]] = rec_fin[:, :, :, bs - 1]
+        colbuf[:, rows2, (2 * sbc + 1)[:, None]] = rec_fin[:, :, :, bs2 - 1]
+        part_sb[:, sbr, sbc] = (~use_sb).to(i32)
+        mi_sb[:, sbr, sbc] = sb_mi.reshape(B, D)
+        lev_sb[:, sbr, sbc] = sb_lev.reshape(B, D, nC, nC)
+        rec_sb[:, sbr, sbc] = rec_fin
+
+    recon = rec_sb.permute(0, 1, 3, 2, 4).reshape(B, h, w)
+    return (part, mi_top, lev_top, mi_sub, lev_sub, stx_sub, recon, part_sb,
+            mi_sb, lev_sb)

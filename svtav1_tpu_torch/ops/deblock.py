@@ -1,8 +1,10 @@
 """AV1 deblocking (loop) filter, spec §7.14, in PyTorch.
 
-Counterpart of ``svtav1_tpu/ops/deblock.py`` for the flat intra path: a
-uniform transform grid, one vertical-edge pass over the whole plane and
-then one horizontal-edge pass (spec order).  Every edge of a pass is
+Counterpart of ``svtav1_tpu/ops/deblock.py``: the flat path's uniform
+transform grid (``deblock_plane_uniform``), the partition path's
+partition-aware edge set (``deblock_plane_part``) and its frame-level
+level search (``dlf_sse_part``).  One vertical-edge pass over the whole
+plane, then one horizontal-edge pass (spec order); every edge of a pass is
 filtered at once: gather the 14-pixel neighbourhoods, evaluate the masks
 and every filter variant branchlessly, scatter back the taps the filter
 writes.  In the JAX package this is XLA code outside any Pallas kernel, so
@@ -11,7 +13,10 @@ plain tensor code is its counterpart here.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from .. import upload
 
 
 def thresholds(lvl: int, sharpness: int = 0):
@@ -192,3 +197,85 @@ def deblock_plane_uniform(plane, spacing: int, filter_length: int,
     x = _filter_pass(x.transpose(-1, -2), spacing, min(h, vh), filter_length,
                      int(level_h), sharpness, bd)
     return x.transpose(-1, -2).contiguous()
+
+
+def _filter_edges(x, pos: np.ndarray, act, filter_length: int, level: int,
+                  sharpness: int, bd: int):
+    """Filter the vertical edges at columns `pos` of x [..., h, w] where
+    act [..., h, len(pos)] is set (all edges read x before any write)."""
+    if level <= 0 or len(pos) == 0:
+        return x
+    mblim, lim, thr = thresholds(level, sharpness)
+    cols = upload(pos[:, None] + np.arange(-7, 7)[None, :], x.device)
+    px = x[..., cols]                                  # [..., h, E, 14]
+    filt = _filter_core(px, filter_length, mblim, lim, thr, bd)
+    px = torch.where(act[..., None], filt, px)
+    lo, hi = _WRITE_WIN[filter_length]
+    x = x.clone()
+    x[..., cols[:, lo:hi]] = px[..., lo:hi]
+    return x
+
+
+def _part_act(part, part_sb, n: int, pos: np.ndarray, spacing: int):
+    """Which edges at positions `pos` (along the last axis of part's
+    [..., rows, cols] maps) filter, for each of the n pixel lines: edges
+    on the spacing grid always, half-spacing edges inside blocks marked
+    split; with part_sb, only the 2*spacing grid filters inside an SB that
+    is one block.  -> [..., n, len(pos)] bool."""
+    dev = part.device
+    sp2 = 2 * spacing
+    lines = np.arange(n)
+    on_grid = upload((pos % spacing) == 0, dev)
+    act = (part[..., upload(lines // spacing, dev), :][
+        ..., :, upload(pos // spacing, dev)] == 1) | on_grid
+    if part_sb is not None:
+        on_sb = upload((pos % sp2) == 0, dev)
+        sb_split = part_sb[..., upload(lines // sp2, dev), :][
+            ..., :, upload(pos // sp2, dev)] == 1
+        act = on_sb | (act & sb_split)
+    return act
+
+
+def deblock_plane_part(plane, part, spacing: int, filter_length: int,
+                       level_v: int, level_h: int, sharpness: int = 0,
+                       bd: int = 8, part_sb=None, valid_h: int = None):
+    """Partition-aware deblock of planes [..., h, w]: edges on the
+    `spacing` grid always filter; half-spacing edges filter only inside
+    blocks marked split in part [..., h/spacing, w/spacing].  part_sb
+    [..., h/(2 spacing), w/(2 spacing)] (0 = whole-SB block, 1 = split):
+    inside a whole-SB block only the 2*spacing grid filters.  The filter
+    taps do not depend on the partition (16/32 luma tx both take the
+    14-tap path, 8/16 chroma the 6-tap path).  valid_h: true (unpadded)
+    frame height; horizontal edges at rows >= valid_h are not filtered."""
+    h, w = plane.shape[-2], plane.shape[-1]
+    vh = h if valid_h is None else valid_h
+    hs = spacing // 2
+    x = plane.to(torch.int32)
+    xs = np.arange(hs, w, hs)
+    act = _part_act(part, part_sb, h, xs, spacing)
+    x = _filter_edges(x, xs, act, filter_length, int(level_v), sharpness, bd)
+    ys = np.arange(hs, h, hs)
+    ys = ys[ys < vh]
+    tr = lambda a: None if a is None else a.transpose(-1, -2)
+    act = _part_act(tr(part), tr(part_sb), w, ys, spacing)
+    x = _filter_edges(x.transpose(-1, -2), ys, act, filter_length,
+                      int(level_h), sharpness, bd)
+    return x.transpose(-1, -2).contiguous()
+
+
+def dlf_sse_part(plane, src, part, levels, spacing: int, filter_length: int,
+                 sharpness: int = 0, bd: int = 8, part_sb=None,
+                 valid_h: int = None):
+    """Frame-level DLF level search: deblock `plane` at each level of
+    `levels` (Python ints, both edge directions) and return the exact
+    int64 SSE against `src` over the valid rows, per level [nlev], on the
+    plane's device."""
+    vh = plane.shape[-2] if valid_h is None else valid_h
+    src = src.to(torch.int32)[..., :vh, :]
+    sses = []
+    for lvl in levels:
+        out = deblock_plane_part(plane, part, spacing, filter_length, lvl,
+                                 lvl, sharpness, bd, part_sb, valid_h)
+        d = (out[..., :vh, :] - src).to(torch.int64)
+        sses.append((d * d).sum())
+    return torch.stack(sses)

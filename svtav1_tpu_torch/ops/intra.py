@@ -7,8 +7,12 @@ predictions [..., h, w] with integer tensor ops (int32 in, int32 out).
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
+
+from .. import upload
 
 # AV1 intra mode enum (spec §6.10.19)
 (DC_PRED, V_PRED, H_PRED, D45_PRED, D135_PRED, D113_PRED, D157_PRED,
@@ -38,8 +42,14 @@ SM_WEIGHTS = np.array([
 SM_WEIGHT_LOG2_SCALE = 8
 
 
+@lru_cache(maxsize=None)
+def _weights_t(n: int, device: str) -> torch.Tensor:
+    return upload(SM_WEIGHTS[n:2 * n], device)
+
+
 def _weights(n: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(SM_WEIGHTS[n:2 * n], device=like.device)
+    """The n smooth weights on like's device (one upload per device)."""
+    return _weights_t(n, str(like.device))
 
 
 def dc_pred(above, left, have_above: bool = True, have_left: bool = True,

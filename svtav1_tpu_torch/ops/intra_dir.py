@@ -18,6 +18,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .. import upload
+
 # mode -> base angle (spec §7.11.2.1)
 MODE_ANGLE = {1: 90, 2: 180, 3: 45, 4: 135, 5: 113, 6: 157, 7: 203, 8: 67}
 
@@ -96,13 +98,27 @@ def _z2_maps(n: int, angle: int):
         l0, l1, np.broadcast_to(shift2, (n, n)).copy()
 
 
-def _interp(edge, i0, i1, shift):
-    dev = edge.device
-    v0 = edge[..., torch.as_tensor(i0.reshape(-1), device=dev)]
-    v1 = edge[..., torch.as_tensor(i1.reshape(-1), device=dev)]
-    sh = torch.as_tensor(shift.reshape(-1), dtype=torch.int32, device=dev)
-    val = (v0 * (32 - sh) + v1 * sh + 16) >> 5
-    return val.reshape(edge.shape[:-1] + i0.shape)
+@lru_cache(maxsize=None)
+def _maps_t(n: int, angle: int, device: str):
+    """The zone's maps of (n, angle) as tensors on `device` (one upload per
+    device): (i0, i1, shift) triples flattened, and the [n, n] mask."""
+    if angle < 90 or angle > 180:
+        i0, i1, shift, over = (_z1_maps if angle < 90 else _z3_maps)(n, angle)
+        tabs = [(i0, i1, shift)]
+        mask = over
+    else:
+        ua, a0, a1, s1, l0, l1, s2 = _z2_maps(n, angle)
+        tabs = [(a0, a1, s1), (l0, l1, s2)]
+        mask = ua
+    flat = [tuple(upload(np.asarray(a, np.int64 if k < 2 else np.int32)
+                         .reshape(-1), device) for k, a in enumerate(t))
+            for t in tabs]
+    return flat, upload(np.asarray(mask, bool), device)
+
+
+def _interp(edge, i0, i1, shift, n: int):
+    val = (edge[..., i0] * (32 - shift) + edge[..., i1] * shift + 16) >> 5
+    return val.reshape(edge.shape[:-1] + (n, n))
 
 
 def dr_pred(mode: int, delta: int, above_ext, left_ext, corner, n: int,
@@ -110,27 +126,18 @@ def dr_pred(mode: int, delta: int, above_ext, left_ext, corner, n: int,
     """Directional prediction for one (mode, delta); batched [..., n, n]."""
     angle = MODE_ANGLE[mode] + 3 * delta
     lo, hi = 0, (1 << bd) - 1
-    dev = above_ext.device
-    if angle < 90:
-        i0, i1, shift, over = _z1_maps(n, angle)
-        val = _interp(above_ext, i0, i1, shift)
-        fill = above_ext[..., 2 * n - 1][..., None, None]
-        out = torch.where(torch.as_tensor(over, device=dev), fill, val)
-        return out.clamp(lo, hi)
     if angle == 90:
         return above_ext[..., None, :n].expand(above_ext.shape[:-1] + (n, n))
-    if angle < 180:
-        ua, a0, a1, s1, l0, l1, s2 = _z2_maps(n, angle)
-        above_c = torch.cat([corner[..., None], above_ext[..., :n]], dim=-1)
-        left_c = torch.cat([corner[..., None], left_ext[..., :n]], dim=-1)
-        va = _interp(above_c, a0, a1, s1)
-        vl = _interp(left_c, l0, l1, s2)
-        return torch.where(torch.as_tensor(ua, device=dev), va,
-                           vl).clamp(lo, hi)
     if angle == 180:
         return left_ext[..., :n, None].expand(left_ext.shape[:-1] + (n, n))
-    i0, i1, shift, over = _z3_maps(n, angle)
-    val = _interp(left_ext, i0, i1, shift)
-    fill = left_ext[..., 2 * n - 1][..., None, None]
-    out = torch.where(torch.as_tensor(over, device=dev), fill, val)
-    return out.clamp(lo, hi)
+    tabs, mask = _maps_t(n, angle, str(above_ext.device))
+    if 90 < angle < 180:
+        above_c = torch.cat([corner[..., None], above_ext[..., :n]], dim=-1)
+        left_c = torch.cat([corner[..., None], left_ext[..., :n]], dim=-1)
+        va = _interp(above_c, *tabs[0], n)
+        vl = _interp(left_c, *tabs[1], n)
+        return torch.where(mask, va, vl).clamp(lo, hi)
+    edge = above_ext if angle < 90 else left_ext
+    val = _interp(edge, *tabs[0], n)
+    fill = edge[..., 2 * n - 1][..., None, None]
+    return torch.where(mask, fill, val).clamp(lo, hi)

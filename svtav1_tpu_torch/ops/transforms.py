@@ -1,8 +1,8 @@
 """Batched AV1 forward/inverse 2D transforms (normative, integer-exact).
 
-Counterpart of ``svtav1_tpu/ops/transforms.py`` for what the flat intra
-path uses: square DCT/ADST transforms at n = 16 and 32 (no flips, no
-identity, no 4-point ADST).  Each 1D butterfly stage of
+Counterpart of ``svtav1_tpu/ops/transforms.py`` for what the intra paths
+use: square transforms at n = 8, 16, 32 and 64 with DCT, ADST (n <= 16)
+and identity 1D kinds (no flips, no rectangles).  Each 1D butterfly stage of
 ``spec.txfm.compiled_stages`` is a gather + int32 multiply-add
 over the last axis, batched over the leading axes.  As in the JAX package,
 int32 products do not overflow for 8/10-bit coefficient ranges (clamped
@@ -15,6 +15,7 @@ from functools import lru_cache
 
 import torch
 
+from .. import upload
 from ..spec import txfm as T
 
 
@@ -45,7 +46,7 @@ def _stages_t(kind: str, n: int, direction: str, cos_bit: int,
     out = []
     for ia, wa, ib, wb, mode in T.compiled_stages(kind, n, direction,
                                                   cos_bit):
-        out.append(tuple(torch.as_tensor(a, device=device)
+        out.append(tuple(upload(a, device)
                          for a in (ia.astype("int64"), wa, ib.astype("int64"),
                                    wb, mode.astype("int32"))))
     return tuple(out)
@@ -65,19 +66,38 @@ def _apply_network(x, kind: str, n: int, direction: str, cos_bit: int,
     return x
 
 
-_KIND = {T.DCT_1D: "dct", T.ADST_1D: "adst"}
+def _identity(x, n: int):
+    """Identity transform (same formula both directions,
+    EbInvTransforms.c:2331-2360, EbTransforms.c:2205-2237)."""
+    if n == 8:
+        return x * 2
+    if n == 16:
+        return round2(x * (2 * T.NEW_SQRT2), T.NEW_SQRT2_BITS)
+    if n == 32:
+        return x * 4
+    return round2(x * (4 * T.NEW_SQRT2), T.NEW_SQRT2_BITS)
+
+
+_KIND = {T.DCT_1D: "dct", T.ADST_1D: "adst", T.IDTX_1D: "idtx"}
 
 
 def _kinds(tx_size: int, tx_type: int):
     w, h = T.TX_W[tx_size], T.TX_H[tx_size]
     row, col = T.HTX_TAB[tx_type], T.VTX_TAB[tx_type]
-    if w != h or w not in (16, 32) or row not in _KIND or col not in _KIND \
-            or (w == 32 and T.ADST_1D in (row, col)):
+    if w != h or w not in (8, 16, 32, 64) or row not in _KIND \
+            or col not in _KIND or (w > 16 and T.ADST_1D in (row, col)):
         raise NotImplementedError(
             f"tx_size {tx_size} / tx_type {tx_type}: the port covers square "
-            "16x16 DCT/ADST and 32x32 DCT (svtav1_tpu.ops.transforms has "
-            "the rest)")
+            "8..64 DCT, 8/16 ADST and identity (svtav1_tpu.ops.transforms "
+            "has the rest)")
     return w, _KIND[row], _KIND[col]
+
+
+def _apply_1d(x, kind: str, n: int, direction: str, cos_bit: int,
+              clamp_bit: int):
+    if kind == "idtx":
+        return _identity(x, n)
+    return _apply_network(x, kind, n, direction, cos_bit, clamp_bit)
 
 
 def inv_txfm2d(coeffs, tx_size: int, tx_type: int, bd: int = 8):
@@ -85,12 +105,12 @@ def inv_txfm2d(coeffs, tx_size: int, tx_type: int, bd: int = 8):
     n, row_kind, col_kind = _kinds(tx_size, tx_type)
     shift = T.INV_SHIFT[(n, n)]
     x = _clamp(coeffs.to(torch.int32), bd + 8)
-    x = _apply_network(x, row_kind, n, "inv", T.INV_COS_BIT,
-                       T.opt_range(bd, False))
+    x = _apply_1d(x, row_kind, n, "inv", T.INV_COS_BIT,
+                  T.opt_range(bd, False))
     x = _round_shift_signed(x, -shift[0])
     x = _clamp(x.transpose(-1, -2), max(bd + 6, 16))
-    x = _apply_network(x, col_kind, n, "inv", T.INV_COS_BIT,
-                       T.opt_range(bd, True))
+    x = _apply_1d(x, col_kind, n, "inv", T.INV_COS_BIT,
+                  T.opt_range(bd, True))
     x = _round_shift_signed(x, -shift[1])
     return x.transpose(-1, -2)
 
@@ -111,7 +131,7 @@ def fwd_txfm2d(residual, tx_size: int, tx_type: int, bd: int = 8):
     cos_bit_row = T.FWD_COS_BIT_ROW[wi][wi]
     x = residual.to(torch.int32).transpose(-1, -2)       # columns first
     x = _round_shift_signed(x, -shift[0])
-    x = _apply_network(x, col_kind, n, "fwd", cos_bit_col, 0)
+    x = _apply_1d(x, col_kind, n, "fwd", cos_bit_col, 0)
     x = _round_shift_signed(x, -shift[1]).transpose(-1, -2)
-    x = _apply_network(x, row_kind, n, "fwd", cos_bit_row, 0)
+    x = _apply_1d(x, row_kind, n, "fwd", cos_bit_row, 0)
     return _round_shift_signed(x, -shift[2])

@@ -1,7 +1,8 @@
 """Loaders for normative AV1 constant tables (spec data in ``data/``).
 
-Copy of ``svtav1_tpu/spec/tables.py``, cut to what the flat path reads:
-- scan orders (spec §5.11.40) per (tx_size, tx_type);
+Copy of ``svtav1_tpu/spec/tables.py``:
+- scan orders (spec §5.11.40) per (tx_size, tx_type), over the adjusted
+  tx area (64-dim transforms code only their 32-dim low band);
 - quant lookup (spec §7.12.2): dc/ac dequant step per qindex and bit depth.
 """
 
@@ -17,12 +18,27 @@ _DATA = Path(__file__).parent / "data"
 TX_W = [4, 8, 16, 32, 64, 4, 8, 8, 16, 16, 32, 32, 64, 4, 16, 8, 32, 16, 64]
 TX_H = [4, 8, 16, 32, 64, 8, 4, 16, 8, 32, 16, 64, 32, 16, 4, 32, 8, 64, 16]
 
+def adjusted_tx_wh(tx_size: int):
+    """Coded coefficient area (64-dim clamped to 32)."""
+    return min(TX_W[tx_size], 32), min(TX_H[tx_size], 32)
+
+
 _SQ_OF = {4: 0, 8: 1, 16: 2, 32: 3, 64: 4}
+
+
+def txsize_sqr(tx_size: int) -> int:
+    """Square TX of the smaller dimension."""
+    return _SQ_OF[min(TX_W[tx_size], TX_H[tx_size])]
 
 
 def txsize_sqr_up(tx_size: int) -> int:
     """Square TX of the larger dimension."""
     return _SQ_OF[max(TX_W[tx_size], TX_H[tx_size])]
+
+
+def txs_ctx(tx_size: int) -> int:
+    """Coefficient-coding size context (EbEntropyCoding.c:492)."""
+    return (txsize_sqr(tx_size) + txsize_sqr_up(tx_size) + 1) >> 1
 
 
 def tx_scale_shift(tx_size: int) -> int:

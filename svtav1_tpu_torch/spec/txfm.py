@@ -1,12 +1,12 @@
 """Normative AV1 transform configuration (spec §7.13.2-7.13.3).
 
-Copy of ``svtav1_tpu/spec/txfm.py``, cut to the square sizes and the
-DCT/ADST kinds of the flat path: 1D-type mapping, shifts, cos bits and the
-butterfly stage networks.  The networks are normative (every conforming
-AV1 codec reproduces them bit-exactly, intermediate roundings included)
-and are stored as data in ``data/txfm_stages.json``; each stage compiles
-to five vectors (ia, wa, ib, wb, mode), one gather + multiply-add over a
-batch of vectors.
+Copy of ``svtav1_tpu/spec/txfm.py``, cut to the square sizes 8..64 and
+the DCT, ADST and identity kinds of the intra paths: 1D-type mapping,
+shifts, cos bits and the butterfly stage networks.  The networks are
+normative (every conforming AV1 codec reproduces them bit-exactly,
+intermediate roundings included) and are stored as data in
+``data/txfm_stages.json``; each stage compiles to five vectors (ia, wa,
+ib, wb, mode), one gather + multiply-add over a batch of vectors.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from . import tables as _tbl
 
 _DATA = Path(__file__).parent / "data"
 
-TX_16X16, TX_32X32 = 2, 3
+TX_4X4, TX_8X8, TX_16X16, TX_32X32, TX_64X64 = 0, 1, 2, 3, 4
 TX_W, TX_H = _tbl.TX_W, _tbl.TX_H
 
 # Transform types (spec §6.8.21)
@@ -70,8 +70,10 @@ HTX_TAB = [DCT_1D, DCT_1D, ADST_1D, ADST_1D, DCT_1D, FLIPADST_1D,
 # inverse shifts [row, col] and forward shifts [pre-col, post-col,
 # post-row] of the square sizes (EbInvTransforms.c:17-35,
 # EbTransforms.h:26-44)
-INV_SHIFT = {(16, 16): (-2, -4), (32, 32): (-2, -4)}
-FWD_SHIFT = {(16, 16): (2, -2, 0), (32, 32): (2, -4, 0)}
+INV_SHIFT = {(8, 8): (-1, -4), (16, 16): (-2, -4), (32, 32): (-2, -4),
+             (64, 64): (-2, -4)}
+FWD_SHIFT = {(8, 8): (2, -1, 0), (16, 16): (2, -2, 0), (32, 32): (2, -4, 0),
+             (64, 64): (0, -2, -2)}
 
 INV_COS_BIT = 12
 # forward cos bits indexed [log2(w)-2][log2(h)-2] (EbTransforms.h:46-49)
@@ -81,6 +83,9 @@ FWD_COS_BIT_COL = [[13, 13, 13, 0, 0], [13, 13, 13, 12, 0],
 FWD_COS_BIT_ROW = [[13, 13, 12, 0, 0], [13, 13, 13, 12, 0],
                    [13, 13, 12, 13, 12], [0, 12, 13, 12, 11],
                    [0, 0, 12, 11, 10]]
+
+NEW_SQRT2 = 5793       # 2^12 * sqrt(2)
+NEW_SQRT2_BITS = 12
 
 
 @lru_cache(maxsize=None)
@@ -103,14 +108,9 @@ def _raw_stages():
     return json.loads((_DATA / "txfm_stages.json").read_text())
 
 
-_NAME = {
-    ("dct", 16, "inv"): "svt_av1_idct16_new",
-    ("dct", 32, "inv"): "svt_av1_idct32_new",
-    ("adst", 16, "inv"): "svt_av1_iadst16_new",
-    ("dct", 16, "fwd"): "svt_av1_fdct16_new",
-    ("dct", 32, "fwd"): "svt_av1_fdct32_new",
-    ("adst", 16, "fwd"): "svt_av1_fadst16_new",
-}
+_NAME = {(kind, n, d): f"svt_av1_{d[0]}{kind}{n}_new"
+         for kind, sizes in (("dct", (8, 16, 32, 64)), ("adst", (8, 16)))
+         for n in sizes for d in ("inv", "fwd")}
 
 
 @lru_cache(maxsize=None)

@@ -112,7 +112,8 @@ def test_cuda_device_raises_without_card():
 
 
 @pytest.mark.parametrize("change", [
-    {"part_search": True}, {"bit_depth": 10}, {"angle_deltas": (-2, 0, 2)},
+    {"part_search": True, "tile_cols": 2}, {"bit_depth": 10},
+    {"angle_deltas": (-2, 0, 2)},
     {"tile_cols": 2}, {"enable_cdef": True}, {"enable_lr": True},
     {"enable_ccso": True}])
 def test_outside_the_slice_raises(change):
@@ -152,7 +153,8 @@ def test_cli_preset12_writes_decodable_ivf(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--keyint", "64", "--no-part-search"], ["--keyint", "1"],
+    ["--keyint", "64", "--no-part-search"],
+    ["--keyint", "1", "--preset", "9"],
     ["--keyint", "1", "--preset", "5"]])
 def test_cli_rejects_other_modes(tmp_path, extra):
     src = tmp_path / "in.y4m"

@@ -1,6 +1,7 @@
 """The port stands on its own: no module of ``svtav1_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX, the JAX package or its benchmark, and the
-port encodes with all three blocked.
+port encodes with all three blocked, on the flat and on the partition
+path.
 """
 
 import ast
@@ -45,13 +46,14 @@ _ENCODE_BLOCKED = textwrap.dedent("""
                rng.randint(0, 256, (32, 64)).astype(np.uint8),
                rng.randint(0, 256, (32, 64)).astype(np.uint8))
               for _ in range(2)]
-    enc = IntraEncoder(EncoderConfig(128, 64, part_search=False),
-                       device="cpu")
-    payloads, recons = enc.encode_frames(frames)
-    assert len(payloads) == 2 and all(len(p) > 100 for p in payloads)
-    for p in payloads:
-        assert any(t == OBU_FRAME for t, _, _, _ in parse_obus(p))
-    assert recons[1][0].shape == (64, 128)
+    for part_search in (False, True):
+        enc = IntraEncoder(EncoderConfig(128, 64, part_search=part_search),
+                           device="cpu")
+        payloads, recons = enc.encode_frames(frames)
+        assert len(payloads) == 2 and all(len(p) > 100 for p in payloads)
+        for p in payloads:
+            assert any(t == OBU_FRAME for t, _, _, _ in parse_obus(p))
+        assert recons[1][0].shape == (64, 128)
     print("ISOLATED_OK")
 """)
 
