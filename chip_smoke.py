@@ -1,6 +1,7 @@
 """Drive the PyTorch port's all-intra 1080p encode on one CUDA card: the flat
 path through the hand-written wavefront kernel, and the partition path (the
-encoder's default) as plain PyTorch on the card.
+encoder's default) with and without the in-loop filters as plain PyTorch on
+the card.
 
     python3 chip_smoke.py
 
@@ -39,7 +40,25 @@ its last line):
      payloads whenever every map agrees;
   7. one luma partition wavefront call on a 1920x128 crop under
      torch.profiler: device events per scan step and the device's busy
-     share of the window (the plain scan is launch-bound).
+     share of the window (the plain scan is launch-bound);
+  8. the partition path with the in-loop filters (CDEF, CCSO, loop
+     restoration) at 1920x1088, q100, on one batch of 2 frames: the first
+     frame of the banded clip and the first of the edge clip
+     (``cuda/inputs.edge_frames``: CCSO stays off on the smooth clip).
+     Wall time of each stage after a synchronize (device stage, CDEF
+     search and apply, CCSO search and apply, LR search with its SGR and
+     Wiener parts, LR apply, tile coder) and e2e fps; the chosen CDEF bits
+     and strengths, LR types and unit counts, CCSO planes; device events
+     of one CDEF search and one LR search (torch.profiler) and the device
+     syncs of one frame's filter stage.  Every payload parses, luma PSNR
+     > 30 dB, and CDEF (a nonzero strength), CCSO (a plane on) and LR (a
+     unit on) each fired;
+  9. the filtered partition path at 256x128 on the card and on the CPU
+     (the two clips' first frames, q100), as chosen and with Wiener units
+     forced (SGR priced out, Wiener free): decision-map agreement as in
+     phase 6; when the maps agree, equal CDEF params and CCSO info; LR
+     agreement per unit; byte-identical payloads when the maps and every
+     filter parameter agree.
 Then one JSON line of kernel results and, last, one JSON line naming the
 device.  Imports nothing of JAX or of the JAX package.
 """
@@ -47,16 +66,21 @@ device.  Imports nothing of JAX or of the JAX package.
 import json
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
+from svtav1_tpu_torch import upload
 from svtav1_tpu_torch.cuda import build
 from svtav1_tpu_torch.cuda import wavefront_kernel as wk
 from svtav1_tpu_torch.cuda.inputs import (SHAPES_1080P, banded_frames,
-                                          card, plane_src, synth_frames)
+                                          card, edge_frames, plane_src,
+                                          synth_frames)
 from svtav1_tpu_torch.ec import native
 from svtav1_tpu_torch.encoder import intra_encoder as ie
+from svtav1_tpu_torch.encoder import lr_search as lrs
+from svtav1_tpu_torch.encoder import tile_codec
 from svtav1_tpu_torch.encoder import wavefront2 as wf2
 from svtav1_tpu_torch.encoder.geometry import bottom_force_masks
 from svtav1_tpu_torch.encoder.wavefront import (
@@ -340,14 +364,28 @@ def check_payloads(payloads, frames, recons, label):
 
 
 class StageClock:
-    """Wraps the partition path's stage functions in the encoder module:
-    each call is timed on the host clock between two synchronizes."""
-    NAMES = ("encode_plane_wavefront_part", "dlf_sse_part",
-             "deblock_plane_part")
+    """Wraps stage functions (attributes of the encoder's modules, or a
+    class's method): each call is timed on the host clock between two
+    synchronizes, and its result kept."""
+    PART = [(ie, "encode_plane_wavefront_part"), (ie, "dlf_sse_part"),
+            (ie, "deblock_plane_part")]
+    FILTERS = [(ie, "cdef_search_frame"), (ie, "cdef_apply_params"),
+               (ie, "ccso_search_frame"), (ie, "ccso_apply_frame"),
+               (ie, "lr_search_frame"), (lrs, "sgr_search"),
+               (lrs, "wiener_refine"), (ie, "lr_apply_frame"),
+               (tile_codec.TileCoder, "encode")]
 
-    def __init__(self):
+    def __init__(self, targets=PART):
+        self.targets = targets
         self.ms = {}
-        self.saved = {}
+        self.out = {}
+        self.saved = []
+
+    @staticmethod
+    def _key(name, a):
+        if name == "encode_plane_wavefront_part":
+            return "luma wavefront" if a[1] == 32 else "chroma wavefront"
+        return "tile coder" if name == "encode" else name
 
     def _wrap(self, name, fn):
         def timed(*a, **kw):
@@ -355,23 +393,23 @@ class StageClock:
             t0 = time.perf_counter()
             out = fn(*a, **kw)
             torch.cuda.synchronize()
-            key = name
-            if name == "encode_plane_wavefront_part":
-                key = "luma wavefront" if a[1] == 32 else "chroma wavefront"
+            key = self._key(name, a)
             self.ms[key] = self.ms.get(key, 0.0) + \
                 1e3 * (time.perf_counter() - t0)
+            self.out.setdefault(key, []).append(out)
             return out
         return timed
 
     def __enter__(self):
-        for n in self.NAMES:
-            self.saved[n] = getattr(ie, n)
-            setattr(ie, n, self._wrap(n, self.saved[n]))
+        for obj, name in self.targets:
+            fn = getattr(obj, name)
+            self.saved.append((obj, name, fn))
+            setattr(obj, name, self._wrap(name, fn))
         return self
 
     def __exit__(self, *exc):
-        for n, fn in self.saved.items():
-            setattr(ie, n, fn)
+        for obj, name, fn in self.saved:
+            setattr(obj, name, fn)
 
 
 def part_maps(dev):
@@ -474,6 +512,203 @@ def phase_part_launches():
           f"without a host sync [{CARD}]", flush=True)
 
 
+FILTERS = dict(enable_cdef=True, enable_lr=True, enable_ccso=True)
+SEARCHES = ("cdef_search_frame", "ccso_search_frame", "lr_search_frame")
+
+
+def filter_frames(w, h):
+    """Phase 8's and 9's batch: the first frame of each clip."""
+    return [banded_frames(w, h, 1)[0], edge_frames(w, h, 1)[0]]
+
+
+def describe_filters(cdef, ccso, lr):
+    """One line per frame of the filter decisions; and whether CDEF, CCSO
+    and LR each fired in some frame."""
+    fired = [False, False, False]
+    lines = []
+    for b, (c, o, (types, units)) in enumerate(zip(cdef, ccso, lr)):
+        counts = [None if u is None else
+                  np.bincount(u["type"].ravel(), minlength=3).tolist()
+                  for u in units]
+        on = [] if o is None else [p for p in range(3)
+                                   if o["planes"][p] is not None]
+        fired[0] |= any(p != (0, 0) for p in c["y_strengths"] +
+                        c["uv_strengths"])
+        fired[1] |= bool(on)
+        fired[2] |= any(types)
+        lines.append(f"frame {b}: CDEF bits {c['bits']} damping "
+                     f"{c['damping']} y {c['y_strengths']} uv "
+                     f"{c['uv_strengths']}; CCSO planes on {on}; LR types "
+                     f"{tuple(types)}, units [NONE, WIENER, SGR] per plane "
+                     f"{counts}")
+    return lines, fired
+
+
+def skip8_args(dev, b):
+    """build_skip8's arrays of frame b of a partition-path device tuple."""
+    return tuple(dev[i][b].cpu().numpy()
+                 for i in (2, 4, 7, 9, 6, 8, 10, 16, 18, 19, 20))
+
+
+def profile_events(fn):
+    """(device events, busy ms, window ms) of one call under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    spans = kineto_device_spans(prof)
+    return len(spans), busy_us(spans) / 1e3, 1e3 * (t1 - t0)
+
+
+def phase_filters():
+    """The filtered partition path at 1920x1088 on the card."""
+    h, q = 1088, 100
+    frames = filter_frames(W, h)
+    enc = ie.IntraEncoder(ie.EncoderConfig(W, h, qindex=q, **FILTERS),
+                          device="cuda")
+    t0 = time.perf_counter()
+    dev = enc.device_encode(frames)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with StageClock(StageClock.FILTERS) as clock:
+        payloads, recons = enc.host_finish(dev)
+    t2 = time.perf_counter()
+    ps_y = check_payloads(payloads, frames, recons, "filtered path")
+    n = len(frames)
+    ms = clock.ms
+    stages = ", ".join(f"{k} {ms[k] / n:.1f}" for k in (
+        "cdef_search_frame", "cdef_apply_params", "ccso_search_frame",
+        "ccso_apply_frame", "lr_search_frame", "sgr_search",
+        "wiener_refine", "lr_apply_frame", "tile coder") if k in ms)
+    print(f"filtered path: {W}x{h} q{q}, batch {n} (banded clip frame 0, "
+          f"edge clip frame 0): device stage {1e3 * (t1 - t0):.1f} ms; per "
+          f"frame (ms): {stages}; host stage {1e3 * (t2 - t1) / n:.1f} ms "
+          f"per frame; e2e {n / (t2 - t0):.4f} fps [{CARD}]", flush=True)
+    lines, fired = describe_filters(*(clock.out[k] for k in SEARCHES))
+    for line in lines:
+        print(f"filtered path: {line}", flush=True)
+    print(f"filtered path: {sum(map(len, payloads))} bytes, luma PSNR "
+          f"{', '.join(f'{p:.2f}' for p in ps_y)} dB", flush=True)
+    if not all(fired):
+        raise AssertionError("filtered path: CDEF, CCSO, LR fired: "
+                             f"{fired}")
+
+    # device events of one search each, on frame 0's deblocked planes
+    src = tuple(upload(p, DEV) for p in frames[0])
+    rec = tuple(dev[k][0] for k in (12, 13, 14))
+    args = skip8_args(dev, 0)
+    skip8 = ie.build_skip8(*args)
+    lam = ie._lambda(q)
+    for label, fn in (
+            ("CDEF search", lambda: ie.cdef_search_frame(src, rec, skip8, q,
+                                                         lam)),
+            ("LR search", lambda: ie.lr_search_frame(src, rec, lam))):
+        n_ev, busy, window = profile_events(fn)
+        print(f"filtered path: one {label} ({W}x{h}, frame 0): {n_ev} "
+              f"device events, device busy {busy:.1f} ms of a {window:.1f} "
+              f"ms window ({100 * busy / window:.1f}%) [{CARD}]", flush=True)
+    # host syncs of one frame's filter stage
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            enc._filter_frame(frames[0], rec, args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(c.message) for c in caught)
+    print(f"filtered path: device syncs of one frame's filter stage: "
+          f"{syncs}", flush=True)
+
+
+def phase_filters_card_vs_cpu():
+    """The filtered partition path at 256x128 on the card and on the
+    CPU, as chosen and with Wiener units forced."""
+    w, h = 256, 128
+    frames = filter_frames(w, h)
+    for forced in (False, True):
+        out = {}
+        saved = lrs.SGR_BITS, lrs.WIENER_BITS
+        if forced:
+            lrs.SGR_BITS, lrs.WIENER_BITS = 1e12, 0.0
+        try:
+            for d in ("cuda", "cpu"):
+                enc = ie.IntraEncoder(ie.EncoderConfig(w, h, qindex=100,
+                                                       **FILTERS), device=d)
+                with StageClock([(ie, k) for k in SEARCHES]) as clock:
+                    dev = enc.device_encode(frames)
+                    payloads, recons = enc.host_finish(dev)
+                check_payloads(payloads, frames, recons, f"{w}x{h} on {d}")
+                out[d] = (part_maps(dev), payloads,
+                          [clock.out[k] for k in SEARCHES])
+        finally:
+            lrs.SGR_BITS, lrs.WIENER_BITS = saved
+        label = "Wiener forced" if forced else "as chosen"
+        fracs = {k: float((out["cuda"][0][k] == out["cpu"][0][k]).mean())
+                 for k in out["cuda"][0]}
+        maps_same = all(f == 1.0 for f in fracs.values())
+        (c_cd, c_cc, c_lr), (p_cd, p_cc, p_lr) = out["cuda"][2], \
+            out["cpu"][2]
+        cdef_same = all(a["bits"] == b["bits"] and a["damping"] ==
+                        b["damping"] and a["y_strengths"] == b["y_strengths"]
+                        and a["uv_strengths"] == b["uv_strengths"] and
+                        np.array_equal(a["idx_map"], b["idx_map"])
+                        for a, b in zip(c_cd, p_cd))
+        ccso_same = all(same_ccso(a, b) for a, b in zip(c_cc, p_cc))
+        agree, total = lr_agreement(c_lr, p_lr)
+        equal = out["cuda"][1] == out["cpu"][1]
+        print(f"card vs CPU, filtered path {w}x{h} x2 ({label}): map "
+              f"agreement " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                        fracs.items()) +
+              f"; CDEF params equal {cdef_same}; CCSO info equal "
+              f"{ccso_same}; LR units agree {agree} of {total}; payloads "
+              f"byte-identical {equal}", flush=True)
+        lines, fired = describe_filters(c_cd, c_cc, c_lr)
+        for line in lines:
+            print(f"card vs CPU ({label}): card {line}", flush=True)
+        if maps_same and not (cdef_same and ccso_same):
+            raise AssertionError("maps agree but the CDEF or CCSO "
+                                 "decisions differ")
+        if maps_same and agree == total and not equal:
+            raise AssertionError("maps and filter parameters agree but the "
+                                 "payloads differ")
+        if forced and not any((u["type"] == 1).any() for _, us in c_lr
+                              for u in us if u is not None):
+            raise AssertionError("no Wiener unit with Wiener forced")
+
+
+def same_ccso(a, b):
+    if a is None or b is None:
+        return a is b
+    return all((pa is None) == (pb is None) and (pa is None or all(
+        np.array_equal(pa[k], pb[k]) for k in pb))
+        for pa, pb in zip(a["planes"], b["planes"]))
+
+
+def lr_agreement(got, want):
+    """(units whose every field agrees, units) over frames and planes;
+    a plane left NONE counts as its units set to NONE."""
+    agree = total = 0
+    for (gt, gu), (wt, wu) in zip(got, want):
+        for p in range(3):
+            g, w = gu[p], wu[p]
+            ref = g if g is not None else w
+            if ref is None:
+                continue
+            same = np.ones(ref["type"].shape, bool)
+            for k in ref:
+                a = g[k] if g is not None else np.zeros_like(ref[k])
+                b = w[k] if w is not None else np.zeros_like(ref[k])
+                eq = a == b
+                same &= eq if eq.ndim == 2 else eq.all(-1)
+            agree += int(same.sum())
+            total += same.size
+    return agree, total
+
+
 CARD = ""
 
 
@@ -514,6 +749,8 @@ def main():
     phase(phase_partition)
     phase(phase_card_vs_cpu)
     phase(phase_part_launches)
+    phase(phase_filters)
+    phase(phase_filters_card_vs_cpu)
     print(json.dumps({"kernels": [{
         "name": "wavefront", "route": "cuda",
         "source": "svtav1_tpu_torch/csrc/wavefront.cu",

@@ -3,14 +3,16 @@
 It runs the all-intra encode (8-bit 4:2:0) end to end on an NVIDIA Hopper
 card, on both intra paths: the partition path that is the default
 (64x64 / 32x32 / 16x16 blocks, tx-type search, partition-aware deblocking
-with a DLF level search, the Python tile coder) and the flat path of
+with a DLF level search, the in-loop filters CDEF, CCSO and loop
+restoration when enabled, the Python tile coder) and the flat path of
 presets M11-M13 (32x32 luma / 16x16 chroma blocks, uniform deblocking,
 the native tile coder):
 
 - ``ops``     — plain PyTorch counterparts of the normative integer ops
-                (intra predictors, transforms, quantizer, deblocking).
-- ``encoder`` — the two wavefront mode decisions, the tile coder and
-                ``IntraEncoder``.
+                (intra predictors, transforms, quantizer, deblocking,
+                CDEF, CCSO, Wiener and self-guided restoration).
+- ``encoder`` — the two wavefront mode decisions, the in-loop filter
+                searches, the tile coder and ``IntraEncoder``.
 - ``csrc``    — the hand-written CUDA kernel of the intra wavefront, built
                 at first use by ``cuda.build`` and bound by ctypes in
                 ``cuda.wavefront_kernel``.
@@ -45,7 +47,10 @@ def resolve_device(device) -> torch.device:
 def upload(a, device) -> torch.Tensor:
     """numpy array -> tensor on `device`.  A CUDA copy goes through pinned
     memory without blocking, so it never synchronises the stream."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:           # e.g. planes read from a file
+        a = a.copy()
+    t = torch.from_numpy(a)
     if torch.device(device).type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t

@@ -2,16 +2,20 @@
 
 Usage:
   python -m svtav1_tpu_torch.app -i in.y4m -b out.ivf -q 100 --keyint 1 \
-      [--no-part-search | --preset 10..13] [--batch N] [--stat-report] \
-      [--device cuda|cpu]
+      [--no-part-search | --preset 6..13] [--cdef] [--lr] [--ccso] \
+      [--batch N] [--stat-report] [--device cuda|cpu]
 
 With no preset and no --no-part-search it runs the partition path (the
-default of EncoderConfig, as in ``svtav1_tpu/app.py``); --preset 10 is the
-partition path without the tx-type search, --no-part-search and presets
-11..13 the flat path.  Reading, the device stage of batch k+1 and the
-entropy coding of batch k overlap as in ``svtav1_tpu/app.py``.  Any other
-mode (presets 0..9, inter frames, 10-bit, CDEF/LR/CCSO) exits with status
-2: the JAX package's ``python -m svtav1_tpu.app`` has it.
+default of EncoderConfig, as in ``svtav1_tpu/app.py``).  Presets 6..8 are
+the partition path with CDEF, 9 the same without the tx-type search, 10
+without CDEF, and --no-part-search and presets 11..13 the flat path.
+--cdef, --lr and --ccso turn the in-loop filters on (partition path,
+heights a multiple of 64), over the preset as in ``svtav1_tpu/app.py``;
+CCSO streams are the fork's nonstandard AV1.  Reading, the device stage of
+batch k+1 and the entropy coding of batch k overlap as in
+``svtav1_tpu/app.py``.  Any other mode (presets 0..5, which search angle
+deltas; inter frames; 10-bit) exits with status 2: the JAX package's
+``python -m svtav1_tpu.app`` has it.  --stat-report prints PSNR only.
 """
 
 from __future__ import annotations
@@ -45,7 +49,15 @@ def main(argv=None) -> int:
     p.add_argument("--no-part-search", action="store_true",
                    help="flat 32x32 blocks instead of the partition search")
     p.add_argument("--preset", type=int, default=None, metavar="M",
-                   help="speed preset; the port supports 10..13")
+                   help="speed preset; the port supports 6..13")
+    p.add_argument("--cdef", action="store_true",
+                   help="enable the CDEF in-loop filter (search + signal)")
+    p.add_argument("--lr", action="store_true",
+                   help="enable loop restoration (SGR/Wiener search + "
+                        "signal)")
+    p.add_argument("--ccso", action="store_true",
+                   help="enable the fork's grafted CCSO filter (search + "
+                        "signal); CCSO streams are not standard AV1")
     p.add_argument("--batch", type=int, default=4,
                    help="frames per device batch")
     p.add_argument("--stat-report", action="store_true",
@@ -57,9 +69,10 @@ def main(argv=None) -> int:
     if args.keyint != 1:
         return _error("the port encodes all-intra only (--keyint 1); "
                       "python -m svtav1_tpu.app has inter coding")
-    if args.preset is not None and not 10 <= args.preset <= 13:
-        return _error("the port supports presets 10..13; "
-                      "python -m svtav1_tpu.app has the others")
+    if args.preset is not None and not 6 <= args.preset <= 13:
+        return _error("the port supports presets 6..13 (presets 0..5 "
+                      "search angle deltas); python -m svtav1_tpu.app has "
+                      "the others")
     if args.batch < 1:
         return _error("--batch must be >= 1")
 
@@ -75,11 +88,18 @@ def main(argv=None) -> int:
             return _error("4:2:0 input only")
         cfg = EncoderConfig(info.width, info.height, qindex=args.qp,
                             bit_depth=info.bit_depth,
-                            part_search=not args.no_part_search)
+                            part_search=not args.no_part_search,
+                            enable_cdef=args.cdef, enable_lr=args.lr,
+                            enable_ccso=args.ccso)
         if args.preset is not None:
             cfg = apply_preset(cfg, args.preset)
-            if args.no_part_search:     # an explicit flag over the preset
+            # explicit flags over the preset
+            if args.no_part_search:
                 cfg = replace(cfg, part_search=False)
+            if args.cdef:
+                cfg = replace(cfg, enable_cdef=True)
+            if args.lr:
+                cfg = replace(cfg, enable_lr=True)
         try:
             enc = IntraEncoder(cfg, device=args.device)
         except (NotImplementedError, ValueError) as e:

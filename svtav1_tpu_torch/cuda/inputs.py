@@ -76,3 +76,26 @@ def banded_frames(width, height, n, seed=0):
         out.append((np.clip(np.where(band, busy, y), 0,
                             255).astype(np.uint8), u, v))
     return out
+
+
+def edge_frames(width, height, n, seed=0):
+    """Sharp diagonal luma edges with noise in every other 64-column band
+    and uniform noise between them; chroma with co-located edges.  CCSO,
+    which corrects chroma and luma from the deblocked luma's edge classes,
+    turns on for such content where the smooth synthetic clip leaves it
+    off."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:height, 0:width]
+    cy, cx = yy[::2, ::2], xx[::2, ::2]
+    out = []
+    for b in range(n):
+        edges = 128 + 70 * np.sign(np.sin((xx + 2 * yy) / 6.0 + b)) + \
+            rng.randint(-12, 13, (height, width))
+        noise = 128 + rng.randint(-40, 41, (height, width))
+        y = np.where((xx // 64) % 2 == 0, edges, noise)
+        u = 120 + 30 * np.sign(np.sin((cx + 2 * cy) / 3.0 + b)) + \
+            rng.randint(-6, 7, cy.shape)
+        v = 130 + 25 * np.cos(cy / 4.0) + rng.randint(-8, 9, cy.shape)
+        out.append(tuple(np.clip(p, 0, 255).astype(np.uint8)
+                         for p in (y, u, v)))
+    return out

@@ -40,7 +40,8 @@ def height_m(height: int) -> int:
     return mi_rows - (sb_rows - 1) * 16
 
 
-def check_dims(width: int, height: int, part_search: bool = True) -> None:
+def check_dims(width: int, height: int, part_search: bool = True,
+               inloop_extras: bool = False) -> None:
     """Raise ValueError unless (width, height) is encodable."""
     if width % SB:
         raise ValueError("width must be a multiple of 64 (width padding "
@@ -56,6 +57,9 @@ def check_dims(width: int, height: int, part_search: bool = True) -> None:
         raise ValueError(
             f"height % 64 == {height % SB} requires 16x8 edge blocks "
             f"(not yet implemented{hint})")
+    if inloop_extras and height % SB:
+        raise ValueError("CDEF/LR/CCSO at non-SB-aligned heights not yet "
+                         "implemented")
 
 
 def pad_plane_bottom(arr: np.ndarray, ph: int) -> np.ndarray:

@@ -10,8 +10,12 @@ Counterpart of the flat (part_search=False) path of
      entropy-code batch k while batch k+1 runs.
   2. host stage (``host_finish``): the native C tile coder
      (``ec.native``) per frame in a thread pool, then the key frame OBUs.
-Everything else (partition search, 10-bit, angle deltas, tile columns,
-CDEF/LR/CCSO) raises NotImplementedError: the JAX package has it.
+The partition path (``_device_encode_part`` / ``_host_finish_part``, the
+default) adds the in-loop filters when they are enabled: per frame, on the
+recon's device, CDEF (search, apply), CCSO (search on the host, apply) and
+loop restoration (search, apply), in the JAX package's order, then the
+Python tile coder signals each tool.  10-bit, angle deltas and tile
+columns raise NotImplementedError: the JAX package has them.
 """
 
 from __future__ import annotations
@@ -25,14 +29,21 @@ import torch
 from .. import resolve_device, upload
 from ..ec import native
 from ..ops import intra
+from ..ops.ccso import ccso_apply_frame
+from ..ops.cdef import cdef_apply_params
 from ..ops.deblock import (deblock_plane_part, deblock_plane_uniform,
                            dlf_sse_part)
+from ..ops.lr_frame import lr_apply_frame
 from ..spec import tables as tbl
 from ..spec.cdf import CdfContext
 from ..spec.txfm import DCT_DCT, TX_16X16, TX_32X32
+from .ccso_search import ccso_search_frame
+from .cdef_search import (build_skip8, cdef_frame_config_fields,
+                          cdef_search_frame)
 from .geometry import (bottom_force_masks, check_dims, pad64,
                        pad_plane_bottom)
 from .headers import FrameConfig, SequenceConfig, assemble_key_frame
+from .lr_search import lr_search_frame
 from .tile_codec import TileCoder
 from .wavefront import encode_plane_wavefront, expand_candidates
 from .wavefront2 import (CHROMA_SB_MODES, CHROMA_SUB_MODES, CHROMA_TOP_MODES,
@@ -73,7 +84,14 @@ class EncoderConfig:
 def _unsupported(what: str):
     return NotImplementedError(
         f"{what} is not ported to svtav1_tpu_torch (8-bit all-intra, one "
-        "tile column, deblocking only); the JAX package svtav1_tpu has it")
+        "tile column); the JAX package svtav1_tpu has it")
+
+
+def _lambda(qindex: int) -> float:
+    """The RD lambda of the in-loop filter searches (the JAX package's
+    intra_encoder._lambda; mode decision has its own)."""
+    dc, ac = tbl.qindex_to_dq(qindex, 8)
+    return 0.035 * float(ac) * float(ac) / 16.0
 
 
 class IntraEncoder:
@@ -89,15 +107,22 @@ class IntraEncoder:
             raise _unsupported(f"angle_deltas={tuple(cfg.angle_deltas)}")
         if cfg.tile_cols != 1:
             raise _unsupported(f"tile_cols={cfg.tile_cols}")
-        if cfg.enable_cdef or cfg.enable_lr or cfg.enable_ccso:
-            raise _unsupported("CDEF/LR/CCSO")
-        check_dims(cfg.width, cfg.height, cfg.part_search)
+        filters = cfg.enable_cdef or cfg.enable_lr or cfg.enable_ccso
+        check_dims(cfg.width, cfg.height, cfg.part_search,
+                   inloop_extras=filters)
+        if filters and not cfg.part_search:
+            raise NotImplementedError(
+                "CDEF/LR/CCSO ride the partition coding path "
+                "(part_search=True)")
         self.cfg = cfg
         self.device = resolve_device(device)
         # the source is padded to SB multiples; the bitstream signals the
         # true frame size and bottom-row blocks overhang it
         self.ph = pad64(cfg.height)
         self.seq = SequenceConfig(cfg.width, cfg.height, cfg.bit_depth,
+                                  enable_cdef=cfg.enable_cdef,
+                                  enable_restoration=cfg.enable_lr,
+                                  ccso_fork_mode=cfg.enable_ccso,
                                   film_grain_params_present=(
                                       cfg.film_grain > 0))
         self._first = True
@@ -267,13 +292,55 @@ class IntraEncoder:
                 frames, part_sb, y_mi_sb, y_lev_sb, u_lev_sb, v_lev_sb,
                 uv_mi[:B], uv_smi[:B], uv_mi_sb[:B], lf)
 
+    def _filter_frame(self, frame, rec, skip8_args):
+        """The in-loop filters of one frame (those enabled), in the JAX
+        package's order, on the recon's device.  rec: the deblocked
+        (y, u, v) tensors; skip8_args: build_skip8's arrays (numpy).
+        Returns (filtered planes, CDEF params, CCSO info, LR frame types,
+        LR units)."""
+        cfg = self.cfg
+        cdef_params = ccso_info = lr_infos = None
+        lr_types = (0, 0, 0)
+        if not (cfg.enable_cdef or cfg.enable_ccso or cfg.enable_lr):
+            return rec, cdef_params, ccso_info, lr_types, lr_infos
+        lam = _lambda(cfg.qindex)
+        src = tuple(upload(p, self.device) for p in frame)
+        if cfg.enable_cdef:
+            skip8 = build_skip8(*skip8_args)
+            cdef_params = cdef_search_frame(src, rec, skip8, cfg.qindex, lam,
+                                            cfg.bit_depth)
+            db = rec
+            rec = cdef_apply_params(rec, skip8, cdef_params, cfg.bit_depth)
+        if cfg.enable_ccso:
+            # the fork's graft, between CDEF and LR: it classifies on the
+            # pre-CDEF luma and corrects the post-CDEF planes
+            if not cfg.enable_cdef:
+                db = rec
+            ccso_info = ccso_search_frame(
+                tuple(np.asarray(p, np.int64) for p in frame),
+                tuple(p.cpu().numpy() for p in rec), db[0].cpu().numpy(),
+                lam, cfg.bit_depth)
+            if ccso_info is not None:
+                rec = ccso_apply_frame(rec, db[0], ccso_info, cfg.bit_depth)
+        if cfg.enable_lr:
+            # LR filters the post-CDEF/CCSO planes with its stripes'
+            # context rows from the pre-CDEF planes
+            if not cfg.enable_cdef and not cfg.enable_ccso:
+                db = rec
+            lr_types, lr_infos = lr_search_frame(src, rec, lam,
+                                                 cfg.bit_depth)
+            if any(lr_types):
+                rec = lr_apply_frame(rec, db, lr_infos, cfg.bit_depth)
+        return rec, cdef_params, ccso_info, lr_types, lr_infos
+
     def _host_finish_part(self, dev):
-        """Partition-path host stage: the Python tile coder per frame."""
+        """Partition-path host stage: the in-loop filters (when enabled)
+        and the Python tile coder, per frame."""
         first0 = self._first
         cfg = self.cfg
         n, frames, lfv = dev[1], dev[15], dev[24]
         (part, y_mi, y_lev, y_smi, y_slev, u_lev, u_slev, v_lev, v_slev,
-         y_stx, y_rec, u_rec, v_rec) = (t.cpu().numpy() for t in dev[2:15])
+         y_stx) = (t.cpu().numpy() for t in dev[2:12])
         (part_sb, y_mi_sb, y_lev_sb, u_lev_sb, v_lev_sb, uv_mi, uv_smi,
          uv_mi_sb) = (t.cpu().numpy() for t in dev[16:24])
         uv_mode = lambda modes, mi: np.array(
@@ -286,8 +353,22 @@ class IntraEncoder:
         ch, cch = cfg.height, cfg.height // 2
         payloads, recons = [], []
         for b in range(n):
-            tile, _ = TileCoder(cfg.width, self.ph, cfg.qindex,
-                                cfg.cdf_update, true_h=cfg.height).encode(
+            rec, cdef_params, ccso_info, lr_types, lr_infos = \
+                self._filter_frame(frames[b], tuple(
+                    dev[k][b] for k in (12, 13, 14)), (
+                    part[b], y_lev[b], u_lev[b], v_lev[b], y_slev[b],
+                    u_slev[b], v_slev[b], part_sb[b], y_lev_sb[b],
+                    u_lev_sb[b], v_lev_sb[b]))
+            tc = TileCoder(cfg.width, self.ph, cfg.qindex, cfg.cdf_update,
+                           true_h=cfg.height,
+                           cdef_bits=(cdef_params["bits"] if cdef_params
+                                      else 0),
+                           cdef_idx=(cdef_params["idx_map"] if cdef_params
+                                     else None))
+            tc.ccso_info = ccso_info
+            if any(lr_types):
+                tc.set_lr(lr_types, lr_infos)
+            tile, _ = tc.encode(
                 part[b], y_mi[b], y_lev[b], u_lev[b], v_lev[b], y_smi[b],
                 y_slev[b], u_slev[b], v_slev[b], cands, cands_sub, y_stx[b],
                 part_sb[b], y_mi_sb[b], y_lev_sb[b], u_lev_sb[b],
@@ -296,12 +377,16 @@ class IntraEncoder:
                              disable_cdf_update=not cfg.cdf_update,
                              filter_level=(lfv[0], lfv[1]),
                              filter_level_u=lfv[2], filter_level_v=lfv[3],
-                             film_grain=self.film_grain_for(frames[b]))
+                             lr_frame_types=lr_types, ccso=ccso_info,
+                             film_grain=self.film_grain_for(frames[b]),
+                             **(cdef_frame_config_fields(cdef_params)
+                                if cdef_params else {}))
             payloads.append(assemble_key_frame(
                 self.seq, fr, tile, first=self._first,
                 metadata=cfg.metadata if self._first else b""))
             self._first = False
-            recons.append((y_rec[b][:ch], u_rec[b][:cch], v_rec[b][:cch]))
+            y, u, v = (p.to(torch.uint8).cpu().numpy() for p in rec)
+            recons.append((y[:ch], u[:cch], v[:cch]))
         return self._capped_recode(frames, payloads, recons, first0)
 
     def host_finish(self, dev):

@@ -3,9 +3,10 @@ SPLIT into 32x32 blocks, each NONE or SPLIT into 16x16 leaves (chroma
 32/16/8).
 
 Counterpart of ``svtav1_tpu/encoder/tile_codec.py``, cut to key frames of
-a single tile: no inter branch, no mv prediction, no CDEF / CCSO / loop
-restoration syntax, no 16x8 bottom strip (``geometry.check_dims`` and the
-bottom force masks exclude it on this path).  The reference analogue is
+a single tile: no inter branch, no mv prediction, no 16x8 bottom strip
+(``geometry.check_dims`` and the bottom force masks exclude it on this
+path).  It codes the in-loop filters' block-level syntax: the CDEF index,
+the CCSO unit flags and the loop-restoration units.  The reference analogue is
 svt_aom_write_sb's recursive partition walk (EbEntropyCoding.c:5440).
 Pure Python over numpy: it runs on the host.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..ec import lr_syntax as LRS
 from ..ec import modes as M
 from ..ec.coeffs import write_coeffs_txb
 from ..ec.range_coder import RangeEncoder
@@ -27,12 +29,16 @@ SB = 64
 class TileCoder:
     """One key frame's tile (the whole frame)."""
 
-    def __init__(self, width, height, qindex, cdf_update, true_h=None):
+    def __init__(self, width, height, qindex, cdf_update, true_h=None,
+                 cdef_bits: int = 0, cdef_idx=None):
         """width/height are the padded (SB-aligned) plane dims the block
         maps were produced at; true_h (<= height, multiple of 8) is the
         signalled frame height: blocks whose top-left falls outside it are
         not coded and blocks crossing it use the spec's inferred edge
-        partitions (split_or_horz)."""
+        partitions (split_or_horz).  cdef_idx [sb_rows, sb_cols] (None:
+        the frame has no CDEF syntax) is coded as a cdef_bits literal at
+        the first non-skip block of each 64x64 (EbEntropyCoding.c:3968
+        write_cdef)."""
         self.w, self.h = width, height
         self.true_h = true_h if true_h is not None else height
         self.mi_cols, self.mi_rows = width // 4, self.true_h // 4
@@ -46,6 +52,40 @@ class TileCoder:
                           2: np.zeros(width // 8, np.uint8)}
         self.above_av = {p: np.zeros_like(self.above_cul[p], bool)
                          for p in range(3)}
+        self.cdef_idx = cdef_idx
+        self.cdef_bits = cdef_bits
+        self._cdef_pending = False
+        # CCSO (fork graft): the search's info dict, whose per-plane
+        # [uh, uw] flag grids (256x256 luma units) are coded as one CDF2
+        # symbol per enabled plane at the first block of each aligned unit
+        # (EbEntropyCoding.c:4008 write_ccso); None -> no CCSO syntax
+        self.ccso_info = None
+        # loop restoration: per-plane frame types and units dicts of
+        # [sb_rows, sb_cols(, k)] arrays, coded at SB start
+        # (EbEntropyCoding.c:4150)
+        self.lr_types = (0, 0, 0)
+        self.lr_units = None
+        self._lr_ref = None
+
+    def set_lr(self, lr_types, lr_units):
+        self.lr_types = tuple(lr_types)
+        self.lr_units = lr_units
+        self._lr_ref = [LRS.default_ref_state() for _ in range(3)]
+
+    def _write_lr_sb(self, sb_r, sb_c):
+        if self.lr_units is None:
+            return
+        for p in range(3):
+            if self.lr_types[p] == LRS.RESTORE_NONE:
+                continue
+            u = self.lr_units[p]
+            unit = {"eps": u["eps"][sb_r, sb_c],
+                    "xqd": u["xqd"][sb_r, sb_c],
+                    "taps_v": list(u["taps_v"][sb_r, sb_c]),
+                    "taps_h": list(u["taps_h"][sb_r, sb_c])}
+            LRS.write_lr_unit(self.enc, self.cdf, self.lr_types[p],
+                              int(u["type"][sb_r, sb_c]), unit,
+                              self._lr_ref[p], p > 0)
 
     def encode(self, part, mi_top, lev_top_y, lev_top_u, lev_top_v,
                mi_sub, lev_sub_y, lev_sub_u, lev_sub_v, cands_top,
@@ -70,6 +110,8 @@ class TileCoder:
             self.left_av = {p: np.zeros_like(self.left_cul[p], bool)
                             for p in range(3)}
             for sb_c in range(sb_cols):
+                self._cdef_pending = self.cdef_idx is not None
+                self._write_lr_sb(sb_r, sb_c)
                 ctx = M.partition_plane_ctx(int(self.above_part[sb_c * 16]),
                                             int(self.left_part[0]), SB)
                 sb_has_rows = sb_r * 16 + 8 < self.mi_rows
@@ -154,6 +196,24 @@ class TileCoder:
         a_skip = int(self.skip_grid[mi_r - 1, mi_c]) if have_above else 0
         l_skip = int(self.skip_grid[mi_r, mi_c - 1]) if have_left else 0
         M.write_skip(enc, cdf, a_skip + l_skip, skip)
+
+        if self._cdef_pending and not skip:
+            v = int(self.cdef_idx[mi_r // 16, mi_c // 16])
+            for i in range(self.cdef_bits - 1, -1, -1):
+                enc.encode_bool((v >> i) & 1, 0x4000)
+            self._cdef_pending = False
+
+        # CCSO unit flags: at the first block of each 256x256-luma-aligned
+        # unit, one CDF2 symbol per enabled plane, regardless of skip
+        if self.ccso_info is not None and mi_r % 64 == 0 and mi_c % 64 == 0:
+            ur, uc = mi_r // 64, mi_c // 64
+            for p in range(3):
+                pi = self.ccso_info["planes"][p]
+                if pi is not None:
+                    t = cdf.ccso_cdf[p]
+                    f = int(pi["flags"][ur, uc])
+                    enc.encode_symbol(f, t)
+                    cdf.update(t, f)
 
         mode, delta = cands[idx]
         a_mode = int(self.mode_grid[mi_r - 1, mi_c]) if have_above else 0

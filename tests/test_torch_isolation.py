@@ -1,7 +1,7 @@
 """The port stands on its own: no module of ``svtav1_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX, the JAX package or its benchmark, and the
 port encodes with all three blocked, on the flat and on the partition
-path.
+path, and with the in-loop filters on.
 """
 
 import ast
@@ -46,9 +46,9 @@ _ENCODE_BLOCKED = textwrap.dedent("""
                rng.randint(0, 256, (32, 64)).astype(np.uint8),
                rng.randint(0, 256, (32, 64)).astype(np.uint8))
               for _ in range(2)]
-    for part_search in (False, True):
-        enc = IntraEncoder(EncoderConfig(128, 64, part_search=part_search),
-                           device="cpu")
+    filters = dict(enable_cdef=True, enable_lr=True, enable_ccso=True)
+    for kw in (dict(part_search=False), dict(), filters):
+        enc = IntraEncoder(EncoderConfig(128, 64, **kw), device="cpu")
         payloads, recons = enc.encode_frames(frames)
         assert len(payloads) == 2 and all(len(p) > 100 for p in payloads)
         for p in payloads:

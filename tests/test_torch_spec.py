@@ -1,8 +1,9 @@
 """The port's copies of the JAX package's host modules against the
 originals on the same inputs: spec tables, transform networks, default
 CDFs, frame geometry, header and container writers, the native tile coder,
-the film grain estimator, presets, and chip_smoke.py's synthetic clip.
-One test function per module, one case per input.
+the film grain estimator, presets, the subexp and loop-restoration unit
+writers, the CDEF set selection, the CCSO search, and chip_smoke.py's
+synthetic clip.  One test function per module, one case per input.
 """
 
 import io
@@ -12,8 +13,12 @@ import pytest
 
 import bench
 import chip_smoke
+from svtav1_tpu.ec import lr_syntax as jlrs
 from svtav1_tpu.ec import native as jnative
 from svtav1_tpu.ec import subexp as jsubexp
+from svtav1_tpu.ec.range_coder import RangeEncoder as JRangeEncoder
+from svtav1_tpu.encoder import ccso_search as jccs
+from svtav1_tpu.encoder import cdef_search as jcds
 from svtav1_tpu.encoder import geometry as jgeo
 from svtav1_tpu.encoder import headers as jhdr
 from svtav1_tpu.encoder import noise_model as jnoise
@@ -26,8 +31,12 @@ from svtav1_tpu.utils import bitio as jbitio
 from svtav1_tpu.utils import ivf as jivf
 from svtav1_tpu.utils import obu as jobu
 from svtav1_tpu.utils import y4m as jy4m
+from svtav1_tpu_torch.ec import lr_syntax as tlrs
 from svtav1_tpu_torch.ec import native as tnative
 from svtav1_tpu_torch.ec import subexp as tsubexp
+from svtav1_tpu_torch.ec.range_coder import RangeEncoder as TRangeEncoder
+from svtav1_tpu_torch.encoder import ccso_search as tccs
+from svtav1_tpu_torch.encoder import cdef_search as tcds
 from svtav1_tpu_torch.encoder import geometry as tgeo
 from svtav1_tpu_torch.encoder import headers as thdr
 from svtav1_tpu_torch.encoder import noise_model as tnoise
@@ -112,14 +121,15 @@ def test_geometry(height):
     assert tgeo.pad64(height) == jgeo.pad64(height)
     assert tgeo.height_m(height) == jgeo.height_m(height)
     for part in (False, True):
-        errs = []
-        for mod in (tgeo, jgeo):
-            try:
-                mod.check_dims(128, height, part)
-                errs.append(None)
-            except ValueError as e:
-                errs.append(str(e))
-        assert errs[0] == errs[1], (height, part)
+        for extras in (False, True):
+            errs = []
+            for mod in (tgeo, jgeo):
+                try:
+                    mod.check_dims(128, height, part, inloop_extras=extras)
+                    errs.append(None)
+                except ValueError as e:
+                    errs.append(str(e))
+            assert errs[0] == errs[1], (height, part, extras)
     if height % 64 in (8, 40):
         with pytest.raises(ValueError, match="16x8"):
             tgeo.check_dims(128, height, False)
@@ -155,6 +165,19 @@ _HDR_CASES = {
                    dict(film_grain=_grain_params()), True, b""),
     "grain_off": (dict(film_grain_params_present=True), {}, False, b""),
     "1080p": (dict(width=1920, height=1080), {}, True, b""),
+    "filters": (dict(enable_cdef=True, enable_restoration=True,
+                     ccso_fork_mode=True),
+                dict(cdef_damping=5, cdef_bits=2,
+                     cdef_y_strengths=((0, 0), (3, 1), (12, 4), (6, 2)),
+                     cdef_uv_strengths=((1, 0), (0, 4), (8, 2), (2, 1)),
+                     lr_frame_types=(3, 2, 1), ccso={"planes": [
+                         dict(quant_idx=2, support=4, edge_clf=0,
+                              max_band_log2=0, bo_only=0,
+                              lut=np.array([0, 3, -1, 0, 7, -10, 1, 0] * 16,
+                                           np.int32)), None, None]}),
+                True, b""),
+    "filters_off": (dict(enable_cdef=True, enable_restoration=True,
+                         ccso_fork_mode=True), {}, False, b""),
 }
 
 
@@ -184,6 +207,83 @@ def test_subexp(case):
         wt.byte_align()
         wj.byte_align()
         assert wt.data() == wj.data()
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_subexp_range_coder(k):
+    rng = np.random.RandomState(k)
+    et, ej = TRangeEncoder(), JRangeEncoder()
+    for _ in range(60):
+        low = int(rng.randint(-100, 0))
+        high = low + int(rng.randint(2, 200))
+        ref, v = (int(a) for a in rng.randint(low, high, 2))
+        tsubexp.write_signed_refsubexpfin(et, low, high, k, ref, v)
+        jsubexp.write_signed_refsubexpfin(ej, low, high, k, ref, v)
+        n = int(rng.randint(1, 70))
+        val = int(rng.randint(n))
+        tsubexp.write_quniform(et, n, val)
+        jsubexp.write_quniform(ej, n, val)
+    assert et.done() == ej.done()
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_lr_unit_writer(seed):
+    out = []
+    for mod, enc, cdf in ((tlrs, TRangeEncoder(), tcdf.CdfContext(80, True)),
+                          (jlrs, JRangeEncoder(), jcdf.CdfContext(80, True))):
+        r = np.random.RandomState(seed)
+        refs = [mod.default_ref_state() for _ in range(3)]
+        for _ in range(40):
+            p, ftype = int(r.randint(3)), int(r.randint(4))
+            unit = {"eps": int(r.randint(16)),
+                    "xqd": [int(r.randint(-96, 32)), int(r.randint(-32, 96))],
+                    "taps_v": [int(r.randint(-5, 11)), int(r.randint(-23, 9)),
+                               int(r.randint(-17, 47))],
+                    "taps_h": [int(r.randint(-5, 11)), int(r.randint(-23, 9)),
+                               int(r.randint(-17, 47))]}
+            mod.write_lr_unit(enc, cdf, ftype, int(r.randint(3)), unit,
+                              refs[p], p > 0)
+        out.append((enc.done(), refs))
+    assert out[0] == out[1]
+    assert tlrs.SGR_R == jlrs.SGR_R
+    for name in ("WIENER_TAP_MIN", "WIENER_TAP_MAX", "SGRPROJ_PRJ_MIN0",
+                 "SGRPROJ_PRJ_MAX0", "SGRPROJ_PRJ_MIN1", "SGRPROJ_PRJ_MAX1"):
+        assert getattr(tlrs, name) == getattr(jlrs, name), name
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+def test_greedy_dual(n):
+    rng = np.random.RandomState(n)
+    my = rng.randint(0, 5000, (12, 32)).astype(np.float64)
+    muv = rng.randint(0, 3000, (12, 32)).astype(np.float64)
+    got, want = tcds._greedy_dual(my, muv, n), jcds._greedy_dual(my, muv, n)
+    assert got[0] == want[0]
+    np.testing.assert_array_equal(got[1], want[1])
+    assert tcds.CAND_PAIRS == jcds.CAND_PAIRS
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ccso_search(seed):
+    """A plane with an injected per-edge-class error (as
+    tests/test_ccso_e2e.py builds it): both searches turn CCSO on."""
+    rng = np.random.RandomState(11 + seed)
+    h, w = 128, 192
+    y = rng.randint(0, 256, (h, w)).astype(np.int32)
+    u = rng.randint(60, 200, (h // 2, w // 2)).astype(np.int32)
+    v = rng.randint(60, 200, (h // 2, w // 2)).astype(np.int32)
+    ext = np.pad(y.astype(np.int64), 5, mode="edge")
+    cls = jccs._classify(ext, h, w, 0, seed, 16)
+    rec_y = np.clip(y - np.array([3, 0, -3, 1, 0, -1, 7, 0, -7])[cls], 0,
+                    255).astype(np.int32)
+    args = ((y, u, v), (rec_y, u, v), rec_y, 40.0)
+    got, want = tccs.ccso_search_frame(*args), jccs.ccso_search_frame(*args)
+    assert want is not None and want["planes"][0] is not None
+    for pg, pw in zip(got["planes"], want["planes"]):
+        assert (pg is None) == (pw is None)
+        if pw is not None:
+            assert pg.keys() == pw.keys()
+            for k in pw:
+                np.testing.assert_array_equal(pg[k], pw[k], err_msg=k)
 
 
 @pytest.mark.parametrize("case", ["128x64_q100", "128x64_q30_update",
