@@ -49,16 +49,16 @@ its last line):
      search and apply, CCSO search and apply, LR search with its SGR and
      Wiener parts, LR apply, tile coder) and e2e fps; the chosen CDEF bits
      and strengths, LR types and unit counts, CCSO planes; device events
-     of one CDEF search and one LR search (torch.profiler) and the device
-     syncs of one frame's filter stage.  Every payload parses, luma PSNR
+     of each device-side stage of one frame (CDEF search and apply, CCSO
+     apply, LR search and apply; torch.profiler) and the device syncs of
+     one frame's filter stage.  Every payload parses, luma PSNR
      > 30 dB, and CDEF (a nonzero strength), CCSO (a plane on) and LR (a
      unit on) each fired;
   9. the filtered partition path at 256x128 on the card and on the CPU
      (the two clips' first frames, q100), as chosen and with Wiener units
      forced (SGR priced out, Wiener free): decision-map agreement as in
-     phase 6; when the maps agree, equal CDEF params and CCSO info; LR
-     agreement per unit; byte-identical payloads when the maps and every
-     filter parameter agree.
+     phase 6; LR agreement per unit; when the maps agree, equal CDEF
+     params, CCSO info and LR units, and byte-identical payloads.
 Then one JSON line of kernel results and, last, one JSON line naming the
 device.  Imports nothing of JAX or of the JAX package.
 """
@@ -597,16 +597,32 @@ def phase_filters():
         raise AssertionError("filtered path: CDEF, CCSO, LR fired: "
                              f"{fired}")
 
-    # device events of one search each, on frame 0's deblocked planes
+    # device events of each device-side filter stage of frame 0, on the
+    # planes and decisions of its run above
     src = tuple(upload(p, DEV) for p in frames[0])
     rec = tuple(dev[k][0] for k in (12, 13, 14))
     args = skip8_args(dev, 0)
     skip8 = ie.build_skip8(*args)
     lam = ie._lambda(q)
-    for label, fn in (
-            ("CDEF search", lambda: ie.cdef_search_frame(src, rec, skip8, q,
-                                                         lam)),
-            ("LR search", lambda: ie.lr_search_frame(src, rec, lam))):
+    out = clock.out
+    cdef_rec = out["cdef_apply_params"][0]
+    ccso_info = out["ccso_search_frame"][0]
+    lr_in = out["ccso_apply_frame"][0] if ccso_info is not None else cdef_rec
+    lr_types, lr_infos = out["lr_search_frame"][0]
+    stages = [
+        ("CDEF search", lambda: ie.cdef_search_frame(src, rec, skip8, q,
+                                                     lam)),
+        ("CDEF apply", lambda: ie.cdef_apply_params(
+            rec, skip8, out["cdef_search_frame"][0])),
+        ("CCSO apply", lambda: ie.ccso_apply_frame(cdef_rec, rec[0],
+                                                   ccso_info)),
+        ("LR search", lambda: ie.lr_search_frame(src, lr_in, lam)),
+        ("LR apply", lambda: ie.lr_apply_frame(lr_in, rec, lr_infos))]
+    for label, fn in stages:
+        if (label == "CCSO apply" and ccso_info is None) or \
+                (label == "LR apply" and not any(lr_types)):
+            print(f"filtered path: frame 0 ran no {label}", flush=True)
+            continue
         n_ev, busy, window = profile_events(fn)
         print(f"filtered path: one {label} ({W}x{h}, frame 0): {n_ev} "
               f"device events, device busy {busy:.1f} ms of a {window:.1f} "
@@ -669,10 +685,12 @@ def phase_filters_card_vs_cpu():
         lines, fired = describe_filters(c_cd, c_cc, c_lr)
         for line in lines:
             print(f"card vs CPU ({label}): card {line}", flush=True)
-        if maps_same and not (cdef_same and ccso_same):
-            raise AssertionError("maps agree but the CDEF or CCSO "
+        # the LR sums are exact int64 on both devices: with equal maps,
+        # every filter decision and so every byte must agree
+        if maps_same and not (cdef_same and ccso_same and agree == total):
+            raise AssertionError("maps agree but the CDEF, CCSO or LR "
                                  "decisions differ")
-        if maps_same and agree == total and not equal:
+        if maps_same and not equal:
             raise AssertionError("maps and filter parameters agree but the "
                                  "payloads differ")
         if forced and not any((u["type"] == 1).any() for _, us in c_lr

@@ -293,8 +293,7 @@ def wiener_refine(src, dgd, units, lam: float, usize: int,
     return units
 
 
-def lr_search_frame(src_planes, cdef_planes, lam: float, bd: int = 8,
-                    wiener: bool = True):
+def lr_search_frame(src_planes, cdef_planes, lam: float, bd: int = 8):
     """Search all planes (tensors on one device); returns (frame_types
     tuple, per-plane units list) - units[p] is None when the plane is
     NONE."""
@@ -303,9 +302,8 @@ def lr_search_frame(src_planes, cdef_planes, lam: float, bd: int = 8,
     for p in range(3):
         usize = 64 if p == 0 else 32
         units = sgr_search(src_planes[p], cdef_planes[p], lam, usize, bd)
-        if wiener:
-            units = wiener_refine(src_planes[p], cdef_planes[p], units,
-                                  lam, usize, p > 0, bd)
+        units = wiener_refine(src_planes[p], cdef_planes[p], units, lam,
+                              usize, p > 0, bd)
         infos.append(units)
         if units is None:
             types.append(RESTORE_NONE)

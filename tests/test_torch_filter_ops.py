@@ -21,10 +21,11 @@ from svtav1_tpu.ops import cdef as jcdef
 from svtav1_tpu.ops import lr_frame as jlrf
 from svtav1_tpu.ops import restoration as jrest
 from svtav1_tpu.spec import cdf as jcdf
-from svtav1_tpu_torch.cuda import filter_ops
+from svtav1_tpu_torch.cuda.inputs import banded_frames, edge_frames
 from svtav1_tpu_torch.ec import lr_syntax as tlrs
 from svtav1_tpu_torch.ec.range_coder import RangeEncoder
 from svtav1_tpu_torch.encoder import cdef_search as tcds
+from svtav1_tpu_torch.encoder import intra_encoder as tie
 from svtav1_tpu_torch.ops import ccso as tccso
 from svtav1_tpu_torch.ops import cdef as tcdef
 from svtav1_tpu_torch.ops import lr_frame as tlrf
@@ -394,17 +395,35 @@ def test_lr_unit_writer_roundtrip(seed):
             assert list(tv) == unit["taps_v"] and list(th) == unit["taps_h"]
 
 
-def test_filter_stage_profile():
-    """cuda/filter_ops.py counts each filter stage's torch ops on a crop."""
+def test_filtered_cell_crop_fires_every_tool(monkeypatch):
+    """The filtered cell's frames (the first frames of the banded and the
+    edge clip), cut to 128x64 at q100, turn on CDEF (a nonzero strength),
+    CCSO (a plane on) and LR (a plane on) in the port on the CPU."""
+    got = {}
+    for name in ("cdef_search_frame", "ccso_search_frame",
+                 "lr_search_frame"):
+        def kept(*a, _fn=getattr(tie, name), _name=name, **kw):
+            out = _fn(*a, **kw)
+            got.setdefault(_name, []).append(out)
+            return out
+        monkeypatch.setattr(tie, name, kept)
+    w, h = 128, 64
+    frames = [tuple(np.ascontiguousarray(p[:h >> (k > 0), :w >> (k > 0)])
+                    for k, p in enumerate(f))
+              for f in (banded_frames(1920, 1088, 1)[0],
+                        edge_frames(1920, 1088, 1)[0])]
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        prof = filter_ops.stage_profile("cpu", 64, 128)
+        enc = tie.IntraEncoder(tie.EncoderConfig(
+            w, h, qindex=100, enable_cdef=True, enable_lr=True,
+            enable_ccso=True), device="cpu")
+        payloads, _ = enc.host_finish(enc.device_encode(frames))
     finally:
         torch.set_num_threads(n)
-    names = [name for _, name in filter_ops.STAGES]
-    assert set(prof) <= set(names)
-    for name in ("cdef_search_frame", "sgr_search", "wiener_refine",
-                 "encode"):
-        assert prof[name][1] > 0, name
-    assert prof["cdef_search_frame"][0] > 1000
+    assert len(payloads) == 2 and all(payloads)
+    assert any(s != (0, 0) for c in got["cdef_search_frame"]
+               for s in c["y_strengths"] + c["uv_strengths"])
+    assert any(o is not None and any(p is not None for p in o["planes"])
+               for o in got["ccso_search_frame"])
+    assert any(any(types) for types, _ in got["lr_search_frame"])
