@@ -1,7 +1,8 @@
-"""Drive the PyTorch port's all-intra 1080p encode on one CUDA card: the flat
-path through the hand-written wavefront kernel, and the partition path (the
-encoder's default) with and without the in-loop filters as plain PyTorch on
-the card.
+"""Drive the PyTorch port's 1080p encode on one CUDA card: the flat
+all-intra path through the hand-written wavefront kernel, the partition
+intra path with and without the in-loop filters, and the low-delay inter
+path (the CLI's default --keyint 64), the last three as plain PyTorch on the
+card.
 
     python3 chip_smoke.py
 
@@ -38,13 +39,13 @@ its last line):
   6. the partition path at 256x128 (2 frames) on the card and on the CPU:
      the agreement fraction of each decision map, and byte-identical
      payloads whenever every map agrees;
-  7. one luma partition wavefront call on a 1920x128 crop under
+  7. one luma partition wavefront call on a 512x128 crop under
      torch.profiler: device events per scan step and the device's busy
      share of the window (the plain scan is launch-bound);
   8. the partition path with the in-loop filters (CDEF, CCSO, loop
-     restoration) at 1920x1088, q100, on one batch of 2 frames: the first
-     frame of the banded clip and the first of the edge clip
-     (``cuda/inputs.edge_frames``: CCSO stays off on the smooth clip).
+     restoration) at 1920x1088, q100, on the first frame of the edge clip
+     (``cuda/inputs.edge_frames``: CCSO stays off on the smooth clip; the
+     edge frame turns all three filters on).
      Wall time of each stage after a synchronize (device stage, CDEF
      search and apply, CCSO search and apply, LR search with its SGR and
      Wiener parts, LR apply, tile coder) and e2e fps; the chosen CDEF bits
@@ -58,15 +59,39 @@ its last line):
      (the two clips' first frames, q100), as chosen and with Wiener units
      forced (SGR priced out, Wiener free): decision-map agreement as in
      phase 6; LR agreement per unit; when the maps agree, equal CDEF
-     params, CCSO info and LR units, and byte-identical payloads.
-Then one JSON line of kernel results and, last, one JSON line naming the
-device.  Imports nothing of JAX or of the JAX package.
+     params, CCSO info and LR units, and byte-identical payloads;
+ 10. the low-delay path: VideoEncoder(1920, 1080, qindex=100, keyint=64)
+     on 2 frames of ``cuda/inputs.moving_frames`` (a panned texture with a
+     patch moving at a half-pel velocity), a key frame and a P frame.  Wall
+     time of each stage after a synchronize (key frame: scans, DLF search,
+     deblock, tile coder; P frame: ME at 32/16/64, GM fit, interp-filter
+     pick, luma MC, luma scan, chroma MC, chroma scan, DLF search, deblock,
+     read-back, tile coder) and e2e fps; device events of the P frame's ME,
+     luma and chroma MC and of one inter luma scan step (a 512x128 crop of
+     its inputs; torch.profiler); the device syncs of the P frame by source
+     line; the GM fit, the filter, the inter share at each depth and the
+     inter modes coded.  Checks: payloads parse, KEY then INTER, luma PSNR
+     > 30 dB, more than half the P frame's luma area inter, a NEWMV and a
+     non-NEWMV block, the P payload smaller than the key payload;
+ 11. the low-delay path at 256x128 (I, P, P) on the card and on the CPU,
+     with the defaults and with CDEF on: per frame the agreement of every
+     decision map, the ME fields (integer SADs: exact whenever the frame's
+     reference agrees) and the final mvs; when every map of a frame agrees,
+     byte-identical payloads and equal recons, else the first frame that
+     differs is reported (the frames after it have other references).
+Then the script's total time, one JSON line of kernel results and, last,
+one JSON line naming the device.  To run only phases 10-11:
+``python3 -c "import chip_smoke as cs; cs.CARD = cs.card();
+cs.phase_video(); cs.phase_video_card_vs_cpu()"``.  Imports nothing of JAX
+or of the JAX package.
 """
 
 import json
+import os
 import sys
 import time
 import warnings
+from collections import Counter
 
 import numpy as np
 import torch
@@ -75,12 +100,13 @@ from svtav1_tpu_torch import upload
 from svtav1_tpu_torch.cuda import build
 from svtav1_tpu_torch.cuda import wavefront_kernel as wk
 from svtav1_tpu_torch.cuda.inputs import (SHAPES_1080P, banded_frames,
-                                          card, edge_frames, plane_src,
-                                          synth_frames)
+                                          card, edge_frames, moving_frames,
+                                          plane_src, synth_frames)
 from svtav1_tpu_torch.ec import native
 from svtav1_tpu_torch.encoder import intra_encoder as ie
 from svtav1_tpu_torch.encoder import lr_search as lrs
 from svtav1_tpu_torch.encoder import tile_codec
+from svtav1_tpu_torch.encoder import video_encoder as ve
 from svtav1_tpu_torch.encoder import wavefront2 as wf2
 from svtav1_tpu_torch.encoder.geometry import bottom_force_masks
 from svtav1_tpu_torch.encoder.wavefront import (
@@ -374,18 +400,34 @@ class StageClock:
                (ie, "lr_search_frame"), (lrs, "sgr_search"),
                (lrs, "wiener_refine"), (ie, "lr_apply_frame"),
                (tile_codec.TileCoder, "encode")]
+    KEY = PART + [(tile_codec.TileCoder, "encode")]
+    P_FRAME = [(ve, "motion_estimate"), (ve.VideoEncoder, "_fit_gm"),
+               (ve, "_pick_interp_filt"), (ve.VideoEncoder, "_luma_lanes"),
+               (ve, "encode_plane_wavefront_part"),
+               (ve.VideoEncoder, "_chroma_lanes"),
+               (ve.VideoEncoder, "_dlf_levels"), (ve, "deblock_plane_part"),
+               (ve.VideoEncoder, "_fetch"), (ie.IntraEncoder, "_filter_frame"),
+               (tile_codec.TileCoder, "encode")]
+    NAMES = {"encode": "tile coder", "_fit_gm": "GM fit",
+             "_pick_interp_filt": "interp-filter pick",
+             "_luma_lanes": "luma MC", "_chroma_lanes": "chroma MC",
+             "_dlf_levels": "DLF search", "_fetch": "read-back",
+             "_filter_frame": "filters"}
 
     def __init__(self, targets=PART):
         self.targets = targets
         self.ms = {}
         self.out = {}
+        self.args = {}
         self.saved = []
 
-    @staticmethod
-    def _key(name, a):
+    @classmethod
+    def _key(cls, name, a):
         if name == "encode_plane_wavefront_part":
             return "luma wavefront" if a[1] == 32 else "chroma wavefront"
-        return "tile coder" if name == "encode" else name
+        if name == "motion_estimate":
+            return f"ME {a[2]}"
+        return cls.NAMES.get(name, name)
 
     def _wrap(self, name, fn):
         def timed(*a, **kw):
@@ -397,6 +439,7 @@ class StageClock:
             self.ms[key] = self.ms.get(key, 0.0) + \
                 1e3 * (time.perf_counter() - t0)
             self.out.setdefault(key, []).append(out)
+            self.args.setdefault(key, []).append((a, kw))
             return out
         return timed
 
@@ -478,15 +521,20 @@ def phase_card_vs_cpu():
         raise AssertionError("maps agree but the payloads differ")
 
 
+# the profiled scan crops: a step's launches do not depend on its width (a
+# step's blocks ride the batch axis), and 512 columns keep the profile short
+CROP_H, CROP_W = 128, 512
+
+
 def phase_part_launches():
-    """One luma partition wavefront call on a 1920x128 crop under
+    """One luma partition wavefront call on a 512x128 crop under
     torch.profiler: device events per scan step."""
     from torch.profiler import ProfilerActivity, profile
-    h = 128
-    src = torch.from_numpy(plane_src(7, 1, h, W)).to(DEV)
+    h, w = CROP_H, CROP_W
+    src = torch.from_numpy(plane_src(7, 1, h, w)).to(DEV)
     fp, fsb = (torch.from_numpy(a[None].copy()).to(DEV) for a in
-               bottom_force_masks(h // 32, W // 32, h // 64, W // 64, h // 4))
-    steps = len(_quad_tables(h // 32, W // 32)[0])
+               bottom_force_masks(h // 32, w // 32, h // 64, w // 64, h // 4))
+    steps = len(_quad_tables(h // 32, w // 32)[0])
     steps_1080 = len(_quad_tables(1088 // 32, W // 32)[0])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -504,7 +552,7 @@ def phase_part_launches():
     busy_ms = busy_us(events) / 1e3
     window_ms = 1e3 * (t1 - t0)
     share = 100 * busy_ms / window_ms
-    print(f"partition launches: luma 1x{h}x{W} wavefront, {steps} scan "
+    print(f"partition launches: luma 1x{h}x{w} wavefront, {steps} scan "
           f"steps: {len(events)} device events ({len(events) / steps:.0f} a "
           f"step), window {window_ms:.1f} ms ({window_ms / steps:.2f} ms a "
           f"step), device busy {busy_ms:.1f} ms ({share:.1f}% of the "
@@ -565,9 +613,10 @@ def profile_events(fn):
 
 
 def phase_filters():
-    """The filtered partition path at 1920x1088 on the card."""
+    """The filtered partition path at 1920x1088 on the card, on the edge
+    clip's first frame (phase 9 runs both clips, at 256x128)."""
     h, q = 1088, 100
-    frames = filter_frames(W, h)
+    frames = filter_frames(W, h)[1:]
     enc = ie.IntraEncoder(ie.EncoderConfig(W, h, qindex=q, **FILTERS),
                           device="cuda")
     t0 = time.perf_counter()
@@ -584,8 +633,8 @@ def phase_filters():
         "cdef_search_frame", "cdef_apply_params", "ccso_search_frame",
         "ccso_apply_frame", "lr_search_frame", "sgr_search",
         "wiener_refine", "lr_apply_frame", "tile coder") if k in ms)
-    print(f"filtered path: {W}x{h} q{q}, batch {n} (banded clip frame 0, "
-          f"edge clip frame 0): device stage {1e3 * (t1 - t0):.1f} ms; per "
+    print(f"filtered path: {W}x{h} q{q}, batch {n} (edge clip frame 0): "
+          f"device stage {1e3 * (t1 - t0):.1f} ms; per "
           f"frame (ms): {stages}; host stage {1e3 * (t2 - t1) / n:.1f} ms "
           f"per frame; e2e {n / (t2 - t0):.4f} fps [{CARD}]", flush=True)
     lines, fired = describe_filters(*(clock.out[k] for k in SEARCHES))
@@ -727,6 +776,206 @@ def lr_agreement(got, want):
     return agree, total
 
 
+def frame_type(payload):
+    """0 (KEY_FRAME) or 1 (INTER_FRAME): the frame_type bits after
+    show_existing_frame in the first OBU_FRAME's header."""
+    for t, _, _, d in parse_obus(payload):
+        if t == OBU_FRAME:
+            return (d[0] >> 5) & 3
+    raise AssertionError("no OBU_FRAME in the payload")
+
+
+N_TOP, N_SUB = (len(expand_candidates(m)) for m in (ie.CAND_MODES,
+                                                     wf2.SUB_MODES))
+MODE_NAMES = {13: "NEARESTMV", 14: "NEARMV", 15: "GLOBALMV", 16: "NEWMV"}
+
+
+def inter_shares(m, h):
+    """(inter / coded blocks at the 64, 32 and 16 depths, the share of the
+    luma area above row h coded inter) of a P frame's host maps."""
+    sb_none = m["part_sb"] == 0
+    split_sb = np.repeat(np.repeat(~sb_none, 2, 0), 2, 1)
+    top = split_sb & (m["part"] == 0)
+    leaf = (split_sb & (m["part"] == 1))[..., None].repeat(4, -1)
+    sb_in = sb_none & (m["y_mi_sb"] >= N_TOP)
+    top_in = top & (m["y_mi"] >= N_TOP)
+    leaf_in = leaf & (m["y_smi"] >= N_SUB)
+    bh, bw = top.shape
+    units = np.repeat(np.repeat(sb_in, 4, 0), 4, 1) | \
+        np.repeat(np.repeat(top_in, 2, 0), 2, 1) | \
+        leaf_in.reshape(bh, bw, 2, 2).transpose(0, 2, 1, 3).reshape(
+            2 * bh, 2 * bw)
+    rows = np.arange(2 * bh) * 16 < h
+    return ((int(sb_in.sum()), int(sb_none.sum())),
+            (int(top_in.sum()), int(top.sum())),
+            (int(leaf_in.sum()), int(leaf.sum())), float(units[rows].mean()))
+
+
+def crop_blocks(args, kw, nr, nc):
+    """An inter luma scan call cut to its top-left nr x nc blocks."""
+    (src, bs, q, fp, fsb), lanes = args[:5], kw["inter"]
+    cut = lambda t, ax, r, c: t.narrow(ax, 0, r).narrow(ax + 1, 0, c)
+    dims = [(2, nr, nc)] * 6 + [(2, nr // 2, nc // 2)] * 3 + \
+        [(1, nr, nc)] * 2 + [(1, nr // 2, nc // 2)]
+    lanes = wf2.InterLanes(*(cut(t, *d) for t, d in zip(lanes, dims)))
+    return (src[:, :nr * bs, :nc * bs], bs, q, cut(fp, 1, nr, nc),
+            cut(fsb, 1, nr // 2, nc // 2)), dict(tx_search=kw["tx_search"],
+                                                inter=lanes)
+
+
+def phase_video():
+    """The low-delay path at 1920x1080 on the card: a key frame and a P
+    frame, stage by stage."""
+    frames = moving_frames(W, H, 2)
+    enc = ve.VideoEncoder(ie.EncoderConfig(W, H, qindex=100), keyint=64,
+                          device="cuda")
+    wk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with StageClock(StageClock.KEY) as kclock:
+        p0, r0 = enc.encode_frame(*frames[0])
+    t1 = time.perf_counter()
+    here = os.path.basename(__file__)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with StageClock(StageClock.P_FRAME) as pclock:
+                p1, r1 = enc.encode_frame(*frames[1])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    t2 = time.perf_counter()
+    launches = wk.LAUNCHES
+    syncs = Counter(f"{os.path.basename(c.filename)}:{c.lineno}"
+                    for c in caught if "synchroniz" in str(c.message) and
+                    os.path.basename(c.filename) != here)
+    fmt = lambda ms: ", ".join(f"{k} {v:.1f} ms" for k, v in ms.items())
+    print(f"low-delay path: {W}x{H} q100 keyint 64: key frame (q70) "
+          f"{1e3 * (t1 - t0):.1f} ms ({fmt(kclock.ms)}); P frame "
+          f"{1e3 * (t2 - t1):.1f} ms ({fmt(pclock.ms)}); e2e "
+          f"{2 / (t2 - t0):.4f} fps over the 2 frames [{CARD}]", flush=True)
+    m = enc.last_p
+    (sb_i, sb_n), (t_i, t_n), (l_i, l_n), area = inter_shares(m, H)
+    modes = {MODE_NAMES[k]: v for k, v in m["mode_counts"].items()}
+    print(f"low-delay path: P frame GM fit {m['gm']}, interpolation filter "
+          f"{m['filt']}, DLF level {m['lf'][0]}; inter blocks: 64x64 {sb_i} "
+          f"of {sb_n}, 32x32 {t_i} of {t_n}, 16x16 {l_i} of {l_n}; luma area "
+          f"inter {100 * area:.1f}%; inter modes coded {modes}; bytes key "
+          f"{len(p0)}, P {len(p1)}; flat-kernel launches on this path "
+          f"{launches}", flush=True)
+    print(f"low-delay path: device syncs of the P frame: "
+          f"{sum(syncs.values())} ({dict(syncs)})", flush=True)
+    ps_y = check_payloads([p0, p1], frames, [r0, r1], "low-delay path")
+    types = [frame_type(p) for p in (p0, p1)]
+    print(f"low-delay path: frame types {types}, luma PSNR "
+          f"{', '.join(f'{p:.2f}' for p in ps_y)} dB", flush=True)
+    if types != [0, 1]:
+        raise AssertionError(f"frame types {types}, not KEY then INTER")
+    if area <= 0.5:
+        raise AssertionError(f"only {100 * area:.1f}% of the luma is inter")
+    if not m["mode_counts"][16] or \
+            sum(m["mode_counts"].values()) == m["mode_counts"][16]:
+        raise AssertionError(f"inter modes coded {modes}: need a NEWMV "
+                             "and a non-NEWMV block")
+    if len(p1) >= len(p0):
+        raise AssertionError(f"P payload {len(p1)} >= key {len(p0)}")
+
+    # device events of the P frame's stages, on its own inputs
+    me_args = [pclock.args[f"ME {bs}"][0][0] for bs in (32, 16, 64)]
+    stages = [("ME (32, 16, 64)", lambda: [ve.motion_estimate(*a)
+                                           for a in me_args])]
+    for key, fn in (("luma MC", ve.VideoEncoder._luma_lanes),
+                    ("chroma MC", ve.VideoEncoder._chroma_lanes)):
+        a, kw = pclock.args[key][0]
+        stages.append((key, lambda fn=fn, a=a, kw=kw: fn(*a, **kw)))
+    for label, fn in stages:
+        n_ev, busy, window = profile_events(fn)
+        print(f"low-delay path: P frame {label}: {n_ev} device events, "
+              f"device busy {busy:.1f} ms of a {window:.1f} ms window "
+              f"({100 * busy / window:.1f}%) [{CARD}]", flush=True)
+    nr, nc = CROP_H // 32, CROP_W // 32
+    a, kw = crop_blocks(*pclock.args["luma wavefront"][0], nr, nc)
+    steps = len(_quad_tables(nr, nc)[0])
+
+    def scan():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            wf2.encode_plane_wavefront_part(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    n_ev, busy, window = profile_events(scan)
+    print(f"low-delay path: inter luma scan on the P frame's "
+          f"{CROP_W}x{CROP_H} crop, "
+          f"{steps} steps: {n_ev} device events ({n_ev / steps:.0f} a step),"
+          f" device busy {busy:.1f} ms of a {window:.1f} ms window "
+          f"({100 * busy / window:.1f}%), queued without a host sync "
+          f"[{CARD}]", flush=True)
+
+
+def p_maps(enc):
+    """A P frame's decision maps, ME fields and final mvs."""
+    m = enc.last_p
+    return {k: m[k] for k in (
+        "part", "part_sb", "y_mi", "y_smi", "y_stx", "y_mi_sb", "uv_mi",
+        "uv_smi", "uv_mi_sb", "mv32", "mv16", "mv64", "mv_t", "mv_s",
+        "mv_sb")} | {"gm": np.array(m["gm"] or (0, 0)),
+                     "filt": np.array(m["filt"])}
+
+
+def phase_video_card_vs_cpu():
+    """The low-delay path at 256x128 (I, P, P) on the card and on the
+    CPU, with the defaults and with CDEF on."""
+    w, h = 256, 128
+    frames = moving_frames(w, h, 3)
+    for label, kw in (("defaults", {}), ("CDEF on", dict(enable_cdef=True))):
+        out = {}
+        for d in ("cuda", "cpu"):
+            enc = ve.VideoEncoder(ie.EncoderConfig(w, h, qindex=100, **kw),
+                                  keyint=64, device=d)
+            key_dev = []
+            run = enc.intra.device_encode
+            enc.intra.device_encode = lambda fr, run=run, keep=key_dev: \
+                keep.append(run(fr)) or keep[-1]
+            t0 = time.perf_counter()
+            res = []
+            for f in frames:
+                p, r = enc.encode_frame(*f)
+                res.append((p, r, part_maps(key_dev[-1]) if len(res) == 0
+                            else p_maps(enc)))
+            out[d] = (res, time.perf_counter() - t0)
+            check_payloads([x[0] for x in res], frames, [x[1] for x in res],
+                           f"{w}x{h} on {d}")
+        lines, ref_same = [], True
+        for k, ((pc, rc, mc), (pp, rp, mp)) in enumerate(zip(out["cuda"][0],
+                                                             out["cpu"][0])):
+            if not ref_same:
+                lines.append(f"frame {k}: not compared (its reference "
+                             "differs)")
+                continue
+            fr = {n: float((mc[n] == mp[n]).mean()) for n in mc}
+            same = all(v == 1.0 for v in fr.values())
+            equal = pc == pp and all(np.array_equal(a, b)
+                                     for a, b in zip(rc, rp))
+            lines.append(f"frame {k}: " + ", ".join(
+                f"{n} {v:.4f}" for n, v in fr.items()) +
+                f"; payload and recon identical {equal}")
+            me_same = all(fr[n] == 1.0 for n in ("mv32", "mv16", "mv64")
+                          if n in fr)
+            if not me_same:
+                raise AssertionError(f"{label} frame {k}: ME fields differ "
+                                     "on the same reference")
+            if same and not equal:
+                raise AssertionError(f"{label} frame {k}: maps agree but the "
+                                     "payload or recon differs")
+            if not same:
+                lines[-1] += " (first frame that differs)"
+                ref_same = False
+        print(f"card vs CPU, low-delay path {w}x{h} I,P,P ({label}; card "
+              f"{out['cuda'][1]:.1f} s, CPU {out['cpu'][1]:.1f} s):",
+              flush=True)
+        for line in lines:
+            print(f"card vs CPU ({label}): {line}", flush=True)
+
+
 CARD = ""
 
 
@@ -769,6 +1018,9 @@ def main():
     phase(phase_part_launches)
     phase(phase_filters)
     phase(phase_filters_card_vs_cpu)
+    phase(phase_video)
+    phase(phase_video_card_vs_cpu)
+    print(f"chip_smoke: total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": "wavefront", "route": "cuda",
         "source": "svtav1_tpu_torch/csrc/wavefront.cu",

@@ -1,18 +1,22 @@
 """svtav1_tpu_torch — the PyTorch + CUDA port of the AV1 engine in ``svtav1_tpu``.
 
-It runs the all-intra encode (8-bit 4:2:0) end to end on an NVIDIA Hopper
-card, on both intra paths: the partition path that is the default
-(64x64 / 32x32 / 16x16 blocks, tx-type search, partition-aware deblocking
-with a DLF level search, the in-loop filters CDEF, CCSO and loop
-restoration when enabled, the Python tile coder) and the flat path of
+It runs the encode (8-bit 4:2:0) end to end on an NVIDIA Hopper card: the
+low-delay I/P path that is the CLI's default (``VideoEncoder``: key frames,
+then P frames with motion estimation, motion compensation and inter
+candidates in the partition scan), and both intra paths: the partition
+path (64x64 / 32x32 / 16x16 blocks, tx-type search, partition-aware
+deblocking with a DLF level search, the in-loop filters CDEF, CCSO and
+loop restoration when enabled, the Python tile coder) and the flat path of
 presets M11-M13 (32x32 luma / 16x16 chroma blocks, uniform deblocking,
 the native tile coder):
 
 - ``ops``     — plain PyTorch counterparts of the normative integer ops
                 (intra predictors, transforms, quantizer, deblocking,
-                CDEF, CCSO, Wiener and self-guided restoration).
-- ``encoder`` — the two wavefront mode decisions, the in-loop filter
-                searches, the tile coder and ``IntraEncoder``.
+                CDEF, CCSO, Wiener and self-guided restoration, motion
+                compensation).
+- ``encoder`` — the two wavefront mode decisions, motion estimation, the
+                in-loop filter searches, the tile coder, ``IntraEncoder``
+                and ``VideoEncoder``.
 - ``csrc``    — the hand-written CUDA kernel of the intra wavefront, built
                 at first use by ``cuda.build`` and bound by ctypes in
                 ``cuda.wavefront_kernel``.

@@ -1,21 +1,26 @@
-"""Y4M in -> AV1 IVF out, all-intra, with the PyTorch port.
+"""Y4M in -> AV1 IVF out with the PyTorch port.
 
 Usage:
-  python -m svtav1_tpu_torch.app -i in.y4m -b out.ivf -q 100 --keyint 1 \
+  python -m svtav1_tpu_torch.app -i in.y4m -b out.ivf -q 100 [--keyint N] \
       [--no-part-search | --preset 6..13] [--cdef] [--lr] [--ccso] \
       [--batch N] [--stat-report] [--device cuda|cpu]
 
-With no preset and no --no-part-search it runs the partition path (the
-default of EncoderConfig, as in ``svtav1_tpu/app.py``).  Presets 6..8 are
-the partition path with CDEF, 9 the same without the tx-type search, 10
-without CDEF, and --no-part-search and presets 11..13 the flat path.
---cdef, --lr and --ccso turn the in-loop filters on (partition path,
-heights a multiple of 64), over the preset as in ``svtav1_tpu/app.py``;
-CCSO streams are the fork's nonstandard AV1.  Reading, the device stage of
-batch k+1 and the entropy coding of batch k overlap as in
-``svtav1_tpu/app.py``.  Any other mode (presets 0..5, which search angle
-deltas; inter frames; 10-bit) exits with status 2: the JAX package's
-``python -m svtav1_tpu.app`` has it.  --stat-report prints PSNR only.
+--keyint N > 1 (the default 64) is the low-delay I/P path of
+``svtav1_tpu/app.py``: a key frame every N frames (or at a scene cut) and
+P frames that each reference the previous frame, encoded one frame at a
+time by ``VideoEncoder``.  --keyint 1 is all-intra: reading, the device
+stage of batch k+1 and the entropy coding of batch k overlap as in
+``svtav1_tpu/app.py``.  With no preset and no --no-part-search it runs the
+partition path (the default of EncoderConfig).  Presets 6..8 are the
+partition path with CDEF, 9 the same without the tx-type search, 10
+without CDEF, and --no-part-search and presets 11..13 the flat path
+(all-intra only).  --cdef, --lr and --ccso turn the in-loop filters on
+(partition path, heights a multiple of 64), over the preset as in
+``svtav1_tpu/app.py``; CCSO streams are the fork's nonstandard AV1.  Any
+other mode (presets 0..5, which search angle deltas; --pyramid, with or
+without --tf, and --rc with --keyint > 1; the flat path with --keyint > 1;
+10-bit) exits with status 2: the JAX package's ``python -m svtav1_tpu.app``
+has it.  --stat-report prints PSNR only.
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ def main(argv=None) -> int:
     p.add_argument("-q", "--qp", type=int, default=100,
                    help="base qindex 0-255")
     p.add_argument("--keyint", type=int, default=64,
-                   help="key frame interval; the port supports 1 only")
+                   help="key frame interval (1 = all-intra)")
     p.add_argument("--no-part-search", action="store_true",
                    help="flat 32x32 blocks instead of the partition search")
     p.add_argument("--preset", type=int, default=None, metavar="M",
@@ -58,17 +63,22 @@ def main(argv=None) -> int:
     p.add_argument("--ccso", action="store_true",
                    help="enable the fork's grafted CCSO filter (search + "
                         "signal); CCSO streams are not standard AV1")
+    p.add_argument("--pyramid", action="store_true",
+                   help="hierarchical mini-GoPs (not ported)")
+    p.add_argument("--tf", action="store_true",
+                   help="temporal filtering of the pyramid's anchors")
+    p.add_argument("--rc", choices=("cq", "crf", "cbr", "vbr"), default=None,
+                   help="rate control of the inter path (not ported)")
     p.add_argument("--batch", type=int, default=4,
-                   help="frames per device batch")
+                   help="frames per device batch (all-intra)")
     p.add_argument("--stat-report", action="store_true",
                    help="print the mean PSNR of the reconstruction")
     p.add_argument("--device", default="cuda", help="cuda or cpu")
     args = p.parse_args(argv)
     if not 0 <= args.qp <= 255:
         return _error(f"-q/--qp must be 0..255 (got {args.qp})")
-    if args.keyint != 1:
-        return _error("the port encodes all-intra only (--keyint 1); "
-                      "python -m svtav1_tpu.app has inter coding")
+    if args.keyint < 1:
+        return _error(f"--keyint must be >= 1 (got {args.keyint})")
     if args.preset is not None and not 6 <= args.preset <= 13:
         return _error("the port supports presets 6..13 (presets 0..5 "
                       "search angle deltas); python -m svtav1_tpu.app has "
@@ -78,6 +88,7 @@ def main(argv=None) -> int:
 
     from .encoder.intra_encoder import EncoderConfig, IntraEncoder
     from .encoder.presets import apply_preset
+    from .encoder.video_encoder import VideoEncoder
     from .utils.ivf import IvfWriter
     from .utils.y4m import Y4mReader
 
@@ -101,7 +112,16 @@ def main(argv=None) -> int:
             if args.lr:
                 cfg = replace(cfg, enable_lr=True)
         try:
-            enc = IntraEncoder(cfg, device=args.device)
+            if args.keyint == 1:
+                enc = IntraEncoder(cfg, device=args.device)
+            else:
+                # as in svtav1_tpu/app.py, --tf acts through --pyramid
+                # only; VideoEncoder refuses the modes it lacks
+                enc = VideoEncoder(cfg, keyint=args.keyint,
+                                   pyramid=args.pyramid,
+                                   tf=args.pyramid and args.tf, rc=args.rc,
+                                   device=args.device)
+                args.batch = 1          # low-delay P is reference-serial
         except (NotImplementedError, ValueError) as e:
             return _error(str(e))
 
@@ -113,9 +133,8 @@ def main(argv=None) -> int:
             ivf = IvfWriter(fout, info.width, info.height, info.fps_den,
                             info.fps_num)
 
-            def finish(batch, dev):
+            def write(batch, payloads, recons):
                 nonlocal n, total_bytes
-                payloads, recons = enc.host_finish(dev)
                 for payload, src, rec in zip(payloads, batch, recons):
                     ivf.write_frame(payload, n)
                     n += 1
@@ -128,14 +147,17 @@ def main(argv=None) -> int:
                 batch = [f for _, f in zip(range(args.batch), frame_iter)]
                 if not batch:
                     break
+                if args.keyint > 1:
+                    write(batch, *enc.encode_frames(batch))
+                    continue
                 # queue this batch's device stage, then entropy-code the
                 # previous batch while it runs
                 dev = enc.device_encode(batch)
                 if pending is not None:
-                    finish(*pending)
+                    write(pending[0], *enc.host_finish(pending[1]))
                 pending = (batch, dev)
             if pending is not None:
-                finish(*pending)
+                write(pending[0], *enc.host_finish(pending[1]))
             ivf.finalize()
     dt = time.perf_counter() - t0
     kbps = total_bytes * 8 * info.fps_num / info.fps_den / max(n, 1) / 1000

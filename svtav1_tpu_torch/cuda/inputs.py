@@ -99,3 +99,49 @@ def edge_frames(width, height, n, seed=0):
         out.append(tuple(np.clip(p, 0, 255).astype(np.uint8)
                          for p in (y, u, v)))
     return out
+
+
+def moving_frames(width, height, n, seed=0):
+    """A panned clip for the inter path: one texture drawn once from the
+    seed, larger than the frame (the synthetic pattern with
+    ``banded_frames``' busy bands, its noise fixed in the texture), and
+    each frame a crop of it moved by (2, 3) px a frame, so the global
+    motion fit has a pan to find.  A centred patch (256 px square, or half
+    the frame's smaller side) moves at another velocity, (-1, -2.5) px a
+    frame: at a half-pel position it is the mean of two crops 1 px apart,
+    so NEWMV, subpel mvs and the filter pick have work.  Every frame gets
+    +-2 of fresh noise, so that residuals are not all zero.  Chroma is the
+    2x2 mean of full-size chroma textures moved the same way."""
+    rng = np.random.RandomState(seed)
+    m = 4 * n + 32
+    th, tw = height + 2 * m, width + 2 * m
+    yy, xx = np.mgrid[0:th, 0:tw]
+    flat = (110 + 70 * np.sin(xx / 19.0) + 50 * np.cos(yy / 13.0) +
+            rng.randint(-4, 5, (th, tw)))
+    busy = (flat + 20 * np.sin(xx / 2.0 + yy / 3.0) +
+            rng.randint(-16, 17, (th, tw)))
+    band = (xx // max(width // 6, 1)) % 2 == 1
+    tex = [np.where(band, busy, flat),
+           120 + 40 * np.sin(xx / 23.0) + rng.randint(-3, 4, (th, tw)),
+           135 + 35 * np.cos(yy / 27.0) + rng.randint(-3, 4, (th, tw))]
+    tex = [np.clip(t, 0, 255).astype(np.int32) for t in tex]
+    ps = min(256, height // 2, width // 2)
+    py, px = (height - ps) // 2, (width - ps) // 2
+    frames = []
+    for t in range(n):
+        planes = []
+        for k, tx in enumerate(tex):
+            p = tx[m - 2 * t:m - 2 * t + height, m - 3 * t:m - 3 * t + width]
+            p = p.copy()
+            # the patch: (-1, -2.5) px a frame, half-pel columns averaged
+            r0, c0 = m + py + t, m + px + (5 * t) // 2
+            a = tx[r0:r0 + ps, c0:c0 + ps]
+            b = tx[r0:r0 + ps, c0 + (5 * t) % 2:c0 + (5 * t) % 2 + ps]
+            p[py:py + ps, px:px + ps] = (a + b + 1) >> 1
+            if k:
+                p = (p[::2, ::2] + p[::2, 1::2] + p[1::2, ::2] +
+                     p[1::2, 1::2] + 2) >> 2
+            p = p + rng.randint(-2, 3, p.shape)
+            planes.append(np.clip(p, 0, 255).astype(np.uint8))
+        frames.append(tuple(planes))
+    return frames

@@ -83,8 +83,9 @@ class EncoderConfig:
 
 def _unsupported(what: str):
     return NotImplementedError(
-        f"{what} is not ported to svtav1_tpu_torch (8-bit all-intra, one "
-        "tile column); the JAX package svtav1_tpu has it")
+        f"{what} is not ported to svtav1_tpu_torch (8-bit, one tile "
+        "column); the JAX package svtav1_tpu has it (python -m "
+        "svtav1_tpu.app)")
 
 
 def _lambda(qindex: int) -> float:
@@ -292,22 +293,23 @@ class IntraEncoder:
                 frames, part_sb, y_mi_sb, y_lev_sb, u_lev_sb, v_lev_sb,
                 uv_mi[:B], uv_smi[:B], uv_mi_sb[:B], lf)
 
-    def _filter_frame(self, frame, rec, skip8_args):
+    def _filter_frame(self, frame, rec, skip8_args, qindex: int = None):
         """The in-loop filters of one frame (those enabled), in the JAX
         package's order, on the recon's device.  rec: the deblocked
-        (y, u, v) tensors; skip8_args: build_skip8's arrays (numpy).
-        Returns (filtered planes, CDEF params, CCSO info, LR frame types,
-        LR units)."""
+        (y, u, v) tensors; skip8_args: build_skip8's arrays (numpy);
+        qindex: the frame's (default the config's).  Returns (filtered
+        planes, CDEF params, CCSO info, LR frame types, LR units)."""
         cfg = self.cfg
+        q = cfg.qindex if qindex is None else qindex
         cdef_params = ccso_info = lr_infos = None
         lr_types = (0, 0, 0)
         if not (cfg.enable_cdef or cfg.enable_ccso or cfg.enable_lr):
             return rec, cdef_params, ccso_info, lr_types, lr_infos
-        lam = _lambda(cfg.qindex)
+        lam = _lambda(q)
         src = tuple(upload(p, self.device) for p in frame)
         if cfg.enable_cdef:
             skip8 = build_skip8(*skip8_args)
-            cdef_params = cdef_search_frame(src, rec, skip8, cfg.qindex, lam,
+            cdef_params = cdef_search_frame(src, rec, skip8, q, lam,
                                             cfg.bit_depth)
             db = rec
             rec = cdef_apply_params(rec, skip8, cdef_params, cfg.bit_depth)

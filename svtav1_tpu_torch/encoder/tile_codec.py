@@ -1,12 +1,18 @@
-"""Tile entropy coder of the partition path: key frames, 64x64 NONE or
-SPLIT into 32x32 blocks, each NONE or SPLIT into 16x16 leaves (chroma
-32/16/8).
+"""Tile entropy coder of the partition path: key and single-reference
+inter frames, 64x64 NONE or SPLIT into 32x32 blocks, each NONE or SPLIT
+into 16x16 leaves (chroma 32/16/8).
 
-Counterpart of ``svtav1_tpu/encoder/tile_codec.py``, cut to key frames of
-a single tile: no inter branch, no mv prediction, no 16x8 bottom strip
-(``geometry.check_dims`` and the bottom force masks exclude it on this
-path).  It codes the in-loop filters' block-level syntax: the CDEF index,
-the CCSO unit flags and the loop-restoration units.  The reference analogue is
+Counterpart of ``svtav1_tpu/encoder/tile_codec.py`` (with
+``tile_inter.choose_inter_mode``), cut to a single tile: no compound
+blocks and no 16x8 bottom strip (``geometry.check_dims`` and the bottom
+force masks exclude it on this path).  In inter frames (kf=False) each
+block codes is_inter; an inter block codes the LAST reference, its mode
+against the block's MV stack (NEARESTMV / NEARMV / GLOBALMV when its mv
+equals that predictor, NEWMV otherwise, with the DRL index and the mv
+residual) and its residuals with the inter tx set (DCT only); an intra
+block codes its y mode from the inter frame's y_mode CDF.  It codes the
+in-loop filters' block-level syntax: the CDEF index, the CCSO unit flags
+and the loop-restoration units.  The reference analogue is
 svt_aom_write_sb's recursive partition walk (EbEntropyCoding.c:5440).
 Pure Python over numpy: it runs on the host.
 """
@@ -15,22 +21,44 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..ec import inter_modes as IM
 from ..ec import lr_syntax as LRS
 from ..ec import modes as M
 from ..ec.coeffs import write_coeffs_txb
+from ..ec.mvpred import MiGrid, find_mv_stack
 from ..ec.range_coder import RangeEncoder
+from ..spec import mv as MV
 from ..spec.cdf import CdfContext
 from ..spec.txfm import DCT_DCT, TX_8X8, TX_16X16, TX_32X32, TX_64X64
 from .wavefront2 import TX_SEARCH_TYPES
 
 SB = 64
 
+# size_group_lookup per luma block size (intra y-mode CDF of inter frames)
+SIZE_GROUP = {64: 3, 32: 3, 16: 2}
+
+
+def choose_inter_mode(mv, res, gm=(0, 0)):
+    """The inter mode that codes mv against the block's stack res (the
+    inverse of the decoder's assign_mv): NEARESTMV / NEARMV when it equals
+    that predictor, GLOBALMV when it equals the frame's translation gm,
+    else NEWMV against the precision-lowered stack[0] (res.nearest_mv).
+    Returns (mode, the NEWMV predictor or None)."""
+    if tuple(mv) == res.nearest_mv:
+        return MV.NEARESTMV, None
+    if tuple(mv) == res.near_mv:
+        return MV.NEARMV, None
+    if tuple(mv) == tuple(gm):
+        return MV.GLOBALMV, None
+    return MV.NEWMV, res.nearest_mv
+
 
 class TileCoder:
-    """One key frame's tile (the whole frame)."""
+    """One frame's tile (the whole frame)."""
 
     def __init__(self, width, height, qindex, cdf_update, true_h=None,
-                 cdef_bits: int = 0, cdef_idx=None):
+                 cdef_bits: int = 0, cdef_idx=None, kf: bool = True,
+                 cdf_init=None, gm_mv=(0, 0)):
         """width/height are the padded (SB-aligned) plane dims the block
         maps were produced at; true_h (<= height, multiple of 8) is the
         signalled frame height: blocks whose top-left falls outside it are
@@ -38,12 +66,23 @@ class TileCoder:
         partitions (split_or_horz).  cdef_idx [sb_rows, sb_cols] (None:
         the frame has no CDEF syntax) is coded as a cdef_bits literal at
         the first non-skip block of each 64x64 (EbEntropyCoding.c:3968
-        write_cdef)."""
+        write_cdef).  kf=False codes an inter frame: cdf_init (a CDF
+        snapshot, the primary reference frame's) seeds its CDFs, and gm_mv
+        is the frame's translation global mv of LAST (1/8 pel, identity
+        (0, 0)), which GLOBALMV blocks take."""
         self.w, self.h = width, height
+        self.kf = kf
         self.true_h = true_h if true_h is not None else height
         self.mi_cols, self.mi_rows = width // 4, self.true_h // 4
         self.enc = RangeEncoder()
-        self.cdf = CdfContext(qindex, update=cdf_update)
+        self.cdf = (cdf_init.clone() if cdf_init is not None
+                    else CdfContext(qindex, update=cdf_update))
+        self.gm_mv = tuple(gm_mv)
+        # the mode info the inter branch's mv stack and contexts read
+        self.grid = None if kf else MiGrid(self.mi_rows, self.mi_cols)
+        # inter modes coded, by mode (NEARESTMV..NEWMV)
+        self.mode_counts = dict.fromkeys(
+            (MV.NEARESTMV, MV.NEARMV, MV.GLOBALMV, MV.NEWMV), 0)
         self.above_part = np.zeros(self.mi_cols, np.uint8)
         self.skip_grid = np.zeros((self.mi_rows, self.mi_cols), np.uint8)
         self.mode_grid = np.zeros((self.mi_rows, self.mi_cols), np.uint8)
@@ -90,14 +129,17 @@ class TileCoder:
     def encode(self, part, mi_top, lev_top_y, lev_top_u, lev_top_v,
                mi_sub, lev_sub_y, lev_sub_u, lev_sub_v, cands_top,
                cands_sub, stx_sub, part_sb, mi_sb, lev_sb_y, lev_sb_u,
-               lev_sb_v, uv_top, uv_sub, uv_sb):
+               lev_sb_v, uv_top, uv_sub, uv_sb, mv_top=None, mv_sub=None,
+               mv_sb=None):
         """part [bh, bw] 0/1; *_top at 32-block granularity; *_sub indexed
         [bh, bw, 4 (z), ...]; stx_sub [bh, bw, 4] indexes TX_SEARCH_TYPES.
         part_sb [sbh, sbw] (0 = 64x64 NONE, 1 = split): a NONE SB codes one
         64x64 block whose luma TXB is TX_64X64 with the 32x32 coded area
         lev_sb_y, chroma TX_32X32 (lev_sb_u/v).  uv_top [bh, bw] / uv_sub
-        [bh, bw, 4] / uv_sb [sbh, sbw]: the chroma modes.  Returns
-        (tile bytes, the adapted CdfContext)."""
+        [bh, bw, 4] / uv_sb [sbh, sbw]: the chroma modes.  Inter frames:
+        a mode index past the candidate list marks an inter block, whose mv
+        (1/8 pel) mv_top [bh, bw, 2] / mv_sub [bh, bw, 4, 2] / mv_sb [sbh,
+        sbw, 2] holds.  Returns (tile bytes, the adapted CdfContext)."""
         self._uv_top, self._uv_sub = uv_top, uv_sub
         enc, cdf = self.enc, self.cdf
         sb_cols = self.w // SB
@@ -122,7 +164,8 @@ class TileCoder:
                                      lev_sb_y[sb_r, sb_c],
                                      lev_sb_u[sb_r, sb_c],
                                      lev_sb_v[sb_r, sb_c], TX_64X64,
-                                     TX_32X32, uv_mode=int(uv_sb[sb_r, sb_c]))
+                                     TX_32X32, uv_mode=int(uv_sb[sb_r, sb_c]),
+                                     mv=_at(mv_sb, sb_r, sb_c))
                     a, l = M.partition_ctx_value(64, 64)
                     self.above_part[sb_c * 16:sb_c * 16 + 16] = a
                     self.left_part[:] = l
@@ -139,13 +182,14 @@ class TileCoder:
                     self._code_32(br, bc, qr, part, mi_top, lev_top_y,
                                   lev_top_u, lev_top_v, mi_sub, lev_sub_y,
                                   lev_sub_u, lev_sub_v, cands_top, cands_sub,
-                                  stx_sub)
+                                  stx_sub, mv_top, mv_sub)
         return enc.done(), cdf
 
     # ---------------------------------------------------------------- #
 
     def _code_32(self, br, bc, qr, part, mi_top, ly, lu, lv, mi_sub, sly,
-                 slu, slv, cands_top, cands_sub, stx_sub):
+                 slu, slv, cands_top, cands_sub, stx_sub, mv_top=None,
+                 mv_sub=None):
         enc, cdf = self.enc, self.cdf
         mi_r, mi_c = br * 8, bc * 8
         ctx = M.partition_plane_ctx(int(self.above_part[mi_c]),
@@ -155,7 +199,8 @@ class TileCoder:
             M.write_partition(enc, cdf, ctx, M.PARTITION_NONE, 32)
             self._code_block(mi_r, mi_c, 32, int(mi_top[br, bc]), cands_top,
                              ly[br, bc], lu[br, bc], lv[br, bc], TX_32X32,
-                             TX_16X16, uv_mode=int(self._uv_top[br, bc]))
+                             TX_16X16, uv_mode=int(self._uv_top[br, bc]),
+                             mv=_at(mv_top, br, bc))
             a, l = M.partition_ctx_value(32, 32)
             self.above_part[mi_c:mi_c + 8] = a
             self.left_part[qr * 8:qr * 8 + 8] = l
@@ -179,7 +224,8 @@ class TileCoder:
             self._code_block(smr, smc, 16, int(mi_sub[br, bc, z]), cands_sub,
                              sly[br, bc, z], slu[br, bc, z], slv[br, bc, z],
                              TX_16X16, TX_8X8, y_tx_type=stx,
-                             uv_mode=int(self._uv_sub[br, bc, z]))
+                             uv_mode=int(self._uv_sub[br, bc, z]),
+                             mv=_at(mv_sub, br, bc, z))
             a, l = M.partition_ctx_value(16, 16)
             self.above_part[smc:smc + 4] = a
             self.left_part[qr * 8 + sr * 4:qr * 8 + sr * 4 + 4] = l
@@ -187,10 +233,12 @@ class TileCoder:
     # ---------------------------------------------------------------- #
 
     def _code_block(self, mi_r, mi_c, bs, idx, cands, y_lev, u_lev, v_lev,
-                    tx_y, tx_uv, y_tx_type=DCT_DCT, uv_mode: int = 0):
+                    tx_y, tx_uv, y_tx_type=DCT_DCT, uv_mode: int = 0,
+                    mv=None):
         enc, cdf = self.enc, self.cdf
         bw4 = bs // 4
         have_above, have_left = mi_r > 0, mi_c > 0
+        is_inter = idx >= len(cands)
         skip = int(not (y_lev.any() or u_lev.any() or v_lev.any()))
 
         a_skip = int(self.skip_grid[mi_r - 1, mi_c]) if have_above else 0
@@ -215,25 +263,63 @@ class TileCoder:
                     enc.encode_symbol(f, t)
                     cdf.update(t, f)
 
-        mode, delta = cands[idx]
-        a_mode = int(self.mode_grid[mi_r - 1, mi_c]) if have_above else 0
-        l_mode = int(self.mode_grid[mi_r, mi_c - 1]) if have_left else 0
-        M.write_kf_y_mode(enc, cdf, a_mode, l_mode, mode)
-        if M.is_directional(mode):
-            M.write_angle_delta(enc, cdf, mode, delta)
-        # CfL is allowed for blocks <= 32x32 only (spec 5.11.5
-        # intra_frame_mode_info); 64x64 blocks use the 13-symbol CDF
-        M.write_uv_mode(enc, cdf, bs <= 32, mode, uv_mode)
-        if M.is_directional(uv_mode):
-            M.write_angle_delta(enc, cdf, uv_mode, 0)
-        self.mode_grid[mi_r:mi_r + bw4, mi_c:mi_c + bw4] = mode
+        if not self.kf:
+            grid = self.grid
+            IM.write_is_inter(enc, cdf, IM.intra_inter_ctx(
+                grid.is_inter(mi_r - 1, mi_c) if have_above else None,
+                grid.is_inter(mi_r, mi_c - 1) if have_left else None),
+                is_inter)
+        if is_inter:
+            self._code_inter(mi_r, mi_c, bw4, mv)
+            mode, y_tx_type = 0, DCT_DCT
+        else:
+            mode, delta = cands[idx]
+            if self.kf:
+                a_mode = (int(self.mode_grid[mi_r - 1, mi_c]) if have_above
+                          else 0)
+                l_mode = (int(self.mode_grid[mi_r, mi_c - 1]) if have_left
+                          else 0)
+                M.write_kf_y_mode(enc, cdf, a_mode, l_mode, mode)
+            else:
+                IM.write_y_mode_inter(enc, cdf, mode, SIZE_GROUP[bs])
+            if M.is_directional(mode):
+                M.write_angle_delta(enc, cdf, mode, delta)
+            # CfL is allowed for blocks <= 32x32 only (spec 5.11.5
+            # intra_frame_mode_info); 64x64 blocks use the 13-symbol CDF
+            M.write_uv_mode(enc, cdf, bs <= 32, mode, uv_mode)
+            if M.is_directional(uv_mode):
+                M.write_angle_delta(enc, cdf, uv_mode, 0)
+            self.mode_grid[mi_r:mi_r + bw4, mi_c:mi_c + bw4] = mode
+            if not self.kf:
+                self.grid.set_block(mi_r, mi_c, bw4, bw4, MV.INTRA_FRAME,
+                                    mode)
 
         self._code_residuals(mi_r, mi_c, bs, skip, mode, y_lev, u_lev,
-                             v_lev, tx_y, tx_uv, y_tx_type)
+                             v_lev, tx_y, tx_uv, y_tx_type, is_inter)
         self.skip_grid[mi_r:mi_r + bw4, mi_c:mi_c + bw4] = skip
 
+    def _code_inter(self, mi_r, mi_c, bw4, mv):
+        """The LAST reference and the block's mode, DRL index and mv."""
+        enc, cdf, grid = self.enc, self.cdf, self.grid
+        nb_ref = lambda r, c, avail: (
+            int(grid.ref0[r, c]) if avail and grid.ref0[r, c] >= 1 else None)
+        IM.write_ref_frame_last(enc, cdf, IM.neighbor_ref_counts(
+            nb_ref(mi_r - 1, mi_c, mi_r > 0),
+            nb_ref(mi_r, mi_c - 1, mi_c > 0)))
+        mvv = (int(mv[0]), int(mv[1]))
+        res = find_mv_stack(grid, mi_r, mi_c, bw4, bw4, gm_mv=self.gm_mv)
+        mode, ref_mv = choose_inter_mode(mvv, res, gm=self.gm_mv)
+        IM.write_inter_mode(enc, cdf, mode, res.mode_context)
+        if mode in (MV.NEWMV, MV.NEARMV):
+            IM.write_drl_idx(enc, cdf, mode, res.stack, res.num_found)
+        if mode == MV.NEWMV:
+            IM.write_mv(enc, cdf, mvv, ref_mv)
+        grid.set_block(mi_r, mi_c, bw4, bw4, MV.LAST_FRAME, mode, *mvv)
+        self.mode_counts[mode] += 1
+
     def _code_residuals(self, mi_r, mi_c, bs, skip, y_mode, y_lev, u_lev,
-                        v_lev, tx_y, tx_uv, y_tx_type=DCT_DCT):
+                        v_lev, tx_y, tx_uv, y_tx_type=DCT_DCT,
+                        is_inter: bool = False):
         enc, cdf = self.enc, self.cdf
         sb_mi_r = mi_r % 16
         for plane, lev, txs in ((0, y_lev, tx_y), (1, u_lev, tx_uv),
@@ -273,9 +359,14 @@ class TileCoder:
             cul = write_coeffs_txb(enc, cdf, lev, txs,
                                    y_tx_type if plane == 0 else DCT_DCT,
                                    min(plane, 1), tctx, dctx,
-                                   intra_mode=y_mode)
+                                   is_inter=is_inter, intra_mode=y_mode)
             self.above_cul[plane][au0:au0 + units] = cul
             self.above_av[plane][au0:au0 + units] = True
             self.left_cul[plane][lu0:lu0 + units_v] = cul
             self.left_cul[plane][lu0 + units_v:lu0 + units] = 0
             self.left_av[plane][lu0:lu0 + units] = True
+
+
+def _at(mv, *idx):
+    """mv[idx], or None when the frame has no mvs (key frames)."""
+    return None if mv is None else mv[idx]

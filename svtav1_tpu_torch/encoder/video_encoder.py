@@ -1,0 +1,455 @@
+"""Low-delay video encoder: a key frame, then P frames that each reference
+the previous frame's reconstruction.
+
+Counterpart of the low-delay partition path of
+``svtav1_tpu/encoder/video_encoder.py`` (the reference's flat prediction
+structure, EbPredictionStructure.c:77 low-delay P): key frames go through
+the port's ``IntraEncoder`` at the boosted key-frame qindex; a P frame
+(``_encode_p_part``) runs on the planes' device
+  1. motion estimation at 32, 16 and 64 against the previous recon, and
+     the median-of-neighbours mv predictors;
+  2. the translation global-motion fit and the frame's interpolation
+     filter pick (both read back to the host, as in the JAX package);
+  3. motion compensation of three single-reference lanes per block (NEWMV
+     at the searched mv, GLOBALMV at the fit, the predicted mv) at each
+     depth, with their rate estimates;
+  4. the luma partition scan with those lanes (``wavefront2.InterLanes``),
+     then chroma motion compensation at the luma decisions' mvs and the
+     paired U+V scan with the inter/intra choice forced by luma;
+  5. the DLF level search (one host read) and the partition deblock;
+then on the host the in-loop filters when enabled (``IntraEncoder.
+_filter_frame``), the Python tile coder's inter branch and the inter frame
+header.  The frame's end-of-frame CDFs seed the next P frame's
+(primary_ref_frame 0).
+
+The pyramid (hierarchical mini-GoPs, compound prediction, TPL, temporal
+filtering), rate control, tile columns and the flat P path raise
+NotImplementedError: the JAX package has them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import replace
+
+import numpy as np
+import torch
+
+from .. import upload
+from ..ops.deblock import deblock_plane_part, dlf_sse_part
+from ..ops.mc import pad_plane, predict_inter_blocks
+from .cdef_search import cdef_frame_config_fields
+from .geometry import bottom_force_masks, pad_plane_bottom
+from .headers import FrameConfig, assemble_frame
+from .intra_encoder import (CAND_MODES, EncoderConfig, IntraEncoder,
+                            _unsupported)
+from .me import _blocks, motion_estimate
+from .tile_codec import TileCoder
+from .wavefront import expand_candidates
+from .wavefront2 import (CHROMA_SB_MODES, CHROMA_SUB_MODES, CHROMA_TOP_MODES,
+                         SUB_MODES, InterLanes, encode_plane_wavefront_part)
+
+BLK = 32
+CBLK = 16
+N_LANES = 3          # 0 NEWMV (the searched mv), 1 GLOBALMV, 2 the mvp
+MODE_NEW = 5.0       # NEWMV mode + DRL signalling bits
+MODE_NEAR = 3.0      # NEAREST/GLOBAL-class signalling bits
+_INV_LN2 = float(np.float32(1.0 / np.log(2.0)))
+
+
+def _pick_interp_filt(src, refp, y0, x0, mv8f, h, w, bd=8):
+    """Frame-level interpolation filter: the SAD of the luma prediction at
+    the 32x32 blocks' searched mvs under REGULAR / SMOOTH / SHARP, summed
+    over the blocks with a subpel mv (an integer mv predicts the same under
+    every filter), argmin; 0 when no mv is subpel.  Reads back to the host
+    (the JAX package's does too)."""
+    src_b = _blocks(src.to(torch.int32), BLK)
+    subpel = ((mv8f & 7) != 0).any(-1)
+    if not bool(subpel.any()):
+        return 0
+    costs = torch.stack([
+        ((predict_inter_blocks(refp, y0, x0, mv8f, h, w, BLK, 0, bd, f) -
+          src_b).abs().sum((-1, -2)) * subpel).sum() for f in range(3)])
+    return int(torch.argmin(costs.cpu()))
+
+
+def _mv_pred(field):
+    """Neighbour-consistent mv predictor of each block: the per-component
+    median of its left and above neighbours' mvs and zero (an absent
+    neighbour counts as zero).  field [B, bh, bw, 2] int32."""
+    z = torch.zeros_like(field)
+    left = torch.cat([z[:, :, :1], field[:, :, :-1]], 2)
+    above = torch.cat([z[:, :1], field[:, :-1]], 1)
+    lo, hi = torch.minimum(left, above), torch.maximum(left, above)
+    return torch.maximum(lo, torch.minimum(hi, z))
+
+
+def _mv_bits(m, pred):
+    """NEWMV residual bits against the predicted mv: ~4 + 1.4 log2(1+|d|)
+    a nonzero component, 0.7 a zero one (float32, the JAX package's
+    expression order).  XLA's float32 log2 is log(x) * (1 / ln 2), which
+    this computes the same way."""
+    d = (m - pred).to(torch.float32).abs()
+    cb = lambda a: torch.where(a > 0, 4.0 + 1.4 * (torch.log(1.0 + a) *
+                                                   _INV_LN2), 0.7)
+    return cb(d[..., 0]) + cb(d[..., 1])
+
+
+class VideoEncoder:
+    """Low-delay I/P encoder; keyint=1 degenerates to all-intra."""
+
+    def __init__(self, cfg: EncoderConfig, keyint: int = 64,
+                 pyramid: bool = False, tf: bool = False, rc=None,
+                 device="cuda"):
+        if pyramid and keyint > 1:
+            raise _unsupported("the hierarchical mini-GoP pyramid")
+        if tf:
+            raise _unsupported("temporal filtering (--tf)")
+        if rc is not None:
+            raise _unsupported("rate control")
+        if keyint > 1 and not cfg.part_search:
+            raise _unsupported("the flat P path (part_search=False with "
+                               "keyint > 1)")
+        self.cfg = cfg
+        self.keyint = max(1, keyint)
+        # key frames get a quality boost (the reference's CRF kf_qindex
+        # scaling, EbRateControlProcess.c:782)
+        kf_q = max(2, int(round(cfg.qindex * 0.7))) if keyint > 1 \
+            else cfg.qindex
+        self.kf_cfg = replace(cfg, qindex=kf_q)
+        self.intra = IntraEncoder(self.kf_cfg, device=device)
+        self.device = self.intra.device
+        self.seq = self.intra.seq
+        self._idx = 0
+        self._dpb = None              # (y, u, v) post-filter recon, numpy
+        self._cdf_state = None        # frame-end CDFs (primary-ref chain)
+        self._slot_gm = {}            # DPB slot -> saved gm_mv dict
+        self._fg_n = 0                # inter-frame grain_seed counter
+        # scene-change state: keyint is the MAX interval, cuts insert key
+        # frames (scene_transition_detector analogue)
+        self._kf_at = 0               # next forced-KF display index
+        self._tail_src = None         # last source luma, decimated 4x
+        self._sad_hist = []           # recent non-cut SADs
+        self.last_p = None            # host maps of the last P frame
+
+    def encode_frames(self, frames):
+        """Sequential low-delay encode of (y, u, v) uint8 frames: (payloads,
+        recons), one each a frame."""
+        payloads, recons = [], []
+        for f in frames:
+            p, r = self.encode_frame(*f)
+            payloads.append(p)
+            recons.append(r)
+        return payloads, recons
+
+    def _is_cut(self, sad_pp: float) -> bool:
+        """Scene cut: large absolute per-pixel SAD and an outlier against
+        the recent motion level."""
+        if sad_pp < 26.0:
+            return False
+        base = np.median(self._sad_hist) if self._sad_hist else 0.0
+        return sad_pp > 3.5 * max(base, 2.0)
+
+    def encode_frame(self, y, u, v):
+        yd = np.asarray(y, np.int32)[::4, ::4]
+        cut = False
+        if self._tail_src is not None:
+            s = float(np.abs(yd - self._tail_src).mean())
+            cut = self._is_cut(s)
+            if not cut:
+                self._sad_hist = (self._sad_hist + [s])[-16:]
+        self._tail_src = yd
+        if self._idx >= self._kf_at or cut or self._dpb is None:
+            self._kf_at = self._idx + self.keyint
+            payloads, recons = self.intra.encode_frames([(y, u, v)])
+            payload, rec = payloads[0], recons[0]
+            self._cdf_state = None    # key frames reset the CDF chain
+        else:
+            payload, rec = self._encode_p_part(y, u, v)
+        self._dpb = tuple(np.asarray(p) for p in rec)
+        self._idx += 1
+        return payload, rec
+
+    def _p_lf_levels(self, q):
+        """Deblock levels from the P frame's qindex (the intra encoder's
+        heuristic at the inter quantizer)."""
+        cfg = self.cfg
+        if cfg.lf_level == 0:
+            return (0, 0, 0, 0)
+        if cfg.lf_level > 0:
+            l = min(cfg.lf_level, 63)
+        else:
+            l = max(0, min(63, (q * q // 1100) + q // 12 - 2))
+        lc = max(0, l * 3 // 4)
+        return (l, l, lc, lc)
+
+    def _dlf_levels(self, q, y_rec, part, part_sb, src_y, valid_h=None):
+        """Frame-level DLF level search: the luma level of least SSE
+        against the source among levels around the qindex heuristic,
+        chroma at 3/4 (an explicit cfg.lf_level overrides).  One host
+        read."""
+        if self.cfg.lf_level >= 0:
+            return self._p_lf_levels(q)
+        base = self._p_lf_levels(q)[0]
+        cand = [0, max(1, base // 2), max(1, base * 3 // 4),
+                max(1, base), base * 5 // 4 + 1, base * 3 // 2 + 1]
+        cand = [min(63, c) for c in cand]
+        sse = dlf_sse_part(y_rec, src_y, part, cand, BLK, 14,
+                           part_sb=part_sb, valid_h=valid_h).cpu().numpy()
+        l = int(cand[int(np.argmin(sse))])
+        lc = max(0, l * 3 // 4)
+        return (l, l, lc, lc)
+
+    def _fit_gm(self, mv_field):
+        """Translation-only global motion from the 32x32 ME field: the
+        coordinate-wise median, rounded to even 1/8 pel, kept when most
+        blocks move with it (EbGlobalMotionEstimation.c:126 analogue).
+        Returns (row, col) or None (identity).  Reads back to the host."""
+        f = mv_field.cpu().numpy().reshape(-1, 2).astype(np.int64)
+        if f.shape[0] < 4:
+            return None
+        med = np.median(f, axis=0)
+        gm = (int(np.round(med[0] / 2.0)) * 2,
+              int(np.round(med[1] / 2.0)) * 2)
+        if gm == (0, 0) or max(abs(gm[0]), abs(gm[1])) > 510:
+            return None
+        inl = (np.abs(f - np.array(gm)).max(axis=1) <= 16).mean()
+        if inl < 0.5:
+            return None
+        return gm
+
+    def _gm_prev_for(self, primary_ref, ref_idx):
+        """PrevGmParams source: the primary-ref frame's saved gm dict."""
+        if primary_ref == 7:
+            return {}
+        return self._slot_gm.get(ref_idx[primary_ref]) or {}
+
+    def _gm_save(self, refresh_flags, gm_dict):
+        for slot in range(8):
+            if (refresh_flags >> slot) & 1:
+                self._slot_gm[slot] = dict(gm_dict)
+
+    def _fg_inter(self):
+        """Inter-frame film grain: update_grain=0, the parameters loaded
+        from the reference slot; each frame keeps its own grain_seed."""
+        if not self.cfg.film_grain or not self.intra._fg_params:
+            return None
+        self._fg_n += 1
+        seed = (17027 + 2897 * self._fg_n) & 0xFFFF
+        return {"grain_seed": seed, "load_ref_idx": 0}
+
+    # ------------------------------------------------------------ P frame
+
+    def _me(self, ys, rj):
+        """Motion search at 32, 16 and 64: mv fields [1, h/bs, w/bs, 2]."""
+        return tuple(motion_estimate(ys, rj, bs)[0] for bs in (BLK, 16, 64))
+
+    @staticmethod
+    def _sub_origins(bh, bw, dev):
+        """Luma origins [1, 4N] of the 16x16 sub-blocks, z-order within
+        each 32x32 block (index (r * bw + c) * 4 + z)."""
+        zi = torch.arange(bh * bw * 4, device=dev)
+        b_r, b_c, zz = zi // (bw * 4), (zi // 4) % bw, zi % 4
+        return ((b_r * BLK + (zz >> 1) * 16)[None],
+                (b_c * BLK + (zz & 1) * 16)[None])
+
+    def _luma_lanes(self, ryp, mvs, mvps, gmv, origins, h, w, filt,
+                    free, free_sb):
+        """Motion compensation and rates of the three lanes at the 32, 16
+        and 64 depths, as the scan's InterLanes."""
+        preds, rates = [], []
+        for (y0, x0, bs), mv, mvp in zip(origins, mvs, mvps):
+            shape = mv.shape[:-1]
+            mvf, mvpf = mv.reshape(1, -1, 2), mvp.reshape(1, -1, 2)
+            gm = upload(np.array(gmv, np.int32), mvf.device).expand_as(mvf)
+            n = mvf.shape[1]
+            p = predict_inter_blocks(
+                ryp.expand(N_LANES, -1, -1), y0.expand(N_LANES, n),
+                x0.expand(N_LANES, n), torch.cat([mvf, gm, mvpf]), h, w, bs,
+                0, 8, filt)
+            preds.append(p.reshape((1, N_LANES) + shape[1:] + (bs, bs)))
+            rates.append(torch.stack([
+                MODE_NEW + _mv_bits(mv, mvp),
+                torch.full(shape, MODE_NEAR + 1.0, device=mv.device),
+                torch.full(shape, MODE_NEAR + 1.4, device=mv.device)], 1))
+        (top, sub, sb), (r_top, r_sub, r_sb) = preds, rates
+        one = lambda a: torch.ones(a.shape, dtype=torch.bool,
+                                   device=a.device)
+        return InterLanes(top, r_top, one(r_top), sub, r_sub, one(r_sub), sb,
+                          r_sb, one(r_sb), one(free), one(free)[..., None]
+                          .expand(-1, -1, -1, 4), one(free_sb))
+
+    def _chroma_lanes(self, rup, rvp, mvs, origins, h, w, filt, inter):
+        """Chroma motion compensation at the luma decisions' mvs (U and V
+        in one call each depth): [U, V] predictions of the top, sub and
+        SB blocks, as the paired scan's InterLanes; inter (top, sub, sb
+        bool maps of luma's inter blocks) gates lanes and intra."""
+        ref = torch.cat([rup, rvp])
+        preds = []
+        for (y0, x0, bs), mv in zip(origins, mvs):
+            mvf = mv.reshape(1, -1, 2)
+            n, cbs = mvf.shape[1], bs // 2
+            p = predict_inter_blocks(ref, (y0 // 2).expand(2, n),
+                                     (x0 // 2).expand(2, n),
+                                     mvf.expand(2, -1, -1), h, w, cbs, 1, 8,
+                                     filt)
+            preds.append(p.reshape((2, 1) + mv.shape[1:-1] + (cbs, cbs)))
+        top, sub, sb = preds
+        two = lambda a: torch.cat([a, a])
+        zero = lambda a: torch.zeros((2, 1) + a.shape[1:], device=a.device)
+        t_in, s_in, b_in = inter
+        return InterLanes(top, zero(t_in), two(t_in[:, None]), sub,
+                          zero(s_in), two(s_in[:, None]), sb, zero(b_in),
+                          two(b_in[:, None]), two(~t_in), two(~s_in),
+                          two(~b_in))
+
+    def _fetch(self, tensors):
+        """The P frame's maps, levels and recon to the host."""
+        return {k: v.cpu().numpy() for k, v in tensors.items()}
+
+    def _encode_p_part(self, y, u, v):
+        cfg = self.cfg
+        q = cfg.qindex
+        cdf0 = self._cdf_state
+        dev = self.device
+        # h is the true (signalled) height: the MC clamp's and the DPB's;
+        # hp the SB-padded plane height of the block grids
+        h, w = y.shape
+        hp = self.intra.ph
+        vh = None if hp == h else h
+        vhc = None if vh is None else vh // 2
+        y, u, v = (pad_plane_bottom(np.asarray(p), n)
+                   for p, n in ((y, hp), (u, hp // 2), (v, hp // 2)))
+        bh, bw, sh, sw = hp // BLK, w // BLK, hp // 64, w // 64
+        N, Nsb = bh * bw, sh * sw
+        ry, ru, rv = self._dpb
+
+        i32 = torch.int32
+        ys, us, vs = (upload(p[None], dev) for p in (y, u, v))
+        ryp, rup, rvp = (pad_plane(upload(p[None], dev).to(i32))
+                         for p in (ry, ru, rv))
+        rj = upload(pad_plane_bottom(np.asarray(ry), hp)[None], dev)
+
+        mv32, mv16, mv64 = self._me(ys, rj)
+        gm = self._fit_gm(mv32) if cfg.gm_search else None
+        gmv = gm or (0, 0)
+        mvp32, mvp64 = _mv_pred(mv32), _mv_pred(mv64)
+        mvp16z = mvp32[:, :, :, None].expand(-1, -1, -1, 4, -1)
+        mv16z = mv16.reshape(1, bh, 2, bw, 2, 2).permute(
+            0, 1, 3, 2, 4, 5).reshape(1, bh, bw, 4, 2)
+
+        ar = torch.arange(N, device=dev)
+        y0, x0 = (ar // bw * BLK)[None], (ar % bw * BLK)[None]
+        sy0, sx0 = self._sub_origins(bh, bw, dev)
+        ars = torch.arange(Nsb, device=dev)
+        y0s, x0s = (ars // sw * 64)[None], (ars % sw * 64)[None]
+        origins = ((y0, x0, BLK), (sy0, sx0, 16), (y0s, x0s, 64))
+        filt = _pick_interp_filt(ys, ryp, y0, x0, mv32.reshape(1, N, 2), h,
+                                 w) if cfg.filter_search else 0
+
+        free_np, free_sb_np = bottom_force_masks(bh, bw, sh, sw, h // 4)
+        free, free_sb = (upload(a[None], dev) for a in (free_np, free_sb_np))
+        lanes = self._luma_lanes(ryp, (mv32, mv16z, mv64),
+                                 (mvp32, mvp16z, mvp64), gmv, origins, h, w,
+                                 filt, free, free_sb)
+        (part, y_mi, y_lev, y_smi, y_slev, y_stx, y_rec,
+         part_sb, y_mi_sb, y_lev_sb) = encode_plane_wavefront_part(
+            ys, BLK, q, free, free_sb, tx_search=cfg.tx_search, valid_h=vh,
+            inter=lanes)
+
+        n_i_top = len(expand_candidates(CAND_MODES))
+        n_i_sub = len(expand_candidates(SUB_MODES))
+        lane_t, lane_s, lane_b = y_mi - n_i_top, y_smi - n_i_sub, \
+            y_mi_sb - n_i_top
+        gm_t = upload(np.array(gmv, np.int32), dev)
+
+        def first_mv(lane, new, pred):
+            # lane 1 (GLOBALMV) and intra blocks carry the frame's gm mv
+            return torch.where((lane == 0)[..., None], new, torch.where(
+                (lane == 2)[..., None], pred, gm_t))
+
+        mv_top = first_mv(lane_t, mv32, mvp32)
+        mv_sub = first_mv(lane_s, mv16z, mvp16z)
+        mv_sb = first_mv(lane_b, mv64, mvp64)
+
+        c_lanes = self._chroma_lanes(
+            rup, rvp, (mv_top, mv_sub, mv_sb), origins, h, w, filt,
+            (lane_t >= 0, lane_s >= 0, lane_b >= 0))
+        two = lambda a: torch.cat([a, a])
+        (_, uv_mi, uv_lev, uv_smi, uv_slev, _, uv_rec,
+         _, uv_mi_sb, uv_lev_sb) = encode_plane_wavefront_part(
+            torch.cat([us, vs]), CBLK, q, two(part), two(part_sb),
+            chroma=True, valid_h=vhc, inter=c_lanes)
+
+        lf = self._dlf_levels(q, y_rec, part, part_sb, ys, valid_h=vh)
+        u_rec, v_rec = uv_rec[:1], uv_rec[1:]
+        if lf[0] or lf[1]:
+            y_rec = deblock_plane_part(y_rec, part, BLK, 14, lf[0], lf[1],
+                                       part_sb=part_sb, valid_h=vh)
+            u_rec = deblock_plane_part(u_rec, part, CBLK, 6, lf[2], lf[2],
+                                       part_sb=part_sb, valid_h=vhc)
+            v_rec = deblock_plane_part(v_rec, part, CBLK, 6, lf[3], lf[3],
+                                       part_sb=part_sb, valid_h=vhc)
+        u8 = lambda a: a.to(torch.uint8)
+        m = self._fetch(dict(
+            part=part[0], y_mi=y_mi[0], y_lev=y_lev[0], y_smi=y_smi[0],
+            y_slev=y_slev[0], y_stx=y_stx[0], part_sb=part_sb[0],
+            y_mi_sb=y_mi_sb[0], y_lev_sb=y_lev_sb[0], u_lev=uv_lev[0],
+            v_lev=uv_lev[1], u_slev=uv_slev[0], v_slev=uv_slev[1],
+            u_lev_sb=uv_lev_sb[0], v_lev_sb=uv_lev_sb[1], uv_mi=uv_mi[0],
+            uv_smi=uv_smi[0], uv_mi_sb=uv_mi_sb[0], mv_t=mv_top[0],
+            mv_s=mv_sub[0], mv_sb=mv_sb[0], mv32=mv32[0], mv16=mv16[0],
+            mv64=mv64[0]))
+        m.update(gm=gm, filt=filt, lf=lf)
+        self.last_p = m
+
+        rec, cdef_params, ccso_info, lr_types, lr_infos = \
+            self.intra._filter_frame((y, u, v), (
+                u8(y_rec[0]), u8(u_rec[0]), u8(v_rec[0])), tuple(
+                m[k] for k in ("part", "y_lev", "u_lev", "v_lev", "y_slev",
+                               "u_slev", "v_slev", "part_sb", "y_lev_sb",
+                               "u_lev_sb", "v_lev_sb")), qindex=q)
+        uv_mode = lambda modes, mi: np.array(
+            [c for c, _ in expand_candidates(modes)], np.int32)[
+                np.clip(mi, 0, len(modes) - 1)]
+        tc = TileCoder(w, hp, q, cfg.cdf_update, true_h=h,
+                       cdef_bits=cdef_params["bits"] if cdef_params else 0,
+                       cdef_idx=(cdef_params["idx_map"] if cdef_params
+                                 else None),
+                       kf=False, cdf_init=cdf0, gm_mv=gmv)
+        tc.ccso_info = ccso_info
+        if any(lr_types):
+            tc.set_lr(lr_types, lr_infos)
+        tile, end_cdf = tc.encode(
+            m["part"], m["y_mi"], m["y_lev"], m["u_lev"], m["v_lev"],
+            m["y_smi"], m["y_slev"], m["u_slev"], m["v_slev"],
+            expand_candidates(CAND_MODES), expand_candidates(SUB_MODES),
+            m["y_stx"], m["part_sb"], m["y_mi_sb"], m["y_lev_sb"],
+            m["u_lev_sb"], m["v_lev_sb"],
+            uv_mode(CHROMA_TOP_MODES, m["uv_mi"]),
+            uv_mode(CHROMA_SUB_MODES, m["uv_smi"]),
+            uv_mode(CHROMA_SB_MODES, m["uv_mi_sb"]),
+            mv_top=m["mv_t"], mv_sub=m["mv_s"], mv_sb=m["mv_sb"])
+        m["mode_counts"] = dict(tc.mode_counts)
+
+        primary_ref = 0 if cdf0 is not None else 7
+        ref_idx, refresh = (0,) * 7, 0x01
+        gm_dict = {1: gmv} if gm else {}
+        fr = FrameConfig(frame_type=1, base_q_idx=q,
+                         disable_cdf_update=not cfg.cdf_update,
+                         disable_frame_end_update_cdf=not cfg.cdf_update,
+                         primary_ref_frame=primary_ref,
+                         filter_level=(lf[0], lf[1]),
+                         filter_level_u=lf[2], filter_level_v=lf[3],
+                         interpolation_filter=filt,
+                         lr_frame_types=lr_types, ccso=ccso_info,
+                         gm_mv=gm_dict or None,
+                         gm_prev=self._gm_prev_for(primary_ref, ref_idx),
+                         film_grain=self._fg_inter(),
+                         **(cdef_frame_config_fields(cdef_params)
+                            if cdef_params else {}))
+        self._gm_save(refresh, gm_dict)
+        if cfg.cdf_update:
+            self._cdf_state = end_cdf.snapshot()
+        payload = assemble_frame(self.seq, fr, tile, first=False)
+        y_n, u_n, v_n = (p.to(torch.uint8).cpu().numpy() for p in rec)
+        return payload, (y_n[:h], u_n[:h // 2], v_n[:h // 2])

@@ -2,15 +2,20 @@
 block NONE vs SPLIT into four 16x16 leaves, decided by closed-loop RD in
 one z-order scan.
 
-Counterpart of ``svtav1_tpu/encoder/wavefront2.py``, cut to the intra
-key-frame form: no inter candidates (n_extra = 0), every block may be
-intra, and the lambda map is all ones.  Each quad step of the flat path's
-2:1 wavefront (``wavefront._quad_tables``) evaluates the superblock as one
-block (``eval_sb``) from the boundary state as the step finds it, then the
-four z-order blocks (``sub_step``): the whole block with every candidate,
-and its four sub-blocks with the Z2-safe mode set, their neighbour recon
-threaded through a local buffer; the cheaper tree wins at each depth, and
-the boundary buffers end the step holding the chosen content.
+Counterpart of ``svtav1_tpu/encoder/wavefront2.py`` with its lambda map
+all ones (the pyramid's TPL map is not ported).  Two forms: the key-frame
+form (every block intra, the key-frame rates) and the inter form of P
+frames (``InterLanes``): precomputed inter predictions join the intra
+candidates at each depth as extra lanes with their own rates, masks gate
+the lanes and intra per block, and the rates are the inter frame's
+(y_mode CDF, tx-type bits on every coded txb).  Each quad step of the flat
+path's 2:1 wavefront (``wavefront._quad_tables``) evaluates the superblock
+as one block (``eval_sb``) from the boundary state as the step finds it,
+then the four z-order blocks (``sub_step``): the whole block with every
+candidate, and its four sub-blocks with the Z2-safe mode set, their
+neighbour recon threaded through a local buffer; the cheaper tree wins at
+each depth, and the boundary buffers end the step holding the chosen
+content.
 
 Every candidate runs the normative integer chain, so levels and recon are
 bit-final, and the float32 RD sums keep the JAX package's association.
@@ -24,6 +29,8 @@ nothing back, so on a CUDA device the whole call only queues work.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -68,6 +75,29 @@ TX_SEARCH_TYPES = (0, 3, 1, 2, 9)
 BD = 8                        # bit depth (the port codes 8-bit only)
 # square tx size of an n x n block
 _SQ_TX = {8: TX_8X8, 16: TX_16X16, 32: TX_32X32, 64: TX_64X64}
+BIG = 3e38                    # RD cost of a gated-off candidate (float32)
+
+
+class InterLanes(NamedTuple):
+    """The inter form's candidate lanes, tensors on the scan's device, nE
+    lanes, z-order sub-blocks.  Predictions int32: top [B, nE, bh, bw, bs,
+    bs], sub [B, nE, bh, bw, 4, bs/2, bs/2], sb [B, nE, sh, sw, 2bs, 2bs];
+    their rates (bits) float32 and masks bool [B, nE, bh, bw] / [B, nE, bh,
+    bw, 4] / [B, nE, sh, sw]; intra_ok_* [B, bh, bw] / [B, bh, bw, 4] /
+    [B, sh, sw] gate the intra candidates.  Candidate index space: the
+    intra candidates, then the lanes."""
+    top: torch.Tensor
+    rate_top: torch.Tensor
+    ok_top: torch.Tensor
+    sub: torch.Tensor
+    rate_sub: torch.Tensor
+    ok_sub: torch.Tensor
+    sb: torch.Tensor
+    rate_sb: torch.Tensor
+    ok_sb: torch.Tensor
+    intra_ok_top: torch.Tensor
+    intra_ok_sub: torch.Tensor
+    intra_ok_sb: torch.Tensor
 
 
 def _cdf_sym_bits(table, sym: int, nsyms: int = None) -> float:
@@ -113,15 +143,16 @@ def partition_bits_sb(qindex: int, bs2: int, cdf: CdfContext = None):
 
 
 def rd_params_part(qindex: int, bs: int, cands_top, cands_sub, cands_sbl,
-                   uv_rates: bool = False):
+                   uv_rates: bool = False, kf: bool = True):
     """RD inputs of a partition wavefront call, as numpy on the host: (dc
     step, ac step, lambda, top / sub / SB mode-rate tables, NONE and SPLIT
     bits at the 32 and the SB depth, the tx-type rate table, the sub
-    candidates' mode ids)."""
+    candidates' mode ids).  kf=False takes the inter frame's intra-mode
+    rates (chroma keeps the uv_mode rates)."""
     cdf = CdfContext(qindex)
     dc, ac = tbl.qindex_to_dq(qindex, BD)
-    kf = "uv" if uv_rates else True
-    rate = lambda c: intra_mode_rate_table(c, qindex, kf=kf, cdf=cdf)
+    rate_kf = "uv" if uv_rates else kf
+    rate = lambda c: intra_mode_rate_table(c, qindex, kf=rate_kf, cdf=cdf)
     f32 = np.float32
     bn, bsp = partition_bits(qindex, bs, cdf)
     bn2, bsp2 = partition_bits_sb(qindex, 2 * bs, cdf)
@@ -136,7 +167,8 @@ def rd_params_part(qindex: int, bs: int, cands_top, cands_sub, cands_sbl,
 def encode_plane_wavefront_part(src, bs: int, qindex: int, force_part,
                                 force_sb, chroma: bool = False,
                                 tx_search: bool = False,
-                                valid_h: int = None):
+                                valid_h: int = None,
+                                inter: InterLanes = None):
     """src [B, h, w] uint8 tensor (h, w multiples of 2*bs) ->
     (part [B, bh, bw] int32 (1 = SPLIT), mi_top [B, bh, bw],
     lev_top [B, bh, bw, bs, bs], mi_sub [B, bh, bw, 4],
@@ -152,19 +184,22 @@ def encode_plane_wavefront_part(src, bs: int, qindex: int, force_part,
     candidate's implied tx type; otherwise luma with the 13 DEFAULT_MODES
     at the 32x32 and SB depths and SUB_MODES below.  tx_search: RD-refine
     the tx type of the sub-block winners over TX_SEARCH_TYPES.  valid_h:
-    true (unpadded) frame height; left edge rows clamp at valid_h-1."""
+    true (unpadded) frame height; left edge rows clamp at valid_h-1.
+    inter: the P frame's lanes (the inter form; mode indices past the
+    intra candidates are lanes)."""
     if chroma:
         modes = (CHROMA_TOP_MODES, CHROMA_SUB_MODES, CHROMA_SB_MODES)
     else:
         modes = (DEFAULT_MODES, SUB_MODES, DEFAULT_MODES)
     cands_top, cands_sub, cands_sbl = (expand_candidates(m) for m in modes)
-    rd = rd_params_part(qindex, bs, cands_top, cands_sub, cands_sbl, chroma)
+    rd = rd_params_part(qindex, bs, cands_top, cands_sub, cands_sbl, chroma,
+                        kf=inter is None)
     dev = src.device
     rd_t = {k: (v if k in ("dc", "ac") else upload(np.asarray(v), dev))
             for k, v in rd.items()}
     return _wavefront_part_impl(src, rd_t, force_part.to(dev),
                                 force_sb.to(dev), bs, cands_top, cands_sub,
-                                cands_sbl, tx_search, valid_h, chroma)
+                                cands_sbl, tx_search, valid_h, chroma, inter)
 
 
 def _intra_pred(mode, delta, above, left, corner, ha, hl, n, bd,
@@ -191,10 +226,11 @@ def _intra_pred(mode, delta, above, left, corner, ha, hl, n, bd,
 
 def _wavefront_part_impl(src, rd, force_part, force_sb, bs: int, cands_top,
                          cands_sub, cands_sbl, tx_search: bool,
-                         valid_h: int, chroma: bool):
+                         valid_h: int, chroma: bool, inter=None):
     """The scan, plain PyTorch on src's device; rd holds rd_params_part's
     tables as tensors on that device (dc and ac as ints).  chroma: paired
-    U/V lanes and implied uv tx types."""
+    U/V lanes and implied uv tx types; inter: InterLanes (the inter
+    form)."""
     dqdc, dqac, lam = rd["dc"], rd["ac"], rd["lam"]
     bd, paired, uv_tx = BD, chroma, chroma
     dev = src.device
@@ -207,9 +243,12 @@ def _wavefront_part_impl(src, rd, force_part, force_sb, bs: int, cands_top,
     nC = 32 if bs2 == 64 else bs2          # coded coefficient area of tx_sb
     base = 1 << (bd - 1)
     i32 = torch.int32
-    # tx-type signalling overhead per coded luma txb (key frames)
-    txb_top = 0.0 if bs >= 32 else 1.0
-    txb_sub = 2.4
+    # tx-type signalling overhead per coded txb
+    kf = inter is None
+    txb_top = 0.0 if (bs >= 32 and kf) else 1.0
+    txb_sub = 2.4 if kf else 1.0
+    txb_sb = 0.0 if kf else 1.0
+    n_extra = 0 if kf else inter.top.shape[1]
     n_mode_ids = len(cands_sub)
     rs_t, cs_t, valid_t, has_tr_t, has_bl_t = _quad_tables(bh, bw)
     # the valid lanes of a step are a prefix, the same for its four z
@@ -261,13 +300,51 @@ def _wavefront_part_impl(src, rd, force_part, force_sb, bs: int, cands_top,
                                  bd)
         sse = ((f_src - recb) ** 2).sum((-1, -2)).to(torch.float32)
         lev_c = lev[..., :nC, :nC]
-        return lev_c, recb, sse, _resid_bits(lev_c, 32)   # txb bits 0 (kf)
+        rb = _resid_bits(lev_c, 32)
+        if txb_sb:
+            nnz = (lev_c != 0).sum((-1, -2))
+            rb = rb + torch.where(nnz > 0, txb_sb, 0.0)
+        return lev_c, recb, sse, rb
 
-    def stack_eval(preds, rates, f_src, txq_fn, tx_types=None):
+    def candidates(preds, table, iok, extras):
+        """The inter form's candidate list: intra predictions then the
+        lanes' (pred, rate, ok); returns (preds, rates [C, BD], oks [C, BD]).
+        The key-frame form keeps the rate table [C] and no mask."""
+        if kf:
+            return preds, table, None
+        n = preds[0].shape[0]
+        rates = torch.cat([table[:, None].expand(len(table), n),
+                           torch.stack([r for _, r, _ in extras])])
+        oks = torch.cat([iok[None].expand(len(table), n),
+                         torch.stack([o for _, _, o in extras])])
+        return preds + [p for p, _, _ in extras], rates, oks
+
+    def step_lanes(pred, rate, ok, idx):
+        """The n_extra lanes of a step's blocks, each [B*D, ...]."""
+        fl = lambda t: t.reshape((-1,) + t.shape[2:])
+        return [(fl(pred[:, e][idx]), fl(rate[:, e][idx]), fl(ok[:, e][idx]))
+                for e in range(n_extra)]
+
+    groups = {}
+
+    def tx_groups(tx_types):
+        """[(tx type, candidate indices)] in type order, the indices as a
+        tensor on the scan's device (uploaded once a call: a list index
+        would copy from pageable memory and synchronise every step)."""
+        if tx_types not in groups:
+            groups[tx_types] = [
+                (tt, upload(np.array([i for i, t in enumerate(tx_types)
+                                      if t == tt], np.int64), dev))
+                for tt in sorted(set(tx_types))]
+        return groups[tx_types]
+
+    def stack_eval(preds, rates, f_src, txq_fn, tx_types=None, oks=None):
         """All candidates through one txq chain per distinct tx type; the
-        first minimum of the RD cost wins.  paired: the u/v halves of the
-        lane axis pick one candidate on the pair's summed cost.  Returns
-        (cost, mi, lev, rec, pred, rcost) of the winners."""
+        first minimum of the RD cost wins.  rates: [C] or [C, BD]; oks
+        [C, BD] or None gates candidates (a gated one costs BIG).  paired:
+        the u/v halves of the lane axis pick one candidate on the pair's
+        summed cost.  Returns (cost, mi, lev, rec, pred, rcost) of the
+        winners."""
         C, BD, n = len(preds), preds[0].shape[0], preds[0].shape[-1]
         pred_s = torch.stack(preds)                    # [C, BD, n, n]
         if tx_types is None or len(set(tx_types)) == 1:
@@ -279,8 +356,7 @@ def _wavefront_part_impl(src, rd, force_part, force_sb, bs: int, cands_top,
                              rb.reshape(C, BD))
         else:
             outs = [None] * 4
-            for tt in sorted(set(tx_types)):
-                idx = [i for i, t in enumerate(tx_types) if t == tt]
+            for tt, idx in tx_groups(tuple(tx_types)):
                 o = txq_fn(pred_s[idx].reshape(len(idx) * BD, n, n),
                            f_src.repeat(len(idx), 1, 1), tt)
                 for k, a in enumerate(o):
@@ -289,7 +365,10 @@ def _wavefront_part_impl(src, rd, force_part, force_sb, bs: int, cands_top,
                     outs[k][idx] = a.reshape((len(idx), BD) + a.shape[1:])
             lev, recb, sse, rb = outs
         rcost_s = sse + lam * rb
-        cost_s = rcost_s + lam * rates[:, None]
+        cost_s = rcost_s + lam * (rates[:, None] if rates.dim() == 1
+                                  else rates)
+        if oks is not None:
+            cost_s = torch.where(oks, cost_s, BIG)
         if paired:
             cp = cost_s.reshape(C, 2, BD // 2).sum(1)
             mi = torch.argmin(cp, 0).repeat(2)
@@ -299,16 +378,20 @@ def _wavefront_part_impl(src, rd, force_part, force_sb, bs: int, cands_top,
         return (cost_s[mi, lanes], mi.to(i32), lev[mi, lanes],
                 recb[mi, lanes], pred_s[mi, lanes], rcost_s[mi, lanes])
 
-    def eval_set(f_src, above, left, corner, ha, hl, n, tx_size):
-        """Best sub-block candidate, then (tx_search) the RD tx-type
-        refinement of the winner.  Returns (cost, mi, lev, rec, tx_idx)."""
-        preds = [_intra_pred(m, d, above, left, corner, ha, hl, n, bd)
-                 for m, d in cands_sub]
-        ttypes = ([uv_intra_tx_type(m, tx_size) for m, _ in cands_sub]
-                  if uv_tx else None)
+    def eval_set(f_src, above, left, corner, ha, hl, n, tx_size, iok=None,
+                 extras=()):
+        """Best sub-block candidate (intra, then the inter form's lanes
+        extras [(pred, rate, ok)]), then (tx_search) the RD tx-type
+        refinement of an intra winner.  Returns (cost, mi, lev, rec,
+        tx_idx)."""
+        preds, rates, oks = candidates(
+            [_intra_pred(m, d, above, left, corner, ha, hl, n, bd)
+             for m, d in cands_sub], rd["rate_sub"], iok, extras)
+        ttypes = ([uv_intra_tx_type(m, tx_size) for m, _ in cands_sub] +
+                  [DCT_DCT] * len(extras) if uv_tx else None)
         cost, mi, lev, recb, pred, rcost = stack_eval(
-            preds, rd["rate_sub"], f_src,
-            lambda p, s, tt: txq(p, s, tx_size, n, txb_sub, tt), ttypes)
+            preds, rates, f_src,
+            lambda p, s, tt: txq(p, s, tx_size, n, txb_sub, tt), ttypes, oks)
         tx_idx = torch.zeros_like(mi)
         if tx_search:
             m_ids = rd["mode_ids"][mi.clamp(0, n_mode_ids - 1)]
@@ -319,6 +402,8 @@ def _wavefront_part_impl(src, rd, force_part, force_sb, bs: int, cands_top,
                                              TX_SEARCH_TYPES[ti])
                 new_eff = sse2 + lam * (rb2 + txt[:, ti])
                 take = new_eff < cur_eff
+                if not kf:
+                    take = take & (mi < len(cands_sub))
                 t3 = take[:, None, None]
                 cost = torch.where(take, cost - cur_eff + new_eff, cost)
                 lev = torch.where(t3, lev2, lev)
@@ -343,15 +428,25 @@ def _wavefront_part_impl(src, rd, force_part, force_sb, bs: int, cands_top,
         f_ha = (rs > 0).expand(B, D).reshape(-1)
         f_hl = (cs > 0).expand(B, D).reshape(-1)
 
+        blk = (slice(None), rs, cs)
+        if not kf:
+            f_iok = inter.intra_ok_top[blk].reshape(-1)
+            f_iok_sub = inter.intra_ok_sub[blk].reshape(B * D, 4)
+            sub_lanes = step_lanes(inter.sub, inter.rate_sub, inter.ok_sub,
+                                   blk)
         # whole-block (NONE) evaluation, extended-edge modes included
-        preds_t = [_intra_pred(m, d, f_above, f_left, f_corner, f_ha, f_hl,
-                               bs, bd, f_above_ext, f_left_ext)
-                   for m, d in cands_top]
-        tt_top = ([uv_intra_tx_type(m, tx_top) for m, _ in cands_top]
-                  if uv_tx else None)
+        preds_t, rates_t, oks_t = candidates(
+            [_intra_pred(m, d, f_above, f_left, f_corner, f_ha, f_hl, bs, bd,
+                         f_above_ext, f_left_ext) for m, d in cands_top],
+            rd["rate_top"], None if kf else f_iok,
+            None if kf else step_lanes(inter.top, inter.rate_top,
+                                       inter.ok_top, blk))
+        tt_top = ([uv_intra_tx_type(m, tx_top) for m, _ in cands_top] +
+                  [DCT_DCT] * n_extra if uv_tx else None)
         best_top = stack_eval(
-            preds_t, rd["rate_top"], f_src,
-            lambda p, s, tt: txq(p, s, tx_top, bs, txb_top, tt), tt_top)
+            preds_t, rates_t, f_src,
+            lambda p, s, tt: txq(p, s, tx_top, bs, txb_top, tt), tt_top,
+            oks_t)
 
         # SPLIT evaluation: 4 z-order sub-blocks
         loc = torch.zeros((B * D, bs, bs), dtype=i32, device=dev)
@@ -387,8 +482,11 @@ def _wavefront_part_impl(src, rd, force_part, force_sb, bs: int, cands_top,
                 s_ha & s_hl, s_corner,
                 torch.where(s_ha, s_above_real[..., 0],
                             torch.where(s_hl, s_left_real[..., 0], base)))
+            z = 2 * sr + sc
             cost, mi, lev, recb, stx = eval_set(
-                s_src, s_above, s_left, s_corner, s_ha, s_hl, hs, tx_sub)
+                s_src, s_above, s_left, s_corner, s_ha, s_hl, hs, tx_sub,
+                *(() if kf else (f_iok_sub[:, z], [
+                    (p[:, z], r[:, z], o[:, z]) for p, r, o in sub_lanes])))
             sub_cost = sub_cost + cost
             sub_mi.append(mi)
             sub_lev.append(lev)
@@ -453,11 +551,16 @@ def _wavefront_part_impl(src, rd, force_part, force_sb, bs: int, cands_top,
         f_src = fb(src_sb[:, sbr, sbc])
         f_ha = ha1.expand(B, D).reshape(-1)
         f_hl = hl1.expand(B, D).reshape(-1)
-        preds = [_intra_pred(m, d, fb(above), fb(left), fb(corner), f_ha,
-                             f_hl, bs2, bd, fb(above_ext), fb(left_ext))
-                 for m, d in cands_sbl]
-        return stack_eval(preds, rd["rate_sb"], f_src,
-                          lambda p, s, tt: txq_sb(p, s))[:4]
+        sbk = (slice(None), sbr, sbc)
+        preds, rates, oks = candidates(
+            [_intra_pred(m, d, fb(above), fb(left), fb(corner), f_ha, f_hl,
+                         bs2, bd, fb(above_ext), fb(left_ext))
+             for m, d in cands_sbl], rd["rate_sb"],
+            None if kf else inter.intra_ok_sb[sbk].reshape(-1),
+            None if kf else step_lanes(inter.sb, inter.rate_sb, inter.ok_sb,
+                                       sbk))
+        return stack_eval(preds, rates, f_src,
+                          lambda p, s, tt: txq_sb(p, s), oks=oks)[:4]
 
     for k in range(len(n_valid)):
         D = int(n_valid[k])

@@ -1,7 +1,8 @@
 """The port stands on its own: no module of ``svtav1_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX, the JAX package or its benchmark, and the
 port encodes with all three blocked, on the flat and on the partition
-path, and with the in-loop filters on.
+path, with the in-loop filters on, and on the low-delay inter path (a key
+frame and a P frame).
 """
 
 import ast
@@ -54,6 +55,12 @@ _ENCODE_BLOCKED = textwrap.dedent("""
         for p in payloads:
             assert any(t == OBU_FRAME for t, _, _, _ in parse_obus(p))
         assert recons[1][0].shape == (64, 128)
+    from svtav1_tpu_torch.cuda.inputs import moving_frames
+    from svtav1_tpu_torch.encoder.video_encoder import VideoEncoder
+    enc = VideoEncoder(EncoderConfig(128, 64), keyint=64, device="cpu")
+    payloads, recons = enc.encode_frames(moving_frames(128, 64, 2))
+    assert len(payloads[1]) < len(payloads[0])
+    assert sum(enc.last_p["mode_counts"].values()) > 0
     print("ISOLATED_OK")
 """)
 

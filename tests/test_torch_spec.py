@@ -2,11 +2,13 @@
 originals on the same inputs: spec tables, transform networks, default
 CDFs, frame geometry, header and container writers, the native tile coder,
 the film grain estimator, presets, the subexp and loop-restoration unit
-writers, the CDEF set selection, the CCSO search, and chip_smoke.py's
-synthetic clip.  One test function per module, one case per input.
+writers, the CDEF set selection, the CCSO search, the mv spec and the
+subpel filter table, and chip_smoke.py's synthetic clip.  One test
+function per module, one case per input.
 """
 
 import io
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -25,6 +27,7 @@ from svtav1_tpu.encoder import noise_model as jnoise
 from svtav1_tpu.encoder import presets as jpre
 from svtav1_tpu.encoder.intra_encoder import EncoderConfig
 from svtav1_tpu.spec import cdf as jcdf
+from svtav1_tpu.spec import mv as jmv
 from svtav1_tpu.spec import tables as jtbl
 from svtav1_tpu.spec import txfm as jT
 from svtav1_tpu.utils import bitio as jbitio
@@ -42,6 +45,7 @@ from svtav1_tpu_torch.encoder import headers as thdr
 from svtav1_tpu_torch.encoder import noise_model as tnoise
 from svtav1_tpu_torch.encoder import presets as tpre
 from svtav1_tpu_torch.spec import cdf as tcdf
+from svtav1_tpu_torch.spec import mv as tmv
 from svtav1_tpu_torch.spec import tables as ttbl
 from svtav1_tpu_torch.spec import txfm as tT
 from svtav1_tpu_torch.utils import bitio as tbitio
@@ -49,6 +53,7 @@ from svtav1_tpu_torch.utils import ivf as tivf
 from svtav1_tpu_torch.utils import obu as tobu
 from svtav1_tpu_torch.utils import y4m as ty4m
 
+ROOT = Path(__file__).resolve().parent.parent
 TXS = (jT.TX_16X16, jT.TX_32X32)
 
 
@@ -380,3 +385,36 @@ def test_synth_frames(w, h, n, seed):
         for a, b in zip(fg, fw):
             assert a.dtype == b.dtype
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["mv", "interp_filters"])
+def test_inter_spec(case):
+    if case == "interp_filters":
+        want = np.load(ROOT / "svtav1_tpu/spec/data/interp_filters.npz")
+        got = np.load(ROOT / "svtav1_tpu_torch/spec/data/interp_filters.npz")
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype, k
+            np.testing.assert_array_equal(got[k], want[k])
+        return
+    for name in ("NEARESTMV", "NEARMV", "GLOBALMV", "NEWMV", "MV_JOINTS",
+                 "MV_CLASSES", "CLASS0_SIZE", "MV_FP_SIZE", "MV_BORDER",
+                 "REF_CAT_LEVEL", "MAX_REF_MV_STACK_SIZE",
+                 "MAX_MV_REF_CANDIDATES", "MVREF_ROW_COLS", "GLOBALMV_OFFSET",
+                 "REFMV_OFFSET", "NEWMV_CTX_MASK", "GLOBALMV_CTX_MASK",
+                 "REFMV_CTX_MASK", "INTRA_FRAME", "LAST_FRAME"):
+        assert getattr(tmv, name) == getattr(jmv, name), name
+    for mode in range(17):
+        assert tmv.has_newmv(mode) == jmv.has_newmv(mode)
+        assert tmv.has_nearmv(mode) == jmv.has_nearmv(mode)
+    for z in list(range(0, 300)) + [4095, 8191, 8192, 20000]:
+        assert tmv.get_mv_class(z) == jmv.get_mv_class(z)
+    for r in range(-20, 21):
+        for c in (-9, -1, 0, 1, 7):
+            for hp in (False, True):
+                for fi in (False, True):
+                    assert tmv.lower_mv_precision(r, c, hp, fi) == \
+                        jmv.lower_mv_precision(r, c, hp, fi)
+            assert tmv.mv_joint(r, c) == jmv.mv_joint(r, c)
+            assert tmv.clamp_mv_ref(r * 100, c * 300, 4, 4, 3, 5, 16, 32) \
+                == jmv.clamp_mv_ref(r * 100, c * 300, 4, 4, 3, 5, 16, 32)
