@@ -1,8 +1,9 @@
 """Drive the PyTorch port's 1080p encode on one CUDA card: the flat
 all-intra path through the hand-written wavefront kernel, the partition
-intra path with and without the in-loop filters, and the low-delay inter
-path (the CLI's default --keyint 64), the last three as plain PyTorch on the
-card.
+intra path with and without the in-loop filters, the low-delay inter path
+(the CLI's default --keyint 64), these three as plain PyTorch on the card,
+and the flat low-delay path (presets M11-M13, --no-part-search), whose P
+frames run the kernel with inter lanes.
 
     python3 chip_smoke.py
 
@@ -24,6 +25,13 @@ its last line):
      kernel launch count, that every payload parses as OBUs, luma PSNR >
      30 dB, and byte-identical payloads against the plain version on the
      card when every mode agrees; prints e2e and device-only fps;
+     (2b, before 3) the kernel with inter lanes against its plain version
+     at the flat P frame's shapes (luma 1x1088x1920, 13 intra candidates
+     and 2 lanes; U and V 2x544x960 in one call, DC and 1 lane), on the
+     calls of a 1080p flat P frame of ``moving_frames`` (frame 1 against
+     frame 0: ME, GM fit, filter pick and MC on the card, the masks as the
+     encoder builds them), under phase 2's bar, with kernel and plain
+     times and the bound;
   4. a torch.profiler window over one device_encode batch: device time by
      kernel and the device's busy share of the window, both from the
      events that ran on the card (kernels, copies, memsets), the busy time
@@ -78,12 +86,30 @@ its last line):
      decision map, the ME fields (integer SADs: exact whenever the frame's
      reference agrees) and the final mvs; when every map of a frame agrees,
      byte-identical payloads and equal recons, else the first frame that
-     differs is reported (the frames after it have other references).
+     differs is reported (the frames after it have other references);
+ 12. the flat low-delay path: VideoEncoder(1920, 1080, qindex=100,
+     part_search=False, keyint=64) on 3 frames of ``moving_frames`` (I, P,
+     P), with the kernel launch counts set to 0 before and read after.
+     Wall time of each P-frame stage after a synchronize (ME, GM fit,
+     filter pick, luma MC, luma wavefront, chroma MC, chroma wavefront,
+     deblock, read-back, tile coder), the kernel launches of each wavefront
+     kind, the device syncs of the second P frame by source line, the
+     inter share and the inter modes coded, e2e fps.  Checks: KEY, INTER,
+     INTER; one luma and one U+V launch a P frame; more than half of each
+     P frame's luma blocks inter; payloads parse; luma PSNR > 30 dB;
+ 13. the flat low-delay path at 256x128 (I, P, P) on the card and on the
+     CPU, with --no-part-search's defaults and with preset 13: per frame
+     the agreement of the decision maps (>= 99% of the modes, phase 2's
+     bar), the ME field and the final mvs; when every map of a frame
+     agrees, byte-identical payloads and equal recons.
 Then the script's total time, one JSON line of kernel results and, last,
 one JSON line naming the device.  To run only phases 10-11:
 ``python3 -c "import chip_smoke as cs; cs.CARD = cs.card();
-cs.phase_video(); cs.phase_video_card_vs_cpu()"``.  Imports nothing of JAX
-or of the JAX package.
+cs.phase_video(); cs.phase_video_card_vs_cpu()"``; phases 2b, 12 and 13
+alone: ``python3 -c "import chip_smoke as cs; cs.CARD = cs.card();
+cs.phase_compare_lanes(); cs.phase_flat_video();
+cs.phase_flat_video_card_vs_cpu()"``.  Imports nothing of JAX or of the
+JAX package.
 """
 
 import json
@@ -105,6 +131,7 @@ from svtav1_tpu_torch.cuda.inputs import (SHAPES_1080P, banded_frames,
 from svtav1_tpu_torch.ec import native
 from svtav1_tpu_torch.encoder import intra_encoder as ie
 from svtav1_tpu_torch.encoder import lr_search as lrs
+from svtav1_tpu_torch.encoder import presets
 from svtav1_tpu_torch.encoder import tile_codec
 from svtav1_tpu_torch.encoder import video_encoder as ve
 from svtav1_tpu_torch.encoder import wavefront2 as wf2
@@ -408,9 +435,19 @@ class StageClock:
                (ve.VideoEncoder, "_dlf_levels"), (ve, "deblock_plane_part"),
                (ve.VideoEncoder, "_fetch"), (ie.IntraEncoder, "_filter_frame"),
                (tile_codec.TileCoder, "encode")]
+    FLAT_P = [(ve, "motion_estimate"), (ve.VideoEncoder, "_fit_gm"),
+              (ve, "_pick_interp_filt"), (ve.VideoEncoder, "_flat_luma_lanes"),
+              (ve, "encode_plane_wavefront_mixed"),
+              (ve.VideoEncoder, "_flat_chroma_lanes"),
+              (ve, "deblock_plane_uniform"), (ve.VideoEncoder, "_fetch"),
+              (ve, "encode_inter_tile")]
     NAMES = {"encode": "tile coder", "_fit_gm": "GM fit",
              "_pick_interp_filt": "interp-filter pick",
              "_luma_lanes": "luma MC", "_chroma_lanes": "chroma MC",
+             "_flat_luma_lanes": "luma MC",
+             "_flat_chroma_lanes": "chroma MC",
+             "deblock_plane_uniform": "deblock",
+             "encode_inter_tile": "tile coder",
              "_dlf_levels": "DLF search", "_fetch": "read-back",
              "_filter_frame": "filters"}
 
@@ -419,11 +456,13 @@ class StageClock:
         self.ms = {}
         self.out = {}
         self.args = {}
+        self.launches = {}          # wavefront kernel launches by stage
         self.saved = []
 
     @classmethod
     def _key(cls, name, a):
-        if name == "encode_plane_wavefront_part":
+        if name in ("encode_plane_wavefront_part",
+                    "encode_plane_wavefront_mixed"):
             return "luma wavefront" if a[1] == 32 else "chroma wavefront"
         if name == "motion_estimate":
             return f"ME {a[2]}"
@@ -432,12 +471,15 @@ class StageClock:
     def _wrap(self, name, fn):
         def timed(*a, **kw):
             torch.cuda.synchronize()
+            n0 = wk.LAUNCHES
             t0 = time.perf_counter()
             out = fn(*a, **kw)
             torch.cuda.synchronize()
             key = self._key(name, a)
             self.ms[key] = self.ms.get(key, 0.0) + \
                 1e3 * (time.perf_counter() - t0)
+            self.launches[key] = self.launches.get(key, 0) + \
+                wk.LAUNCHES - n0
             self.out.setdefault(key, []).append(out)
             self.args.setdefault(key, []).append((a, kw))
             return out
@@ -976,6 +1018,221 @@ def phase_video_card_vs_cpu():
             print(f"card vs CPU ({label}): {line}", flush=True)
 
 
+# ---- the flat low-delay path ------------------------------------------------
+
+FLAT = dict(part_search=False)
+LANE_KERNELS = {"luma": "wavefront, flat P luma (13 intra + 2 inter lanes)",
+                "chroma": "wavefront, flat P chroma U+V (DC + 1 inter lane)"}
+
+
+def flat_p_calls():
+    """The flat P frame's two wavefront calls at 1080p, as the encoder
+    makes them: frame 1 of moving_frames against frame 0 as its reference
+    (ME, GM fit, filter pick and MC on the card).  Returns {"luma" |
+    "chroma": (args, kwargs)} of encode_plane_wavefront_mixed."""
+    f0, f1 = moving_frames(W, H, 2)
+    enc = ve.VideoEncoder(ie.EncoderConfig(W, H, qindex=100, **FLAT),
+                          keyint=64, device="cuda")
+    enc._dpb = f0
+    with StageClock([(ve, "encode_plane_wavefront_mixed")]) as clock:
+        enc._p_flat_device(*f1)
+    return {k: clock.args[f"{k} wavefront"][0] for k in ("luma", "chroma")}
+
+
+def phase_compare_lanes():
+    """The kernel with inter lanes against its plain version on the card,
+    at the flat P frame's shapes.  Returns {"luma" | "chroma": (max_abs_err,
+    kernel ms, plain ms, bound ms, bound basis)}."""
+    out = {}
+    for kind, (a, kw) in flat_p_calls().items():
+        src, bs, tx, q, preds, rate, ok, iok, n_extra, modes = a[:10]
+        vh = kw["valid_h"]
+        extra = (preds, rate, ok, iok)
+        n_intra = len(expand_candidates(modes))
+        rd = rd_params(q, 8, expand_candidates(modes), kf=False)
+        kern = lambda: wk.wavefront_cuda(src, rd, bs, tx, modes, 8,
+                                         valid_h=vh, extra=extra)
+        plain = lambda: _wavefront_body(src, rd, bs, tx, modes, 8,
+                                        valid_h=vh, extra=extra)
+        B, h, w = src.shape
+        label = f"{kind} {B}x{h}x{w}, {n_intra} intra + {n_extra} lanes"
+        n0 = wk.LAUNCHES
+        got = run_checked(kern)
+        for rep in range(2):
+            again = run_checked(kern)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"{label}: run {rep + 2} differs "
+                                     "from run 1")
+        ref = plain()
+        torch.cuda.synchronize()
+        frac, err = agree(ref, got, label)
+        inter = float((got[0] >= n_intra).float().mean())
+        p1 = cuda_ms(plain, 1)
+        k1 = cuda_ms(kern, 10)
+        k2 = cuda_ms(kern, 10)
+        p2 = cuda_ms(plain, 1)
+        wk.raise_on_error(DEV)
+        k, p = (k1 + k2) / 2, (p1 + p2) / 2
+        n = wk.LAUNCHES - n0
+        if n != 23:
+            raise AssertionError(f"{label}: {n} kernel launches counted for "
+                                 "23 kernel calls")
+        # the candidates each block's masks let compete (this data's work)
+        live = [float(iok.float().mean())] * n_intra + \
+            ok.float().mean((0, 2, 3)).tolist()
+        b_ms, b_by = wk.bound_ms(bs, B, h, w, modes, False, n_extra, live)
+        print(f"compare lanes {label}: modes agree {frac:.4f}, max_abs_err "
+              f"{err}, inter share {inter:.4f}, 3 identical kernel runs, "
+              f"error word clear, {n} launches counted; kernel {k:.3f} ms "
+              f"({k1:.3f}, {k2:.3f}), "
+              f"plain {p:.3f} ms ({p1:.3f}, {p2:.3f}), bound {b_ms:.3f} ms "
+              f"({b_by}), {100 * b_ms / k:.1f}% of it; "
+              f"{wk.kernel_info(bs, n_intra + n_extra)} [{CARD}]", flush=True)
+        out[kind] = (err, k, p, b_ms, b_by)
+    return out
+
+
+def flat_inter_share(y_mi, h):
+    """Share of a flat P frame's luma blocks above row h coded inter."""
+    rows = np.arange(y_mi.shape[0]) * 32 < h
+    return float((y_mi[rows] >= N_TOP).mean())
+
+
+def phase_flat_video():
+    """The flat low-delay path at 1920x1080 on the card: I, P, P.  Returns
+    the wavefront kernel launches of its P frames by kind."""
+    frames = moving_frames(W, H, 3)
+    enc = ve.VideoEncoder(ie.EncoderConfig(W, H, qindex=100, **FLAT),
+                          keyint=64, device="cuda")
+    here = os.path.basename(__file__)
+    wk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    payloads, recons, clocks, maps, marks = [], [], [], [], [t0]
+    for k, f in enumerate(frames):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if k == 2:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with StageClock(StageClock.FLAT_P) as clock:
+                    p, r = enc.encode_frame(*f)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        payloads.append(p)
+        recons.append(r)
+        clocks.append(clock)
+        maps.append(dict(enc.last_p) if k else None)
+        marks.append(time.perf_counter())
+    launches = wk.LAUNCHES
+    wk.raise_on_error(DEV)
+    syncs = Counter(f"{os.path.basename(c.filename)}:{c.lineno}"
+                    for c in caught if "synchroniz" in str(c.message) and
+                    os.path.basename(c.filename) != here)
+    fmt = lambda ms: ", ".join(f"{k} {v:.1f} ms" for k, v in ms.items())
+    print(f"flat low-delay path: {W}x{H} q100 --no-part-search keyint 64: "
+          f"key frame (q70) {1e3 * (marks[1] - marks[0]):.1f} ms; e2e "
+          f"{3 / (marks[3] - marks[0]):.4f} fps over the 3 frames [{CARD}]",
+          flush=True)
+    by_kind = {"luma": 0, "chroma": 0}
+    for k in (1, 2):
+        c, m = clocks[k], maps[k]
+        n = {kind: c.launches.get(f"{kind} wavefront", 0)
+             for kind in by_kind}
+        for kind in by_kind:
+            by_kind[kind] += n[kind]
+        modes = {MODE_NAMES[x]: v for x, v in m["mode_counts"].items()}
+        share = flat_inter_share(m["y_mi"], H)
+        print(f"flat low-delay path: P frame {k}: "
+              f"{1e3 * (marks[k + 1] - marks[k]):.1f} ms ({fmt(c.ms)}); "
+              f"kernel launches luma {n['luma']}, U+V {n['chroma']}; GM fit "
+              f"{m['gm']}, filter {m['filt']}, deblock levels {m['lf']}; "
+              f"luma blocks inter {100 * share:.1f}%; inter modes coded "
+              f"{modes}; {len(payloads[k])} bytes", flush=True)
+        if n != {"luma": 1, "chroma": 1}:
+            raise AssertionError(f"P frame {k}: kernel launches {n}, not "
+                                 "one luma and one U+V")
+        if share <= 0.5:
+            raise AssertionError(f"P frame {k}: only {100 * share:.1f}% of "
+                                 "the luma blocks inter")
+    print(f"flat low-delay path: device syncs of P frame 2: "
+          f"{sum(syncs.values())} ({dict(syncs)}); kernel launches on the "
+          f"path {launches} (key frame {launches - sum(by_kind.values())}), "
+          f"key frame {len(payloads[0])} bytes", flush=True)
+    ps_y = check_payloads(payloads, frames, recons, "flat low-delay path")
+    types = [frame_type(p) for p in payloads]
+    print(f"flat low-delay path: frame types {types}, luma PSNR "
+          f"{', '.join(f'{p:.2f}' for p in ps_y)} dB", flush=True)
+    if types != [0, 1, 1]:
+        raise AssertionError(f"frame types {types}, not KEY, INTER, INTER")
+    return by_kind
+
+
+def flat_maps(enc, key_dev):
+    """A flat low-delay frame's decision maps: the key frame's from its
+    device_encode, a P frame's from last_p."""
+    if key_dev is not None:
+        return {k: key_dev[k].cpu().numpy() for k in ("y_mi", "uv_mi")}
+    m = enc.last_p
+    return {k: m[k] for k in ("y_mi", "uv_mi", "mv32", "mv_t")} | {
+        "gm": np.array(m["gm"] or (0, 0)), "filt": np.array(m["filt"])}
+
+
+def phase_flat_video_card_vs_cpu():
+    """The flat low-delay path at 256x128 (I, P, P) on the card and on the
+    CPU, with --no-part-search's defaults and with preset 13."""
+    w, h = 256, 128
+    frames = moving_frames(w, h, 3)
+    configs = (("--no-part-search", ie.EncoderConfig(w, h, qindex=100,
+                                                     **FLAT)),
+               ("preset 13", presets.apply_preset(
+                   ie.EncoderConfig(w, h, qindex=100), 13)))
+    for label, cfg in configs:
+        out = {}
+        for d in ("cuda", "cpu"):
+            enc = ve.VideoEncoder(cfg, keyint=64, device=d)
+            key_dev = []
+            run = enc.intra.device_encode
+            enc.intra.device_encode = lambda fr, run=run, keep=key_dev: \
+                keep.append(run(fr)) or keep[-1]
+            t0 = time.perf_counter()
+            res = []
+            for f in frames:
+                p, r = enc.encode_frame(*f)
+                res.append((p, r, flat_maps(enc, key_dev[-1] if not res
+                                            else None)))
+            out[d] = (res, time.perf_counter() - t0)
+            check_payloads([x[0] for x in res], frames, [x[1] for x in res],
+                           f"{w}x{h} {label} on {d}")
+        lines = []
+        for k, ((pc, rc, mc), (pp, rp, mp)) in enumerate(zip(out["cuda"][0],
+                                                             out["cpu"][0])):
+            fr = {n: float((mc[n] == mp[n]).mean()) for n in mc}
+            same = all(v == 1.0 for v in fr.values())
+            equal = pc == pp and all(np.array_equal(a, b)
+                                     for a, b in zip(rc, rp))
+            lines.append(f"frame {k}: " + ", ".join(
+                f"{n} {v:.4f}" for n, v in fr.items()) +
+                f"; payload and recon identical {equal}")
+            if fr.get("mv32", 1.0) != 1.0:
+                raise AssertionError(f"{label} frame {k}: ME fields differ "
+                                     "on the same reference")
+            if min(fr["y_mi"], fr["uv_mi"]) < 0.99:
+                raise AssertionError(f"{label} frame {k}: modes agree "
+                                     f"{fr['y_mi']:.4f} / {fr['uv_mi']:.4f}")
+            if same and not equal:
+                raise AssertionError(f"{label} frame {k}: maps agree but the "
+                                     "payload or recon differs")
+            if not same:
+                lines[-1] += " (first frame that differs: later frames " \
+                    "have other references)"
+                break
+        print(f"card vs CPU, flat low-delay path {w}x{h} I,P,P ({label}; "
+              f"card {out['cuda'][1]:.1f} s, CPU {out['cpu'][1]:.1f} s):",
+              flush=True)
+        for line in lines:
+            print(f"card vs CPU ({label}): {line}", flush=True)
+
+
 CARD = ""
 
 
@@ -998,9 +1255,9 @@ def main():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
     C = len(expand_candidates(ie.CAND_MODES))
-    for bs in (32, 16):
-        print(f"wf_plane_kernel<{bs}>, {C} candidates: "
-              f"{wk.kernel_info(bs, C)}", flush=True)
+    for bs, c in ((32, C), (16, C), (32, C + 2), (16, 2)):
+        print(f"wf_plane_kernel<{bs}>, {c} candidates: "
+              f"{wk.kernel_info(bs, c)}", flush=True)
     clock = [time.perf_counter()]
 
     def phase(fn, *args):
@@ -1011,6 +1268,7 @@ def main():
         return out
 
     max_err, ms, plain_ms, bound, basis = phase(phase_compare)
+    lanes = phase(phase_compare_lanes)
     launches, enc, batch = phase(phase_main_path)
     phase(phase_profile, enc, batch)
     phase(phase_partition)
@@ -1020,14 +1278,20 @@ def main():
     phase(phase_filters_card_vs_cpu)
     phase(phase_video)
     phase(phase_video_card_vs_cpu)
+    p_launches = phase(phase_flat_video)
+    phase(phase_flat_video_card_vs_cpu)
     print(f"chip_smoke: total {time.perf_counter() - t0:.1f} s", flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "wavefront", "route": "cuda",
-        "source": "svtav1_tpu_torch/csrc/wavefront.cu",
-        "replaces": "svtav1_tpu/pallas/wavefront_kernel.py:550",
-        "launches": launches, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": basis,
-        "library_ms": None}]}))
+    kernel = dict(route="cuda", source="svtav1_tpu_torch/csrc/wavefront.cu",
+                  replaces="svtav1_tpu/pallas/wavefront_kernel.py:550")
+    rows = [dict(name="wavefront", **kernel, launches=launches,
+                 max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound, bound_by=basis, library_ms=None)]
+    for kind, (err, k, p, b, by) in lanes.items():
+        rows.append(dict(name=LANE_KERNELS[kind], **kernel,
+                         launches=p_launches[kind], max_abs_err=err, ms=k,
+                         plain_ms=p, bound_ms=b, bound_by=by,
+                         library_ms=None))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,14 +13,14 @@ stage of batch k+1 and the entropy coding of batch k overlap as in
 ``svtav1_tpu/app.py``.  With no preset and no --no-part-search it runs the
 partition path (the default of EncoderConfig).  Presets 6..8 are the
 partition path with CDEF, 9 the same without the tx-type search, 10
-without CDEF, and --no-part-search and presets 11..13 the flat path
-(all-intra only).  --cdef, --lr and --ccso turn the in-loop filters on
-(partition path, heights a multiple of 64), over the preset as in
-``svtav1_tpu/app.py``; CCSO streams are the fork's nonstandard AV1.  Any
-other mode (presets 0..5, which search angle deltas; --pyramid, with or
-without --tf, and --rc with --keyint > 1; the flat path with --keyint > 1;
-10-bit) exits with status 2: the JAX package's ``python -m svtav1_tpu.app``
-has it.  --stat-report prints PSNR only.
+without CDEF, and --no-part-search and presets 11..13 the flat path (32x32
+blocks; its P frames at --keyint > 1 too, preset 13 without CDF update).
+--cdef, --lr and --ccso turn the in-loop filters on (partition path,
+heights a multiple of 64), over the preset as in ``svtav1_tpu/app.py``;
+CCSO streams are the fork's nonstandard AV1.  Any other mode (presets
+0..5, which search angle deltas; --pyramid, with or without --tf, and --rc
+with --keyint > 1; 10-bit) exits with status 2: the JAX package's
+``python -m svtav1_tpu.app`` has it.  --stat-report prints PSNR only.
 """
 
 from __future__ import annotations

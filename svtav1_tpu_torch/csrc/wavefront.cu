@@ -1,16 +1,27 @@
-// Flat intra wavefront: mode decision + reconstruction of a whole plane,
-// as one persistent dataflow launch per plane call.
+// Flat wavefront: mode decision + reconstruction of a whole plane, as one
+// persistent dataflow launch per plane call.
 //
 // Replaces the Pallas TPU kernel svtav1_tpu/pallas/wavefront_kernel.py
 // (_make_kernel(...).kernel, launched by pl.pallas_call in
 // _wavefront_pl_impl) and its XLA twin _wavefront_body in
-// svtav1_tpu/encoder/wavefront.py.  Same function: for every block of the
-// quad z-order wavefront, build the §7.11.2 edges from the boundary
-// buffers (left rows clamped at valid_h), predict every candidate mode,
-// run forward transform -> quantize -> dequantize -> inverse transform ->
-// reconstruct, cost sse + lambda * (mode_rate + resid_bits), keep the
-// first minimum (joint over each U/V pair when paired), update the
-// boundary buffers.
+// svtav1_tpu/encoder/wavefront.py, with that twin's n_extra inter lanes.
+// Same function: for every block of the quad z-order wavefront, build the
+// §7.11.2 edges from the boundary buffers (left rows clamped at valid_h),
+// predict every intra candidate, run forward transform -> quantize ->
+// dequantize -> inverse transform -> reconstruct, cost sse + lambda *
+// (mode_rate + resid_bits), keep the first minimum (joint over each U/V
+// pair when paired), update the boundary buffers.
+//
+// Inter lanes (the flat P frame): candidates NI..C-1 run the same chain
+// with DCT_DCT on a prediction the caller made (motion compensation): the
+// kernel reads it per ticket from global memory as uint8 (MC output is
+// clipped to [0, 255], so the plain version's int32 holds the same
+// values) and never predicts or clips it again.  Each lane's rate is its
+// own a block (xrate), not the candidate table's; a candidate whose mask
+// (xok for a lane, iok for the intra candidates) is false costs 3e38.
+// Unpaired 16x16 calls put two frames in one warp, independent of each
+// other: frame u in lanes 0-15 and frame u + NU in lanes 16-31, each half
+// with its own first minimum (U and V of a P frame in one launch).
 //
 // What bounds it on an H100.  The operations: ~106 int32 operations per
 // pixel and candidate (the four 1D networks counted from their stage
@@ -69,9 +80,12 @@
 //     not be bit-exact); TMA (a block's source is 1 KB; it is loaded
 //     before the flag wait instead, with plain loads, and a cp.async
 //     prefetch of the next ticket's source was not tried).
-//   * Resources (wf_info and -Xptxas -v, printed by chip_smoke.py): 124
-//     to 128 registers a thread, no spills; 4 warps a CTA, 4 CTAs an SM;
-//     47.9 KB of shared memory a CTA for luma, 20.7 KB for chroma.
+//   * Resources (wf_info and -Xptxas -v, printed by chip_smoke.py; H100,
+//     with the inter lanes): 127 registers a thread at 32x32, 130 at
+//     16x16, no spills; 4 warps a CTA for 13-16 candidates (4 CTAs an SM
+//     at 32x32, 3 at 16x16), 1 warp for the P frame's 2 chroma
+//     candidates (12 CTAs an SM); 48.0 KB of shared memory a CTA for
+//     luma, 20.8 KB for 13 chroma candidates, 6.2 KB for 2.
 //
 // Predictors are integer arithmetic: DC, SMOOTH* and PAETH directly, V, H
 // and the six directional modes through per-(candidate, pixel) tables of
@@ -117,13 +131,18 @@ struct WfParams {
   int* levels;             // [B, bh, bw, bs*bs]
   int* recon;              // [B, h, w]
   unsigned long long* trace;     // [NU*nblk, 16] or null: see launch()
+  const uint8_t* xpred;    // [B, nE, bh, bw, bs*bs] inter lanes, or null
+  const float* xrate;      // [B, nE, bh, bw] their rates (bits)
+  const uint8_t* xok;      // [B, nE, bh, bw] their masks
+  const uint8_t* iok;      // [B, bh, bw] intra mask, or null (all allowed)
   unsigned long long mdc, mac;   // reciprocals of the dc/ac steps
   int sdc, sac;                  // and their shifts
   int B, NU, h, w, bh, bw, vh, C, paired, nblk;
+  int NI, nE;              // intra candidates, inter lanes (C = NI + nE)
   int dqdc, dqac, qshift;
   int fwd_s0, fwd_s1, fwd_s2, inv_s0, inv_s1, inv_lo, inv_hi;
   float lam;
-  int cand_mode[MAXC];
+  int cand_mode[MAXC];     // intra mode, or -1 for an inter lane
   int cand_kind[MAXC];     // row kind | col kind << 1 (0 DCT, 1 ADST)
   float rate[MAXC];
 };
@@ -143,8 +162,8 @@ __device__ __forceinline__ unsigned long long gtime() {
   return t;
 }
 
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.s32 [%0], %1;"
+__device__ __forceinline__ void add_release(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;"
                :: "l"(p), "r"(v) : "memory");
 }
 
@@ -176,8 +195,8 @@ template <int BS>
 size_t smem_bytes(int wpc) {
   return (size_t)wpc * (t_ints<BS>() * 4 + lev_elems<BS>() * 2 +
                         rec_bytes<BS>()) +
-         rec_bytes<BS>() + halves<BS>() * n_edge<BS>() * 4 + 2 * MAXC * 4 +
-         8 + (size_t)wpc * BS * BS * 4 + BS * 4;
+         rec_bytes<BS>() + halves<BS>() * n_edge<BS>() * 4 +
+         4 * MAXC * 4 + 8 + (size_t)wpc * BS * BS * 4 + BS * 4;
 }
 
 // One value of the edge array E = [corner, above(BS), above-right(BS),
@@ -251,9 +270,9 @@ wf_plane_kernel(const WfParams p) {
   uint8_t* sRec = reinterpret_cast<uint8_t*>(sLev + wpc * lev_elems<BS>());
   uint8_t* sSrc = sRec + wpc * rec_bytes<BS>();            // [H][BS][BS]
   int* sE = reinterpret_cast<int*>(sSrc + rec_bytes<BS>());  // [H][NE]
-  float* sCost = reinterpret_cast<float*>(sE + H * NE);  // [C], own only
-  float* sAll = sCost + MAXC;                            // [C], gathered
-  int* sMisc = reinterpret_cast<int*>(sAll + MAXC);      // ticket, pad
+  float* sCost = reinterpret_cast<float*>(sE + H * NE);  // [2][C], own
+  float* sAll = sCost + 2 * MAXC;                    // [2][C], gathered
+  int* sMisc = reinterpret_cast<int*>(sAll + 2 * MAXC);  // ticket, pad
   int* sDir = sMisc + 2;                 // [wpc][N] this CTA's pred maps
   int* sSmw = sDir + wpc * N;            // [BS] smooth weights
 
@@ -295,8 +314,12 @@ wf_plane_kernel(const WfParams p) {
     const int* bl = p.blocks + k * BLKCOLS;
     const int r = bl[0], cb = bl[1], has_tr = bl[2], has_bl = bl[3];
     const int y = r * BS, x = cb * BS;
-    // U lanes come first in a paired batch: pair u is frames u, u + B/2
-    const int fr1 = (H == 2 && p.paired) ? u + p.B / 2 : u;
+    // 16x16: unit u holds frames u (lanes 0-15) and u + NU (lanes 16-31;
+    // a paired batch's U and V).  Past the batch, the upper half repeats
+    // frame u and is never written out.
+    const int fr1 = (H == 2 && u + p.NU < p.B) ? u + p.NU : u;
+    const bool real1 = fr1 != u;
+    const int need = 1 + real1;     // halves that publish a block's flag
 
     // the source block(s), loaded before the wait
     for (int e = tid; e < H * N / 4; e += nthr) {
@@ -317,7 +340,7 @@ wf_plane_kernel(const WfParams p) {
       if (d >= 0) {
         const int* fl = flags + (size_t)u * p.nblk + d;
         int it = 0;
-        while (ld_acquire(fl) == 0 && !*verr) {
+        while (ld_acquire(fl) < need && !*verr) {
           if (++it > SPIN_CAP) {
             atomicOr(p.err, ERR_SPIN);
             break;
@@ -344,6 +367,10 @@ wf_plane_kernel(const WfParams p) {
       const int rk = kind & 1, ck = (kind >> 1) & 1;
       const int* E = sE + hf * NE;
       const uint8_t* S = sSrc + hf * N;
+      const int fr = hf ? fr1 : u;                     // this lane's frame
+      const size_t bix = ((size_t)fr * p.bh + r) * p.bw + cb;
+      const size_t xix = (((size_t)fr * p.nE + (c - p.NI)) * p.bh + r) *
+                         p.bw + cb;                    // inter lanes only
       const bool ha = r > 0, hl = cb > 0;
       int dcv = 128;
       if (mode == 0) {                                 // DC: one tree
@@ -368,7 +395,11 @@ wf_plane_kernel(const WfParams p) {
         Rw[i * BS + j] = (uint8_t)pr;
         Tw[i * TP + j] = rshift_signed((int)S[i * BS + j] - pr, p.fwd_s0);
       };
-      if (mode == 0) {                                 // DC
+      if (mode < 0) {                                  // inter lane
+        const uint8_t* X = p.xpred + xix * N + j;
+#pragma unroll 8
+        for (int i = 0; i < BS; ++i) put(i, __ldg(X + i * BS));
+      } else if (mode == 0) {                          // DC
 #pragma unroll 8
         for (int i = 0; i < BS; ++i) put(i, dcv);
       } else if (mode <= 8) {                          // V, H, directional
@@ -490,38 +521,55 @@ wf_plane_kernel(const WfParams p) {
         est = __fadd_rn(__fadd_rn(16.2f, __fmul_rn(2.47f, fn)),
                         __fmul_rn(1.58f, lbits));
       const float rbits = nnz > 0 ? est : 1.0f;
+      const bool xl = c >= p.NI;
+      const float rate = xl ? __ldg(p.xrate + xix) : p.rate[c];
+      const bool ok = xl ? __ldg(p.xok + xix) != 0
+                         : (p.iok == nullptr || __ldg(p.iok + bix) != 0);
       float cost = __fadd_rn((float)sse,
-                             __fmul_rn(p.lam, __fadd_rn(p.rate[c], rbits)));
+                             __fmul_rn(p.lam, __fadd_rn(rate, rbits)));
+      if (!ok) cost = 3e38f;
       if constexpr (H == 2) {
         const float cv = __shfl_sync(FULL, cost, BS);
         if (p.paired) cost = __fadd_rn(cost, cv);
       }
-      if (lane == 0) sCost[c] = cost;
+      if (j == 0) sCost[hf * MAXC + c] = cost;
       if (ws) ws[6] = gtime();
     }
     cl.sync();
-    if (tid < p.C) sAll[tid] = cl.map_shared_rank(sCost, tid % K)[tid];
+    if (tid < H * p.C) {
+      const int hh = tid / p.C, cc = tid % p.C;
+      sAll[hh * MAXC + cc] =
+          cl.map_shared_rank(sCost, cc % K)[hh * MAXC + cc];
+    }
     __syncthreads();
     if (tr && lead) tr[2] = gtime();
 
-    // ---- first minimum; the CTA that ran the winner writes it out: the
-    // boundary row and column, the flag, then levels and recon, which no
-    // other block reads
-    int best = 0;
-    float bv = sAll[0];
-    for (int cc = 1; cc < p.C; ++cc)
-      if (sAll[cc] < bv) {
-        bv = sAll[cc];
-        best = cc;
+    // ---- first minimum of each half (one for a pair); the CTA that ran
+    // a half's winner writes that half out: the boundary row and column,
+    // its share of the flag, then levels and recon, which no other block
+    // reads
+    int best0 = 0, best1 = 0;
+    float bv0 = sAll[0], bv1 = sAll[MAXC];
+    for (int cc = 1; cc < p.C; ++cc) {
+      if (sAll[cc] < bv0) {
+        bv0 = sAll[cc];
+        best0 = cc;
       }
-    if (best % K != rank) continue;
-    const int nh = (H == 2 && !p.paired) ? 1 : H;  // unpaired 16: lower half
-    const int16_t* Lb = sLev + (best / K) * lev_elems<BS>();
-    const uint8_t* Rb = sRec + (best / K) * rec_bytes<BS>();
-    for (int e = tid; e < nh * 2 * BS; e += nthr) {
+      if (sAll[MAXC + cc] < bv1) {
+        bv1 = sAll[MAXC + cc];
+        best1 = cc;
+      }
+    }
+    if (H == 1 || p.paired) best1 = best0;
+    const bool mine0 = best0 % K == rank;
+    const bool mine1 = real1 && best1 % K == rank;
+    if (!mine0 && !mine1) continue;
+    for (int e = tid; e < H * 2 * BS; e += nthr) {
       const int hh = e / (2 * BS), q = e % (2 * BS);
+      if (!(hh ? mine1 : mine0)) continue;
       const int f = hh ? fr1 : u;
-      const uint8_t* R = Rb + hh * N;
+      const uint8_t* R = sRec + ((hh ? best1 : best0) / K) * rec_bytes<BS>() +
+                         hh * N;
       if (q < BS)
         p.rowbuf[((size_t)f * p.bh + r) * p.w + x + q] = R[(BS - 1) * BS + q];
       else
@@ -529,19 +577,25 @@ wf_plane_kernel(const WfParams p) {
             R[(q - BS) * BS + BS - 1];
     }
     // the barrier orders the CTA's boundary stores before thread 0's
-    // release store (release is cumulative), so no fence is needed
+    // release add (release is cumulative), so no fence is needed; the flag
+    // is ready when every real half has added its share
     __syncthreads();
     if (tid == 0) {
-      st_release(flags + (size_t)u * p.nblk + r * p.bw + cb, 1);
+      add_release(flags + (size_t)u * p.nblk + r * p.bw + cb,
+                  (int)mine0 + (int)mine1);
       if (tr) tr[3] = gtime();
     }
-    for (int e = tid; e < nh * N; e += nthr) {
+    for (int e = tid; e < H * N; e += nthr) {
       const int hh = e / N, q = e % N, i = q / BS, jj = q % BS;
+      if (!(hh ? mine1 : mine0)) continue;
+      const int bh_ = hh ? best1 : best0;
       const int f = hh ? fr1 : u;
       const size_t blk = ((size_t)f * p.bh + r) * p.bw + cb;
-      p.levels[blk * N + q] = Lb[(hh * BS + i) * LSTR + jj];
-      p.recon[((size_t)f * p.h + y + i) * p.w + x + jj] = Rb[hh * N + q];
-      if (q == 0) p.mode_idx[blk] = best;
+      p.levels[blk * N + q] =
+          sLev[(bh_ / K) * lev_elems<BS>() + (hh * BS + i) * LSTR + jj];
+      p.recon[((size_t)f * p.h + y + i) * p.w + x + jj] =
+          sRec[(bh_ / K) * rec_bytes<BS>() + hh * N + q];
+      if (q == 0) p.mode_idx[blk] = bh_;
     }
   }
   cl.sync();   // no CTA leaves while another may read its shared memory

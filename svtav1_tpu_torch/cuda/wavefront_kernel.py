@@ -1,9 +1,12 @@
-"""ctypes wrapper of the CUDA intra wavefront kernel (csrc/wavefront.cu).
+"""ctypes wrapper of the CUDA wavefront kernel (csrc/wavefront.cu).
 
 ``wavefront_cuda`` has the contract of ``encoder.wavefront
-._wavefront_body`` for a uint8 plane stack on a CUDA device.  It checks
-what the kernel takes and raises on anything else, allocates every output
-with ``torch.empty`` and the ticket counter and ready flags with one
+._wavefront_body`` for a uint8 plane stack on a CUDA device: the flat
+intra wavefront, and with ``extra`` its mixed form, whose inter lanes
+(precomputed predictions, a rate and a mask a block each, and a mask of
+the intra candidates) follow the intra candidates.  It checks what the
+kernel takes and raises on anything else, allocates every output with
+``torch.empty`` and the ticket counter and ready flags with one
 ``torch.zeros``, and makes one persistent launch on the current stream
 without synchronising.  ``LAUNCHES`` counts the kernel launches.
 
@@ -37,6 +40,7 @@ LAUNCHES = 0          # kernel launches so far
 MAXC = 16             # must match csrc/wavefront.cu
 MAXDEP = 8
 _TX_OF_BS = {16: T.TX_16X16, 32: T.TX_32X32}
+LANE = (-1, 0)        # an inter lane's (mode, delta) in the kernel's list
 _KIND_NAME = {T.DCT_1D: "dct", T.ADST_1D: "adst"}
 
 # the H100 SXM's int32 ALU rate (64 lanes x 132 SMs x 1.98 GHz boost
@@ -49,12 +53,13 @@ class _Params(ctypes.Structure):
     """Field-for-field mirror of struct WfParams in csrc/wavefront.cu."""
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "src", "rowbuf", "colbuf", "blocks", "dirmap", "smw", "sync", "err",
-        "mode_idx", "levels", "recon", "trace")] +
+        "mode_idx", "levels", "recon", "trace", "xpred", "xrate", "xok",
+        "iok")] +
         [("mdc", ctypes.c_uint64), ("mac", ctypes.c_uint64)] +
         [(n, ctypes.c_int) for n in (
             "sdc", "sac", "B", "NU", "h", "w", "bh", "bw", "vh", "C",
-            "paired", "nblk", "dqdc", "dqac", "qshift", "fwd_s0", "fwd_s1",
-            "fwd_s2", "inv_s0", "inv_s1", "inv_lo", "inv_hi")] +
+            "paired", "nblk", "NI", "nE", "dqdc", "dqac", "qshift", "fwd_s0",
+            "fwd_s1", "fwd_s2", "inv_s0", "inv_s1", "inv_lo", "inv_hi")] +
         [("lam", ctypes.c_float),
          ("cand_mode", ctypes.c_int * MAXC),
          ("cand_kind", ctypes.c_int * MAXC),
@@ -237,26 +242,41 @@ def _net_ops(kind: str, n: int, direction: str) -> int:
 
 # per pixel and candidate besides the networks: prediction, the shifts
 # and clamps around the networks, quantizer, dequantizer, reconstruction,
-# SSE and the bit estimate
+# SSE and the bit estimate; the prediction's share, which an inter lane
+# (a prediction read, not made) does not do
 _PIXEL_OPS = 30
+_PRED_OPS = 6
 
 
-def work(bs: int, B: int, h: int, w: int, modes, uv_tx: bool = False):
-    """(int32 operations, bytes) of one call: every candidate's chain on
-    every pixel, the source read once and the outputs written once."""
+def work(bs: int, B: int, h: int, w: int, modes, uv_tx: bool = False,
+         n_extra: int = 0, live=None):
+    """(int32 operations, bytes) of one call: the chain of every candidate
+    (the intra ones, then n_extra inter lanes without the prediction) on
+    every pixel, the source, the lanes' predictions (uint8), rates and
+    masks read once and the outputs written once.  live: each candidate's
+    share of the blocks whose masks let it compete (what this call's data
+    needs; None: every block)."""
+    types = _tx_types(expand_candidates(modes), _TX_OF_BS[bs], uv_tx)
+    n_intra = len(types)
+    types = types + [T.DCT_DCT] * n_extra
+    live = [1.0] * len(types) if live is None else list(live)
     per_px = 0.0
-    for tt in _tx_types(expand_candidates(modes), _TX_OF_BS[bs], uv_tx):
-        rk, ck = (_KIND_NAME[k] for k in _kinds_of(tt))
-        per_px += (_net_ops(ck, bs, "fwd") + _net_ops(rk, bs, "fwd") +
-                   _net_ops(rk, bs, "inv") + _net_ops(ck, bs, "inv")) / bs
-        per_px += _PIXEL_OPS
+    for k, (tt, share) in enumerate(zip(types, live)):
+        rk, ck = (_KIND_NAME[x] for x in _kinds_of(tt))
+        chain = (_net_ops(ck, bs, "fwd") + _net_ops(rk, bs, "fwd") +
+                 _net_ops(rk, bs, "inv") + _net_ops(ck, bs, "inv")) / bs
+        chain += _PIXEL_OPS - (_PRED_OPS if k >= n_intra else 0)
+        per_px += share * chain
     px = B * h * w
-    return int(per_px * px), px * (1 + 4 + 4) + 4 * px // (bs * bs)
+    blocks = px // (bs * bs)
+    lanes = n_extra * (px + 5 * blocks) + (blocks if n_extra else 0)
+    return int(per_px * px), px * (1 + 4 + 4) + 4 * blocks + lanes
 
 
-def bound_ms(bs: int, B: int, h: int, w: int, modes, uv_tx=False):
+def bound_ms(bs: int, B: int, h: int, w: int, modes, uv_tx=False,
+             n_extra: int = 0, live=None):
     """(least time on the card in ms, "operations" or "bytes")."""
-    ops, nbytes = work(bs, B, h, w, modes, uv_tx)
+    ops, nbytes = work(bs, B, h, w, modes, uv_tx, n_extra, live)
     t_ops, t_bytes = ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), \
         "operations" if t_ops >= t_bytes else "bytes"
@@ -280,17 +300,40 @@ def _tables(bs: int, cands: tuple, uv_tx: bool, h: int, w: int, vh: int,
 
 def wavefront_cuda(src, rd, bs: int, tx_size: int, modes, bd: int = 8,
                    angle_deltas=(0,), valid_h: int = None,
-                   paired: bool = False, uv_tx: bool = False):
+                   paired: bool = False, uv_tx: bool = False, extra=None):
     """Run the wavefront kernel: src [B, h, w] uint8 on a CUDA device ->
     (mode_idx [B, bh, bw] int32, levels [B, bh, bw, bs, bs] int32,
-    recon [B, h, w] int32).  Asynchronous on the current stream."""
+    recon [B, h, w] int32).  extra: the mixed form's (extra_preds [B, nE,
+    bh, bw, bs, bs] int32 or uint8 in [0, 255], extra_rate [B, nE, bh, bw]
+    float32, extra_ok [B, nE, bh, bw] bool, intra_ok [B, bh, bw] bool), on
+    src's device; mode_idx >= the intra count then selects a lane.
+    Asynchronous on the current stream."""
     return launch(src, rd, bs, tx_size, modes, bd, angle_deltas, valid_h,
-                  paired, uv_tx)[:3]
+                  paired, uv_tx, extra=extra)[:3]
+
+
+def _lane_tensors(extra, B: int, bh: int, bw: int, bs: int, dev):
+    """The mixed form's inputs as the kernel reads them: predictions
+    uint8, rates float32, masks bool, each contiguous on dev."""
+    preds, rate, ok, intra_ok = extra
+    nE = preds.shape[1]
+    want = [(preds, (B, nE, bh, bw, bs, bs), (torch.int32, torch.uint8)),
+            (rate, (B, nE, bh, bw), (torch.float32,)),
+            (ok, (B, nE, bh, bw), (torch.bool,)),
+            (intra_ok, (B, bh, bw), (torch.bool,))]
+    for t, shape, dtypes in want:
+        if t.device != dev or tuple(t.shape) != shape or \
+                t.dtype not in dtypes:
+            raise ValueError(f"inter lane input {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}: the kernel takes {shape} "
+                             f"{dtypes} on {dev}")
+    return (preds.to(torch.uint8).contiguous(), rate.contiguous(),
+            ok.contiguous(), intra_ok.contiguous())
 
 
 def launch(src, rd, bs: int, tx_size: int, modes, bd: int = 8,
            angle_deltas=(0,), valid_h: int = None, paired: bool = False,
-           uv_tx: bool = False, trace: bool = False):
+           uv_tx: bool = False, trace: bool = False, extra=None):
     """wavefront_cuda plus the kernel's per-ticket timestamps when trace
     is set.  Returns (mode_idx,
     levels, recon, trace): trace is [NU * nblk, 16] int64 %globaltimer ns
@@ -311,8 +354,13 @@ def launch(src, rd, bs: int, tx_size: int, modes, bd: int = 8,
     if paired and bs != 16:
         raise NotImplementedError("paired planes run as 16x16 blocks")
     if bd != 8 or tuple(angle_deltas) != (0,):
-        raise NotImplementedError("the CUDA wavefront covers bd=8 and "
+        raise NotImplementedError("the CUDA wavefront, with or without "
+                                  "inter lanes, covers bd=8 and "
                                   "angle_deltas=(0,); svtav1_tpu has the rest")
+    if extra is not None and (paired or uv_tx):
+        raise NotImplementedError("inter lanes run on unpaired planes with "
+                                  "DCT_DCT (the flat P frame's); the mixed "
+                                  "form has no paired or uv_tx variant")
     B, h, w = src.shape
     if h % (2 * bs) or w % (2 * bs) or (paired and B % 2):
         raise ValueError(f"shape {tuple(src.shape)} is not whole quads of "
@@ -321,15 +369,21 @@ def launch(src, rd, bs: int, tx_size: int, modes, bd: int = 8,
     if not 0 < vh <= h:
         raise ValueError(f"valid_h {valid_h} outside (0, {h}]")
     cands = expand_candidates(modes, angle_deltas)
-    C = len(cands)
-    if C > MAXC:
-        raise ValueError(f"{C} candidates > {MAXC}")
+    NI = len(cands)
     dqdc, dqac, lam, mode_rate = rd
     dqdc, dqac = int(dqdc), int(dqac)
     bh, bw = h // bs, w // bs
     dev = src.device
+    lanes = None if extra is None else _lane_tensors(extra, B, bh, bw, bs,
+                                                     dev)
+    nE = 0 if lanes is None else lanes[0].shape[1]
+    cands = cands + (LANE,) * nE
+    C = len(cands)
+    if C > MAXC:
+        raise ValueError(f"{C} candidates > {MAXC}")
     tabs = _tables(bs, cands, bool(uv_tx), h, w, vh, str(dev))
-    NU = B // 2 if paired else B
+    # 16x16: two frames a unit (u and u + NU, or a U/V pair)
+    NU = (B + 1) // 2 if bs == 16 else B
     sync = torch.zeros(1 + NU * tabs["nblk"], dtype=torch.int32, device=dev)
     rowbuf = torch.empty((B, bh, w), dtype=torch.int32, device=dev)
     colbuf = torch.empty((B, h, bw), dtype=torch.int32, device=dev)
@@ -347,13 +401,16 @@ def launch(src, rd, bs: int, tx_size: int, modes, bd: int = 8,
         sync=sync.data_ptr(), err=_error_word(dev).data_ptr(),
         mode_idx=mode_idx.data_ptr(), levels=levels.data_ptr(),
         recon=recon.data_ptr(), trace=tr.data_ptr() if trace else None,
+        **({} if lanes is None else dict(zip(
+            ("xpred", "xrate", "xok", "iok"),
+            (t.data_ptr() for t in lanes)))),
         mdc=mdc, mac=mac, sdc=sdc, sac=sac,
         B=B, NU=NU, h=h, w=w, bh=bh, bw=bw, vh=vh, C=C,
-        paired=int(bool(paired)), nblk=tabs["nblk"], dqdc=dqdc, dqac=dqac,
-        lam=float(lam), **tx_params(bs, bd))
+        paired=int(bool(paired)), nblk=tabs["nblk"], NI=NI, nE=nE,
+        dqdc=dqdc, dqac=dqac, lam=float(lam), **tx_params(bs, bd))
     p.cand_mode[:C] = [m for m, _ in cands]
     p.cand_kind[:C] = tabs["kind"]
-    p.rate[:C] = [float(v) for v in np.asarray(mode_rate, np.float32)]
+    p.rate[:NI] = [float(v) for v in np.asarray(mode_rate, np.float32)]
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream

@@ -20,23 +20,36 @@ the port's ``IntraEncoder`` at the boosted key-frame qindex; a P frame
 then on the host the in-loop filters when enabled (``IntraEncoder.
 _filter_frame``), the Python tile coder's inter branch and the inter frame
 header.  The frame's end-of-frame CDFs seed the next P frame's
-(primary_ref_frame 0).
+(primary_ref_frame 0; with cdf_update off there is no chain and it is 7).
+
+With part_search off (presets M11-M13, ``--no-part-search``) a P frame
+(``_encode_p_flat``, the JAX package's flat ``_encode_p``) codes 32x32
+blocks: motion estimation at 32, the GM fit and the filter pick, motion
+compensation of two lanes (NEWMV at the searched mv, GLOBALMV at the fit),
+one mixed luma wavefront (13 intra candidates and the two lanes), chroma
+motion compensation at the chosen mvs and one wavefront for U and V (DC or
+the inter lane, as luma chose), uniform deblocking at the heuristic level,
+then the flat inter tile coder (``tile_inter.encode_inter_tile``).  On a
+CUDA device both wavefronts run the hand-written kernel.
 
 The pyramid (hierarchical mini-GoPs, compound prediction, TPL, temporal
-filtering), rate control, tile columns and the flat P path raise
-NotImplementedError: the JAX package has them.
+filtering), rate control and tile columns raise NotImplementedError: the
+JAX package has them.
 """
 
 from __future__ import annotations
 
 from dataclasses import replace
+from functools import lru_cache
 
 import numpy as np
 import torch
 
 from .. import upload
-from ..ops.deblock import deblock_plane_part, dlf_sse_part
+from ..ops.deblock import (deblock_plane_part, deblock_plane_uniform,
+                           dlf_sse_part)
 from ..ops.mc import pad_plane, predict_inter_blocks
+from ..spec.txfm import TX_16X16, TX_32X32
 from .cdef_search import cdef_frame_config_fields
 from .geometry import bottom_force_masks, pad_plane_bottom
 from .headers import FrameConfig, assemble_frame
@@ -44,7 +57,8 @@ from .intra_encoder import (CAND_MODES, EncoderConfig, IntraEncoder,
                             _unsupported)
 from .me import _blocks, motion_estimate
 from .tile_codec import TileCoder
-from .wavefront import expand_candidates
+from .tile_inter import encode_inter_tile
+from .wavefront import encode_plane_wavefront_mixed, expand_candidates
 from .wavefront2 import (CHROMA_SB_MODES, CHROMA_SUB_MODES, CHROMA_TOP_MODES,
                          SUB_MODES, InterLanes, encode_plane_wavefront_part)
 
@@ -54,6 +68,12 @@ N_LANES = 3          # 0 NEWMV (the searched mv), 1 GLOBALMV, 2 the mvp
 MODE_NEW = 5.0       # NEWMV mode + DRL signalling bits
 MODE_NEAR = 3.0      # NEAREST/GLOBAL-class signalling bits
 _INV_LN2 = float(np.float32(1.0 / np.log(2.0)))
+# the rates of the flat P frame's NEWMV lane (14 + 2.5 (log2(1+|mvy|) +
+# log2(1+|mvx|)) bits) and GLOBALMV lane
+R_NEW, R_NEW_MV, R_ZERO = 14.0, 2.5, 6.0
+# |mv| of a 32x32 ME field, in 1/8 pel, stays below (2 (2 * 16 + 2) + 2) *
+# 8 + 6 = 566 (motion_estimate's ranges)
+LOG2_N = 1024
 
 
 def _pick_interp_filt(src, refp, y0, x0, mv8f, h, w, bd=8):
@@ -94,6 +114,24 @@ def _mv_bits(m, pred):
     return cb(d[..., 0]) + cb(d[..., 1])
 
 
+@lru_cache(maxsize=None)
+def _log2_1p(device: str) -> torch.Tensor:
+    """log2(1 + d) of the integers 0 <= d < LOG2_N as float32, the way XLA
+    computes a float32 log2 (log(x) * f32(1 / ln 2)), made once on the
+    host: the flat NEWMV rate gathers from it, so the card's rates equal
+    the CPU's by construction."""
+    t = torch.log(1.0 + torch.arange(LOG2_N, dtype=torch.float32)) * _INV_LN2
+    return upload(t.numpy(), device)
+
+
+def _flat_new_rate(mv8):
+    """The flat NEWMV lane's rate [B, bh, bw] float32 from the ME field
+    [B, bh, bw, 2]: two rounded float32 operations on the table's sum, as
+    in the JAX package."""
+    lg = _log2_1p(str(mv8.device))[mv8.abs().long()]
+    return R_NEW + R_NEW_MV * (lg[..., 0] + lg[..., 1])
+
+
 class VideoEncoder:
     """Low-delay I/P encoder; keyint=1 degenerates to all-intra."""
 
@@ -106,9 +144,6 @@ class VideoEncoder:
             raise _unsupported("temporal filtering (--tf)")
         if rc is not None:
             raise _unsupported("rate control")
-        if keyint > 1 and not cfg.part_search:
-            raise _unsupported("the flat P path (part_search=False with "
-                               "keyint > 1)")
         self.cfg = cfg
         self.keyint = max(1, keyint)
         # key frames get a quality boost (the reference's CRF kf_qindex
@@ -163,8 +198,10 @@ class VideoEncoder:
             payloads, recons = self.intra.encode_frames([(y, u, v)])
             payload, rec = payloads[0], recons[0]
             self._cdf_state = None    # key frames reset the CDF chain
-        else:
+        elif self.cfg.part_search:
             payload, rec = self._encode_p_part(y, u, v)
+        else:
+            payload, rec = self._encode_p_flat(y, u, v)
         self._dpb = tuple(np.asarray(p) for p in rec)
         self._idx += 1
         return payload, rec
@@ -453,3 +490,137 @@ class VideoEncoder:
         payload = assemble_frame(self.seq, fr, tile, first=False)
         y_n, u_n, v_n = (p.to(torch.uint8).cpu().numpy() for p in rec)
         return payload, (y_n[:h], u_n[:h // 2], v_n[:h // 2])
+
+    # ------------------------------------------------------- flat P frame
+
+    def _flat_luma_lanes(self, ryp, mv8, gmv, y0, x0, h, w, filt):
+        """The flat P frame's two luma lanes, NEWMV at the searched mv and
+        GLOBALMV at the fit (one MC call): predictions [1, 2, bh, bw, 32,
+        32] int32, rates [1, 2, bh, bw] float32."""
+        _, bh, bw, _ = mv8.shape
+        n = bh * bw
+        mvf = mv8.reshape(1, n, 2)
+        gm = upload(np.array(gmv, np.int32), mvf.device).expand_as(mvf)
+        pred = predict_inter_blocks(ryp.expand(2, -1, -1), y0.expand(2, n),
+                                    x0.expand(2, n), torch.cat([mvf, gm]), h,
+                                    w, BLK, 0, 8, filt)
+        rate = torch.stack([_flat_new_rate(mv8),
+                            torch.full((1, bh, bw), R_ZERO,
+                                       device=mv8.device)], 1)
+        return pred.reshape(1, 2, bh, bw, BLK, BLK), rate
+
+    def _flat_chroma_lanes(self, rup, rvp, mv, y0, x0, h, w, filt):
+        """Chroma motion compensation at the luma decisions' mvs [1, bh,
+        bw, 2], U and V in one call: [2, 1, bh, bw, 16, 16] int32."""
+        _, bh, bw, _ = mv.shape
+        n = bh * bw
+        pred = predict_inter_blocks(
+            torch.cat([rup, rvp]), (y0 // 2).expand(2, n),
+            (x0 // 2).expand(2, n), mv.reshape(1, n, 2).expand(2, -1, -1), h,
+            w, CBLK, 1, 8, filt)
+        return pred.reshape(2, 1, bh, bw, CBLK, CBLK)
+
+    def _p_flat_device(self, y, u, v):
+        """The flat P frame's device stage against the DPB's frame, queued
+        but for the GM fit's and the filter pick's reads: a dict of its
+        decisions, levels and deblocked recons (tensors), and gm, filt,
+        lf."""
+        cfg = self.cfg
+        q = cfg.qindex
+        dev = self.device
+        # h is the true (signalled) height: the MC clamp's and the DPB's;
+        # hp the SB-padded plane height of the block grid
+        h, w = y.shape
+        hp = self.intra.ph
+        vh = None if hp == h else h
+        vhc = None if vh is None else vh // 2
+        y, u, v = (pad_plane_bottom(np.asarray(p), n)
+                   for p, n in ((y, hp), (u, hp // 2), (v, hp // 2)))
+        bh, bw = hp // BLK, w // BLK
+        N = bh * bw
+        ry, ru, rv = self._dpb
+
+        ys, us, vs = (upload(p[None], dev) for p in (y, u, v))
+        ryp, rup, rvp = (pad_plane(upload(p[None], dev).to(torch.int32))
+                         for p in (ry, ru, rv))
+        rj = upload(pad_plane_bottom(np.asarray(ry), hp)[None], dev)
+
+        mv8 = motion_estimate(ys, rj, BLK)[0]            # [1, bh, bw, 2]
+        gm = self._fit_gm(mv8) if cfg.gm_search else None
+        gmv = gm or (0, 0)
+        ar = torch.arange(N, device=dev)
+        y0, x0 = (ar // bw * BLK)[None], (ar % bw * BLK)[None]
+        filt = _pick_interp_filt(ys, ryp, y0, x0, mv8.reshape(1, N, 2), h,
+                                 w) if cfg.filter_search else 0
+
+        # luma: the 13 intra candidates and the two lanes, every one allowed
+        pred, rate = self._flat_luma_lanes(ryp, mv8, gmv, y0, x0, h, w, filt)
+        ones = lambda *shape: torch.ones(shape, dtype=torch.bool, device=dev)
+        y_mi, y_lev, y_rec = encode_plane_wavefront_mixed(
+            ys, BLK, TX_32X32, q, pred, rate, ones(1, 2, bh, bw),
+            ones(1, bh, bw), 2, CAND_MODES, 8, valid_h=vh)
+        n_intra = len(expand_candidates(CAND_MODES))
+        is_inter = y_mi >= n_intra                       # [1, bh, bw]
+        gm_t = upload(np.array(gmv, np.int32), dev)
+        mv_final = torch.where((y_mi == n_intra)[..., None], mv8, gm_t)
+
+        # chroma: U and V in one call, each its own choice of DC (where
+        # luma is intra) or the inter lane (where luma is inter)
+        two = lambda a: torch.cat([a, a])
+        c_pred = self._flat_chroma_lanes(rup, rvp, mv_final, y0, x0, h, w,
+                                         filt)
+        uv_mi, uv_lev, uv_rec = encode_plane_wavefront_mixed(
+            torch.cat([us, vs]), CBLK, TX_16X16, q, c_pred,
+            torch.zeros((2, 1, bh, bw), device=dev), two(is_inter[:, None]),
+            two(~is_inter), 1, (0,), 8, valid_h=vhc)
+
+        lf = self._p_lf_levels(q)
+        if lf[0] or lf[1]:
+            y_rec = deblock_plane_uniform(y_rec, BLK, 14, lf[0], lf[1], bd=8,
+                                          valid_h=vh)
+            # U and V share one level (lf[2] == lf[3])
+            uv_rec = deblock_plane_uniform(uv_rec, CBLK, 6, lf[2], lf[2],
+                                           bd=8, valid_h=vhc)
+        return dict(y_mi=y_mi[0], y_lev=y_lev[0], u_lev=uv_lev[0],
+                    v_lev=uv_lev[1], uv_mi=uv_mi, mv_t=mv_final[0],
+                    mv32=mv8[0], y_rec=y_rec, uv_rec=uv_rec, gm=gm,
+                    filt=filt, lf=lf)
+
+    def _encode_p_flat(self, y, u, v):
+        cfg = self.cfg
+        q = cfg.qindex
+        cdf0 = self._cdf_state
+        h, w = y.shape
+        hp = self.intra.ph
+        d = self._p_flat_device(y, u, v)
+        gm, filt, lf = d["gm"], d["filt"], d["lf"]
+        gmv = gm or (0, 0)
+        m = self._fetch({k: d[k] for k in ("y_mi", "y_lev", "u_lev", "v_lev",
+                                           "uv_mi", "mv_t", "mv32")})
+        m.update(gm=gm, filt=filt, lf=lf, mode_counts={})
+        self.last_p = m
+
+        cands = expand_candidates(CAND_MODES)
+        tile, end_cdf = encode_inter_tile(
+            w, hp, q, cfg.cdf_update, m["y_mi"], m["y_lev"], m["u_lev"],
+            m["v_lev"], m["mv_t"], cands, len(cands), cdf_init=cdf0,
+            true_h=h, gm_mv=gmv, mode_counts=m["mode_counts"])
+        primary_ref = 0 if cdf0 is not None else 7
+        ref_idx, refresh = (0,) * 7, 0x01
+        gm_dict = {1: gmv} if gm else {}
+        fr = FrameConfig(frame_type=1, base_q_idx=q,
+                         disable_cdf_update=not cfg.cdf_update,
+                         disable_frame_end_update_cdf=not cfg.cdf_update,
+                         primary_ref_frame=primary_ref,
+                         filter_level=(lf[0], lf[1]),
+                         filter_level_u=lf[2], filter_level_v=lf[3],
+                         interpolation_filter=filt, gm_mv=gm_dict or None,
+                         gm_prev=self._gm_prev_for(primary_ref, ref_idx),
+                         film_grain=self._fg_inter())
+        self._gm_save(refresh, gm_dict)
+        if cfg.cdf_update:
+            self._cdf_state = end_cdf.snapshot()
+        payload = assemble_frame(self.seq, fr, tile, first=False)
+        y_n, uv_n = (d[k].to(torch.uint8).cpu().numpy()
+                     for k in ("y_rec", "uv_rec"))
+        return payload, (y_n[0, :h], uv_n[0, :h // 2], uv_n[1, :h // 2])

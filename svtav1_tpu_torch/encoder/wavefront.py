@@ -1,7 +1,8 @@
-"""Whole-plane intra mode decision + reconstruction over the quad wavefront.
+"""Whole-plane mode decision + reconstruction over the quad wavefront.
 
-Counterpart of ``svtav1_tpu/encoder/wavefront.py`` (flat intra only, no
-inter candidates).  The schedule is a 2:1 anti-diagonal wavefront over
+Counterpart of ``svtav1_tpu/encoder/wavefront.py``: the flat intra
+wavefront, and its mixed form with precomputed inter candidates (the flat
+P frame's lanes).  The schedule is a 2:1 anti-diagonal wavefront over
 quads (2x2 blocks: a 64x64 SB of 32x32 luma blocks, a 32x32 chroma region
 of 16x16 blocks), the four blocks of a quad in z-order, so the boundary
 state always holds every neighbour the AV1 coding order makes available,
@@ -10,11 +11,14 @@ including the above-right and below-left edges of the directional modes.
 Every candidate runs the normative integer chain (predict, forward
 transform, quantize, dequantize, inverse transform, reconstruct), so the
 chosen levels and recon are bit-final.  Selection is the first minimum of
-``sse + lambda * (mode_rate + resid_bits)`` over the candidate order.
+``sse + lambda * (mode_rate + resid_bits)`` over the candidate order.  In
+the mixed form the inter lanes follow the intra candidates: each brings a
+bit-final prediction and a rate of its own a block, runs the chain with
+DCT_DCT, and a candidate whose mask is false costs 3e38.
 
-``encode_plane_wavefront`` runs the plain PyTorch body below for a tensor
-on the CPU and the hand-written CUDA kernel (``cuda/wavefront_kernel.py``)
-for a tensor on a CUDA device.
+``encode_plane_wavefront`` and ``encode_plane_wavefront_mixed`` run the
+plain PyTorch body below for a tensor on the CPU and the hand-written CUDA
+kernel (``cuda/wavefront_kernel.py``) for a tensor on a CUDA device.
 """
 
 from __future__ import annotations
@@ -178,6 +182,32 @@ def encode_plane_wavefront(src, bs: int, tx_size: int, qindex: int,
                           valid_h, paired, uv_tx)
 
 
+def encode_plane_wavefront_mixed(src, bs: int, tx_size: int, qindex: int,
+                                 extra_preds, extra_rate, extra_ok, intra_ok,
+                                 n_extra: int, modes: tuple = DEFAULT_MODES,
+                                 bd: int = 8, valid_h: int = None):
+    """Mode decision with n_extra precomputed inter candidates after the
+    intra ones (the flat P frame), rates from the inter frame's y_mode
+    CDF.  src [B, h, w] uint8; extra_preds [B, nE, bh, bw, bs, bs] int32
+    (or uint8) bit-final predictions; extra_rate [B, nE, bh, bw] float32
+    bits; extra_ok [B, nE, bh, bw] and intra_ok [B, bh, bw] bool.  Frames
+    are independent (U and V may ride one call).  Returns (cand_idx,
+    levels, recon) as encode_plane_wavefront; cand_idx >= n_intra selects
+    inter lane cand_idx - n_intra."""
+    if extra_preds.shape[1] != n_extra:
+        raise ValueError(f"extra_preds holds {extra_preds.shape[1]} lanes, "
+                         f"not n_extra={n_extra}")
+    cands = expand_candidates(modes)
+    rd = rd_params(qindex, bd, cands, kf=False)
+    extra = (extra_preds, extra_rate, extra_ok, intra_ok)
+    if src.device.type == "cpu":
+        return _wavefront_body(src, rd, bs, tx_size, modes, bd,
+                               valid_h=valid_h, extra=extra)
+    from ..cuda.wavefront_kernel import wavefront_cuda
+    return wavefront_cuda(src, rd, bs, tx_size, modes, bd, valid_h=valid_h,
+                          extra=extra)
+
+
 def _tx_types(cands, tx_size: int, uv_tx: bool):
     if uv_tx:
         return [uv_intra_tx_type(m, tx_size) for m, _ in cands]
@@ -226,9 +256,10 @@ def _edges(rowbuf, colbuf, rs, cs, has_tr, has_bl, bs: int, vh: int,
 
 def _wavefront_body(src, rd, bs: int, tx_size: int, modes=DEFAULT_MODES,
                     bd: int = 8, angle_deltas=(0,), valid_h: int = None,
-                    paired: bool = False, uv_tx: bool = False):
+                    paired: bool = False, uv_tx: bool = False, extra=None):
     """Plain PyTorch wavefront on src's device; same contract as
-    encode_plane_wavefront with rd = rd_params(...)."""
+    encode_plane_wavefront with rd = rd_params(...).  extra: the mixed
+    form's (extra_preds, extra_rate, extra_ok, intra_ok), or None."""
     dqdc, dqac, lam, mode_rate = rd
     dev = src.device
     B, h, w = src.shape
@@ -237,10 +268,14 @@ def _wavefront_body(src, rd, bs: int, tx_size: int, modes=DEFAULT_MODES,
     rs_t, cs_t, valid_t, has_tr_t, has_bl_t = _quad_tables(bh, bw)
     base = 1 << (bd - 1)
     cands = expand_candidates(modes, angle_deltas)
-    C = len(cands)
     types = _tx_types(cands, tx_size, uv_tx)
-    rate_c = mode_rate.to(dev)[:, None]                    # [C, 1]
+    rate_c = mode_rate.to(dev)[:, None]                    # [NI, 1]
     lam = float(lam)
+    if extra is not None:
+        x_pred, x_rate, x_ok, i_ok = extra
+        types = types + [DCT_DCT] * x_pred.shape[1]
+        x_pred = x_pred.to(torch.int32)
+    C = len(types)
 
     src_b = src.to(torch.int32).reshape(B, bh, bs, bw, bs).permute(
         0, 1, 3, 2, 4)
@@ -297,6 +332,10 @@ def _wavefront_body(src, rd, bs: int, tx_size: int, modes=DEFAULT_MODES,
             else:
                 pred = intra.predict(mode, f_above, f_left, f_corner)
             preds.append(pred)
+        if extra is not None:
+            # inter lanes after the intra candidates: [nE, BD, ...]
+            preds += list(x_pred[:, :, rs, cs].transpose(0, 1).reshape(
+                -1, B * D, bs, bs))
         pred_s = torch.stack(preds)                        # [C, BD, bs, bs]
         resid = f_src[None] - pred_s
 
@@ -311,7 +350,15 @@ def _wavefront_body(src, rd, bs: int, tx_size: int, modes=DEFAULT_MODES,
                                   tx_size, tt, bd)
         recb = add_residual_clip(pred_s, inv, bd)
         sse = ((f_src[None] - recb) ** 2).sum((-1, -2)).to(torch.float32)
-        cost = sse + lam * (rate_c + _resid_bits(lev, bs))  # [C, BD]
+        rate = rate_c.expand(-1, B * D)
+        if extra is not None:
+            lane = lambda a: a[:, :, rs, cs].transpose(0, 1).reshape(-1, B * D)
+            rate = torch.cat([rate, lane(x_rate)])
+            ok = torch.cat([i_ok[:, rs, cs].reshape(1, B * D).expand(
+                len(cands), -1), lane(x_ok)])
+        cost = sse + lam * (rate + _resid_bits(lev, bs))   # [C, BD]
+        if extra is not None:
+            cost = torch.where(ok, cost, torch.full_like(cost, 3e38))
         if paired:
             # (u, v) halves of the batch pick one candidate: pair sums
             cp = cost.reshape(C, 2, (B // 2) * D).sum(1)

@@ -21,6 +21,7 @@ from svtav1_tpu.utils.ivf import read_ivf
 from svtav1_tpu.utils.y4m import Y4mInfo, Y4mWriter
 from svtav1_tpu_torch import app
 from svtav1_tpu_torch.encoder import intra_encoder as tie
+from svtav1_tpu_torch.encoder import video_encoder as tve
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -155,8 +156,28 @@ def test_cli_preset12_writes_decodable_ivf(tmp_path, capsys):
         assert dec.decode_frame_obus(p)
 
 
+def test_cli_flat_p_path_writes_the_encoders_payloads(tmp_path):
+    """--keyint 64 --no-part-search encodes (I, P, P): the IVF holds the
+    port's VideoEncoder's payloads, and the JAX Decoder decodes them."""
+    src, out = tmp_path / "in.y4m", tmp_path / "out.ivf"
+    _write_y4m(src, 128, 64, 3)
+    rc = app.main(["-i", str(src), "-b", str(out), "-q", "100", "--keyint",
+                   "64", "--no-part-search", "--device", "cpu"])
+    assert rc == 0
+    with open(out, "rb") as f:
+        _, frames = read_ivf(f)
+        payloads = [p for p, _ in frames]
+    enc = tve.VideoEncoder(tie.EncoderConfig(128, 64, qindex=100,
+                                             part_search=False),
+                           keyint=64, device="cpu")
+    want, _ = enc.encode_frames([_synth(128, 64, 10 + i) for i in range(3)])
+    assert payloads == want
+    dec = Decoder()
+    for p in payloads:
+        assert dec.decode_frame_obus(p)
+
+
 @pytest.mark.parametrize("extra", [
-    ["--keyint", "64", "--no-part-search"],
     ["--keyint", "1", "--cdef", "--no-part-search"],
     ["--keyint", "1", "--preset", "5"]])
 def test_cli_rejects_other_modes(tmp_path, extra):

@@ -2,7 +2,7 @@
 ``chip_smoke.py`` imports JAX, the JAX package or its benchmark, and the
 port encodes with all three blocked, on the flat and on the partition
 path, with the in-loop filters on, and on the low-delay inter path (a key
-frame and a P frame).
+frame and a P frame, partition and flat).
 """
 
 import ast
@@ -57,10 +57,12 @@ _ENCODE_BLOCKED = textwrap.dedent("""
         assert recons[1][0].shape == (64, 128)
     from svtav1_tpu_torch.cuda.inputs import moving_frames
     from svtav1_tpu_torch.encoder.video_encoder import VideoEncoder
-    enc = VideoEncoder(EncoderConfig(128, 64), keyint=64, device="cpu")
-    payloads, recons = enc.encode_frames(moving_frames(128, 64, 2))
-    assert len(payloads[1]) < len(payloads[0])
-    assert sum(enc.last_p["mode_counts"].values()) > 0
+    for kw in (dict(), dict(part_search=False)):
+        enc = VideoEncoder(EncoderConfig(128, 64, **kw), keyint=64,
+                           device="cpu")
+        payloads, recons = enc.encode_frames(moving_frames(128, 64, 2))
+        assert len(payloads[1]) < len(payloads[0])
+        assert sum(enc.last_p["mode_counts"].values()) > 0
     print("ISOLATED_OK")
 """)
 

@@ -14,8 +14,9 @@ At the fixture's shapes and static arguments, so that this worker's JAX
 jit cache serves them, the file also holds motion_estimate (16/32/64),
 predict_inter_blocks (luma 64/32/16, chroma 32/16/8, the three filters,
 the 56-row UMV clamp) and the inter scans (luma, paired chroma) against
-JAX on random inputs; and the CLI with --keyint 64 and the modes that
-still exit 2 (no JAX).
+JAX on random inputs; and the CLI with --keyint 64, its flat path
+(presets 11-13, --no-part-search) and the modes that still exit 2 (no
+JAX).
 """
 
 import os
@@ -40,6 +41,7 @@ from svtav1_tpu_torch.cuda.inputs import moving_frames
 from svtav1_tpu_torch.encoder import geometry as tgeo
 from svtav1_tpu_torch.encoder import intra_encoder as tie
 from svtav1_tpu_torch.encoder import me as tme
+from svtav1_tpu_torch.encoder import presets as tpresets
 from svtav1_tpu_torch.encoder import video_encoder as tve
 from svtav1_tpu_torch.encoder import wavefront2 as tw2
 from svtav1_tpu_torch.ops import mc as tmc
@@ -331,10 +333,33 @@ def test_cli_keyint_writes_the_encoders_payloads(runs, tmp_path):
     assert payloads == [p for p, _ in runs["port"]]
 
 
+@pytest.mark.parametrize("extra,keyint,cfg", [
+    (["--keyint", "64", "--preset", "12"], 64,
+     tpresets.apply_preset(tie.EncoderConfig(W, H, qindex=Q), 12)),
+    (["--keyint", "8", "--no-part-search"], 8,
+     tie.EncoderConfig(W, H, qindex=Q, part_search=False))])
+def test_cli_flat_p_path_writes_the_encoders_payloads(tmp_path, extra,
+                                                       keyint, cfg):
+    """The flat low-delay path (presets 11-13, --no-part-search): the
+    CLI's IVF holds the port's VideoEncoder's payloads (which
+    test_torch_flat_inter.py holds to JAX's)."""
+    frames = moving_frames(W, H, 3)
+    src, out = tmp_path / "in.y4m", tmp_path / "out.ivf"
+    _write_y4m(src, frames)
+    rc = app.main(["-i", str(src), "-b", str(out), "-q", str(Q),
+                   "--device", "cpu", *extra])
+    assert rc == 0
+    with open(out, "rb") as f:
+        _, got = read_ivf(f)
+        got = [p for p, _ in got]
+    enc = tve.VideoEncoder(cfg, keyint=keyint, device="cpu")
+    want, _ = enc.encode_frames(frames)
+    assert got == want
+    assert sum(enc.last_p["mode_counts"].values()) > 0
+
+
 @pytest.mark.parametrize("extra", [
-    ["--pyramid"], ["--rc", "cbr"], ["--pyramid", "--tf"],
-    ["--keyint", "64", "--preset", "12"], ["--keyint", "8",
-                                           "--no-part-search"]])
+    ["--pyramid"], ["--rc", "cbr"], ["--pyramid", "--tf"]])
 def test_cli_unported_modes_exit_2(tmp_path, extra, capsys):
     src = tmp_path / "in.y4m"
     _write_y4m(src, moving_frames(W, H, 1))
