@@ -2,8 +2,10 @@
 all-intra path through the hand-written wavefront kernel, the partition
 intra path with and without the in-loop filters, the low-delay inter path
 (the CLI's default --keyint 64), these three as plain PyTorch on the card,
-and the flat low-delay path (presets M11-M13, --no-part-search), whose P
-frames run the kernel with inter lanes.
+and the flat low-delay path (presets M11-M13, --no-part-search) and the
+flat pyramid (--pyramid --tf, hierarchical mini-GoPs with temporal
+filtering, long-range motion search and rate control), whose P frames run
+the kernel with inter lanes.
 
     python3 chip_smoke.py
 
@@ -101,15 +103,36 @@ its last line):
      CPU, with --no-part-search's defaults and with preset 13: per frame
      the agreement of the decision maps (>= 99% of the modes, phase 2's
      bar), the ME field and the final mvs; when every map of a frame
-     agrees, byte-identical payloads and equal recons.
+     agrees, byte-identical payloads and equal recons;
+ 14. the flat pyramid: VideoEncoder(1920, 1080, qindex=100,
+     part_search=False, keyint=64, pyramid=True, gop=8, tf=True) on 9
+     frames of ``moving_frames`` (a key frame and one mini-GoP of 8, the
+     anchor 8 frames from its reference, so it searches long-range), with
+     the kernel launch counts set to 0 before and read after.  Per coded
+     frame in decode order: layer, q, reference slot, ME ms (long-range
+     or not), TF ms, device stage ms, coder ms, bytes and kernel launches;
+     the overlay count, e2e fps over the 9 source frames (first
+     encode_frames to the end of flush), the device syncs of the layer-2
+     frame by source line, peak device memory.  Checks: 9 recons, 17 TUs
+     (the key frame, 8 no-show inter frames, 8 show_existing overlays),
+     one luma and one U+V launch a P frame, luma PSNR > 30 dB;
+ 15. the flat pyramid (TF on, gop 8) at 256x128 on the card and on the
+     CPU: CQ q100 on 17 frames, CBR at half the bitrate CQ reached (q
+     moves between the GoPs), and a clip with a scene cut inside a
+     mini-GoP.  Each filtered anchor of the card against the CPU's (the
+     count of pixels that differ, at most one off: exp is not correctly
+     rounded), then the card's planes fed to the CPU encoder, and every
+     map, mv, q, reference slot, payload and recon must be equal.
 Then the script's total time, one JSON line of kernel results and, last,
 one JSON line naming the device.  To run only phases 10-11:
 ``python3 -c "import chip_smoke as cs; cs.CARD = cs.card();
 cs.phase_video(); cs.phase_video_card_vs_cpu()"``; phases 2b, 12 and 13
 alone: ``python3 -c "import chip_smoke as cs; cs.CARD = cs.card();
 cs.phase_compare_lanes(); cs.phase_flat_video();
-cs.phase_flat_video_card_vs_cpu()"``.  Imports nothing of JAX or of the
-JAX package.
+cs.phase_flat_video_card_vs_cpu()"``; phases 14 and 15 alone:
+``python3 -c "import chip_smoke as cs; cs.CARD = cs.card();
+cs.phase_flat_pyramid(); cs.phase_flat_pyramid_card_vs_cpu()"``.  Imports
+nothing of JAX or of the JAX package.
 """
 
 import json
@@ -139,7 +162,8 @@ from svtav1_tpu_torch.encoder.geometry import bottom_force_masks
 from svtav1_tpu_torch.encoder.wavefront import (
     _quad_tables, _wavefront_body, expand_candidates, rd_params)
 from svtav1_tpu_torch.spec.txfm import TX_16X16, TX_32X32
-from svtav1_tpu_torch.utils.obu import OBU_FRAME, parse_obus
+from svtav1_tpu_torch.utils.obu import (OBU_FRAME, OBU_FRAME_HEADER,
+                                        parse_obus)
 
 DEV = torch.device("cuda")
 W, H = 1920, 1080
@@ -1035,7 +1059,7 @@ def flat_p_calls():
                           keyint=64, device="cuda")
     enc._dpb = f0
     with StageClock([(ve, "encode_plane_wavefront_mixed")]) as clock:
-        enc._p_flat_device(*f1)
+        enc._p_flat_device(*f1, enc.cfg.qindex)
     return {k: clock.args[f"{k} wavefront"][0] for k in ("luma", "chroma")}
 
 
@@ -1233,6 +1257,228 @@ def phase_flat_video_card_vs_cpu():
             print(f"card vs CPU ({label}): {line}", flush=True)
 
 
+# ---- the flat pyramid -------------------------------------------------------
+
+def tu_kind(payload):
+    """'overlay' (show_existing_frame), 'key', 'inter' or 'inter, no-show'
+    from the first frame header of a temporal unit."""
+    for t, _, _, d in parse_obus(payload):
+        if t in (OBU_FRAME, OBU_FRAME_HEADER):
+            if d[0] >> 7:
+                return "overlay"
+            kind = ("key", "inter")[min(1, (d[0] >> 5) & 3)]
+            return kind if (d[0] >> 4) & 1 else kind + ", no-show"
+    raise AssertionError("no frame header in the payload")
+
+
+def timed(fn, log):
+    """fn wrapped: each call is timed between two synchronizes, its wall
+    ms and kernel launches appended to log."""
+    def call(*a, **kw):
+        torch.cuda.synchronize()
+        n0, t0 = wk.LAUNCHES, time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        log.append((1e3 * (time.perf_counter() - t0), wk.LAUNCHES - n0))
+        return out
+    return call
+
+
+def phase_flat_pyramid():
+    """The flat pyramid at 1920x1080 on the card: a key frame and one
+    mini-GoP of 8 (TF on, long-range ME on the anchor), with the kernel
+    launch counts set to 0 before and read after.  Returns the wavefront
+    kernel launches of its P frames by kind."""
+    n_src = 9
+    frames = moving_frames(W, H, n_src)
+    enc = ve.VideoEncoder(ie.EncoderConfig(W, H, qindex=100, **FLAT),
+                          keyint=64, pyramid=True, gop=8, tf=True,
+                          device="cuda")
+    here = os.path.basename(__file__)
+    coded, tf_log, key_log = [], [], []
+    code = enc._encode_ref_frame
+
+    def code_frame(frame, cand_slots, layer, refresh_slot, show, refresh_t):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if len(coded) == 2:              # an interior frame (layer 2)
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with StageClock(StageClock.FLAT_P) as clock:
+                    n0, t0 = wk.LAUNCHES, time.perf_counter()
+                    out = code(frame, cand_slots, layer, refresh_slot, show,
+                               refresh_t)
+                    ms = 1e3 * (time.perf_counter() - t0)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = Counter(f"{os.path.basename(c.filename)}:{c.lineno}"
+                        for c in caught if "synchroniz" in str(c.message) and
+                        os.path.basename(c.filename) != here)
+        coded.append(dict(layer=layer, slot=refresh_slot, ms=ms,
+                          clock=clock, m=dict(enc.last_p), bytes=len(out[0]),
+                          launches=wk.LAUNCHES - n0, syncs=syncs))
+        return out
+
+    enc._encode_ref_frame = code_frame
+    enc._tf_filter = timed(enc._tf_filter, tf_log)
+    enc.intra.encode_frames = timed(enc.intra.encode_frames, key_log)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    payloads, recons = enc.encode_frames(frames)
+    p, r = enc.flush()
+    payloads, recons = payloads + p, recons + r
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = wk.LAUNCHES
+    wk.raise_on_error(DEV)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    kinds = [tu_kind(x) for x in payloads]
+    print(f"flat pyramid: {W}x{H} q100 --no-part-search --pyramid --tf gop 8 "
+          f"keyint 64, {n_src} frames: {len(payloads)} TUs "
+          f"({kinds.count('overlay')} overlays), e2e {n_src / dt:.4f} fps "
+          f"({dt:.1f} s, first encode_frames to the end of flush), peak "
+          f"device memory {peak:.1f} MiB, kernel launches {launches} "
+          f"[{CARD}]", flush=True)
+    print(f"flat pyramid: key frame (q{enc.intra.cfg.qindex}) "
+          f"{key_log[0][0]:.1f} ms, {key_log[0][1]} launches, "
+          f"{len(payloads[0])} bytes; TF of the key frame and the anchor "
+          f"{', '.join(f'{t:.1f}' for t, _ in tf_log)} ms", flush=True)
+    by_kind = {"luma": 0, "chroma": 0}
+    for k, c in enumerate(coded):
+        st, m = c["clock"].ms, c["m"]
+        n = {kind: c["clock"].launches.get(f"{kind} wavefront", 0)
+             for kind in by_kind}
+        for kind in by_kind:
+            by_kind[kind] += n[kind]
+        dev_ms = sum(v for key, v in st.items() if key != "tile coder")
+        tf_ms = f"{tf_log[1][0]:.1f}" if k == 0 else "-"
+        print(f"flat pyramid: decode order {k + 1}: layer {c['layer']}, q "
+              f"{m['q']}, reference slot {m['ref_slot']} (distance "
+              f"{m['ref_dist']}), refresh slot {c['slot']}; ME "
+              f"{st.get('ME 32', 0.0):.1f} ms "
+              f"({'long-range' if m['ref_dist'] > 4 else 'standard'}); TF "
+              f"{tf_ms} ms; device stage {dev_ms:.1f} ms; coder "
+              f"{st.get('tile coder', 0.0):.1f} ms; frame {c['ms']:.1f} ms; "
+              f"{c['bytes']} bytes; launches luma {n['luma']}, U+V "
+              f"{n['chroma']}; inter "
+              f"{100 * flat_inter_share(m['y_mi'], H):.1f}%", flush=True)
+        if n != {"luma": 1, "chroma": 1}:
+            raise AssertionError(f"coded frame {k + 1}: kernel launches {n},"
+                                 " not one luma and one U+V")
+    print(f"flat pyramid: device syncs of the layer-2 frame: "
+          f"{sum(coded[2]['syncs'].values())} ({dict(coded[2]['syncs'])})",
+          flush=True)
+    if len(recons) != n_src or len(payloads) != 2 * n_src - 1:
+        raise AssertionError(f"{len(recons)} recons, {len(payloads)} TUs: "
+                             f"not {n_src} and {2 * n_src - 1}")
+    want = ["key"] + ["inter, no-show"] * 8
+    if sorted(k for k in kinds if k != "overlay") != sorted(want) or \
+            kinds.count("overlay") != 8 or kinds[0] != "key":
+        raise AssertionError(f"TU kinds {kinds}")
+    if coded[0]["m"]["ref_dist"] != 8:
+        raise AssertionError("the anchor's reference is not 8 frames away")
+    ps_y = [psnr(f[0], r_[0]) for f, r_ in zip(frames, recons)]
+    print(f"flat pyramid: luma PSNR (display order) "
+          f"{', '.join(f'{x:.2f}' for x in ps_y)} dB", flush=True)
+    if min(ps_y) <= 30.0:
+        raise AssertionError(f"luma PSNR {min(ps_y):.2f} dB <= 30")
+    return by_kind
+
+
+def pyramid_maps(enc):
+    """A pyramid P frame's decision maps, mvs, q and slots from last_p."""
+    return flat_maps(enc, None) | {k: np.array(enc.last_p[k]) for k in (
+        "q", "ref_slot", "refresh", "lf")}
+
+
+def run_pyramid(cfg, frames, device, rc, tf_hook):
+    """The flat pyramid (gop 8, TF on) on `device`: (payloads, recons,
+    each coded frame's maps, seconds).  tf_hook(planes) sees each filtered
+    anchor and returns the planes to code."""
+    enc = ve.VideoEncoder(cfg, keyint=64, pyramid=True, gop=8, tf=True,
+                          rc=rc, device=device)
+    coded = []
+    code, filt = enc._encode_p_flat, enc._tf_filter
+
+    def code_frame(*a, **kw):
+        out = code(*a, **kw)
+        coded.append(pyramid_maps(enc))
+        return out
+
+    enc._encode_p_flat = code_frame
+    enc._tf_filter = lambda *a: tf_hook(filt(*a))
+    t0 = time.perf_counter()
+    payloads, recons = enc.encode_frames(frames)
+    p, r = enc.flush()
+    return payloads + p, recons + r, coded, time.perf_counter() - t0
+
+
+def phase_flat_pyramid_card_vs_cpu():
+    """The flat pyramid at 256x128 (TF on, gop 8) on the card and on the
+    CPU: CQ q100 on 17 frames, CBR at half the bitrate CQ reached, and a
+    scene cut inside a mini-GoP.  The card's filtered anchors are compared
+    with the CPU's and then fed to the CPU encoder (a pixel can differ by
+    one where exp rounds apart), so every map, mv, q, slot and byte must
+    be equal."""
+    from svtav1_tpu_torch.encoder.rate_control import RateControl
+    w, h = 256, 128
+    cfg = ie.EncoderConfig(w, h, qindex=100, **FLAT)
+    clip = moving_frames(w, h, 17)
+    cut = moving_frames(w, h, 6) + [tuple(255 - p for p in f) for f in
+                                    moving_frames(w, h, 6, seed=1)]
+    kbps = None
+    for label, frames in (("CQ q100", clip), ("CBR", clip),
+                          ("scene cut", cut)):
+        rc = (lambda: RateControl("cbr", qindex=100, target_kbps=kbps,
+                                  fps=30.0)) if label == "CBR" else \
+            (lambda: None)
+        card_tf = []
+        card = run_pyramid(cfg, frames, "cuda", rc(),
+                           lambda x: card_tf.append(x) or x)
+        diffs = []
+
+        def use_card(planes):
+            got = card_tf[len(diffs)]
+            diffs.append([np.abs(a.astype(np.int32) - b.astype(np.int32))
+                          for a, b in zip(got, planes)])
+            return got
+        cpu = run_pyramid(cfg, frames, "cpu", rc(), use_card)
+        n_diff = [int((d > 0).sum()) for f in diffs for d in f]
+        print(f"card vs CPU, flat pyramid {w}x{h} ({label}, {len(frames)} "
+              f"frames; card {card[3]:.1f} s, CPU {cpu[3]:.1f} s): "
+              f"{len(card_tf)} TF calls, pixels that differ (Y, U, V each) "
+              f"{n_diff}", flush=True)
+        if any(int(d.max()) > 1 for f in diffs for d in f):
+            raise AssertionError(f"{label}: a TF pixel differs by more than "
+                                 "one")
+        if len(card[2]) != len(cpu[2]):
+            raise AssertionError(f"{label}: coded frames differ")
+        for k, (mc, mp) in enumerate(zip(card[2], cpu[2])):
+            bad = [n for n in mc if not np.array_equal(mc[n], mp[n])]
+            if bad:
+                raise AssertionError(f"{label}: coded frame {k + 1}: {bad} "
+                                     "differ")
+        if card[0] != cpu[0] or not all(
+                np.array_equal(a, b) for x, y in zip(card[1], cpu[1])
+                for a, b in zip(x, y)):
+            raise AssertionError(f"{label}: payloads or recons differ")
+        nbytes = sum(len(x) for x in card[0])
+        qs = [int(m["q"]) for m in card[2]]
+        kinds = [tu_kind(x) for x in card[0]]
+        print(f"card vs CPU ({label}): {len(card[2])} coded P frames, maps, "
+              f"mvs, q, slots, {len(card[0])} payloads and {len(card[1])} "
+              f"recons identical; key frames {kinds.count('key')}, overlays "
+              f"{kinds.count('overlay')}; q in decode order {qs}; "
+              f"{nbytes * 8 * 30 / len(frames) / 1000:.1f} kbps", flush=True)
+        if label == "CQ q100":
+            kbps = max(1, int(nbytes * 8 * 30 / len(frames) / 1000 / 2))
+        if label == "scene cut" and kinds.count("key") != 2:
+            raise AssertionError(f"scene cut: {kinds.count('key')} key "
+                                 "frames")
+
+
 CARD = ""
 
 
@@ -1280,6 +1526,8 @@ def main():
     phase(phase_video_card_vs_cpu)
     p_launches = phase(phase_flat_video)
     phase(phase_flat_video_card_vs_cpu)
+    pyr_launches = phase(phase_flat_pyramid)
+    phase(phase_flat_pyramid_card_vs_cpu)
     print(f"chip_smoke: total {time.perf_counter() - t0:.1f} s", flush=True)
     kernel = dict(route="cuda", source="svtav1_tpu_torch/csrc/wavefront.cu",
                   replaces="svtav1_tpu/pallas/wavefront_kernel.py:550")
@@ -1288,7 +1536,8 @@ def main():
                  bound_ms=bound, bound_by=basis, library_ms=None)]
     for kind, (err, k, p, b, by) in lanes.items():
         rows.append(dict(name=LANE_KERNELS[kind], **kernel,
-                         launches=p_launches[kind], max_abs_err=err, ms=k,
+                         launches=p_launches[kind] + pyr_launches[kind],
+                         max_abs_err=err, ms=k,
                          plain_ms=p, bound_ms=b, bound_by=by,
                          library_ms=None))
     print(json.dumps({"kernels": rows}))

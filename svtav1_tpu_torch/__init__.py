@@ -3,7 +3,9 @@
 It runs the encode (8-bit 4:2:0) end to end on an NVIDIA Hopper card: the
 low-delay I/P path that is the CLI's default (``VideoEncoder``: key frames,
 then P frames with motion estimation, motion compensation and inter
-candidates in the partition scan), and both intra paths: the partition
+candidates in the partition scan; rate control; on the flat path also the
+hierarchical mini-GoP pyramid with temporal filtering), and both intra
+paths: the partition
 path (64x64 / 32x32 / 16x16 blocks, tx-type search, partition-aware
 deblocking with a DLF level search, the in-loop filters CDEF, CCSO and
 loop restoration when enabled, the Python tile coder) and the flat path of
@@ -13,10 +15,10 @@ the native tile coder):
 - ``ops``     — plain PyTorch counterparts of the normative integer ops
                 (intra predictors, transforms, quantizer, deblocking,
                 CDEF, CCSO, Wiener and self-guided restoration, motion
-                compensation).
+                compensation) and the temporal filter.
 - ``encoder`` — the two wavefront mode decisions, motion estimation, the
-                in-loop filter searches, the tile coder, ``IntraEncoder``
-                and ``VideoEncoder``.
+                in-loop filter searches, the tile coder, rate control,
+                ``IntraEncoder`` and ``VideoEncoder``.
 - ``csrc``    — the hand-written CUDA kernel of the intra wavefront, built
                 at first use by ``cuda.build`` and bound by ctypes in
                 ``cuda.wavefront_kernel``.

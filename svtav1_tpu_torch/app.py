@@ -1,9 +1,10 @@
 """Y4M in -> AV1 IVF out with the PyTorch port.
 
 Usage:
-  python -m svtav1_tpu_torch.app -i in.y4m -b out.ivf -q 100 [--keyint N] \
-      [--no-part-search | --preset 6..13] [--cdef] [--lr] [--ccso] \
-      [--batch N] [--stat-report] [--device cuda|cpu]
+  python -m svtav1_tpu_torch.app -i in.y4m -b out.ivf [-q 100 | --crf N] \
+      [--keyint N] [--no-part-search | --preset 6..13] [--cdef] [--lr] \
+      [--ccso] [--pyramid [--tf]] [--rc cq|crf|cbr|vbr] [--tbr KBPS] \
+      [-n N] [--batch N] [--stat-report] [--device cuda|cpu]
 
 --keyint N > 1 (the default 64) is the low-delay I/P path of
 ``svtav1_tpu/app.py``: a key frame every N frames (or at a scene cut) and
@@ -17,15 +18,21 @@ without CDEF, and --no-part-search and presets 11..13 the flat path (32x32
 blocks; its P frames at --keyint > 1 too, preset 13 without CDF update).
 --cdef, --lr and --ccso turn the in-loop filters on (partition path,
 heights a multiple of 64), over the preset as in ``svtav1_tpu/app.py``;
-CCSO streams are the fork's nonstandard AV1.  Any other mode (presets
-0..5, which search angle deltas; --pyramid, with or without --tf, and --rc
-with --keyint > 1; 10-bit) exits with status 2: the JAX package's
-``python -m svtav1_tpu.app`` has it.  --stat-report prints PSNR only.
+CCSO streams are the fork's nonstandard AV1.  --rc (with --tbr for cbr and
+vbr) sets each frame's base qindex on the low-delay paths; --crf N is
+qindex 4N in crf mode.  --pyramid at --keyint > 1 codes hierarchical
+mini-GoPs on the flat path (--tf filters their anchors), reading 16 frames
+at a time as ``svtav1_tpu/app.py`` does; its payloads include
+show_existing overlay TUs.  Any other mode (presets 0..5, which search
+angle deltas; --pyramid with the partition search; 10-bit) exits with
+status 2: the JAX package's ``python -m svtav1_tpu.app`` has it.
+--stat-report prints PSNR only.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import sys
 import time
 from dataclasses import replace
@@ -49,6 +56,9 @@ def main(argv=None) -> int:
     p.add_argument("-b", "--output", required=True, help="output .ivf")
     p.add_argument("-q", "--qp", type=int, default=100,
                    help="base qindex 0-255")
+    p.add_argument("--crf", type=int, default=None,
+                   help="CRF 0-63 (qindex = 4*crf, overrides -q; selects "
+                        "--rc crf)")
     p.add_argument("--keyint", type=int, default=64,
                    help="key frame interval (1 = all-intra)")
     p.add_argument("--no-part-search", action="store_true",
@@ -64,17 +74,26 @@ def main(argv=None) -> int:
                    help="enable the fork's grafted CCSO filter (search + "
                         "signal); CCSO streams are not standard AV1")
     p.add_argument("--pyramid", action="store_true",
-                   help="hierarchical mini-GoPs (not ported)")
+                   help="hierarchical mini-GoPs with show_existing overlays "
+                        "(flat path)")
     p.add_argument("--tf", action="store_true",
                    help="temporal filtering of the pyramid's anchors")
     p.add_argument("--rc", choices=("cq", "crf", "cbr", "vbr"), default=None,
-                   help="rate control of the inter path (not ported)")
+                   help="rate control (default: cq, or crf with --crf)")
+    p.add_argument("--tbr", type=int, default=0, metavar="KBPS",
+                   help="target bitrate of --rc cbr/vbr")
+    p.add_argument("-n", "--frames", type=int, default=0,
+                   help="max frames (0 = all)")
     p.add_argument("--batch", type=int, default=4,
                    help="frames per device batch (all-intra)")
     p.add_argument("--stat-report", action="store_true",
                    help="print the mean PSNR of the reconstruction")
     p.add_argument("--device", default="cuda", help="cuda or cpu")
     args = p.parse_args(argv)
+    if args.crf is not None:
+        if not 0 <= args.crf <= 63:
+            return _error(f"--crf must be 0..63 (got {args.crf})")
+        args.qp = min(255, args.crf * 4)
     if not 0 <= args.qp <= 255:
         return _error(f"-q/--qp must be 0..255 (got {args.qp})")
     if args.keyint < 1:
@@ -88,6 +107,7 @@ def main(argv=None) -> int:
 
     from .encoder.intra_encoder import EncoderConfig, IntraEncoder
     from .encoder.presets import apply_preset
+    from .encoder.rate_control import RateControl
     from .encoder.video_encoder import VideoEncoder
     from .utils.ivf import IvfWriter
     from .utils.y4m import Y4mReader
@@ -111,53 +131,77 @@ def main(argv=None) -> int:
                 cfg = replace(cfg, enable_cdef=True)
             if args.lr:
                 cfg = replace(cfg, enable_lr=True)
+        # rate control as svtav1_tpu/app.py builds it (also at --keyint 1,
+        # where the all-intra encoder ignores it)
+        rc = None
+        rc_mode = args.rc or ("crf" if args.crf is not None else "cq")
+        if rc_mode in ("cbr", "vbr") or args.rc in ("cq", "crf"):
+            try:
+                rc = RateControl(rc_mode, qindex=cfg.qindex,
+                                 target_kbps=args.tbr,
+                                 fps=info.fps_num / max(info.fps_den, 1))
+            except ValueError as e:
+                return _error(str(e))
         try:
             if args.keyint == 1:
                 enc = IntraEncoder(cfg, device=args.device)
+            elif args.pyramid:
+                # VideoEncoder refuses the partition pyramid
+                enc = VideoEncoder(cfg, keyint=args.keyint, pyramid=True,
+                                   tf=args.tf, rc=rc, device=args.device)
+                # the mini-GoP lookahead: the frames buffered when a GoP
+                # is coded decide what TF sees, so the groups are JAX's
+                args.batch = 16
             else:
-                # as in svtav1_tpu/app.py, --tf acts through --pyramid
-                # only; VideoEncoder refuses the modes it lacks
-                enc = VideoEncoder(cfg, keyint=args.keyint,
-                                   pyramid=args.pyramid,
-                                   tf=args.pyramid and args.tf, rc=args.rc,
+                # as in svtav1_tpu/app.py, --tf acts through --pyramid only
+                enc = VideoEncoder(cfg, keyint=args.keyint, rc=rc,
                                    device=args.device)
                 args.batch = 1          # low-delay P is reference-serial
         except (NotImplementedError, ValueError) as e:
             return _error(str(e))
 
         t0 = time.perf_counter()
-        n = total_bytes = 0
+        n = n_tu = total_bytes = 0
         psnrs = []
-        frame_iter = rdr.frames()
+        frame_iter = itertools.islice(rdr.frames(), args.frames or None)
         with open(args.output, "wb") as fout:
             ivf = IvfWriter(fout, info.width, info.height, info.fps_den,
                             info.fps_num)
+            src_fifo = []           # display-order sources awaiting recon
 
-            def write(batch, payloads, recons):
-                nonlocal n, total_bytes
-                for payload, src, rec in zip(payloads, batch, recons):
-                    ivf.write_frame(payload, n)
-                    n += 1
+            def write(payloads, recons):
+                """Payloads in decode order (the pyramid's include overlay
+                TUs), recons in display order against the sources."""
+                nonlocal n_tu, total_bytes
+                for payload in payloads:
+                    ivf.write_frame(payload, n_tu)
+                    n_tu += 1
                     total_bytes += len(payload)
+                for rec in recons:
+                    src = src_fifo.pop(0)
                     if args.stat_report:
                         psnrs.append([psnr(a, r) for a, r in zip(src, rec)])
 
-            pending = None          # (batch, device outputs) in flight
+            pending = None          # device outputs of the batch in flight
             while True:
                 batch = [f for _, f in zip(range(args.batch), frame_iter)]
                 if not batch:
                     break
+                n += len(batch)
+                src_fifo.extend(batch)
                 if args.keyint > 1:
-                    write(batch, *enc.encode_frames(batch))
+                    write(*enc.encode_frames(batch))
                     continue
                 # queue this batch's device stage, then entropy-code the
                 # previous batch while it runs
                 dev = enc.device_encode(batch)
                 if pending is not None:
-                    write(pending[0], *enc.host_finish(pending[1]))
-                pending = (batch, dev)
+                    write(*enc.host_finish(pending))
+                pending = dev
             if pending is not None:
-                write(pending[0], *enc.host_finish(pending[1]))
+                write(*enc.host_finish(pending))
+            if args.keyint > 1:
+                write(*enc.flush())
             ivf.finalize()
     dt = time.perf_counter() - t0
     kbps = total_bytes * 8 * info.fps_num / info.fps_den / max(n, 1) / 1000

@@ -3,19 +3,21 @@ device.
 
 Counterpart of ``svtav1_tpu/encoder/me.py`` (the HME/ME pyramid of
 EbMotionEstimation.c: hme_level_0/1/2 coarse search, integer refinement,
-then subpel), with its standard range only: every block of the plane is
-searched at once.
+then subpel): every block of the plane is searched at once.
   1. HME L2: exhaustive +-16 at 1/4 resolution (+-64 full-pel) with a
      centre-bias penalty on |mv|;
-  2. L1: +-2 refinement at 1/2 resolution, then +-2 at full resolution;
+  2. with ``long_range`` (a pyramid reference more than 4 frames away),
+     HME L3: exhaustive +-12 at 1/8 resolution (+-96 full-pel), its winner
+     refined +-2 at 1/4 resolution, taking L2's place where its penalised
+     1/4-resolution SAD is lower;
+  3. L1: +-2 refinement at 1/2 resolution, then +-2 at full resolution;
      the full-pel mv is clamped so the normative UMV clamp never alters it;
-  3. a half- then quarter-pel diamond on normative (REGULAR) predictions.
-The long-range level for distant pyramid references (``long_range=True``)
-is not ported.
+  4. a half- then quarter-pel diamond on normative (REGULAR) predictions.
 
 Out-of-plane reads replicate edge pixels.  The JAX package pads the planes
-by edge replication and clamps its gather indices to the padded plane;
-that reads the same pixels as clamping the indices to the plane itself,
+by edge replication (wider with ``long_range``, to cover L3's reach) and
+clamps its gather indices to the padded plane; that reads the same pixels
+as clamping the indices to the plane itself, whatever the padding's width,
 which is what the gathers here do.  SADs are exact integer sums, so their
 order does not matter; argmin keeps the first minimum, as XLA's does.
 """
@@ -29,6 +31,7 @@ from ..ops.metrics import downsample2x
 
 BLK = 32
 L2_RANGE = 16        # +-16 at 1/4 res -> +-64 full-pel
+L3_RANGE = 12        # +-12 at 1/8 res -> +-96 full-pel (long-range refs)
 ME_PEN = 3           # centre-bias penalty per unit of |mv| at 1/4 res
 
 
@@ -74,11 +77,6 @@ def motion_estimate(src, ref, bs: int = BLK, long_range: bool = False):
     """src/ref [B, H, W] luma tensors (uint8 or int32) -> (mv8 [B, bh, bw,
     2] int32 quarter-pel mvs in 1/8-pel units, full-pel SAD [B, bh, bw]
     int32 of the chosen position)."""
-    if long_range:
-        raise NotImplementedError(
-            "long-range motion search (pyramid references more than 4 "
-            "frames away) is not ported to svtav1_tpu_torch; the JAX "
-            "package svtav1_tpu has it")
     B, H, W = src.shape
     bh, bw = H // bs, W // bs
     N = bh * bw
@@ -92,15 +90,42 @@ def motion_estimate(src, ref, bs: int = BLK, long_range: bool = False):
     src2 = downsample2x(downsample2x(src))
     ref2 = downsample2x(downsample2x(ref))
     bs2 = bs // 4
+    s2 = _blocks(src2, bs2)
     reg2 = _gather_regions(ref2, r_idx // 4 - L2_RANGE, c_idx // 4 - L2_RANGE,
                            bs2 + 2 * L2_RANGE)
-    sad2 = _sad_field(_blocks(src2, bs2), reg2, bs2, L2_RANGE)
+    sad2 = _sad_field(s2, reg2, bs2, L2_RANGE)
     off2 = torch.arange(-L2_RANGE, L2_RANGE + 1, device=dev).abs()
     sad2 = sad2 + ME_PEN * (off2[:, None] + off2[None, :])
     n2 = 2 * L2_RANGE + 1
     idx = torch.argmin(sad2.reshape(B, N, -1), dim=-1)
     mv2y = idx // n2 - L2_RANGE
     mv2x = idx % n2 - L2_RANGE
+    if long_range:
+        # HME L3: exhaustive at 1/8 res, refined +-2 at 1/4, competing
+        # with L2's winner by penalised 1/4-res SAD
+        best2 = sad2.reshape(B, N, -1).min(-1).values
+        bs3 = bs // 8
+        reg3 = _gather_regions(downsample2x(ref2), r_idx // 8 - L3_RANGE,
+                               c_idx // 8 - L3_RANGE, bs3 + 2 * L3_RANGE)
+        sad3 = _sad_field(_blocks(downsample2x(src2), bs3), reg3, bs3,
+                          L3_RANGE)
+        # 1/8-res offsets are twice the 1/4-res scale, SADs a quarter area
+        off3 = torch.arange(-L3_RANGE, L3_RANGE + 1, device=dev).abs()
+        sad3 = sad3 + (ME_PEN * 2 // 4 + 1) * (off3[:, None] + off3[None, :])
+        n3 = 2 * L3_RANGE + 1
+        idx3 = torch.argmin(sad3.reshape(B, N, -1), dim=-1)
+        mv3y = idx3 // n3 - L3_RANGE
+        mv3x = idx3 % n3 - L3_RANGE
+        reg2b = _gather_regions(ref2, r_idx // 4 + 2 * mv3y - 2,
+                                c_idx // 4 + 2 * mv3x - 2, bs2 + 4)
+        sref2 = _sad_field(s2, reg2b, bs2, 2).reshape(B, N, -1)
+        dy2, dx2 = _argmin_offset(sref2, 2)
+        cand_y, cand_x = 2 * mv3y + dy2, 2 * mv3x + dx2
+        cand_sad = sref2.min(-1).values + ME_PEN * (cand_y.abs() +
+                                                    cand_x.abs())
+        take = cand_sad < best2
+        mv2y = torch.where(take, cand_y, mv2y)
+        mv2x = torch.where(take, cand_x, mv2x)
 
     # L1: +-2 refinement at 1/2 resolution
     bs1 = bs // 2

@@ -32,9 +32,25 @@ the inter lane, as luma chose), uniform deblocking at the heuristic level,
 then the flat inter tile coder (``tile_inter.encode_inter_tile``).  On a
 CUDA device both wavefronts run the hand-written kernel.
 
-The pyramid (hierarchical mini-GoPs, compound prediction, TPL, temporal
-filtering), rate control and tile columns raise NotImplementedError: the
-JAX package has them.
+Rate control (``rate_control.RateControl``, CQ / CRF / CBR / VBR) sets the
+base qindex on every low-delay path: a key frame at 0.7 of it, a P frame at
+it, the controller fed each frame's bytes.
+
+With ``pyramid=True`` on the flat path, frames buffer into hierarchical
+mini-GoPs (the reference's prediction structures, EbPredictionStructure.c
+:77-161, mapped to single-reference P frames): a scene cut or the key frame
+interval starts a key frame; each mini-GoP (the largest power of two, up to
+``gop``, that crosses neither) codes its last frame first as a no-show
+anchor referencing the previous anchor, then bisects, each interior frame a
+no-show P frame referencing the nearer (by decimated SAD) of its interval's
+two ends; show_existing overlays display them in order.  Each layer has its
+own qindex (the anchor's from a TPL-lite measure of how well the GoP is
+predicted), its own DPB slot, CDF snapshot and GM parameters; references
+more than 4 frames away search with the long-range level of ``me.py``.
+With ``tf=True`` the anchors' and key frames' sources are temporally
+filtered first (``ops/tf.py``).  The pyramid on the partition path (its
+interior frames are compound, with per-block TPL lambdas) and tile columns
+raise NotImplementedError: the JAX package has them.
 """
 
 from __future__ import annotations
@@ -49,10 +65,11 @@ from .. import upload
 from ..ops.deblock import (deblock_plane_part, deblock_plane_uniform,
                            dlf_sse_part)
 from ..ops.mc import pad_plane, predict_inter_blocks
+from ..ops.tf import temporal_filter_frame
 from ..spec.txfm import TX_16X16, TX_32X32
 from .cdef_search import cdef_frame_config_fields
 from .geometry import bottom_force_masks, pad_plane_bottom
-from .headers import FrameConfig, assemble_frame
+from .headers import FrameConfig, assemble_frame, assemble_show_existing
 from .intra_encoder import (CAND_MODES, EncoderConfig, IntraEncoder,
                             _unsupported)
 from .me import _blocks, motion_estimate
@@ -133,19 +150,20 @@ def _flat_new_rate(mv8):
 
 
 class VideoEncoder:
-    """Low-delay I/P encoder; keyint=1 degenerates to all-intra."""
+    """Low-delay I/P encoder, or hierarchical mini-GoPs with ``pyramid``
+    (flat path); keyint=1 degenerates to all-intra."""
 
     def __init__(self, cfg: EncoderConfig, keyint: int = 64,
-                 pyramid: bool = False, tf: bool = False, rc=None,
-                 device="cuda"):
-        if pyramid and keyint > 1:
-            raise _unsupported("the hierarchical mini-GoP pyramid")
-        if tf:
-            raise _unsupported("temporal filtering (--tf)")
-        if rc is not None:
-            raise _unsupported("rate control")
+                 pyramid: bool = False, gop: int = 16, tf: bool = False,
+                 rc=None, device="cuda"):
         self.cfg = cfg
         self.keyint = max(1, keyint)
+        self.pyramid = pyramid and self.keyint > 1
+        if self.pyramid and cfg.part_search:
+            raise _unsupported(
+                "the compound partition pyramid (--pyramid with the "
+                "partition search: compound interior frames, per-block TPL "
+                "lambdas; the flat path's pyramid is ported)")
         # key frames get a quality boost (the reference's CRF kf_qindex
         # scaling, EbRateControlProcess.c:782)
         kf_q = max(2, int(round(cfg.qindex * 0.7))) if keyint > 1 \
@@ -159,22 +177,50 @@ class VideoEncoder:
         self._cdf_state = None        # frame-end CDFs (primary-ref chain)
         self._slot_gm = {}            # DPB slot -> saved gm_mv dict
         self._fg_n = 0                # inter-frame grain_seed counter
+        self.rc = rc                  # RateControl (None: fixed qindex)
+        # the pyramid's state: pending sources (lookahead) and, per DPB
+        # slot, the recon, frame-end CDFs and display index
+        self.gop = min(16, max(1, gop))
+        self.tf = tf and self.pyramid
+        self._buf = []
+        self._slots = {}
+        self._slot_cdf = {}
+        self._slot_t = {}
+        self._anchor_slot = 0
         # scene-change state: keyint is the MAX interval, cuts insert key
         # frames (scene_transition_detector analogue)
         self._kf_at = 0               # next forced-KF display index
         self._tail_src = None         # last source luma, decimated 4x
+        self._buf_sad = []            # decimated SAD vs previous source
         self._sad_hist = []           # recent non-cut SADs
         self.last_p = None            # host maps of the last P frame
 
     def encode_frames(self, frames):
-        """Sequential low-delay encode of (y, u, v) uint8 frames: (payloads,
-        recons), one each a frame."""
+        """Encode (y, u, v) uint8 frames: (payloads in decode order, recons
+        in display order).  Low-delay: one of each a frame.  Pyramid: the
+        frames buffer until a mini-GoP is complete (call flush() at the end
+        of the stream), and the payloads include show_existing overlay
+        TUs, so there are more payloads than recons."""
+        if self.pyramid:
+            for f in frames:
+                y = np.asarray(f[0], np.int32)[::4, ::4]
+                self._buf_sad.append(0.0 if self._tail_src is None else
+                                     float(np.abs(y - self._tail_src).mean()))
+                self._tail_src = y
+                self._buf.append(f)
+            return self._drain(final=False)
         payloads, recons = [], []
         for f in frames:
             p, r = self.encode_frame(*f)
             payloads.append(p)
             recons.append(r)
         return payloads, recons
+
+    def flush(self):
+        """Encode whatever is still buffered (the pyramid's tail)."""
+        if not self.pyramid:
+            return [], []
+        return self._drain(final=True)
 
     def _is_cut(self, sad_pp: float) -> bool:
         """Scene cut: large absolute per-pixel SAD and an outlier against
@@ -183,6 +229,20 @@ class VideoEncoder:
             return False
         base = np.median(self._sad_hist) if self._sad_hist else 0.0
         return sad_pp > 3.5 * max(base, 2.0)
+
+    def _base_q(self) -> int:
+        """The base qindex: rate control's, or the config's."""
+        return self.rc.base_q if self.rc is not None else self.cfg.qindex
+
+    def _key_q(self):
+        """Under rate control, re-qindex the key frame's encoder at 0.7 of
+        the base q (all-intra: at it)."""
+        if self.rc is None:
+            return
+        q = self._base_q()
+        kf_q = max(2, int(round(q * 0.7))) if self.keyint > 1 else q
+        if kf_q != self.intra.cfg.qindex:
+            self.intra.cfg = replace(self.intra.cfg, qindex=kf_q)
 
     def encode_frame(self, y, u, v):
         yd = np.asarray(y, np.int32)[::4, ::4]
@@ -195,16 +255,191 @@ class VideoEncoder:
         self._tail_src = yd
         if self._idx >= self._kf_at or cut or self._dpb is None:
             self._kf_at = self._idx + self.keyint
+            self._key_q()
             payloads, recons = self.intra.encode_frames([(y, u, v)])
             payload, rec = payloads[0], recons[0]
             self._cdf_state = None    # key frames reset the CDF chain
-        elif self.cfg.part_search:
-            payload, rec = self._encode_p_part(y, u, v)
         else:
-            payload, rec = self._encode_p_flat(y, u, v)
+            q = self._base_q()
+            if self.cfg.part_search:
+                payload, rec = self._encode_p_part(y, u, v, q)
+            else:
+                payload, rec, _ = self._encode_p_flat(y, u, v, q)
+        if self.rc is not None:
+            self.rc.update(len(payload), 1)
         self._dpb = tuple(np.asarray(p) for p in rec)
         self._idx += 1
         return payload, rec
+
+    # ------------------------------------------- hierarchical mini-GoPs
+
+    def _consume_sad(self, k: int):
+        for s in self._buf_sad[:k]:
+            if not self._is_cut(s):
+                self._sad_hist = (self._sad_hist + [s])[-16:]
+        del self._buf_sad[:k]
+
+    def _drain(self, final: bool):
+        payloads, recons = [], []
+        while self._buf:
+            if (self._idx >= self._kf_at or
+                    (self._buf_sad and self._is_cut(self._buf_sad[0]))):
+                self._consume_sad(1)
+                self._kf_at = self._idx + self.keyint
+                f = self._buf.pop(0)
+                self._key_q()
+                if self.tf:
+                    f = self._tf_filter(f, [], self._buf[:3],
+                                        self.intra.cfg.qindex)
+                ps, rs = self.intra.encode_frames([f])
+                if self.rc is not None:
+                    self.rc.update(sum(len(p) for p in ps), 1)
+                # a key frame refreshes every slot: its recon, no CDF
+                # snapshot, identity GM
+                self._slots = {0: tuple(np.asarray(p) for p in rs[0])}
+                self._slot_cdf = {}
+                self._slot_t = {0: self._idx}
+                self._slot_gm = {}
+                self._anchor_slot = 0
+                self._idx += 1
+                payloads += ps
+                recons.append(rs[0])
+                continue
+            target = min(self.gop, self._kf_at - self._idx)
+            avail = len(self._buf)
+            if avail < target and not final:
+                break
+            n = min(target, avail)
+            # a mini-GoP never crosses a scene cut: the cut frame starts
+            # the next (key) GoP
+            for i in range(1, n):
+                if self._is_cut(self._buf_sad[i]):
+                    n = i
+                    break
+            g = 1 << (n.bit_length() - 1)      # largest power of 2 <= n
+            self._consume_sad(g)
+            gf = [self._buf.pop(0) for _ in range(g)]
+            ps, rs = self._encode_gop(gf)
+            if self.rc is not None:
+                self.rc.update(sum(len(p) for p in ps), g)
+            payloads += ps
+            recons += rs
+        return payloads, recons
+
+    _anchor_mult = 0.85                # set per GoP by _tpl_boost
+
+    def _layer_q(self, layer: int) -> int:
+        """Per-layer qindex (the reference's hierarchical-layer q offsets):
+        anchors below the base q (by the GoP's TPL-lite multiplier), top
+        layers above."""
+        if layer == 0:
+            mult = self._anchor_mult
+        else:
+            mult = (0.85, 0.96, 1.04, 1.10, 1.16)[min(layer, 4)]
+        return max(1, min(255, int(round(self._base_q() * mult))))
+
+    def _tpl_boost(self, gframes):
+        """TPL-lite anchor multiplier: how well the GoP's interior frames
+        are predicted from its anchor (decimated SAD against a spatial
+        activity proxy) deepens the anchor's q boost
+        (EbSourceBasedOperationsProcess.c tpl_mc_flow r0 boost).  The JAX
+        package's per-block lambda map of the same measure feeds only the
+        partition pyramid."""
+        if len(gframes) < 2:
+            self._anchor_mult = 0.85
+            return
+        anchor = np.asarray(gframes[-1][0], np.int32)[::4, ::4]
+        act = (np.abs(np.diff(anchor, axis=0)).mean() +
+               np.abs(np.diff(anchor, axis=1)).mean()) + 1e-3
+        pq = 0.0
+        for f in gframes[:-1]:
+            d = np.abs(np.asarray(f[0], np.int32)[::4, ::4] - anchor).mean()
+            pq += max(0.0, 1.0 - d / (4.0 * act))
+        pq /= (len(gframes) - 1)
+        self._anchor_mult = float(np.clip(0.92 - 0.18 * pq, 0.72, 0.92))
+
+    def _pick_ref(self, y, cand_slots):
+        """The reference slot of least decimated-luma SAD against the
+        source (frame-level single-reference choice)."""
+        if len(cand_slots) == 1:
+            return cand_slots[0]
+        src = np.asarray(y, np.int32)[::4, ::4]
+        best, best_s = None, None
+        for s in cand_slots:
+            ref = np.asarray(self._slots[s][0], np.int32)[::4, ::4]
+            sad = int(np.abs(src - ref).sum())
+            if best_s is None or sad < best_s:
+                best, best_s = s, sad
+        return best
+
+    def _tf_filter(self, frame, past, future, q):
+        """MCTF of an anchor's source against its neighbours."""
+        return temporal_filter_frame(frame, list(past) + list(future), q,
+                                     bd=self.cfg.bit_depth,
+                                     device=self.device)
+
+    def _encode_ref_frame(self, frame, cand_slots, layer, refresh_slot,
+                          show, refresh_t):
+        """Code one pyramid frame as a P frame on the nearer of cand_slots,
+        at its layer's qindex, into DPB slot refresh_slot (display index
+        refresh_t)."""
+        slot = self._pick_ref(frame[0], cand_slots)
+        hdr = dict(show_frame=show, refresh_frame_flags=1 << refresh_slot,
+                   ref_frame_idx=(slot,) * 7)
+        dist = max(1, abs(refresh_t - self._slot_t.get(slot, refresh_t)))
+        payload, rec, snap = self._encode_p_flat(
+            *frame, self._layer_q(layer), ref=self._slots[slot], cdf_init=self._slot_cdf.get(slot), hdr_extra=hdr, ref_dist=dist)
+        rec = tuple(np.asarray(p) for p in rec)
+        self._slots[refresh_slot] = rec
+        self._slot_cdf[refresh_slot] = snap
+        self._slot_t[refresh_slot] = refresh_t
+        return payload, rec
+
+    def _encode_gop(self, gframes):
+        """One mini-GoP: the anchor at its far end references the previous
+        anchor; the interior frames bisect recursively.  Every frame but a
+        lone one is coded no-show and displayed by a show_existing
+        overlay in display order."""
+        G = len(gframes)
+        self._tpl_boost(gframes)
+        t0 = self._idx - 1            # display index of the lo anchor
+        lo = self._anchor_slot
+        hi = 1 - lo if lo in (0, 1) else 0
+        if G == 1:
+            p, rec = self._encode_ref_frame(gframes[0], [lo], 0, hi, True,
+                                            t0 + 1)
+            self._anchor_slot = hi
+            self._idx += 1
+            return [p], [rec]
+        out_p, out_r = [], [None] * G
+        anchor = gframes[-1]
+        if self.tf:
+            anchor = self._tf_filter(anchor, gframes[-3:-1], self._buf[:2],
+                                     self._layer_q(0))
+        p, rec = self._encode_ref_frame(anchor, [lo], 0, hi, False, t0 + G)
+        out_p.append(p)
+        out_r[G - 1] = rec
+        self._bisect(gframes, 0, lo, G, hi, 0, out_p, out_r, t0)
+        out_p.append(assemble_show_existing(hi))
+        self._anchor_slot = hi
+        self._idx += G
+        return out_p, out_r
+
+    def _bisect(self, gframes, lo_i, lo_slot, hi_i, hi_slot, depth, out_p,
+                out_r, t0):
+        if hi_i - lo_i <= 1:
+            return
+        mid = (lo_i + hi_i) // 2
+        slot = 2 + depth
+        p, rec = self._encode_ref_frame(gframes[mid - 1], [lo_slot, hi_slot],
+                                        depth + 1, slot, False, t0 + mid)
+        out_p.append(p)
+        out_r[mid - 1] = rec
+        self._bisect(gframes, lo_i, lo_slot, mid, slot, depth + 1, out_p,
+                     out_r, t0)
+        out_p.append(assemble_show_existing(slot))
+        self._bisect(gframes, mid, slot, hi_i, hi_slot, depth + 1, out_p,
+                     out_r, t0)
 
     def _p_lf_levels(self, q):
         """Deblock levels from the P frame's qindex (the intra encoder's
@@ -265,14 +500,16 @@ class VideoEncoder:
             if (refresh_flags >> slot) & 1:
                 self._slot_gm[slot] = dict(gm_dict)
 
-    def _fg_inter(self):
+    def _fg_inter(self, hdr_extra=None):
         """Inter-frame film grain: update_grain=0, the parameters loaded
-        from the reference slot; each frame keeps its own grain_seed."""
+        from the primary reference's slot; each frame keeps its own
+        grain_seed."""
         if not self.cfg.film_grain or not self.intra._fg_params:
             return None
         self._fg_n += 1
         seed = (17027 + 2897 * self._fg_n) & 0xFFFF
-        return {"grain_seed": seed, "load_ref_idx": 0}
+        slot = (hdr_extra or {}).get("ref_frame_idx", (0,) * 7)[0]
+        return {"grain_seed": seed, "load_ref_idx": slot}
 
     # ------------------------------------------------------------ P frame
 
@@ -343,9 +580,10 @@ class VideoEncoder:
         """The P frame's maps, levels and recon to the host."""
         return {k: v.cpu().numpy() for k, v in tensors.items()}
 
-    def _encode_p_part(self, y, u, v):
+    def _encode_p_part(self, y, u, v, q):
+        """A partition P frame against the previous frame, at qindex q, on
+        the CDF chain."""
         cfg = self.cfg
-        q = cfg.qindex
         cdf0 = self._cdf_state
         dev = self.device
         # h is the true (signalled) height: the MC clamp's and the DPB's;
@@ -436,7 +674,7 @@ class VideoEncoder:
             uv_smi=uv_smi[0], uv_mi_sb=uv_mi_sb[0], mv_t=mv_top[0],
             mv_s=mv_sub[0], mv_sb=mv_sb[0], mv32=mv32[0], mv16=mv16[0],
             mv64=mv64[0]))
-        m.update(gm=gm, filt=filt, lf=lf)
+        m.update(gm=gm, filt=filt, lf=lf, q=q)
         self.last_p = m
 
         rec, cdef_params, ccso_info, lr_types, lr_infos = \
@@ -520,13 +758,13 @@ class VideoEncoder:
             w, CBLK, 1, 8, filt)
         return pred.reshape(2, 1, bh, bw, CBLK, CBLK)
 
-    def _p_flat_device(self, y, u, v):
-        """The flat P frame's device stage against the DPB's frame, queued
-        but for the GM fit's and the filter pick's reads: a dict of its
-        decisions, levels and deblocked recons (tensors), and gm, filt,
-        lf."""
+    def _p_flat_device(self, y, u, v, q, ref=None, ref_dist=1):
+        """The flat P frame's device stage at qindex q against ref (the
+        DPB's frame by default), queued but for the GM fit's and the filter
+        pick's reads: a dict of its decisions, levels and deblocked recons
+        (tensors), and gm, filt, lf.  A reference more than 4 frames away
+        searches long-range."""
         cfg = self.cfg
-        q = cfg.qindex
         dev = self.device
         # h is the true (signalled) height: the MC clamp's and the DPB's;
         # hp the SB-padded plane height of the block grid
@@ -538,14 +776,15 @@ class VideoEncoder:
                    for p, n in ((y, hp), (u, hp // 2), (v, hp // 2)))
         bh, bw = hp // BLK, w // BLK
         N = bh * bw
-        ry, ru, rv = self._dpb
+        ry, ru, rv = self._dpb if ref is None else ref
 
         ys, us, vs = (upload(p[None], dev) for p in (y, u, v))
         ryp, rup, rvp = (pad_plane(upload(p[None], dev).to(torch.int32))
                          for p in (ry, ru, rv))
         rj = upload(pad_plane_bottom(np.asarray(ry), hp)[None], dev)
 
-        mv8 = motion_estimate(ys, rj, BLK)[0]            # [1, bh, bw, 2]
+        mv8 = motion_estimate(ys, rj, BLK,
+                              long_range=ref_dist > 4)[0]  # [1, bh, bw, 2]
         gm = self._fit_gm(mv8) if cfg.gm_search else None
         gmv = gm or (0, 0)
         ar = torch.arange(N, device=dev)
@@ -586,18 +825,29 @@ class VideoEncoder:
                     mv32=mv8[0], y_rec=y_rec, uv_rec=uv_rec, gm=gm,
                     filt=filt, lf=lf)
 
-    def _encode_p_flat(self, y, u, v):
+    def _encode_p_flat(self, y, u, v, q, ref=None, cdf_init="chain",
+                       hdr_extra=None, ref_dist=1):
+        """A flat P frame at qindex q: (payload, recon, end-CDF snapshot or
+        None).
+
+        ref, cdf_init, hdr_extra and ref_dist parameterise the frame for
+        the pyramid: the reference's recon (default the previous frame's),
+        the CDFs it starts from ("chain": the low-delay chain, which it then advances;
+        else a slot's snapshot, or None for the defaults), header fields
+        (show_frame, refresh_frame_flags, ref_frame_idx, primary_ref_frame)
+        and the reference's distance in frames."""
         cfg = self.cfg
-        q = cfg.qindex
-        cdf0 = self._cdf_state
+        chain = cdf_init == "chain"
+        cdf0 = self._cdf_state if chain else cdf_init
         h, w = y.shape
         hp = self.intra.ph
-        d = self._p_flat_device(y, u, v)
+        d = self._p_flat_device(y, u, v, q, ref=ref, ref_dist=ref_dist)
         gm, filt, lf = d["gm"], d["filt"], d["lf"]
         gmv = gm or (0, 0)
         m = self._fetch({k: d[k] for k in ("y_mi", "y_lev", "u_lev", "v_lev",
                                            "uv_mi", "mv_t", "mv32")})
-        m.update(gm=gm, filt=filt, lf=lf, mode_counts={})
+        m.update(gm=gm, filt=filt, lf=lf, mode_counts={}, q=q,
+                 ref_dist=ref_dist)
         self.last_p = m
 
         cands = expand_candidates(CAND_MODES)
@@ -605,8 +855,12 @@ class VideoEncoder:
             w, hp, q, cfg.cdf_update, m["y_mi"], m["y_lev"], m["u_lev"],
             m["v_lev"], m["mv_t"], cands, len(cands), cdf_init=cdf0,
             true_h=h, gm_mv=gmv, mode_counts=m["mode_counts"])
-        primary_ref = 0 if cdf0 is not None else 7
-        ref_idx, refresh = (0,) * 7, 0x01
+        hdr = dict(hdr_extra or {})
+        hdr.setdefault("film_grain", self._fg_inter(hdr))
+        primary_ref = hdr.pop("primary_ref_frame",
+                              0 if cdf0 is not None else 7)
+        ref_idx = hdr.get("ref_frame_idx", (0,) * 7)
+        refresh = hdr.get("refresh_frame_flags", 0x01)
         gm_dict = {1: gmv} if gm else {}
         fr = FrameConfig(frame_type=1, base_q_idx=q,
                          disable_cdf_update=not cfg.cdf_update,
@@ -616,11 +870,14 @@ class VideoEncoder:
                          filter_level_u=lf[2], filter_level_v=lf[3],
                          interpolation_filter=filt, gm_mv=gm_dict or None,
                          gm_prev=self._gm_prev_for(primary_ref, ref_idx),
-                         film_grain=self._fg_inter())
+                         **hdr)
         self._gm_save(refresh, gm_dict)
-        if cfg.cdf_update:
-            self._cdf_state = end_cdf.snapshot()
+        snap = end_cdf.snapshot() if cfg.cdf_update else None
+        if chain and cfg.cdf_update:
+            self._cdf_state = snap
+        m.update(ref_slot=ref_idx[0], refresh=refresh)
         payload = assemble_frame(self.seq, fr, tile, first=False)
         y_n, uv_n = (d[k].to(torch.uint8).cpu().numpy()
                      for k in ("y_rec", "uv_rec"))
-        return payload, (y_n[0, :h], uv_n[0, :h // 2], uv_n[1, :h // 2])
+        return payload, (y_n[0, :h], uv_n[0, :h // 2], uv_n[1, :h // 2]), \
+            snap

@@ -1,8 +1,9 @@
 """The port stands on its own: no module of ``svtav1_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX, the JAX package or its benchmark, and the
 port encodes with all three blocked, on the flat and on the partition
-path, with the in-loop filters on, and on the low-delay inter path (a key
-frame and a P frame, partition and flat).
+path, with the in-loop filters on, on the low-delay inter path (a key
+frame and a P frame, partition and flat) and on the flat pyramid with
+temporal filtering and rate control (a key frame and a mini-GoP of 4).
 """
 
 import ast
@@ -63,6 +64,15 @@ _ENCODE_BLOCKED = textwrap.dedent("""
         payloads, recons = enc.encode_frames(moving_frames(128, 64, 2))
         assert len(payloads[1]) < len(payloads[0])
         assert sum(enc.last_p["mode_counts"].values()) > 0
+    from svtav1_tpu_torch.encoder.rate_control import RateControl
+    enc = VideoEncoder(EncoderConfig(128, 64, part_search=False),
+                       pyramid=True, gop=4, tf=True,
+                       rc=RateControl("cbr", target_kbps=150),
+                       device="cpu")
+    payloads, recons = enc.encode_frames(moving_frames(128, 64, 5))
+    payloads += enc.flush()[0]
+    assert len(recons) == 5 and len(payloads) == 9     # 4 overlays
+    assert enc.rc.base_q != 100
     print("ISOLATED_OK")
 """)
 

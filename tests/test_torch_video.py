@@ -15,8 +15,16 @@ jit cache serves them, the file also holds motion_estimate (16/32/64),
 predict_inter_blocks (luma 64/32/16, chroma 32/16/8, the three filters,
 the 56-row UMV clamp) and the inter scans (luma, paired chroma) against
 JAX on random inputs; and the CLI with --keyint 64, its flat path
-(presets 11-13, --no-part-search) and the modes that still exit 2 (no
-JAX).
+(presets 11-13, --no-part-search) and the modes that still exit 2.
+
+Rate control on this path: I, P, P under CBR with the port's VideoEncoder
+and with the JAX one, whose state is again set to what it holds after the
+port's key frame (the same key frame: the rate controller starts at the
+fixture's qindex) and whose controller has counted its bytes; the P frames
+run at other qindexes on JAX's jit entries of the fixture (the qindex is a
+traced argument of its scans, so nothing recompiles).  The q of each P
+frame, every map, the DLF level, the recon and the payload must be equal;
+the CLI's --rc cbr --tbr gives the port's encoder's payloads.
 """
 
 import os
@@ -29,7 +37,9 @@ import pytest
 import torch
 
 from svtav1_tpu.encoder import intra_encoder as jie
+from svtav1_tpu import app as japp
 from svtav1_tpu.encoder import me as jme
+from svtav1_tpu.encoder import rate_control as jrc
 from svtav1_tpu.encoder import video_encoder as jve
 from svtav1_tpu.encoder import wavefront2 as jw2
 from svtav1_tpu.ops import mc as jmc
@@ -42,12 +52,14 @@ from svtav1_tpu_torch.encoder import geometry as tgeo
 from svtav1_tpu_torch.encoder import intra_encoder as tie
 from svtav1_tpu_torch.encoder import me as tme
 from svtav1_tpu_torch.encoder import presets as tpresets
+from svtav1_tpu_torch.encoder import rate_control as trc
 from svtav1_tpu_torch.encoder import video_encoder as tve
 from svtav1_tpu_torch.encoder import wavefront2 as tw2
 from svtav1_tpu_torch.ops import mc as tmc
 from svtav1_tpu_torch.utils.obu import OBU_FRAME, parse_obus
 
 W, H, Q = 128, 64, 100
+TBR = 150            # kbps of the CBR runs: q moves every frame
 BH, BW, SH, SW = H // 32, W // 32, H // 64, W // 64
 N, NSB = BH * BW, SH * SW
 
@@ -76,25 +88,32 @@ def _one_torch_thread():
         yield
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    frames = moving_frames(W, H, 3)
-    cfg = dict(qindex=Q)
+def _port_ipp(frames, rc=None):
+    """The port's I, P, P at the fixture's configuration: (payload, recon)
+    and last_p of each frame."""
     with one_thread():
-        enc = tve.VideoEncoder(tie.EncoderConfig(W, H, **cfg), keyint=64,
-                               device="cpu")
+        enc = tve.VideoEncoder(tie.EncoderConfig(W, H, qindex=Q), keyint=64,
+                               rc=rc, device="cpu")
         port, maps = [], []
         for f in frames:
             port.append(enc.encode_frame(*f))
             maps.append(enc.last_p)
+    return port, maps
 
-    dump = tmp_path_factory.mktemp("pframes")
-    jenc = jve.VideoEncoder(jie.EncoderConfig(W, H, **cfg), keyint=64)
-    # the state after the key frame (VideoEncoder.encode_frame); int32
-    # planes, as its P frames leave them (one motion_estimate signature)
-    jenc._dpb = tuple(np.asarray(p, np.int32) for p in port[0][1])
+
+def _jax_pp(frames, key, dump, rc=None):
+    """The JAX VideoEncoder's two P frames after the port's key frame
+    (payload, recon): its state set to what VideoEncoder.encode_frame
+    leaves after it, int32 planes, as its P frames leave them (one
+    motion_estimate signature); its controller has counted the key frame.
+    Returns the P frames and their SVT_DUMP_DIR dumps."""
+    jenc = jve.VideoEncoder(jie.EncoderConfig(W, H, qindex=Q), keyint=64,
+                            rc=rc)
+    jenc._dpb = tuple(np.asarray(p, np.int32) for p in key[1])
     jenc._idx, jenc._kf_at = 1, 64
     jenc._tail_src = np.asarray(frames[0][0], np.int32)[::4, ::4]
+    if rc is not None:
+        rc.update(len(key[0]), 1)
     saved = os.environ.get("SVT_DUMP_DIR")
     os.environ["SVT_DUMP_DIR"] = str(dump)
     try:
@@ -108,6 +127,29 @@ def runs(tmp_path_factory):
     for k in range(2):
         with open(dump / f"pframe_{k:03d}.pkl", "rb") as f:
             dumps.append(pickle.load(f))
+    return jax_out, dumps
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    frames = moving_frames(W, H, 3)
+    port, maps = _port_ipp(frames)
+    jax_out, dumps = _jax_pp(frames, port[0],
+                             tmp_path_factory.mktemp("pframes"))
+    return dict(frames=frames, port=port, maps=maps, jax=jax_out,
+                dumps=dumps)
+
+
+@pytest.fixture(scope="module")
+def rc_runs(runs, tmp_path_factory):
+    """I, P, P under CBR on both sides (the fixture's key frame)."""
+    frames = runs["frames"]
+    port, maps = _port_ipp(frames, trc.RateControl(
+        "cbr", qindex=Q, target_kbps=TBR, fps=30.0))
+    jax_out, dumps = _jax_pp(frames, port[0],
+                             tmp_path_factory.mktemp("rc_pframes"),
+                             jrc.RateControl("cbr", qindex=Q,
+                                             target_kbps=TBR, fps=30.0))
     return dict(frames=frames, port=port, maps=maps, jax=jax_out,
                 dumps=dumps)
 
@@ -139,6 +181,38 @@ def test_p_frame_payload(runs, k):
     got, want = runs["port"][k][0], runs["jax"][k][0]
     assert any(t == OBU_FRAME for t, _, _, _ in parse_obus(got))
     assert got == want
+
+
+def test_rc_key_frame_is_the_fixtures(runs, rc_runs):
+    assert rc_runs["port"][0][0] == runs["port"][0][0]
+
+
+def test_rc_q_sequence(runs, rc_runs):
+    """Each P frame's qindex equals JAX's, and CBR moves it: P1 off the
+    fixture's q, P2 off P1's."""
+    got = [rc_runs["maps"][k]["q"] for k in (1, 2)]
+    assert got == [rc_runs["dumps"][k]["q"] for k in (1, 2)]
+    assert runs["maps"][1]["q"] == Q != got[0] != got[1]
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("name", MAPS)
+def test_rc_p_frame_map(rc_runs, k, name):
+    got, want = rc_runs["maps"][k][name], rc_runs["dumps"][k][name][0]
+    assert got.shape == want.shape, name
+    np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_rc_p_frame_dlf_recon_payload(rc_runs, k):
+    assert tuple(rc_runs["maps"][k]["lf"]) == \
+        tuple(rc_runs["dumps"][k]["lf"])
+    for p, (got, want) in enumerate(zip(rc_runs["port"][k][1],
+                                        rc_runs["jax"][k][1])):
+        np.testing.assert_array_equal(np.asarray(got, np.int32),
+                                      np.asarray(want, np.int32),
+                                      err_msg=f"plane {p}")
+    assert rc_runs["port"][k][0] == rc_runs["jax"][k][0]
 
 
 def test_the_clip_takes_the_inter_path(runs):
@@ -358,12 +432,38 @@ def test_cli_flat_p_path_writes_the_encoders_payloads(tmp_path, extra,
     assert sum(enc.last_p["mode_counts"].values()) > 0
 
 
+def test_cli_rate_control_writes_the_encoders_payloads(rc_runs, tmp_path):
+    """--rc cbr --tbr N on the partition path: the IVF holds the port's
+    VideoEncoder's payloads under that controller (which rc_runs holds to
+    JAX's)."""
+    src, out = tmp_path / "in.y4m", tmp_path / "out.ivf"
+    _write_y4m(src, rc_runs["frames"])
+    rc = app.main(["-i", str(src), "-b", str(out), "-q", str(Q), "--rc",
+                   "cbr", "--tbr", str(TBR), "--device", "cpu"])
+    assert rc == 0
+    with open(out, "rb") as f:
+        _, frames = read_ivf(f)
+        payloads = [p for p, _ in frames]
+    assert payloads == [p for p, _ in rc_runs["port"]]
+
+
 @pytest.mark.parametrize("extra", [
     ["--pyramid"], ["--rc", "cbr"], ["--pyramid", "--tf"]])
 def test_cli_unported_modes_exit_2(tmp_path, extra, capsys):
+    """The partition (compound) pyramid, with or without --tf, is not
+    ported; --rc cbr without --tbr is refused as the JAX CLI refuses it,
+    with its message."""
     src = tmp_path / "in.y4m"
     _write_y4m(src, moving_frames(W, H, 1))
     rc = app.main(["-i", str(src), "-b", str(tmp_path / "o.ivf"),
                    "--device", "cpu", *extra])
     assert rc == 2
-    assert "svtav1_tpu" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if "--pyramid" in extra:
+        assert "compound partition pyramid" in err and "svtav1_tpu" in err
+    else:
+        assert japp.main(["-i", str(src), "-b", str(tmp_path / "j.ivf"),
+                          *extra]) == 2
+        want = capsys.readouterr().err.splitlines()[-1]
+        assert want == "error: cbr needs a positive --tbr"
+        assert err.splitlines()[-1] == want
