@@ -5,7 +5,8 @@ intra path with and without the in-loop filters, the low-delay inter path
 and the flat low-delay path (presets M11-M13, --no-part-search) and the
 flat pyramid (--pyramid --tf, hierarchical mini-GoPs with temporal
 filtering, long-range motion search and rate control), whose P frames run
-the kernel with inter lanes.
+the kernel with inter lanes; then decode the card's streams on the card
+with the port's decoder.
 
     python3 chip_smoke.py
 
@@ -123,6 +124,26 @@ its last line):
      count of pixels that differ, at most one off: exp is not correctly
      rounded), then the card's planes fed to the CPU encoder, and every
      map, mv, q, reference slot, payload and recon must be equal.
+ 16. the decoder on the card: a fresh Decoder(device="cuda") (CCSO on
+     for phase 8's stream) decodes the 1080p streams that phases 3 (the
+     first TU), 8 (the filtered edge frame), 10 (I+P) and 14 (the
+     pyramid in decode order up to its first overlay) encoded on the
+     card.  Every output equals the encoder's recon in display order,
+     every no-show frame's DPB entry its recon, and the frame count is
+     right.  Per TU: kind, q, bytes, parse / residual / inter / intra /
+     filters / output ms (each between two synchronizes) and device syncs;
+     per stream decode fps and peak device memory;
+ 17. the decoder's full syntax, card against CPU: the JAX encoder's
+     fixture streams (``tests/data/torch_dec``: compound pyramid, two
+     tile columns, 10-bit, angle deltas; their outputs also equal the
+     MD5s stored beside them) and two 256x128 streams the port encodes
+     on the card (film grain; CDEF + CCSO + LR), each decoded on the card
+     and on the CPU, frame by frame equal; then a stream cut inside its
+     frame header raises DecodeError on the card; one-byte seeded flips
+     in the tile data, the last 16 tile bytes and the frame OBUs of the
+     fixtures and the CCSO stream give the card the CPU's DecodeError or
+     frames (some flips decode to changed frames, so corrupt values reach
+     the device stages); and a decode after them still succeeds.
 Then the script's total time, one JSON line of kernel results and, last,
 one JSON line naming the device.  To run only phases 10-11:
 ``python3 -c "import chip_smoke as cs; cs.CARD = cs.card();
@@ -131,10 +152,14 @@ alone: ``python3 -c "import chip_smoke as cs; cs.CARD = cs.card();
 cs.phase_compare_lanes(); cs.phase_flat_video();
 cs.phase_flat_video_card_vs_cpu()"``; phases 14 and 15 alone:
 ``python3 -c "import chip_smoke as cs; cs.CARD = cs.card();
-cs.phase_flat_pyramid(); cs.phase_flat_pyramid_card_vs_cpu()"``.  Imports
-nothing of JAX or of the JAX package.
+cs.phase_flat_pyramid(); cs.phase_flat_pyramid_card_vs_cpu()"``; phases
+16 and 17 on the pyramid's stream alone: ``python3 -c "import chip_smoke
+as cs; cs.CARD = cs.card(); cs.phase_flat_pyramid(); cs.phase_decode();
+cs.phase_decode_card_vs_cpu()"``.  Imports nothing of JAX or of the JAX
+package.
 """
 
+import gc
 import json
 import os
 import sys
@@ -315,6 +340,8 @@ def phase_main_path():
     marks.append(time.perf_counter())
     launches = wk.LAUNCHES
     wk.raise_on_error(DEV)
+    DECODE["flat key frame (phase 3)"] = (payloads[:1], recons[:1], False,
+                                          None)
     want = 2 * (len(frames) // BATCH)     # one launch per plane call
     print(f"main path: {len(payloads)} frames, {sum(map(len, payloads))} "
           f"bytes, kernel launches {launches} (expected {want}), "
@@ -693,6 +720,8 @@ def phase_filters():
         payloads, recons = enc.host_finish(dev)
     t2 = time.perf_counter()
     ps_y = check_payloads(payloads, frames, recons, "filtered path")
+    DECODE["filtered partition key frame (phase 8)"] = (payloads, recons,
+                                                        True, None)
     n = len(frames)
     ms = clock.ms
     stages = ", ".join(f"{k} {ms[k] / n:.1f}" for k in (
@@ -931,6 +960,7 @@ def phase_video():
     print(f"low-delay path: device syncs of the P frame: "
           f"{sum(syncs.values())} ({dict(syncs)})", flush=True)
     ps_y = check_payloads([p0, p1], frames, [r0, r1], "low-delay path")
+    DECODE["partition I+P (phase 10)"] = ([p0, p1], [r0, r1], False, None)
     types = [frame_type(p) for p in (p0, p1)]
     print(f"low-delay path: frame types {types}, luma PSNR "
           f"{', '.join(f'{p:.2f}' for p in ps_y)} dB", flush=True)
@@ -1314,9 +1344,10 @@ def phase_flat_pyramid():
         syncs = Counter(f"{os.path.basename(c.filename)}:{c.lineno}"
                         for c in caught if "synchroniz" in str(c.message) and
                         os.path.basename(c.filename) != here)
-        coded.append(dict(layer=layer, slot=refresh_slot, ms=ms,
-                          clock=clock, m=dict(enc.last_p), bytes=len(out[0]),
-                          launches=wk.LAUNCHES - n0, syncs=syncs))
+        coded.append(dict(layer=layer, slot=refresh_slot, t=refresh_t,
+                          ms=ms, clock=clock, m=dict(enc.last_p),
+                          bytes=len(out[0]), launches=wk.LAUNCHES - n0,
+                          syncs=syncs))
         return out
 
     enc._encode_ref_frame = code_frame
@@ -1379,6 +1410,12 @@ def phase_flat_pyramid():
         raise AssertionError(f"TU kinds {kinds}")
     if coded[0]["m"]["ref_dist"] != 8:
         raise AssertionError("the anchor's reference is not 8 frames away")
+    # the decode-order prefix up to its first overlay, with the display
+    # index of each coded inter frame, for phase 16
+    first = kinds.index("overlay")
+    DECODE["flat pyramid prefix (phase 14)"] = (
+        payloads[:first + 1], recons, False,
+        [None] + [c["t"] for c in coded[:first - 1]])
     ps_y = [psnr(f[0], r_[0]) for f, r_ in zip(frames, recons)]
     print(f"flat pyramid: luma PSNR (display order) "
           f"{', '.join(f'{x:.2f}' for x in ps_y)} dB", flush=True)
@@ -1479,6 +1516,277 @@ def phase_flat_pyramid_card_vs_cpu():
                                  "frames")
 
 
+DECODE = {}          # label -> (payloads, recons, ccso, display index
+#                      of each TU's coded frame or None), from phases
+#                      3, 8, 10 and 14
+DEC_STAGES = (("_parse_tiles", "parse"), ("_residuals", "residual"),
+              ("_predict_inter", "inter"), ("_predict_intra", "intra"),
+              ("_filter_frame", "filters"), ("_output_frame", "output"))
+
+
+def timed_decoder(dec, ms):
+    """Wrap the decoder's stages: each call is timed between two
+    synchronizes into ms[stage name]."""
+    for attr, name in DEC_STAGES:
+        def call(*a, _fn=getattr(dec, attr), _name=name, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            ms[_name] = ms.get(_name, 0.0) + 1e3 * (time.perf_counter() - t0)
+            return out
+        setattr(dec, attr, call)
+    return dec
+
+
+def same_planes(a, b):
+    return all(np.array_equal(x, np.asarray(y)) for x, y in zip(a, b))
+
+
+def phase_decode():
+    """The port's Decoder on the card over the 1080p streams that phases
+    3, 8, 10 and 14 encoded on the card: every output equals the
+    encoder's recon in display order, every no-show frame's DPB entry its
+    recon, and the frame count is right.  Per TU: stage times (each
+    between two synchronizes), device syncs (set_sync_debug_mode, this
+    script's own synchronizes excluded), bytes and q."""
+    from svtav1_tpu_torch.decoder.decoder import Decoder
+    here = os.path.basename(__file__)
+    for label, (payloads, recons, ccso, display) in DECODE.items():
+        ms = {}
+        dec = timed_decoder(Decoder(ccso=ccso, device="cuda"), ms)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        outs, total = [], 0.0
+        for k, p in enumerate(payloads):
+            ms.clear()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    t0 = time.perf_counter()
+                    out = dec.decode_frame_obus(p)
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            total += dt
+            syncs = sum("synchroniz" in str(c.message) and
+                        os.path.basename(c.filename) != here
+                        for c in caught)
+            kind = tu_kind(p)
+            q = "-" if kind == "overlay" else dec.frame_header.base_q_idx
+            stages = ", ".join(f"{n} {ms.get(n, 0.0):.1f}"
+                               for _, n in DEC_STAGES)
+            print(f"decode {label}: TU {k + 1} {kind}, q {q}, {len(p)} "
+                  f"bytes: {1e3 * dt:.1f} ms ({stages} ms), device syncs "
+                  f"{syncs} [{CARD}]", flush=True)
+            if out is not None:
+                if not same_planes(out, recons[len(outs)]):
+                    raise AssertionError(f"decode {label}: output "
+                                         f"{len(outs)} differs from the "
+                                         "encoder's recon")
+                outs.append(out)
+            if kind == "inter, no-show":
+                flags = dec.frame_header.refresh_frame_flags
+                slot = (flags & -flags).bit_length() - 1
+                if not same_planes(dec.reference(slot),
+                                   recons[display[k]]):
+                    raise AssertionError(f"decode {label}: TU {k + 1}'s DPB "
+                                         "entry differs from its recon")
+        want = sum(tu_kind(p) != "inter, no-show" for p in payloads)
+        if len(outs) != want:
+            raise AssertionError(f"decode {label}: {len(outs)} frames, not "
+                                 f"{want}")
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        print(f"decode {label}: {len(payloads)} TUs, {len(outs)} frames "
+              f"equal to the encoder's recons (no-show DPB entries too), "
+              f"{len(outs) / total:.4f} fps ({total:.2f} s), peak device "
+              f"memory {peak:.1f} MiB above what was allocated before "
+              f"[{CARD}]", flush=True)
+
+
+def read_stream(path):
+    from svtav1_tpu_torch.utils.ivf import read_ivf
+    with open(path, "rb") as f:
+        return [p for p, _ in read_ivf(f)[1]]
+
+
+def decode_all(payloads, device, ccso=False):
+    """(the shown frames, the decoder) of a stream on `device`."""
+    from svtav1_tpu_torch.decoder.decoder import Decoder
+    dec = Decoder(ccso=ccso, device=device)
+    return [o for o in map(dec.decode_frame_obus, payloads)
+            if o is not None], dec
+
+
+def frame_md5(planes):
+    import hashlib
+    m = hashlib.md5()
+    for p in planes:
+        m.update(p.tobytes())
+    return m.hexdigest()
+
+
+def tile_spans(payloads, ccso):
+    """Per TU, the lengths of its frame OBU's payload and of the tile data
+    at its end (a CPU decode), or None for a TU without a frame OBU (the
+    frame OBU is each TU's last)."""
+    from svtav1_tpu_torch.decoder.decoder import Decoder
+    dec, spans = Decoder(ccso=ccso, device="cpu"), []
+    parse = dec._parse_tiles
+
+    def record(tile_data, seq, fr):
+        spans[-1] = (spans[-1], len(tile_data))
+        return parse(tile_data, seq, fr)
+
+    dec._parse_tiles = record
+    for p in payloads:
+        last = list(parse_obus(p))[-1]
+        spans.append(len(last[3]) if last[0] == OBU_FRAME else None)
+        dec.decode_frame_obus(p)
+    return spans
+
+
+FLIP_SPANS = {"tile data": lambda obu, tiles: tiles,
+              "tile tail": lambda obu, tiles: min(16, tiles),
+              "frame": lambda obu, tiles: obu}
+
+
+def flip_byte(payload, span, seed):
+    """`payload` with one seeded byte among its last `span` XORed."""
+    rng = np.random.RandomState(seed)
+    b = bytearray(payload)
+    b[len(b) - span + int(rng.randint(span))] ^= int(rng.randint(1, 256))
+    return bytes(b)
+
+
+def decode_outcome(payloads, device, ccso):
+    """The shown frames of a decode, or the DecodeError's message.  Any
+    other exception (a device-side assert surfaces as a RuntimeError)
+    fails the phase."""
+    from svtav1_tpu_torch.decoder.decoder import DecodeError
+    try:
+        return decode_all(payloads, device, ccso)[0]
+    except DecodeError as e:
+        return str(e)
+
+
+def corrupt_card_vs_cpu(label, payloads, ccso):
+    """Seeded one-byte flips in each TU's tile data, in its last 16 tile
+    bytes, and anywhere in its frame OBU: the card raises the CPU's
+    DecodeError or decodes the CPU's frames.  Returns (cases, errors,
+    full decodes, full decodes whose output the flip changed)."""
+    clean = decode_outcome(payloads, "cpu", ccso)
+    n = [0, 0, 0, 0]
+    for k, span in enumerate(tile_spans(payloads, ccso)):
+        if span is None:
+            continue
+        for where, seed in [(w, s) for w in FLIP_SPANS for s in range(2)]:
+            bad = flip_byte(payloads[k], FLIP_SPANS[where](*span), seed)
+            stream = payloads[:k] + [bad] + payloads[k + 1:]
+            card = decode_outcome(stream, "cuda", ccso)
+            cpu = decode_outcome(stream, "cpu", ccso)
+            case = f"{label}, TU {k + 1}, {where}, seed {seed}"
+            n[0] += 1
+            if isinstance(card, str) or isinstance(cpu, str):
+                if card != cpu:
+                    raise AssertionError(f"corrupt {case}: card {card!r}, "
+                                         f"CPU {cpu!r}")
+                n[1] += 1
+                continue
+            if len(card) != len(cpu) or not all(
+                    same_planes(a, b) for a, b in zip(card, cpu)):
+                raise AssertionError(f"corrupt {case}: card and CPU differ")
+            n[2] += 1
+            n[3] += not all(same_planes(a, b) for a, b in zip(card, clean))
+    return n
+
+
+def phase_decode_card_vs_cpu():
+    """The decoder's full syntax on the card and on the CPU: the JAX
+    encoder's fixture streams (compound pyramid, two tile columns,
+    10-bit, angle deltas; outputs also equal the MD5s stored beside them)
+    and two port-encoded 256x128 streams (film grain on the flat
+    low-delay path; CDEF + CCSO + LR on the partition path).
+    Then a stream cut inside its frame header raises DecodeError on the
+    card; seeded byte flips in the fixtures' and the CCSO stream's tile
+    data and frame OBUs give the card the CPU's DecodeError or frames
+    (stream-derived values reach the device stages); and a decode after
+    them still succeeds."""
+    from svtav1_tpu_torch.decoder.decoder import DecodeError
+    from svtav1_tpu_torch.utils.obu import OBU_SEQUENCE_HEADER, wrap_obu
+    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "data", "torch_dec")
+    with open(os.path.join(fix, "md5.json")) as f:
+        md5 = json.load(f)
+    w, h = 256, 128
+    fg = ve.VideoEncoder(ie.EncoderConfig(w, h, film_grain=20, **FLAT),
+                         keyint=64, device="cuda")
+    ccso = ie.IntraEncoder(ie.EncoderConfig(w, h, **FILTERS), device="cuda")
+    streams = {name: (read_stream(os.path.join(fix, f"{name}.ivf")), False,
+                      md5[name]["frames"]) for name in sorted(md5)}
+    streams["film grain 256x128 (port)"] = (
+        fg.encode_frames(moving_frames(w, h, 3))[0], False, None)
+    streams["CDEF + CCSO + LR 256x128 (port)"] = (
+        ccso.encode_frames(edge_frames(w, h, 1))[0], True, None)
+    for label, (payloads, use_ccso, want) in streams.items():
+        t0 = time.perf_counter()
+        card, dec = decode_all(payloads, "cuda", use_ccso)
+        t1 = time.perf_counter()
+        cpu, _ = decode_all(payloads, "cpu", use_ccso)
+        t2 = time.perf_counter()
+        fr = dec.frame_header
+        if "film grain" in label and fr.film_grain is None:
+            raise AssertionError(f"decode {label}: no film grain signalled")
+        if "CCSO" in label and (fr.ccso is None or not any(
+                fr.lr_frame_types) or not any(sum(fr.cdef_y_strengths +
+                                                  fr.cdef_uv_strengths, ()))):
+            raise AssertionError(f"decode {label}: a filter is off")
+        if len(card) != len(cpu) or not all(
+                same_planes(a, b) for a, b in zip(card, cpu)):
+            raise AssertionError(f"decode {label}: card and CPU differ")
+        if want is not None and [frame_md5(o) for o in card] != want:
+            raise AssertionError(f"decode {label}: MD5s differ from the "
+                                 "JAX encoder's recons")
+        print(f"decode card vs CPU, {label}: {len(payloads)} TUs, "
+              f"{len(card)} frames equal"
+              f"{'' if want is None else ', MD5s as stored'} (card "
+              f"{t1 - t0:.2f} s, CPU {t2 - t1:.2f} s)", flush=True)
+    pyr = streams["compound_pyramid"][0]
+    seq = [wrap_obu(t, d) for t, _, _, d in parse_obus(pyr[0])
+           if t == OBU_SEQUENCE_HEADER][0]
+    key = [wrap_obu(t, d) for t, _, _, d in parse_obus(pyr[0])
+           if t == OBU_FRAME][0]
+    try:
+        decode_all([seq + key[:8]], "cuda")        # cut in its header
+    except DecodeError as e:
+        print(f"decode card: a key frame cut in its header raises "
+              f"DecodeError({e})", flush=True)
+    else:
+        raise AssertionError("the cut stream decoded")
+    changed = 0
+    for label in sorted(md5) + ["CDEF + CCSO + LR 256x128 (port)"]:
+        payloads, use_ccso, _ = streams[label]
+        t0 = time.perf_counter()
+        cases, errors, full, diff = corrupt_card_vs_cpu(label, payloads,
+                                                        use_ccso)
+        changed += diff
+        print(f"decode card vs CPU, {label} with a byte flipped: {cases} "
+              f"cases, {errors} equal DecodeErrors, {full} equal full "
+              f"decodes ({diff} of them changed by the flip) "
+              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    if not changed:
+        raise AssertionError("no corrupt stream reached the device stages")
+    again, _ = decode_all(streams["two_tiles"][0], "cuda")
+    if [frame_md5(o) for o in again] != md5["two_tiles"]["frames"]:
+        raise AssertionError("a decode after the DecodeErrors differs")
+    print("decode card: the two-tile stream decodes after them, MD5s as "
+          "stored (the context is not poisoned)", flush=True)
+
+
 CARD = ""
 
 
@@ -1495,8 +1803,10 @@ def main():
     t0 = time.perf_counter()
     so, log = build.build()
     native._load()
-    print(f"build: {time.perf_counter() - t0:.1f} s -> {so.name} and "
-          f"{native.library_path().name}")
+    native._load_reader()
+    print(f"build: {time.perf_counter() - t0:.1f} s -> {so.name}, "
+          f"{native.library_path().name} and "
+          f"{native.library_path(native._READER_SRC, 'libcoeffreader').name}")
     for line in log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
@@ -1528,6 +1838,8 @@ def main():
     phase(phase_flat_video_card_vs_cpu)
     pyr_launches = phase(phase_flat_pyramid)
     phase(phase_flat_pyramid_card_vs_cpu)
+    phase(phase_decode)
+    phase(phase_decode_card_vs_cpu)
     print(f"chip_smoke: total {time.perf_counter() - t0:.1f} s", flush=True)
     kernel = dict(route="cuda", source="svtav1_tpu_torch/csrc/wavefront.cu",
                   replaces="svtav1_tpu/pallas/wavefront_kernel.py:550")

@@ -1,16 +1,20 @@
 """svtav1_tpu_torch — the PyTorch + CUDA port of the AV1 engine in ``svtav1_tpu``.
 
-It runs the encode (8-bit 4:2:0) end to end on an NVIDIA Hopper card: the
-low-delay I/P path that is the CLI's default (``VideoEncoder``: key frames,
-then P frames with motion estimation, motion compensation and inter
-candidates in the partition scan; rate control; on the flat path also the
-hierarchical mini-GoP pyramid with temporal filtering), and both intra
-paths: the partition
-path (64x64 / 32x32 / 16x16 blocks, tx-type search, partition-aware
-deblocking with a DLF level search, the in-loop filters CDEF, CCSO and
-loop restoration when enabled, the Python tile coder) and the flat path of
-presets M11-M13 (32x32 luma / 16x16 chroma blocks, uniform deblocking,
-the native tile coder):
+It runs the encode (8-bit 4:2:0) and the decode end to end on an NVIDIA
+Hopper card.  The encode: the low-delay I/P path that is the CLI's default
+(``VideoEncoder``: key frames, then P frames with motion estimation,
+motion compensation and inter candidates in the partition scan; rate
+control; on the flat path also the hierarchical mini-GoP pyramid with
+temporal filtering), and both intra paths: the partition path (64x64 /
+32x32 / 16x16 blocks, tx-type search, partition-aware deblocking with a
+DLF level search, the in-loop filters CDEF, CCSO and loop restoration when
+enabled, the Python tile coder) and the flat path of presets M11-M13
+(32x32 luma / 16x16 chroma blocks, uniform deblocking, the native tile
+coder).  The decode (``Decoder``, ``dec_app``): every
+stream the JAX package's decoder reads (key and inter frames, compound
+LAST+ALTREF, tile columns, 8- and 10-bit, the in-loop filters,
+show_existing overlays, film grain on the output, metadata OBUs), parsed
+on the host and reconstructed and filtered on the card:
 
 - ``ops``     — plain PyTorch counterparts of the normative integer ops
                 (intra predictors, transforms, quantizer, deblocking,
@@ -19,14 +23,18 @@ the native tile coder):
 - ``encoder`` — the two wavefront mode decisions, motion estimation, the
                 in-loop filter searches, the tile coder, rate control,
                 ``IntraEncoder`` and ``VideoEncoder``.
+- ``decoder`` — ``Decoder``: OBU and tile parse on the host, batched
+                residuals and motion compensation, the serial intra
+                pass and the frame filters on the device.
 - ``csrc``    — the hand-written CUDA kernel of the intra wavefront, built
                 at first use by ``cuda.build`` and bound by ctypes in
                 ``cuda.wavefront_kernel``.
 - ``spec``, ``ec``, ``utils``, ``native`` — the host side: normative
-                tables and their data files, the native C tile coder
-                (built by gcc at first use into ``build/``), OBU and
-                container writers.
-- ``app``     — the Y4M -> IVF command line.
+                tables and their data files, the symbol writers and
+                readers, the native C tile coder and coefficient reader
+                (built by gcc at first use into ``build/``), OBU,
+                metadata and container writers and readers.
+- ``app``     — the Y4M -> IVF command line; ``dec_app`` IVF -> Y4M.
 
 The JAX package ``svtav1_tpu`` stays the reference: the tests feed the
 same inputs to both and compare.  This package imports nothing of it, not
@@ -60,3 +68,12 @@ def upload(a, device) -> torch.Tensor:
     if torch.device(device).type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
+
+
+def __getattr__(name):
+    """``Decoder`` and ``DecodeError`` of ``decoder.decoder``, imported on
+    first use (the encoder's imports do not load the decoder)."""
+    if name in ("Decoder", "DecodeError"):
+        from .decoder import decoder
+        return getattr(decoder, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

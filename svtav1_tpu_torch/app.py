@@ -4,7 +4,8 @@ Usage:
   python -m svtav1_tpu_torch.app -i in.y4m -b out.ivf [-q 100 | --crf N] \
       [--keyint N] [--no-part-search | --preset 6..13] [--cdef] [--lr] \
       [--ccso] [--pyramid [--tf]] [--rc cq|crf|cbr|vbr] [--tbr KBPS] \
-      [-n N] [--batch N] [--stat-report] [--device cuda|cpu]
+      [-n N] [--batch N] [--stat-report] [--mastering-display MD] \
+      [--content-light CLL,FALL] [--device cuda|cpu]
 
 --keyint N > 1 (the default 64) is the low-delay I/P path of
 ``svtav1_tpu/app.py``: a key frame every N frames (or at a scene cut) and
@@ -26,7 +27,9 @@ at a time as ``svtav1_tpu/app.py`` does; its payloads include
 show_existing overlay TUs.  Any other mode (presets 0..5, which search
 angle deltas; --pyramid with the partition search; 10-bit) exits with
 status 2: the JAX package's ``python -m svtav1_tpu.app`` has it.
---stat-report prints PSNR only.
+--mastering-display and --content-light write HDR metadata OBUs into
+the first temporal unit, as ``svtav1_tpu/app.py`` does.  --stat-report
+prints PSNR only.
 """
 
 from __future__ import annotations
@@ -88,6 +91,11 @@ def main(argv=None) -> int:
                    help="frames per device batch (all-intra)")
     p.add_argument("--stat-report", action="store_true",
                    help="print the mean PSNR of the reconstruction")
+    p.add_argument("--mastering-display", default=None, metavar="MD",
+                   help="HDR mastering display metadata OBU, "
+                        "G(x,y)B(x,y)R(x,y)WP(x,y)L(max,min)")
+    p.add_argument("--content-light", default=None, metavar="CLL,FALL",
+                   help="HDR content light level metadata OBU")
     p.add_argument("--device", default="cuda", help="cuda or cpu")
     args = p.parse_args(argv)
     if args.crf is not None:
@@ -110,6 +118,7 @@ def main(argv=None) -> int:
     from .encoder.rate_control import RateControl
     from .encoder.video_encoder import VideoEncoder
     from .utils.ivf import IvfWriter
+    from .utils.metadata import build_metadata_obus
     from .utils.y4m import Y4mReader
 
     with open(args.input, "rb") as fin:
@@ -122,6 +131,12 @@ def main(argv=None) -> int:
                             part_search=not args.no_part_search,
                             enable_cdef=args.cdef, enable_lr=args.lr,
                             enable_ccso=args.ccso)
+        if args.mastering_display or args.content_light:
+            try:
+                cfg = replace(cfg, metadata=build_metadata_obus(
+                    args.mastering_display, args.content_light))
+            except ValueError as e:
+                return _error(str(e))
         if args.preset is not None:
             cfg = apply_preset(cfg, args.preset)
             # explicit flags over the preset

@@ -1,7 +1,8 @@
 """Coefficient (transform block) entropy coding, spec §5.11.39/§8.3.2.
 
-Copy of the writer of ``svtav1_tpu/ec/coeffs.py`` (reference writer
-EbEntropyCoding.c:485-617 av1_write_coeffs_txb_1d, contexts
+Copy of ``svtav1_tpu/ec/coeffs.py`` (reference writer
+EbEntropyCoding.c:485-617 av1_write_coeffs_txb_1d, reader
+EbDecParseBlock.c parse_coeffs, contexts
 EbCoefficients.h:2860-2955, EbCommonUtils.h:126-160).  Context maps are
 computed with numpy over the whole block; only the symbol emission is
 serial.
@@ -9,9 +10,12 @@ serial.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 
 from ..spec import tables as tbl
+from . import native
 
 TX_CLASS_2D, TX_CLASS_HORIZ, TX_CLASS_VERT = 0, 1, 2
 
@@ -309,3 +313,75 @@ def write_coeffs_txb(enc, cdf, levels2d: np.ndarray, tx_size: int,
     elif dc_val > 0:
         cul_level += 2 << COEFF_CONTEXT_BITS
     return cul_level
+
+
+@lru_cache(maxsize=None)
+def _scan16(tx_size: int, tx_type: int) -> np.ndarray:
+    return np.ascontiguousarray(tbl.scan(tx_size, tx_type), np.int16)
+
+
+def read_coeffs_txb(dec, cdf, h: int, w: int, tx_size: int, tx_type: int,
+                    plane_type: int, txb_skip_ctx: int,
+                    dc_sign_ctx: int, is_inter: bool = False,
+                    reduced_tx_set: bool = True,
+                    intra_mode: int = 0) -> np.ndarray:
+    """Parse one transform block (decoder mirror of write_coeffs_txb,
+    reference: EbDecParseBlock.c parse_coeffs).  Returns (levels [h, w],
+    tx_type): for luma with a >1-entry tx set the returned tx_type is the
+    parsed one (the passed value is ignored); otherwise it echoes the
+    caller's (chroma derives its type from luma, never coded).
+
+    The skip flag, tx type and eob are read here; the coefficient loop
+    runs in C (``ec/native.read_coeffs``): JAX's reader recomputes
+    base_ctx_map / br_contexts over the whole block for every coefficient,
+    the C loop reads the same contexts at the coefficient's position (the
+    same symbols, the same result)."""
+    txs = tbl.txs_ctx(tx_size)
+    c_skip = cdf.txb_skip_cdf[txs][txb_skip_ctx]
+    all_zero = dec.decode_symbol(c_skip)
+    cdf.update(c_skip, all_zero)
+    if all_zero:
+        return np.zeros((h, w), np.int32), tx_type
+
+    if plane_type == 0:
+        nsyms, eset, styp = tx_set_params(tx_size, is_inter, reduced_tx_set)
+        if nsyms > 1:
+            sq = tbl.txsize_sqr(tx_size)
+            if is_inter:
+                t = cdf.inter_ext_tx_cdf[eset][sq]
+            else:
+                t = cdf.intra_ext_tx_cdf[eset][sq][intra_mode]
+            sym = dec.decode_symbol(t, nsyms)
+            cdf.update(t, sym, nsyms)
+            tx_type = EXT_TX_INV[styp][sym]
+        else:
+            tx_type = 0
+    tx_class = TX_TYPE_TO_CLASS[tx_type]
+
+    eob_multi_size = (w * h).bit_length() - 1 - 4
+    eob_multi_ctx = 0 if tx_class == TX_CLASS_2D else 1
+    eob_cdf = getattr(cdf, f"eob_flag_cdf{16 << eob_multi_size}")[
+        plane_type][eob_multi_ctx]
+    eob_pt = dec.decode_symbol(eob_cdf) + 1
+    cdf.update(eob_cdf, eob_pt - 1)
+    eob = K_EOB_GROUP_START[eob_pt]
+    offset_bits = K_EOB_OFFSET_BITS[eob_pt]
+    if offset_bits > 0:
+        ec = cdf.eob_extra_cdf[txs][plane_type][eob_pt]
+        bit = dec.decode_symbol(ec)
+        cdf.update(ec, bit)
+        extra = bit << (offset_bits - 1)
+        for i in range(1, offset_bits):
+            extra |= dec.decode_bool(0x4000) << (offset_bits - 1 - i)
+        eob += extra
+
+    # the levels, their signs and Golomb tails: native/coeff_reader.c
+    # (per coefficient, the contexts of base_ctx_map / br_contexts at its
+    # position)
+    levels = native.read_coeffs(
+        dec, h, w, eob, tx_class, _scan16(tx_size, tx_type),
+        cdf.coeff_base_cdf[txs][plane_type],
+        cdf.coeff_br_cdf[min(txs, 3)][plane_type],
+        cdf.coeff_base_eob_cdf[txs][plane_type],
+        cdf.dc_sign_cdf[plane_type][dc_sign_ctx], cdf.update_enabled)
+    return levels, tx_type

@@ -1,16 +1,16 @@
-"""Loop-restoration unit syntax (tile level, write_lr_unit).
+"""Loop-restoration unit syntax (tile level, write_lr_unit / read_lr_unit).
 
-Copy of the writing half of ``svtav1_tpu/ec/lr_syntax.py``.  Spec
-§5.11.57; reference EbEntropyCoding.c:4064-4215
-loop_restoration_write_sb_coeffs.  One restoration unit per plane per
-superblock at the fixed unit sizes (64 luma / 32 chroma).  Coefficients
-are subexp-coded relative to a per-plane reference that resets to
-defaults at tile start.
+Copy of ``svtav1_tpu/ec/lr_syntax.py``.  Spec §5.11.57; reference
+EbEntropyCoding.c:4064-4215 loop_restoration_write_sb_coeffs (write path),
+EbDecParseBlock.c:2532-2680 (read path).  One restoration unit per plane
+per superblock at the fixed unit sizes (64 luma / 32 chroma).
+Coefficients are subexp-coded relative to a per-plane reference that
+resets to defaults at tile start.
 """
 
 from __future__ import annotations
 
-from .subexp import write_signed_refsubexpfin
+from .subexp import read_signed_refsubexpfin, write_signed_refsubexpfin
 
 RESTORE_NONE = 0
 RESTORE_WIENER = 1
@@ -44,6 +44,10 @@ def default_ref_state():
                         int((SGRPROJ_PRJ_MIN1 + SGRPROJ_PRJ_MAX1) / 2)]}
 
 
+def _clamp(v, lo, hi):
+    return max(lo, min(hi, int(v)))
+
+
 def write_wiener_taps(enc, taps, ref, chroma: bool) -> None:
     """taps/ref: 3 coded taps (outermost first); chroma drops tap0."""
     start = 1 if chroma else 0
@@ -52,6 +56,17 @@ def write_wiener_taps(enc, taps, ref, chroma: bool) -> None:
                                   WIENER_TAP_MAX[i] + 1, WIENER_TAP_K[i],
                                   int(ref[i]), int(taps[i]))
     ref[:] = list(taps)
+
+
+def read_wiener_taps(dec, ref, chroma: bool):
+    taps = [0, 0, 0]
+    start = 1 if chroma else 0
+    for i in range(start, 3):
+        taps[i] = read_signed_refsubexpfin(
+            dec, WIENER_TAP_MIN[i], WIENER_TAP_MAX[i] + 1,
+            WIENER_TAP_K[i], int(ref[i]))
+    ref[:] = list(taps)
+    return taps
 
 
 def write_sgr_params(enc, ep: int, xqd, ref) -> None:
@@ -79,6 +94,31 @@ def write_sgr_params(enc, ep: int, xqd, ref) -> None:
     ref[:] = [int(xqd[0]), int(xqd[1])]
 
 
+def read_sgr_params(dec, ref):
+    ep = dec.decode_literal(SGRPROJ_PARAMS_BITS)
+    r0, r1 = SGR_R[ep]
+    if r0 == 0:
+        xqd0 = 0
+        xqd1 = read_signed_refsubexpfin(dec, SGRPROJ_PRJ_MIN1,
+                                        SGRPROJ_PRJ_MAX1 + 1,
+                                        SGRPROJ_PRJ_SUBEXP_K, int(ref[1]))
+    elif r1 == 0:
+        xqd0 = read_signed_refsubexpfin(dec, SGRPROJ_PRJ_MIN0,
+                                        SGRPROJ_PRJ_MAX0 + 1,
+                                        SGRPROJ_PRJ_SUBEXP_K, int(ref[0]))
+        xqd1 = _clamp((1 << SGRPROJ_PRJ_BITS) - xqd0, SGRPROJ_PRJ_MIN1,
+                      SGRPROJ_PRJ_MAX1)
+    else:
+        xqd0 = read_signed_refsubexpfin(dec, SGRPROJ_PRJ_MIN0,
+                                        SGRPROJ_PRJ_MAX0 + 1,
+                                        SGRPROJ_PRJ_SUBEXP_K, int(ref[0]))
+        xqd1 = read_signed_refsubexpfin(dec, SGRPROJ_PRJ_MIN1,
+                                        SGRPROJ_PRJ_MAX1 + 1,
+                                        SGRPROJ_PRJ_SUBEXP_K, int(ref[1]))
+    ref[:] = [xqd0, xqd1]
+    return ep, (xqd0, xqd1)
+
+
 def write_lr_unit(enc, cdf, frame_type: int, unit_type: int, unit,
                   ref, chroma: bool) -> None:
     """unit: dict-like with eps/xqd/taps_v/taps_h fields for this unit."""
@@ -104,3 +144,31 @@ def write_lr_unit(enc, cdf, frame_type: int, unit_type: int, unit,
     elif unit_type == RESTORE_SGRPROJ:
         write_sgr_params(enc, int(unit["eps"]), unit["xqd"],
                          ref["sgr_xqd"])
+
+
+def read_lr_unit(dec, cdf, frame_type: int, ref, chroma: bool):
+    """Returns (unit_type, eps, xqd, taps_v, taps_h)."""
+    if frame_type == RESTORE_NONE:
+        return RESTORE_NONE, 0, (0, 0), (0, 0, 0), (0, 0, 0)
+    if frame_type == RESTORE_SWITCHABLE:
+        t = cdf.switchable_restore_cdf
+        unit_type = dec.decode_symbol(t, 3)
+        cdf.update(t, unit_type)
+    elif frame_type == RESTORE_WIENER:
+        t = cdf.wiener_restore_cdf
+        v = dec.decode_symbol(t, 2)
+        cdf.update(t, v)
+        unit_type = RESTORE_WIENER if v else RESTORE_NONE
+    else:
+        t = cdf.sgrproj_restore_cdf
+        v = dec.decode_symbol(t, 2)
+        cdf.update(t, v)
+        unit_type = RESTORE_SGRPROJ if v else RESTORE_NONE
+    eps, xqd = 0, (0, 0)
+    tv = th = (0, 0, 0)
+    if unit_type == RESTORE_WIENER:
+        tv = tuple(read_wiener_taps(dec, ref["wiener_v"], chroma))
+        th = tuple(read_wiener_taps(dec, ref["wiener_h"], chroma))
+    elif unit_type == RESTORE_SGRPROJ:
+        eps, xqd = read_sgr_params(dec, ref["sgr_xqd"])
+    return unit_type, eps, xqd, tv, th

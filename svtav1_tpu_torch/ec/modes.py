@@ -1,9 +1,9 @@
 """Mode-info symbol writers for intra (key) frames, spec §5.11.17-5.11.26.
 
-Copy of the writers of ``svtav1_tpu/ec/modes.py`` (reference:
-EbEntropyCoding.c write_intra_*, libaom partition_plane_context): the
-partition, edge-partition, skip, kf y mode, uv mode and angle delta
-symbols.
+Copy of ``svtav1_tpu/ec/modes.py`` (reference: EbEntropyCoding.c
+write_intra_*, libaom partition_plane_context): the partition,
+edge-partition, skip, kf y mode, uv mode and angle delta writers, and the
+edge-partition reader.
 """
 
 from __future__ import annotations
@@ -110,3 +110,26 @@ def write_partition_edge(enc, cdf, ctx: int, split: bool, bsize_w: int,
     # scratch 2-symbol icdf: sym 1 = SPLIT with prob psum/32768
     icdf = np.array([psum, 0, 0], np.int32)
     enc.encode_symbol(1 if split else 0, icdf, 2)
+
+
+def read_partition_edge(dec, cdf, ctx: int, bsize_w: int,
+                        has_rows: bool, has_cols: bool) -> int:
+    """Decoder mirror of write_partition_edge: returns the partition
+    (PARTITION_SPLIT / PARTITION_HORZ / PARTITION_VERT).  No CDF
+    adaptation — the scratch bool is derived per read
+    (EbDecParseBlock.c:1940-1954)."""
+    if not has_rows and not has_cols:
+        return PARTITION_SPLIT
+    t = cdf.partition_cdf[ctx]
+    n = n_partition_symbols(bsize_w)
+    if has_cols:
+        elems = [PARTITION_VERT, PARTITION_SPLIT, PARTITION_HORZ_A,
+                 PARTITION_VERT_A, PARTITION_VERT_B, PARTITION_VERT_4]
+        other = PARTITION_HORZ
+    else:
+        elems = [PARTITION_HORZ, PARTITION_SPLIT, PARTITION_HORZ_A,
+                 PARTITION_HORZ_B, PARTITION_VERT_A, PARTITION_HORZ_4]
+        other = PARTITION_VERT
+    psum = sum(_cdf_elem_prob(t, e, n) for e in elems if e < n)
+    icdf = np.array([psum, 0, 0], np.int32)
+    return PARTITION_SPLIT if dec.decode_symbol(icdf, 2) else other

@@ -1,9 +1,11 @@
-"""ctypes binding of the native tile entropy coder (``native/tile_coder.c``).
-
-Copy of ``svtav1_tpu/ec/native.py`` with its own copy of the C source
-beside it.  gcc builds the source at first use into the git-ignored
-``svtav1_tpu_torch/build/``, keyed by a hash of the source and the flags
-(not by mtime, which a copy of the tree can reset).  A failed build raises.
+"""ctypes bindings of the native host code: the tile entropy coder of the
+flat path (``native/tile_coder.c``; copy of ``svtav1_tpu/ec/native.py``
+with its own copy of the C source beside it) and the decoder's
+coefficient reader (``native/coeff_reader.c``, the loop of
+``ec/coeffs.py::read_coeffs_txb``).  gcc builds each source at first use
+into the git-ignored ``svtav1_tpu_torch/build/``, keyed by a hash of the
+source and the flags (not by mtime, which a copy of the tree can reset).
+A failed build raises.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from ..spec import tables as tbl
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "native" / "tile_coder.c"
+_READER_SRC = _PKG / "native" / "coeff_reader.c"
 _BUILD_DIR = _PKG / "build"
 _CFLAGS = ("-O3", "-fPIC", "-shared")
 
@@ -37,30 +40,35 @@ class _Tables(ctypes.Structure):
 
 
 _lib = None
+_reader = None
 
 
-def library_path() -> Path:
+def library_path(src: Path = _SRC, stem: str = "libtilecoder") -> Path:
     """Where the library built from the current source and flags lives."""
     h = hashlib.sha256(" ".join(_CFLAGS).encode())
-    h.update(_SRC.read_bytes())
-    return _BUILD_DIR / f"libtilecoder_{h.hexdigest()[:16]}.so"
+    h.update(src.read_bytes())
+    return _BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
+
+
+def _build(src: Path, stem: str) -> ctypes.CDLL:
+    so = library_path(src, stem)
+    if not so.exists():
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        r = subprocess.run(["gcc", *_CFLAGS, "-o", str(tmp), str(src)],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"native build failed: {r.stderr[:500]}")
+        os.replace(tmp, so)
+    return ctypes.CDLL(str(so))
 
 
 def _load():
     global _lib
     if _lib is not None:
         return _lib
-    so = library_path()
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        r = subprocess.run(["gcc", *_CFLAGS, "-o", str(tmp), str(_SRC)],
-                           capture_output=True, text=True)
-        if r.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"native build failed: {r.stderr[:500]}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib = _build(_SRC, "libtilecoder")
     lib.encode_tile_intra.restype = ctypes.c_long
     lib.encode_tile_intra.argtypes = [
         ctypes.c_char_p, ctypes.c_long, ctypes.c_int, ctypes.c_int,
@@ -71,6 +79,42 @@ def _load():
         np.ctypeslib.ndpointer(np.int32)]
     _lib = lib
     return lib
+
+
+def _load_reader():
+    global _reader
+    if _reader is None:
+        lib = _build(_READER_SRC, "libcoeffreader")
+        u16 = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
+        lib.read_coeffs.restype = ctypes.c_int
+        lib.read_coeffs.argtypes = [
+            ctypes.c_char_p, ctypes.c_long,
+            np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS"),
+            u16, u16, u16, u16, ctypes.c_int,
+            np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")]
+        _reader = lib
+    return _reader
+
+
+def read_coeffs(dec, h: int, w: int, eob: int, tx_class: int, scan,
+                base, br, eob_base, dc_sign, adapt: bool) -> np.ndarray:
+    """The coefficient loop of read_coeffs_txb in C on `dec`'s state (a
+    RangeDecoder, advanced in place) and the CDF rows base [42, 5], br [21,
+    5], eob_base [4, 4] and dc_sign [3] (adapted in place when adapt):
+    the block's [h, w] int32 levels.  Raises ValueError where the stream
+    codes a level beyond int32."""
+    lib = _load_reader()
+    state = np.array([dec.bptr, dec.dif, dec.rng, dec.cnt], np.int64)
+    out = np.zeros((h, w), np.int32)
+    err = lib.read_coeffs(dec.data, len(dec.data), state, h, w, eob,
+                          tx_class, scan, base, br, eob_base, dc_sign,
+                          int(adapt), out)
+    dec.bptr, dec.dif, dec.rng, dec.cnt = (int(v) for v in state)
+    if err:
+        raise ValueError("coefficient level beyond int32")
+    return out
 
 
 def encode_tile_intra(width: int, height: int, update_cdf: bool,

@@ -1,10 +1,12 @@
-"""AV1 multi-symbol range (entropy) encoder, Daala EC per AV1 spec §8.2.
+"""AV1 multi-symbol range (entropy) coder, Daala EC per AV1 spec §8.2.
 
-Copy of the encoder half of ``svtav1_tpu/ec/range_coder.py`` (bit-exact
-to the reference encoder, EbBitstreamUnit.c:107-406).  CDFs use the
-"inverse CDF" convention: icdf[s] = 32768 - cum_prob(<= s); icdf[nsyms-1]
-= 0.  The partition path's tile coder (``encoder/tile_codec.py``) writes
-through it; the flat path uses the native C coder.
+Copy of ``svtav1_tpu/ec/range_coder.py`` (bit-exact to the reference
+encoder, EbBitstreamUnit.c:107-406, and its decoder,
+EbDecBitstreamUnit.c).  CDFs use the "inverse CDF" convention: icdf[s] =
+32768 - cum_prob(<= s); icdf[nsyms-1] = 0.  The partition path's tile
+coder (``encoder/tile_codec.py``) writes through RangeEncoder (the flat
+path uses the native C coder); the decoder reads through RangeDecoder,
+whose state the native coefficient reader advances in place.
 """
 
 from __future__ import annotations
@@ -124,3 +126,80 @@ class RangeEncoder:
             out[i] = carry & 0xFF
             carry >>= 8
         return bytes(out)
+
+
+class RangeDecoder:
+    """The decoder's mirror of RangeEncoder over one tile's bytes."""
+
+    def __init__(self, data: bytes) -> None:
+        self.data = data
+        self.bptr = 0
+        self.dif = (1 << (WINDOW - 1)) - 1
+        self.rng = 0x8000
+        self.cnt = -15
+        self._refill()
+
+    def _refill(self) -> None:
+        s = WINDOW - 9 - (self.cnt + 15)
+        while s >= 0 and self.bptr < len(self.data):
+            self.dif ^= self.data[self.bptr] << s
+            self.cnt += 8
+            self.bptr += 1
+            s -= 8
+        if self.bptr >= len(self.data):
+            self.cnt = (1 << 14)  # effectively "lots of bits" of zeros
+
+    def decode_symbol(self, icdf, nsyms: int | None = None) -> int:
+        """Mirror of encode_symbol; icdf layout includes the counter slot.
+        The renormalisation is inlined here and in decode_bool (the
+        parse's innermost calls)."""
+        if nsyms is None:
+            nsyms = len(icdf) - 1
+        r = self.rng
+        c = self.dif >> (WINDOW - 16)
+        r8 = r >> 8
+        n4 = EC_MIN_PROB * (nsyms - 1)
+        v = r
+        ret = -1
+        while True:
+            ret += 1
+            u = v
+            v = (((r8 * (icdf.item(ret) >> EC_PROB_SHIFT))
+                  >> (7 - EC_PROB_SHIFT)) + n4 - EC_MIN_PROB * ret)
+            if c >= v:
+                break
+        r = u - v
+        d = 16 - r.bit_length()
+        self.cnt -= d
+        self.dif = ((((self.dif - (v << (WINDOW - 16))) + 1) << d) - 1) & \
+            _WMASK
+        self.rng = (r << d) & 0xFFFF
+        if self.cnt < 0:
+            self._refill()
+        return ret
+
+    def decode_bool(self, f: int = 0x4000) -> int:
+        dif, r = self.dif, self.rng
+        v = (((r >> 8) * (f >> EC_PROB_SHIFT)) >> (7 - EC_PROB_SHIFT)) + \
+            EC_MIN_PROB
+        vw = v << (WINDOW - 16)
+        if dif >= vw:
+            ret = 0
+            dif -= vw
+            r -= v
+        else:
+            ret = 1
+            r = v
+        d = 16 - r.bit_length()
+        self.cnt -= d
+        self.dif = (((dif + 1) << d) - 1) & _WMASK
+        self.rng = (r << d) & 0xFFFF
+        if self.cnt < 0:
+            self._refill()
+        return ret
+
+    def decode_literal(self, bits: int) -> int:
+        v = 0
+        for _ in range(bits):
+            v = (v << 1) | self.decode_bool(0x4000)
+        return v

@@ -158,16 +158,12 @@ class CdfContext:
             return
         if nsymbs is None:
             nsymbs = len(cdf) - 1
-        count = int(cdf[nsymbs])
+        count = cdf.item(nsymbs)
         rate = 3 + (count > 15) + (count > 31) + _NSYMBS2SPEED[nsymbs]
-        tmp = 32768
-        for i in range(nsymbs - 1):
-            if i == val:
-                tmp = 0
-            c = int(cdf[i])
-            if tmp < c:
-                cdf[i] = c - ((c - tmp) >> rate)
-            else:
-                cdf[i] = c + ((tmp - c) >> rate)
+        # icdf entries below val move up toward 32768, the others down
+        # toward 0 (libaom's tmp = 32768 / 0 on either side of val)
+        cdf[:nsymbs - 1] = [c + ((32768 - c) >> rate) if i < val
+                            else c - (c >> rate)
+                            for i, c in enumerate(cdf[:nsymbs - 1].tolist())]
         if count < 32:
             cdf[nsymbs] = count + 1

@@ -1,8 +1,8 @@
-"""Bit-level writer and LEB128 for AV1 headers and containers.
+"""Bit-level writer and reader and LEB128 for AV1 headers and containers.
 
-Copy of ``svtav1_tpu/utils/bitio.py``, cut to what the port writes.  AV1
-headers are written MSB-first ("f(n)" in the AV1 spec §4.10.2); sizes use
-LEB128 (§4.10.5).
+Copy of ``svtav1_tpu/utils/bitio.py``, cut to what the port writes and
+the decoder reads.  AV1 headers are written MSB-first ("f(n)" in the AV1
+spec §4.10.2); sizes use LEB128 (§4.10.5).
 """
 
 from __future__ import annotations
@@ -36,6 +36,50 @@ class BitWriter:
     def data(self) -> bytes:
         """Byte-aligned contents (zero-padded in the final partial byte)."""
         return bytes(self._bytes)
+
+
+class BitReader:
+    """MSB-first bit reader (the decoder's header parse)."""
+
+    def __init__(self, data: bytes) -> None:
+        self._data = data
+        self._pos = 0  # bit position
+
+    def f(self, n: int) -> int:
+        v = 0
+        for _ in range(n):
+            byte = self._data[self._pos >> 3]
+            v = (v << 1) | ((byte >> (7 - (self._pos & 7))) & 1)
+            self._pos += 1
+        return v
+
+    def bit(self) -> int:
+        return self.f(1)
+
+    def uvlc(self) -> int:
+        leading_zeros = 0
+        while self.f(1) == 0:
+            leading_zeros += 1
+            if leading_zeros >= 32:
+                return (1 << 32) - 1
+        if leading_zeros == 0:
+            return 0
+        return (1 << leading_zeros) - 1 + self.f(leading_zeros)
+
+    def ns(self, n: int) -> int:
+        w = n.bit_length()
+        m = (1 << w) - n
+        v = self.f(w - 1)
+        if v < m:
+            return v
+        return (v << 1) - m + self.f(1)
+
+    def byte_align(self) -> None:
+        self._pos = (self._pos + 7) & ~7
+
+    @property
+    def bits_read(self) -> int:
+        return self._pos
 
 
 def leb128_encode(value: int) -> bytes:

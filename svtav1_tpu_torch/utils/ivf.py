@@ -1,9 +1,9 @@
-"""IVF container writer; copy of ``svtav1_tpu/utils/ivf.py``."""
+"""IVF container writer and reader; copy of ``svtav1_tpu/utils/ivf.py``."""
 
 from __future__ import annotations
 
 import struct
-from typing import BinaryIO
+from typing import BinaryIO, Iterator, Tuple
 
 IVF_FOURCC = b"AV01"
 
@@ -30,3 +30,23 @@ class IvfWriter:
         self._fp.write(struct.pack("<I", self._frame_count))
         self._fp.seek(end)
         self._fp.flush()
+
+
+def read_ivf(fp: BinaryIO) -> Tuple[dict, Iterator[Tuple[bytes, int]]]:
+    hdr = fp.read(32)
+    magic, version, hdr_size, fourcc, w, h, tb_den, tb_num, nframes = (
+        struct.unpack("<4sHH4sHHIII", hdr[:28]))
+    if magic != b"DKIF":
+        raise ValueError("not an IVF file")
+    info = dict(fourcc=fourcc, width=w, height=h,
+                timebase_num=tb_num, timebase_den=tb_den, frame_count=nframes)
+
+    def frames():
+        while True:
+            fh = fp.read(12)
+            if len(fh) < 12:
+                return
+            size, pts = struct.unpack("<IQ", fh)
+            yield fp.read(size), pts
+
+    return info, frames()

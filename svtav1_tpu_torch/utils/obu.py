@@ -7,6 +7,8 @@ from .bitio import leb128_decode, leb128_encode
 OBU_SEQUENCE_HEADER = 1
 OBU_TEMPORAL_DELIMITER = 2
 OBU_FRAME_HEADER = 3
+OBU_TILE_GROUP = 4
+OBU_METADATA = 5
 OBU_FRAME = 6
 
 

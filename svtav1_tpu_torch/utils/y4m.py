@@ -1,4 +1,4 @@
-"""Y4M (YUV4MPEG2) reader; copy of ``svtav1_tpu/utils/y4m.py``.
+"""Y4M (YUV4MPEG2) reader and writer; copy of ``svtav1_tpu/utils/y4m.py``.
 
 Frames are returned as numpy arrays: a tuple (y, u, v) with dtype uint8 (8-bit)
 or uint16 (10-bit).
@@ -100,3 +100,22 @@ class Y4mReader:
             u = np.frombuffer(self._fp.read(csize), dtype).reshape(cshape)
             v = np.frombuffer(self._fp.read(csize), dtype).reshape(cshape)
             yield y, u, v
+
+
+class Y4mWriter:
+    def __init__(self, fp: BinaryIO, info: Y4mInfo):
+        self._fp = fp
+        self.info = info
+        cs = {8: info.subsampling,
+              10: info.subsampling + "p10"}[info.bit_depth]
+        if cs == "420":
+            cs = "420jpeg"
+        fp.write(f"YUV4MPEG2 W{info.width} H{info.height} "
+                 f"F{info.fps_num}:{info.fps_den} {info.interlace} "
+                 f"{info.aspect} C{cs}\n".encode())
+
+    def write_frame(self, y: np.ndarray, u: np.ndarray,
+                    v: np.ndarray) -> None:
+        self._fp.write(b"FRAME\n")
+        for plane in (y, u, v):
+            self._fp.write(np.ascontiguousarray(plane).tobytes())

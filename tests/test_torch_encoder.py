@@ -2,7 +2,8 @@
 
 Payloads must be byte-identical to the JAX flat path whenever every block
 picks the same candidate (asserted first), and the JAX package's own
-decoder must reproduce the port's reconstruction exactly.
+decoder must reproduce the port's reconstruction exactly.  The CLI's HDR
+metadata flags write the JAX CLI's bytes.
 """
 
 import subprocess
@@ -186,3 +187,44 @@ def test_cli_rejects_other_modes(tmp_path, extra):
     rc = app.main(["-i", str(src), "-b", str(tmp_path / "o.ivf"),
                    "--device", "cpu", *extra])
     assert rc == 2
+
+
+MD = "G(0.265,0.69)B(0.15,0.06)R(0.68,0.32)WP(0.3127,0.329)L(1000,0.01)"
+
+
+def test_cli_metadata_matches_jax(tmp_path):
+    """--mastering-display and --content-light: the port's CLI writes the
+    JAX CLI's IVF bytes (the flat path at 128x64: the JAX side hits the
+    `both` fixture's compiled calls), and the port's decoder returns the
+    metadata the JAX Decoder returns."""
+    from svtav1_tpu import app as japp
+    from svtav1_tpu_torch.decoder.decoder import Decoder as TDecoder
+    src = tmp_path / "in.y4m"
+    _write_y4m(src, 128, 64, 2)
+    args = ["-i", str(src), "-q", "100", "--keyint", "1",
+            "--no-part-search", "--mastering-display", MD,
+            "--content-light", "1000,400"]
+    jout, tout = tmp_path / "j.ivf", tmp_path / "t.ivf"
+    assert japp.main(args + ["-b", str(jout)]) == 0
+    assert app.main(args + ["-b", str(tout), "--device", "cpu"]) == 0
+    assert tout.read_bytes() == jout.read_bytes()
+    tdec, jdec = TDecoder(device="cpu"), Decoder()
+    with open(tout, "rb") as f:
+        for p, _ in read_ivf(f)[1]:
+            for a, b in zip(tdec.decode_frame_obus(p),
+                            jdec.decode_frame_obus(p)):
+                np.testing.assert_array_equal(a, b)
+    assert [m[0] for m in tdec.metadata] == [2, 1]
+    assert [(t, vars(v)) for t, v in tdec.metadata] == \
+        [(t, vars(v)) for t, v in jdec.metadata]
+
+
+@pytest.mark.parametrize("flag", [["--content-light", "1000"],
+                                  ["--mastering-display", "G(1,2)"]])
+def test_cli_bad_metadata_exits_2(tmp_path, flag, capsys):
+    src = tmp_path / "in.y4m"
+    _write_y4m(src, 128, 64, 1)
+    rc = app.main(["-i", str(src), "-b", str(tmp_path / "o.ivf"),
+                   "--device", "cpu"] + flag)
+    assert rc == 2
+    assert capsys.readouterr().err.startswith("error: ")

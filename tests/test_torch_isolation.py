@@ -4,9 +4,12 @@ port encodes with all three blocked, on the flat and on the partition
 path, with the in-loop filters on, on the low-delay inter path (a key
 frame and a P frame, partition and flat) and on the flat pyramid with
 temporal filtering and rate control (a key frame and a mini-GoP of 4).
+It also decodes with all three blocked: a flat pyramid stream it encodes
+and the JAX encoder's compound pyramid fixture.
 """
 
 import ast
+import os
 import subprocess
 import sys
 import textwrap
@@ -34,6 +37,12 @@ def test_no_module_of_the_port_imports_the_reference():
            for f in files for line, name in _imported(f) if name in BLOCKED]
     assert not bad, "\n".join(bad)
 
+
+# The subprocesses run one OpenMP thread: beside the other test workers'
+# processes, torch's 8-thread parallel regions wait on descheduled threads
+# (the encode below took over 300 s that way, 10 s alone; 70 s with one
+# thread under the same load).
+_ONE_THREAD = dict(os.environ, OMP_NUM_THREADS="1")
 
 _ENCODE_BLOCKED = textwrap.dedent("""
     import sys
@@ -80,6 +89,47 @@ _ENCODE_BLOCKED = textwrap.dedent("""
 def test_port_encodes_with_the_reference_blocked():
     code = _ENCODE_BLOCKED.format(blocked=BLOCKED)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                       capture_output=True, text=True, timeout=300)
+                       capture_output=True, text=True, timeout=300,
+                       env=_ONE_THREAD)
+    assert r.returncode == 0, r.stderr
+    assert "ISOLATED_OK" in r.stdout
+
+
+_DECODE_BLOCKED = textwrap.dedent("""
+    import hashlib, json, sys
+    for name in {blocked!r}:
+        sys.modules[name] = None          # any import of it raises
+    import numpy as np
+    from svtav1_tpu_torch import Decoder
+    from svtav1_tpu_torch.cuda.inputs import moving_frames
+    from svtav1_tpu_torch.encoder.intra_encoder import EncoderConfig
+    from svtav1_tpu_torch.encoder.video_encoder import VideoEncoder
+    from svtav1_tpu_torch.utils.ivf import read_ivf
+    enc = VideoEncoder(EncoderConfig(128, 64, part_search=False),
+                       pyramid=True, gop=4, tf=True, device="cpu")
+    payloads, recons = enc.encode_frames(moving_frames(128, 64, 5))
+    p, r = enc.flush()
+    dec = Decoder(device="cpu")
+    outs = [o for o in map(dec.decode_frame_obus, payloads + p) if o]
+    assert len(outs) == 5
+    for o, rec in zip(outs, recons + r):
+        assert all(np.array_equal(a, b) for a, b in zip(o, rec))
+    fix = "tests/data/torch_dec/"
+    with open(fix + "compound_pyramid.ivf", "rb") as f:
+        tus = [t for t, _ in read_ivf(f)[1]]
+    dec = Decoder(device="cpu")
+    md5 = [hashlib.md5(b"".join(x.tobytes() for x in o)).hexdigest()
+           for o in map(dec.decode_frame_obus, tus) if o is not None]
+    want = json.load(open(fix + "md5.json"))["compound_pyramid"]["frames"]
+    assert md5 == want
+    print("ISOLATED_OK")
+""")
+
+
+def test_port_decodes_with_the_reference_blocked():
+    code = _DECODE_BLOCKED.format(blocked=BLOCKED)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300,
+                       env=_ONE_THREAD)
     assert r.returncode == 0, r.stderr
     assert "ISOLATED_OK" in r.stdout
