@@ -6,7 +6,9 @@ and the flat low-delay path (presets M11-M13, --no-part-search) and the
 flat pyramid (--pyramid --tf, hierarchical mini-GoPs with temporal
 filtering, long-range motion search and rate control), whose P frames run
 the kernel with inter lanes; then decode the card's streams on the card
-with the port's decoder.
+with the port's decoder; then the same at 10 bits: the 10-bit form of the
+kernel, the 10-bit main path and flat I+P at 1080p, their decode, and the
+four 10-bit paths card against CPU at 256x128.
 
     python3 chip_smoke.py
 
@@ -14,7 +16,8 @@ Phases (any failure raises, so the script exits non-zero and never prints
 its last line):
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
   1. build the kernels from svtav1_tpu_torch/csrc (and the native tile
-     coder); registers, spills and CTAs per SM of the wavefront kernel;
+     coder); registers, spills, CTAs per SM and clusters that fit of the
+     wavefront kernel's 8-bit (uint8_t) and 10-bit (uint16_t) forms;
   2. the kernel against its plain PyTorch version on the card, under the
      agreement bar of the wavefront tests (>= 99% equal modes, levels
      equal where the mode agrees, recon equal when every mode agrees), at
@@ -35,13 +38,19 @@ its last line):
      frame 0: ME, GM fit, filter pick and MC on the card, the masks as the
      encoder builds them), under phase 2's bar, with kernel and plain
      times and the bound;
+     (2c, before 3) the kernel's 10-bit form against its plain version at
+     the 10-bit main path's shapes (luma 1x and 4x1088x1920, paired
+     chroma 2x and 8x544x960, ``cuda/inputs.plane_src10``) and at the
+     10-bit flat P frame's lane shapes (``moving_frames10``), under phase
+     2's bar, 3 identical runs a shape with a clear error word; kernel ms
+     by CUDA events, plain ms from its one run, the bound;
   4. a torch.profiler window over one device_encode batch: device time by
      kernel and the device's busy share of the window, both from the
      events that ran on the card (kernels, copies, memsets), the busy time
      as the union of their intervals;
   5. the partition path: IntraEncoder(1920, 1080, qindex=100) with its
      defaults (64/32/16 partition search, tx-type search, DLF level
-     search) on one batch of 2 frames of the synthetic clip with busy
+     search) on one frame of the synthetic clip with busy
      bands (the clip alone codes as 64x64 blocks); wall time of each stage
      after a synchronize (luma and chroma wavefronts, DLF search, deblock,
      tile coder per frame) and e2e fps; every payload parses as OBUs,
@@ -91,13 +100,13 @@ its last line):
      byte-identical payloads and equal recons, else the first frame that
      differs is reported (the frames after it have other references);
  12. the flat low-delay path: VideoEncoder(1920, 1080, qindex=100,
-     part_search=False, keyint=64) on 3 frames of ``moving_frames`` (I, P,
+     part_search=False, keyint=64) on 2 frames of ``moving_frames`` (I,
      P), with the kernel launch counts set to 0 before and read after.
      Wall time of each P-frame stage after a synchronize (ME, GM fit,
      filter pick, luma MC, luma wavefront, chroma MC, chroma wavefront,
      deblock, read-back, tile coder), the kernel launches of each wavefront
-     kind, the device syncs of the second P frame by source line, the
-     inter share and the inter modes coded, e2e fps.  Checks: KEY, INTER,
+     kind, the device syncs of the last P frame by source line, the
+     inter share and the inter modes coded, e2e fps.  Checks: KEY, then
      INTER; one luma and one U+V launch a P frame; more than half of each
      P frame's luma blocks inter; payloads parse; luma PSNR > 30 dB;
  13. the flat low-delay path at 256x128 (I, P, P) on the card and on the
@@ -143,7 +152,28 @@ its last line):
      in the tile data, the last 16 tile bytes and the frame OBUs of the
      fixtures and the CCSO stream give the card the CPU's DecodeError or
      frames (some flips decode to changed frames, so corrupt values reach
-     the device stages); and a decode after them still succeeds.
+     the device stages); and a decode after them still succeeds;
+ 18. the 10-bit main path: IntraEncoder(1920, 1080, qindex=100,
+     bit_depth=10, part_search=False) on 8 frames of
+     ``cuda/inputs.synth_frames10``, batch 4, overlapped as in phase 3,
+     with the launch count set to 0 before and read after: 2 kernel
+     launches a batch, payloads parse, luma PSNR (peak 1023) > 30 dB,
+     payloads byte-identical to the plain version on the card when every
+     mode agrees, e2e and device-only fps;
+ 19. the 10-bit flat low-delay path at 1080p, I+P of ``moving_frames10``
+     (``part_search=False, keyint=64``): stage times as in phase 12, one
+     luma and one U+V launch for the P frame, KEY then INTER, more than
+     half the P frame's luma blocks inter;
+ 20. the card decodes the streams of phases 18 (its first TU) and 19 with
+     the port's Decoder, as in phase 16: every uint16 output equals the
+     encoder's recon; decode fps;
+ 21. the 10-bit paths at 256x128 on the card and on the CPU: partition
+     all-intra with CDEF + LR + CCSO (2 frames of ``edge_frames10``),
+     low-delay partition I, P, P and flat I, P, P (``moving_frames10``),
+     and the flat pyramid (gop 4, TF on, 9 frames; the card's filtered
+     anchors fed to the CPU encoder): per coded unit the agreement of
+     every decision map, and byte-identical payloads plus equal recons
+     whenever every map agrees.
 Then the script's total time, one JSON line of kernel results and, last,
 one JSON line naming the device.  To run only phases 10-11:
 ``python3 -c "import chip_smoke as cs; cs.CARD = cs.card();
@@ -155,8 +185,12 @@ cs.phase_flat_video_card_vs_cpu()"``; phases 14 and 15 alone:
 cs.phase_flat_pyramid(); cs.phase_flat_pyramid_card_vs_cpu()"``; phases
 16 and 17 on the pyramid's stream alone: ``python3 -c "import chip_smoke
 as cs; cs.CARD = cs.card(); cs.phase_flat_pyramid(); cs.phase_decode();
-cs.phase_decode_card_vs_cpu()"``.  Imports nothing of JAX or of the JAX
-package.
+cs.phase_decode_card_vs_cpu()"``; the 10-bit phases alone (2c, 18-21):
+``python3 -c "import chip_smoke as cs; cs.CARD = cs.card();
+cs.phase_build(); cs.phase_compare(); cs.phase_compare_10bit();
+cs.phase_main_path(10); cs.phase_flat_video(10);
+cs.phase_decode(cs.DECODE10); cs.phase_10bit_card_vs_cpu()"``.  Imports
+nothing of JAX or of the JAX package.
 """
 
 import gc
@@ -174,8 +208,10 @@ from svtav1_tpu_torch import upload
 from svtav1_tpu_torch.cuda import build
 from svtav1_tpu_torch.cuda import wavefront_kernel as wk
 from svtav1_tpu_torch.cuda.inputs import (SHAPES_1080P, banded_frames,
-                                          card, edge_frames, moving_frames,
-                                          plane_src, synth_frames)
+                                          card, edge_frames, edge_frames10,
+                                          moving_frames, moving_frames10,
+                                          plane_src, plane_src10,
+                                          synth_frames, synth_frames10)
 from svtav1_tpu_torch.ec import native
 from svtav1_tpu_torch.encoder import intra_encoder as ie
 from svtav1_tpu_torch.encoder import lr_search as lrs
@@ -215,11 +251,11 @@ def agree(ref, got, label):
     return frac, err
 
 
-def wf_args(bs, q, chroma, valid_h=None):
+def wf_args(bs, q, chroma, valid_h=None, bd=8):
     cands = expand_candidates(ie.CAND_MODES)
-    rd = rd_params(q, 8, cands, kf="uv" if chroma else True)
+    rd = rd_params(q, bd, cands, kf="uv" if chroma else True)
     kw = dict(valid_h=valid_h, paired=chroma, uv_tx=chroma)
-    return rd, (bs, TX_16X16 if chroma else TX_32X32, ie.CAND_MODES, 8,
+    return rd, (bs, TX_16X16 if chroma else TX_32X32, ie.CAND_MODES, bd,
                 (0,)), kw
 
 
@@ -301,14 +337,20 @@ def plain_wavefront(src, bs, tx_size, qindex, modes, bd=8, angle_deltas=(0,),
                            valid_h, paired, uv_tx)
 
 
-def psnr(a, b):
+def psnr(a, b, bd=8):
+    """Luma PSNR at the peak of bd bits."""
     mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
-    return 99.0 if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+    peak = float((1 << bd) - 1)
+    return 99.0 if mse == 0 else 10 * np.log10(peak ** 2 / mse)
 
 
-def phase_main_path():
-    cfg = ie.EncoderConfig(W, H, qindex=100, part_search=False)
-    frames = synth_frames(W, H, 12)
+def phase_main_path(bd=8):
+    """The flat all-intra main path (phase 3; at bd=10 phase 18: 8 frames
+    of the 10-bit clip through the kernel's 10-bit form)."""
+    cfg = ie.EncoderConfig(W, H, qindex=100, part_search=False,
+                           bit_depth=bd)
+    frames = synth_frames(W, H, 12) if bd == 8 else synth_frames10(W, H, 8)
+    name = "main path" if bd == 8 else "10-bit main path"
     enc = ie.IntraEncoder(cfg, device="cuda")
 
     def queue(batch):
@@ -340,10 +382,14 @@ def phase_main_path():
     marks.append(time.perf_counter())
     launches = wk.LAUNCHES
     wk.raise_on_error(DEV)
-    DECODE["flat key frame (phase 3)"] = (payloads[:1], recons[:1], False,
-                                          None)
+    if bd == 8:
+        DECODE["flat key frame (phase 3)"] = (payloads[:1], recons[:1],
+                                              False, None)
+    else:
+        DECODE10["10-bit flat key frame (phase 18)"] = (
+            payloads[:1], recons[:1], False, None)
     want = 2 * (len(frames) // BATCH)     # one launch per plane call
-    print(f"main path: {len(payloads)} frames, {sum(map(len, payloads))} "
+    print(f"{name}: {len(payloads)} frames, {sum(map(len, payloads))} "
           f"bytes, kernel launches {launches} (expected {want}), "
           "device_encode queued without a host sync", flush=True)
     if launches != want:
@@ -352,9 +398,9 @@ def phase_main_path():
         obus = list(parse_obus(p))
         if not p or not any(t == OBU_FRAME and len(d) for t, _, _, d in obus):
             raise AssertionError(f"frame {k}: no OBU_FRAME in the payload")
-    ps_y = [psnr(f[0], r[0]) for f, r in zip(frames, recons)]
-    print(f"main path: luma PSNR min {min(ps_y):.2f} dB, mean "
-          f"{np.mean(ps_y):.2f} dB", flush=True)
+    ps_y = [psnr(f[0], r[0], bd) for f, r in zip(frames, recons)]
+    print(f"{name}: luma PSNR min {min(ps_y):.2f} dB, mean "
+          f"{np.mean(ps_y):.2f} dB (peak {(1 << bd) - 1})", flush=True)
     if min(ps_y) <= 30.0:
         raise AssertionError(f"luma PSNR {min(ps_y):.2f} dB <= 30")
     steady = marks[-1] - marks[1]
@@ -370,12 +416,12 @@ def phase_main_path():
         ie.encode_plane_wavefront = ie_wf
     same = all(torch.equal(first_dev[k], dev_p[k]) for k in ("y_mi", "uv_mi"))
     ps_p, _ = ref.host_finish(dev_p)
-    print(f"main path: first batch modes agree with the plain version: "
+    print(f"{name}: first batch modes agree with the plain version: "
           f"{same}", flush=True)
     if same and ps_p != payloads[:BATCH]:
         raise AssertionError("payloads differ from the plain version's")
     if same:
-        print("main path: first batch payloads byte-identical to the plain "
+        print(f"{name}: first batch payloads byte-identical to the plain "
               "version's", flush=True)
 
     def device_only():
@@ -388,8 +434,10 @@ def phase_main_path():
         device_only()
     dev_fps = 3 * BATCH / (time.perf_counter() - t0)
     wk.raise_on_error(DEV)
-    print(f"main path: e2e {e2e_fps:.3f} fps steady (batches 2-3, batch "
-          f"{BATCH}), device-only {dev_fps:.3f} fps [{CARD}]", flush=True)
+    nb = len(frames) // BATCH
+    print(f"{name}: e2e {e2e_fps:.3f} fps steady (batches 2-{nb} of "
+          f"{BATCH} frames), device-only {dev_fps:.3f} fps [{CARD}]",
+          flush=True)
     return launches, enc, frames[:BATCH]
 
 
@@ -455,13 +503,13 @@ def phase_profile(enc, batch):
               flush=True)
 
 
-def check_payloads(payloads, frames, recons, label):
+def check_payloads(payloads, frames, recons, label, bd=8):
     """Every payload holds an OBU_FRAME and luma PSNR > 30 dB."""
     for k, p in enumerate(payloads):
         obus = list(parse_obus(p))
         if not p or not any(t == OBU_FRAME and len(d) for t, _, _, d in obus):
             raise AssertionError(f"{label}: frame {k}: no OBU_FRAME")
-    ps_y = [psnr(f[0], r[0]) for f, r in zip(frames, recons)]
+    ps_y = [psnr(f[0], r[0], bd) for f, r in zip(frames, recons)]
     if min(ps_y) <= 30.0:
         raise AssertionError(f"{label}: luma PSNR {min(ps_y):.2f} dB <= 30")
     return ps_y
@@ -556,8 +604,9 @@ def part_maps(dev):
 
 
 def phase_partition():
-    """The partition path at 1080p on the card, stage by stage."""
-    n = 2
+    """The partition path at 1080p on the card, stage by stage, on one
+    frame."""
+    n = 1
     frames = banded_frames(W, H, n)
     enc = ie.IntraEncoder(ie.EncoderConfig(W, H, qindex=100), device="cuda")
     t0 = time.perf_counter()
@@ -1079,13 +1128,15 @@ LANE_KERNELS = {"luma": "wavefront, flat P luma (13 intra + 2 inter lanes)",
                 "chroma": "wavefront, flat P chroma U+V (DC + 1 inter lane)"}
 
 
-def flat_p_calls():
+def flat_p_calls(bd=8):
     """The flat P frame's two wavefront calls at 1080p, as the encoder
-    makes them: frame 1 of moving_frames against frame 0 as its reference
-    (ME, GM fit, filter pick and MC on the card).  Returns {"luma" |
-    "chroma": (args, kwargs)} of encode_plane_wavefront_mixed."""
-    f0, f1 = moving_frames(W, H, 2)
-    enc = ve.VideoEncoder(ie.EncoderConfig(W, H, qindex=100, **FLAT),
+    makes them: frame 1 of moving_frames (moving_frames10 at bd=10)
+    against frame 0 as its reference (ME, GM fit, filter pick and MC on
+    the card).  Returns {"luma" | "chroma": (args, kwargs)} of
+    encode_plane_wavefront_mixed."""
+    f0, f1 = (moving_frames if bd == 8 else moving_frames10)(W, H, 2)
+    enc = ve.VideoEncoder(ie.EncoderConfig(W, H, qindex=100, bit_depth=bd,
+                                           **FLAT),
                           keyint=64, device="cuda")
     enc._dpb = f0
     with StageClock([(ve, "encode_plane_wavefront_mixed")]) as clock:
@@ -1093,23 +1144,25 @@ def flat_p_calls():
     return {k: clock.args[f"{k} wavefront"][0] for k in ("luma", "chroma")}
 
 
-def phase_compare_lanes():
+def phase_compare_lanes(bd=8):
     """The kernel with inter lanes against its plain version on the card,
-    at the flat P frame's shapes.  Returns {"luma" | "chroma": (max_abs_err,
-    kernel ms, plain ms, bound ms, bound basis)}."""
+    at the flat P frame's shapes (phase 2b; at bd=10 part of phase 2c,
+    with one plain run a shape, timed by CUDA events).  Returns {"luma" |
+    "chroma": (max_abs_err, kernel ms, plain ms, bound ms, bound basis)}."""
     out = {}
-    for kind, (a, kw) in flat_p_calls().items():
+    tag = "" if bd == 8 else "10-bit "
+    for kind, (a, kw) in flat_p_calls(bd).items():
         src, bs, tx, q, preds, rate, ok, iok, n_extra, modes = a[:10]
         vh = kw["valid_h"]
         extra = (preds, rate, ok, iok)
         n_intra = len(expand_candidates(modes))
-        rd = rd_params(q, 8, expand_candidates(modes), kf=False)
-        kern = lambda: wk.wavefront_cuda(src, rd, bs, tx, modes, 8,
+        rd = rd_params(q, bd, expand_candidates(modes), kf=False)
+        kern = lambda: wk.wavefront_cuda(src, rd, bs, tx, modes, bd,
                                          valid_h=vh, extra=extra)
-        plain = lambda: _wavefront_body(src, rd, bs, tx, modes, 8,
+        plain = lambda: _wavefront_body(src, rd, bs, tx, modes, bd,
                                         valid_h=vh, extra=extra)
         B, h, w = src.shape
-        label = f"{kind} {B}x{h}x{w}, {n_intra} intra + {n_extra} lanes"
+        label = f"{tag}{kind} {B}x{h}x{w}, {n_intra} intra + {n_extra} lanes"
         n0 = wk.LAUNCHES
         got = run_checked(kern)
         for rep in range(2):
@@ -1117,14 +1170,18 @@ def phase_compare_lanes():
             if not all(torch.equal(x, y) for x, y in zip(got, again)):
                 raise AssertionError(f"{label}: run {rep + 2} differs "
                                      "from run 1")
-        ref = plain()
-        torch.cuda.synchronize()
+        if bd == 8:
+            ref = plain()
+            torch.cuda.synchronize()
+        else:
+            ref, p1 = timed_once(plain)
         frac, err = agree(ref, got, label)
         inter = float((got[0] >= n_intra).float().mean())
-        p1 = cuda_ms(plain, 1)
+        if bd == 8:
+            p1 = cuda_ms(plain, 1)
         k1 = cuda_ms(kern, 10)
         k2 = cuda_ms(kern, 10)
-        p2 = cuda_ms(plain, 1)
+        p2 = cuda_ms(plain, 1) if bd == 8 else p1
         wk.raise_on_error(DEV)
         k, p = (k1 + k2) / 2, (p1 + p2) / 2
         n = wk.LAUNCHES - n0
@@ -1134,16 +1191,74 @@ def phase_compare_lanes():
         # the candidates each block's masks let compete (this data's work)
         live = [float(iok.float().mean())] * n_intra + \
             ok.float().mean((0, 2, 3)).tolist()
-        b_ms, b_by = wk.bound_ms(bs, B, h, w, modes, False, n_extra, live)
+        b_ms, b_by = wk.bound_ms(bs, B, h, w, modes, False, n_extra, live,
+                                 bd)
+        plain_txt = (f"plain {p:.3f} ms ({p1:.3f}, {p2:.3f})" if bd == 8
+                     else f"plain {p:.3f} ms (one run)")
         print(f"compare lanes {label}: modes agree {frac:.4f}, max_abs_err "
               f"{err}, inter share {inter:.4f}, 3 identical kernel runs, "
               f"error word clear, {n} launches counted; kernel {k:.3f} ms "
-              f"({k1:.3f}, {k2:.3f}), "
-              f"plain {p:.3f} ms ({p1:.3f}, {p2:.3f}), bound {b_ms:.3f} ms "
+              f"({k1:.3f}, {k2:.3f}), {plain_txt}, bound {b_ms:.3f} ms "
               f"({b_by}), {100 * b_ms / k:.1f}% of it; "
-              f"{wk.kernel_info(bs, n_intra + n_extra)} [{CARD}]", flush=True)
+              f"{wk.kernel_info(bs, n_intra + n_extra, bd)} [{CARD}]",
+              flush=True)
         out[kind] = (err, k, p, b_ms, b_by)
     return out
+
+
+def timed_once(fn):
+    """(fn(), its ms by CUDA events): one run, synchronised."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_compare_10bit():
+    """Phase 2c: the kernel's 10-bit form (uint16 pixels, bd=10 clamps)
+    against its plain version on the card at the 10-bit main path's shapes
+    (luma 1088x1920 B=1 and B=4, paired chroma 544x960 B=2 and B=8) and at
+    the 10-bit flat P frame's lane shapes, under phase 2's bar; each shape
+    runs the kernel 3 times (identical outputs, clear error word).  Kernel
+    ms by CUDA events (two blocks of 10), plain ms from its single run.
+    Returns (max_abs_err, kernel ms, plain ms, bound ms, basis) of a
+    main-path batch (luma B=4 + chroma B=8) and the lanes' results."""
+    max_err, ms, plain_ms, bound, basis = 0, 0.0, 0.0, 0.0, set()
+    for label, seed, B, h, w, bs, chroma, vh, main in SHAPES_1080P:
+        label = f"10-bit {label} q100" + (" (main path)" if main else "")
+        src = torch.from_numpy(plane_src10(seed, B, h, w).astype(
+            np.int16)).to(DEV)
+        rd, pos, kw = wf_args(bs, 100, chroma, vh, bd=10)
+        kern = lambda: wk.wavefront_cuda(src, rd, *pos, **kw)
+        plain = lambda: _wavefront_body(src, rd, *pos, **kw)
+        got = run_checked(kern)
+        for rep in range(2):
+            again = run_checked(kern)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{label}: run {rep + 2} differs "
+                                     "from run 1")
+        ref, p = timed_once(plain)
+        frac, err = agree(ref, got, label)
+        max_err = max(max_err, err)
+        k1 = cuda_ms(kern, 10)
+        k2 = cuda_ms(kern, 10)
+        wk.raise_on_error(DEV)
+        k = (k1 + k2) / 2
+        b_ms, b_by = wk.bound_ms(bs, B, h, w, ie.CAND_MODES, chroma, bd=10)
+        print(f"compare {label}: modes agree {frac:.4f}, max_abs_err {err}, "
+              f"3 identical kernel runs, error word clear; kernel {k:.3f} ms "
+              f"({k1:.3f}, {k2:.3f}), plain {p:.3f} ms (one run), bound "
+              f"{b_ms:.3f} ms ({b_by}), {100 * b_ms / k:.1f}% of it "
+              f"[{CARD}]", flush=True)
+        if main:
+            ms += k
+            plain_ms += p
+            bound += b_ms
+            basis.add(b_by)
+    lanes = phase_compare_lanes(bd=10)
+    return (max_err, ms, plain_ms, bound, "+".join(sorted(basis))), lanes
 
 
 def flat_inter_share(y_mi, h):
@@ -1152,12 +1267,16 @@ def flat_inter_share(y_mi, h):
     return float((y_mi[rows] >= N_TOP).mean())
 
 
-def phase_flat_video():
-    """The flat low-delay path at 1920x1080 on the card: I, P, P.  Returns
-    the wavefront kernel launches of its P frames by kind."""
-    frames = moving_frames(W, H, 3)
-    enc = ve.VideoEncoder(ie.EncoderConfig(W, H, qindex=100, **FLAT),
+def phase_flat_video(bd=8, n=2):
+    """The flat low-delay path at 1920x1080 on the card: n frames, I then
+    P frames (phase 12: I+P; at bd=10 phase 19: I+P of the 10-bit clip,
+    through the kernel's 10-bit form).  Returns the wavefront kernel
+    launches of its P frames by kind."""
+    frames = (moving_frames if bd == 8 else moving_frames10)(W, H, n)
+    enc = ve.VideoEncoder(ie.EncoderConfig(W, H, qindex=100, bit_depth=bd,
+                                           **FLAT),
                           keyint=64, device="cuda")
+    name = "flat low-delay path" + ("" if bd == 8 else " 10-bit")
     here = os.path.basename(__file__)
     wk.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -1165,7 +1284,7 @@ def phase_flat_video():
     for k, f in enumerate(frames):
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            if k == 2:
+            if k == n - 1:
                 torch.cuda.set_sync_debug_mode("warn")
             try:
                 with StageClock(StageClock.FLAT_P) as clock:
@@ -1183,41 +1302,45 @@ def phase_flat_video():
                     for c in caught if "synchroniz" in str(c.message) and
                     os.path.basename(c.filename) != here)
     fmt = lambda ms: ", ".join(f"{k} {v:.1f} ms" for k, v in ms.items())
-    print(f"flat low-delay path: {W}x{H} q100 --no-part-search keyint 64: "
+    print(f"{name}: {W}x{H} q100 --no-part-search keyint 64: "
           f"key frame (q70) {1e3 * (marks[1] - marks[0]):.1f} ms; e2e "
-          f"{3 / (marks[3] - marks[0]):.4f} fps over the 3 frames [{CARD}]",
-          flush=True)
+          f"{n / (marks[n] - marks[0]):.4f} fps over the {n} frames "
+          f"[{CARD}]", flush=True)
     by_kind = {"luma": 0, "chroma": 0}
-    for k in (1, 2):
+    for k in range(1, n):
         c, m = clocks[k], maps[k]
-        n = {kind: c.launches.get(f"{kind} wavefront", 0)
-             for kind in by_kind}
+        nl = {kind: c.launches.get(f"{kind} wavefront", 0)
+              for kind in by_kind}
         for kind in by_kind:
-            by_kind[kind] += n[kind]
+            by_kind[kind] += nl[kind]
         modes = {MODE_NAMES[x]: v for x, v in m["mode_counts"].items()}
         share = flat_inter_share(m["y_mi"], H)
-        print(f"flat low-delay path: P frame {k}: "
+        print(f"{name}: P frame {k}: "
               f"{1e3 * (marks[k + 1] - marks[k]):.1f} ms ({fmt(c.ms)}); "
-              f"kernel launches luma {n['luma']}, U+V {n['chroma']}; GM fit "
+              f"kernel launches luma {nl['luma']}, U+V {nl['chroma']}; GM fit "
               f"{m['gm']}, filter {m['filt']}, deblock levels {m['lf']}; "
               f"luma blocks inter {100 * share:.1f}%; inter modes coded "
               f"{modes}; {len(payloads[k])} bytes", flush=True)
-        if n != {"luma": 1, "chroma": 1}:
-            raise AssertionError(f"P frame {k}: kernel launches {n}, not "
+        if nl != {"luma": 1, "chroma": 1}:
+            raise AssertionError(f"P frame {k}: kernel launches {nl}, not "
                                  "one luma and one U+V")
         if share <= 0.5:
             raise AssertionError(f"P frame {k}: only {100 * share:.1f}% of "
                                  "the luma blocks inter")
-    print(f"flat low-delay path: device syncs of P frame 2: "
+    print(f"{name}: device syncs of P frame {n - 1}: "
           f"{sum(syncs.values())} ({dict(syncs)}); kernel launches on the "
           f"path {launches} (key frame {launches - sum(by_kind.values())}), "
           f"key frame {len(payloads[0])} bytes", flush=True)
-    ps_y = check_payloads(payloads, frames, recons, "flat low-delay path")
+    ps_y = check_payloads(payloads, frames, recons, name, bd)
     types = [frame_type(p) for p in payloads]
-    print(f"flat low-delay path: frame types {types}, luma PSNR "
-          f"{', '.join(f'{p:.2f}' for p in ps_y)} dB", flush=True)
-    if types != [0, 1, 1]:
-        raise AssertionError(f"frame types {types}, not KEY, INTER, INTER")
+    print(f"{name}: frame types {types}, luma PSNR "
+          f"{', '.join(f'{p:.2f}' for p in ps_y)} dB (peak {(1 << bd) - 1})",
+          flush=True)
+    if types != [0] + [1] * (n - 1):
+        raise AssertionError(f"frame types {types}, not KEY then INTER")
+    if bd != 8:
+        DECODE10["10-bit flat I+P (phase 19)"] = (payloads, recons, False,
+                                                  None)
     return by_kind
 
 
@@ -1430,11 +1553,11 @@ def pyramid_maps(enc):
         "q", "ref_slot", "refresh", "lf")}
 
 
-def run_pyramid(cfg, frames, device, rc, tf_hook):
+def run_pyramid(cfg, frames, device, rc, tf_hook, gop=8):
     """The flat pyramid (gop 8, TF on) on `device`: (payloads, recons,
     each coded frame's maps, seconds).  tf_hook(planes) sees each filtered
     anchor and returns the planes to code."""
-    enc = ve.VideoEncoder(cfg, keyint=64, pyramid=True, gop=8, tf=True,
+    enc = ve.VideoEncoder(cfg, keyint=64, pyramid=True, gop=gop, tf=True,
                           rc=rc, device=device)
     coded = []
     code, filt = enc._encode_p_flat, enc._tf_filter
@@ -1516,6 +1639,7 @@ def phase_flat_pyramid_card_vs_cpu():
                                  "frames")
 
 
+DECODE10 = {}        # the same for the 10-bit streams of phases 18-19
 DECODE = {}          # label -> (payloads, recons, ccso, display index
 #                      of each TU's coded frame or None), from phases
 #                      3, 8, 10 and 14
@@ -1543,16 +1667,21 @@ def same_planes(a, b):
     return all(np.array_equal(x, np.asarray(y)) for x, y in zip(a, b))
 
 
-def phase_decode():
+def phase_decode(streams=None):
     """The port's Decoder on the card over the 1080p streams that phases
-    3, 8, 10 and 14 encoded on the card: every output equals the
-    encoder's recon in display order, every no-show frame's DPB entry its
-    recon, and the frame count is right.  Per TU: stage times (each
-    between two synchronizes), device syncs (set_sync_debug_mode, this
-    script's own synchronizes excluded), bytes and q."""
+    3, 8, 10 and 14 encoded on the card (phase 16; phase 20: the 10-bit
+    streams of phases 18 and 19, whose uint16 outputs must equal the
+    encoder's recons): every output equals the encoder's recon in display
+    order, every no-show frame's DPB entry its recon, and the frame count
+    is right.  Per TU: stage times (each between two synchronizes), device
+    syncs (set_sync_debug_mode, this script's own synchronizes excluded),
+    bytes and q."""
     from svtav1_tpu_torch.decoder.decoder import Decoder
     here = os.path.basename(__file__)
-    for label, (payloads, recons, ccso, display) in DECODE.items():
+    streams = DECODE if streams is None else streams
+    if not streams:
+        raise AssertionError("no stream to decode")
+    for label, (payloads, recons, ccso, display) in streams.items():
         ms = {}
         dec = timed_decoder(Decoder(ccso=ccso, device="cuda"), ms)
         gc.collect()
@@ -1787,7 +1916,172 @@ def phase_decode_card_vs_cpu():
           "stored (the context is not poisoned)", flush=True)
 
 
+def frames_agree(label, card, cpu, modes_bar=False):
+    """card / cpu: (payload(s), recon(s), maps) of each coded unit in
+    coding order, from the card and the CPU.  Per unit the agreement of
+    every map; byte-identical payloads and equal recons whenever every map
+    agrees; the units after the first whose maps differ are not compared
+    (their references differ).  modes_bar: the kernel's modes (y_mi,
+    uv_mi) must agree on >= 99% (phase 2's bar)."""
+    lines = []
+    for k, ((pc, rc, mc), (pp, rp, mp)) in enumerate(zip(card, cpu)):
+        fr = {n: float((np.asarray(mc[n]) == np.asarray(mp[n])).mean())
+              for n in mc}
+        same = all(v == 1.0 for v in fr.values())
+        equal = pc == pp and all(np.array_equal(a, b) for x, y in
+                                 zip(rc, rp) for a, b in zip(x, y))
+        lines.append(f"unit {k}: " + ", ".join(
+            f"{n} {v:.4f}" for n, v in fr.items()) +
+            f"; payloads and recons identical {equal}")
+        if modes_bar and min(fr.get("y_mi", 1.0), fr.get("uv_mi", 1.0)) < \
+                0.99:
+            raise AssertionError(f"{label} unit {k}: modes agree "
+                                 f"{fr.get('y_mi')} / {fr.get('uv_mi')}")
+        if same and not equal:
+            raise AssertionError(f"{label} unit {k}: maps agree but the "
+                                 "payloads or recons differ")
+        if not same:
+            lines[-1] += " (the first unit that differs: later ones have " \
+                "other references)"
+            break
+    for line in lines:
+        print(f"card vs CPU, 10-bit {label}: {line}", flush=True)
+
+
+def phase_10bit_card_vs_cpu():
+    """Phase 21: the four 10-bit paths at 256x128 on the card and on the
+    CPU: partition all-intra with CDEF + LR + CCSO (2 frames of the 10-bit
+    edge clip, one batch), low-delay partition I, P, P and flat I, P, P
+    (the 10-bit moving clip), and the flat pyramid (gop 4, TF on, 9
+    frames; the card's filtered anchors fed to the CPU encoder).  Per
+    coded unit the agreement of every decision map, and byte-identical
+    payloads plus equal recons whenever every map agrees."""
+    w, h = 256, 128
+    bd = 10
+    cfg = lambda **kw: ie.EncoderConfig(w, h, qindex=100, bit_depth=bd,
+                                        **kw)
+    # partition all-intra with the three filters
+    frames = edge_frames10(w, h, 2)
+    runs = {}
+    for d in ("cuda", "cpu"):
+        enc = ie.IntraEncoder(cfg(**FILTERS), device=d)
+        t0 = time.perf_counter()
+        with StageClock([(ie, k) for k in SEARCHES]) as clock:
+            dev = enc.device_encode(frames)
+            payloads, recons = enc.host_finish(dev)
+        check_payloads(payloads, frames, recons, f"10-bit {w}x{h} on {d}",
+                       bd)
+        runs[d] = ([(payloads, recons, part_maps(dev))],
+                   time.perf_counter() - t0,
+                   [clock.out[k] for k in SEARCHES])
+    lines, _ = describe_filters(*runs["cuda"][2])
+    print(f"card vs CPU, 10-bit partition all-intra {w}x{h} x2 with CDEF + "
+          f"LR + CCSO (card {runs['cuda'][1]:.1f} s, CPU "
+          f"{runs['cpu'][1]:.1f} s); card: {'; '.join(lines)}", flush=True)
+    frames_agree("partition all-intra + filters", runs["cuda"][0],
+                 runs["cpu"][0])
+
+    # the low-delay paths, I, P, P
+    clip = moving_frames10(w, h, 3)
+    for label, kw, maps_of in (
+            ("low-delay partition I,P,P", {}, p_maps),
+            ("flat low-delay I,P,P", FLAT, lambda e: flat_maps(e, None))):
+        runs = {}
+        for d in ("cuda", "cpu"):
+            enc = ve.VideoEncoder(cfg(**kw), keyint=64, device=d)
+            key_dev = []
+            run = enc.intra.device_encode
+            enc.intra.device_encode = lambda fr, run=run, keep=key_dev: \
+                keep.append(run(fr)) or keep[-1]
+            t0 = time.perf_counter()
+            res = []
+            for f in clip:
+                p, r = enc.encode_frame(*f)
+                if res:
+                    m = maps_of(enc)
+                elif kw:
+                    m = flat_maps(enc, key_dev[-1])
+                else:
+                    m = part_maps(key_dev[-1])
+                res.append(([p], [r], m))
+            check_payloads([x[0][0] for x in res], clip,
+                           [x[1][0] for x in res], f"10-bit {w}x{h} {label} "
+                           f"on {d}", bd)
+            runs[d] = (res, time.perf_counter() - t0)
+        types = [frame_type(x[0][0]) for x in runs["cuda"][0]]
+        print(f"card vs CPU, 10-bit {label} {w}x{h} (card "
+              f"{runs['cuda'][1]:.1f} s, CPU {runs['cpu'][1]:.1f} s): frame "
+              f"types {types}", flush=True)
+        if types != [0, 1, 1]:
+            raise AssertionError(f"10-bit {label}: frame types {types}")
+        frames_agree(label, runs["cuda"][0], runs["cpu"][0],
+                     modes_bar=bool(kw))
+
+    # the flat pyramid, gop 4, TF on
+    clip = moving_frames10(w, h, 9)
+    card_tf, runs = [], {}
+    runs["cuda"] = run_pyramid(cfg(**FLAT), clip, "cuda", None,
+                               lambda x: card_tf.append(x) or x, gop=4)
+    diffs = []
+
+    def use_card(planes):
+        got = card_tf[len(diffs)]
+        diffs.append([int((a != b).sum()) for a, b in zip(got, planes)])
+        return got
+    runs["cpu"] = run_pyramid(cfg(**FLAT), clip, "cpu", None, use_card,
+                              gop=4)
+    kinds = [tu_kind(x) for x in runs["cuda"][0]]
+    print(f"card vs CPU, 10-bit flat pyramid {w}x{h} gop 4 TF (9 frames; "
+          f"card {runs['cuda'][3]:.1f} s, CPU {runs['cpu'][3]:.1f} s): "
+          f"{len(card_tf)} TF calls, pixels the card's TF planes differ by "
+          f"from the CPU's {diffs}; {len(runs['cuda'][0])} TUs, overlays "
+          f"{kinds.count('overlay')}", flush=True)
+    if kinds.count("overlay") < 2 or len(runs["cuda"][1]) != 9:
+        raise AssertionError(f"10-bit pyramid: TUs {kinds}")
+    units = lambda r: [(None, [], m) for m in r[2]]
+    frames_agree("flat pyramid (coded P frames)", units(runs["cuda"]),
+                 units(runs["cpu"]), modes_bar=True)
+    if all(all(np.array_equal(mc[n], mp[n]) for n in mc)
+           for mc, mp in zip(runs["cuda"][2], runs["cpu"][2])):
+        same = runs["cuda"][0] == runs["cpu"][0] and all(
+            np.array_equal(a, b) for x, y in zip(runs["cuda"][1],
+                                                  runs["cpu"][1])
+            for a, b in zip(x, y))
+        print(f"card vs CPU, 10-bit flat pyramid: every map agrees; "
+              f"{len(runs['cuda'][0])} payloads and 9 recons identical "
+              f"{same}", flush=True)
+        if not same:
+            raise AssertionError("10-bit pyramid: maps agree but payloads "
+                                 "or recons differ")
+
+
 CARD = ""
+
+
+def phase_build():
+    """Phase 1: build the kernels from the sources (one nvcc for the CUDA
+    file, gcc for the native coders); ptxas' registers and spills, and
+    wf_info of each form (8-bit uint8_t, 10-bit uint16_t): registers, CTAs
+    an SM, shared bytes and clusters that fit at once."""
+    t0 = time.perf_counter()
+    so, log = build.build()
+    native._load()
+    native._load_reader()
+    print(f"build: {time.perf_counter() - t0:.1f} s -> {so.name}, "
+          f"{native.library_path().name} and "
+          f"{native.library_path(native._READER_SRC, 'libcoeffreader').name}")
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+    C = len(expand_candidates(ie.CAND_MODES))
+    for bd, pix in ((8, "uint8_t"), (10, "uint16_t")):
+        for bs, c in ((32, C), (16, C), (32, C + 2), (16, 2)):
+            info = wk.kernel_info(bs, c, bd)
+            print(f"wf_plane_kernel<{bs}, {pix}>, {c} candidates: {info}",
+                  flush=True)
+            if info["ctas_per_sm"] < 1 or info["clusters"] < 1:
+                raise AssertionError(f"wf_plane_kernel<{bs}, {pix}>: no "
+                                     "CTA or cluster fits")
 
 
 def main():
@@ -1801,19 +2095,7 @@ def main():
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
           flush=True)
     t0 = time.perf_counter()
-    so, log = build.build()
-    native._load()
-    native._load_reader()
-    print(f"build: {time.perf_counter() - t0:.1f} s -> {so.name}, "
-          f"{native.library_path().name} and "
-          f"{native.library_path(native._READER_SRC, 'libcoeffreader').name}")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
-    C = len(expand_candidates(ie.CAND_MODES))
-    for bs, c in ((32, C), (16, C), (32, C + 2), (16, 2)):
-        print(f"wf_plane_kernel<{bs}>, {c} candidates: "
-              f"{wk.kernel_info(bs, c)}", flush=True)
+    phase_build()
     clock = [time.perf_counter()]
 
     def phase(fn, *args):
@@ -1825,6 +2107,7 @@ def main():
 
     max_err, ms, plain_ms, bound, basis = phase(phase_compare)
     lanes = phase(phase_compare_lanes)
+    main10, lanes10 = phase(phase_compare_10bit)
     launches, enc, batch = phase(phase_main_path)
     phase(phase_profile, enc, batch)
     phase(phase_partition)
@@ -1840,6 +2123,10 @@ def main():
     phase(phase_flat_pyramid_card_vs_cpu)
     phase(phase_decode)
     phase(phase_decode_card_vs_cpu)
+    launches10 = phase(phase_main_path, 10)[0]
+    p10_launches = phase(phase_flat_video, 10)
+    phase(phase_decode, DECODE10)
+    phase(phase_10bit_card_vs_cpu)
     print(f"chip_smoke: total {time.perf_counter() - t0:.1f} s", flush=True)
     kernel = dict(route="cuda", source="svtav1_tpu_torch/csrc/wavefront.cu",
                   replaces="svtav1_tpu/pallas/wavefront_kernel.py:550")
@@ -1852,6 +2139,15 @@ def main():
                          max_abs_err=err, ms=k,
                          plain_ms=p, bound_ms=b, bound_by=by,
                          library_ms=None))
+    err, ms, plain_ms, bound, basis = main10
+    rows.append(dict(name="wavefront 10-bit", **kernel, launches=launches10,
+                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     bound_ms=bound, bound_by=basis, library_ms=None))
+    for kind, (err, k, p, b, by) in lanes10.items():
+        rows.append(dict(name=LANE_KERNELS[kind].replace(
+            "wavefront", "wavefront 10-bit"), **kernel,
+            launches=p10_launches[kind], max_abs_err=err, ms=k, plain_ms=p,
+            bound_ms=b, bound_by=by, library_ms=None))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

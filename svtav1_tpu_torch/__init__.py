@@ -1,8 +1,8 @@
 """svtav1_tpu_torch — the PyTorch + CUDA port of the AV1 engine in ``svtav1_tpu``.
 
-It runs the encode (8-bit 4:2:0) and the decode end to end on an NVIDIA
-Hopper card.  The encode: the low-delay I/P path that is the CLI's default
-(``VideoEncoder``: key frames, then P frames with motion estimation,
+It runs the encode (8- and 10-bit 4:2:0) and the decode end to end on an
+NVIDIA Hopper card.  The encode: the low-delay I/P path that is the CLI's
+default (``VideoEncoder``: key frames, then P frames with motion estimation,
 motion compensation and inter candidates in the partition scan; rate
 control; on the flat path also the hierarchical mini-GoP pyramid with
 temporal filtering), and both intra paths: the partition path (64x64 /
@@ -60,14 +60,30 @@ def resolve_device(device) -> torch.device:
 
 def upload(a, device) -> torch.Tensor:
     """numpy array -> tensor on `device`.  A CUDA copy goes through pinned
-    memory without blocking, so it never synchronises the stream."""
+    memory without blocking, so it never synchronises the stream.  uint16
+    (10-bit planes) arrives as int32: torch has no arithmetic on uint16."""
     a = np.ascontiguousarray(a)
+    if a.dtype == np.uint16:
+        a = a.astype(np.int32)
     if not a.flags.writeable:           # e.g. planes read from a file
         a = a.copy()
     t = torch.from_numpy(a)
     if torch.device(device).type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
+
+
+def pix_dtype(bd: int) -> torch.dtype:
+    """The tensor dtype of bd-bit pixels: uint8 at 8 bits, int16 at 10
+    (torch has no arithmetic on uint16; the values are the same)."""
+    return torch.uint8 if bd == 8 else torch.int16
+
+
+def host_pixels(t: torch.Tensor, bd: int) -> np.ndarray:
+    """A pixel tensor (any integer dtype) on the host as numpy uint8
+    (8-bit) or uint16 (10-bit), the JAX package's recon dtypes."""
+    a = t.to(pix_dtype(bd)).cpu().numpy()
+    return a if bd == 8 else a.view(np.uint16)
 
 
 def __getattr__(name):

@@ -4,8 +4,12 @@ Usage:
   python -m svtav1_tpu_torch.app -i in.y4m -b out.ivf [-q 100 | --crf N] \
       [--keyint N] [--no-part-search | --preset 6..13] [--cdef] [--lr] \
       [--ccso] [--pyramid [--tf]] [--rc cq|crf|cbr|vbr] [--tbr KBPS] \
-      [-n N] [--batch N] [--stat-report] [--mastering-display MD] \
-      [--content-light CLL,FALL] [--device cuda|cpu]
+      [-n N] [--batch N] [--stat-report] [-o recon.y4m] \
+      [--film-grain N] [--mastering-display MD] [--content-light CLL,FALL] \
+      [--device cuda|cpu]
+
+8-bit (C420) and 10-bit (C420p10) 4:2:0 input take every path below; a
+10-bit stream codes uint16 planes (high_bitdepth in its sequence header).
 
 --keyint N > 1 (the default 64) is the low-delay I/P path of
 ``svtav1_tpu/app.py``: a key frame every N frames (or at a scene cut) and
@@ -25,11 +29,14 @@ qindex 4N in crf mode.  --pyramid at --keyint > 1 codes hierarchical
 mini-GoPs on the flat path (--tf filters their anchors), reading 16 frames
 at a time as ``svtav1_tpu/app.py`` does; its payloads include
 show_existing overlay TUs.  Any other mode (presets 0..5, which search
-angle deltas; --pyramid with the partition search; 10-bit) exits with
-status 2: the JAX package's ``python -m svtav1_tpu.app`` has it.
+angle deltas; --pyramid with the partition search) exits with status 2:
+the JAX package's ``python -m svtav1_tpu.app`` has it.
 --mastering-display and --content-light write HDR metadata OBUs into
-the first temporal unit, as ``svtav1_tpu/app.py`` does.  --stat-report
-prints PSNR only.
+the first temporal unit, and --film-grain N (0..50) film grain
+parameters (8-bit only, as in the JAX package: a 10-bit stream carries
+none), as ``svtav1_tpu/app.py`` does.  --stat-report prints PSNR only,
+at the peak (1 << bit depth) - 1; -o writes the reconstruction as a Y4M
+of the input's bit depth.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import argparse
 import itertools
 import sys
 import time
+from contextlib import nullcontext
 from dataclasses import replace
 
 import numpy as np
@@ -91,6 +99,10 @@ def main(argv=None) -> int:
                    help="frames per device batch (all-intra)")
     p.add_argument("--stat-report", action="store_true",
                    help="print the mean PSNR of the reconstruction")
+    p.add_argument("-o", "--recon", default=None,
+                   help="write the reconstruction (display order) as .y4m")
+    p.add_argument("--film-grain", type=int, default=0, metavar="N",
+                   help="film grain synthesis strength 0 (off)..50 (8-bit)")
     p.add_argument("--mastering-display", default=None, metavar="MD",
                    help="HDR mastering display metadata OBU, "
                         "G(x,y)B(x,y)R(x,y)WP(x,y)L(max,min)")
@@ -119,7 +131,7 @@ def main(argv=None) -> int:
     from .encoder.video_encoder import VideoEncoder
     from .utils.ivf import IvfWriter
     from .utils.metadata import build_metadata_obus
-    from .utils.y4m import Y4mReader
+    from .utils.y4m import Y4mReader, Y4mWriter
 
     with open(args.input, "rb") as fin:
         rdr = Y4mReader(fin)
@@ -130,7 +142,8 @@ def main(argv=None) -> int:
                             bit_depth=info.bit_depth,
                             part_search=not args.no_part_search,
                             enable_cdef=args.cdef, enable_lr=args.lr,
-                            enable_ccso=args.ccso)
+                            enable_ccso=args.ccso,
+                            film_grain=max(0, min(50, args.film_grain)))
         if args.mastering_display or args.content_light:
             try:
                 cfg = replace(cfg, metadata=build_metadata_obus(
@@ -178,10 +191,14 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         n = n_tu = total_bytes = 0
         psnrs = []
+        peak = (1 << info.bit_depth) - 1
         frame_iter = itertools.islice(rdr.frames(), args.frames or None)
-        with open(args.output, "wb") as fout:
+        with open(args.output, "wb") as fout, \
+                (open(args.recon, "wb") if args.recon else nullcontext()) \
+                as frec:
             ivf = IvfWriter(fout, info.width, info.height, info.fps_den,
                             info.fps_num)
+            recw = Y4mWriter(frec, info) if frec else None
             src_fifo = []           # display-order sources awaiting recon
 
             def write(payloads, recons):
@@ -194,8 +211,12 @@ def main(argv=None) -> int:
                     total_bytes += len(payload)
                 for rec in recons:
                     src = src_fifo.pop(0)
+                    if recw is not None:
+                        recw.write_frame(*(np.asarray(r, src[0].dtype)
+                                           for r in rec))
                     if args.stat_report:
-                        psnrs.append([psnr(a, r) for a, r in zip(src, rec)])
+                        psnrs.append([psnr(a, r, peak)
+                                      for a, r in zip(src, rec)])
 
             pending = None          # device outputs of the batch in flight
             while True:

@@ -12,10 +12,18 @@
 // (mode_rate + resid_bits), keep the first minimum (joint over each U/V
 // pair when paired), update the boundary buffers.
 //
+// Bit depth: one form per pixel type, uint8_t for 8-bit planes and
+// uint16_t for 10-bit ones (the source, the inter lanes' predictions and
+// the shared prediction / reconstruction tiles).  Every bd-dependent
+// constant (mid-grey edge base, pixel maximum, dequantizer clamp, the
+// inverse transform's row and column network clamps, its row-output and
+// residual clamps) comes from the host in WfParams, computed there from
+// the port's ops/transforms.py at bd (tx_params in cuda/wavefront_kernel.py).
+//
 // Inter lanes (the flat P frame): candidates NI..C-1 run the same chain
 // with DCT_DCT on a prediction the caller made (motion compensation): the
-// kernel reads it per ticket from global memory as uint8 (MC output is
-// clipped to [0, 255], so the plain version's int32 holds the same
+// kernel reads it per ticket from global memory as pixels (MC output is
+// clipped to [0, 2^bd - 1], so the plain version's int32 holds the same
 // values) and never predicts or clips it again.  Each lane's rate is its
 // own a block (xrate), not the candidate table's; a candidate whose mask
 // (xok for a lane, iok for the intra candidates) is false costs 3e38.
@@ -81,11 +89,12 @@
 //     before the flag wait instead, with plain loads, and a cp.async
 //     prefetch of the next ticket's source was not tried).
 //   * Resources (wf_info and -Xptxas -v, printed by chip_smoke.py; H100,
-//     with the inter lanes): 127 registers a thread at 32x32, 130 at
-//     16x16, no spills; 4 warps a CTA for 13-16 candidates (4 CTAs an SM
-//     at 32x32, 3 at 16x16), 1 warp for the P frame's 2 chroma
+//     8-bit form with the inter lanes): 127 registers a thread at 32x32,
+//     130 at 16x16, no spills; 4 warps a CTA for 13-16 candidates (4 CTAs
+//     an SM at 32x32, 3 at 16x16), 1 warp for the P frame's 2 chroma
 //     candidates (12 CTAs an SM); 48.0 KB of shared memory a CTA for
-//     luma, 20.8 KB for 13 chroma candidates, 6.2 KB for 2.
+//     luma, 20.8 KB for 13 chroma candidates, 6.2 KB for 2.  The 10-bit
+//     form doubles the pixel tiles (51.9 KB a luma CTA).
 //
 // Predictors are integer arithmetic: DC, SMOOTH* and PAETH directly, V, H
 // and the six directional modes through per-(candidate, pixel) tables of
@@ -118,7 +127,7 @@ constexpr unsigned FULL = 0xffffffffu;
 
 // Mirrored field by field by _Params in cuda/wavefront_kernel.py.
 struct WfParams {
-  const uint8_t* src;      // [B, h, w]
+  const void* src;         // [B, h, w] pixels (uint8 or uint16)
   int* rowbuf;             // [B, bh, w]  bottom row of each coded block
   int* colbuf;             // [B, h, bw]  right column of each coded block
   const int* blocks;       // [nblk, BLKCOLS] ticket order: r, c, has_tr,
@@ -131,7 +140,8 @@ struct WfParams {
   int* levels;             // [B, bh, bw, bs*bs]
   int* recon;              // [B, h, w]
   unsigned long long* trace;     // [NU*nblk, 16] or null: see launch()
-  const uint8_t* xpred;    // [B, nE, bh, bw, bs*bs] inter lanes, or null
+  const void* xpred;       // [B, nE, bh, bw, bs*bs] inter lanes (pixels),
+                           //   or null
   const float* xrate;      // [B, nE, bh, bw] their rates (bits)
   const uint8_t* xok;      // [B, nE, bh, bw] their masks
   const uint8_t* iok;      // [B, bh, bw] intra mask, or null (all allowed)
@@ -140,7 +150,13 @@ struct WfParams {
   int B, NU, h, w, bh, bw, vh, C, paired, nblk;
   int NI, nE;              // intra candidates, inter lanes (C = NI + nE)
   int dqdc, dqac, qshift;
-  int fwd_s0, fwd_s1, fwd_s2, inv_s0, inv_s1, inv_lo, inv_hi;
+  int fwd_s0, fwd_s1, fwd_s2, inv_s0, inv_s1;
+  int base, pix_max;       // 1 << (bd - 1), (1 << bd) - 1
+  int dq_lo, dq_hi;        // dequantizer = inverse input clamp
+  int row_lo, row_hi;      // row (pass 0) network clamp
+  int mid_lo, mid_hi;      // row output clamp
+  int col_lo, col_hi;      // column (pass 1) network clamp
+  int res_lo, res_hi;      // residual clamp
   float lam;
   int cand_mode[MAXC];     // intra mode, or -1 for an inter lane
   int cand_kind[MAXC];     // row kind | col kind << 1 (0 DCT, 1 ADST)
@@ -187,15 +203,16 @@ template <int BS> WF_HD int lev_stride() { return BS + 2; }
 template <int BS> WF_HD int lev_elems() {
   return halves<BS>() * BS * lev_stride<BS>();
 }
-template <int BS> WF_HD int rec_bytes() { return halves<BS>() * BS * BS; }
+template <int BS> WF_HD int rec_elems() { return halves<BS>() * BS * BS; }
 #undef WF_HD
 
 // Shared bytes of a CTA of `wpc` candidate warps.
-template <int BS>
+template <int BS, typename Pix>
 size_t smem_bytes(int wpc) {
+  constexpr size_t rec_bytes = rec_elems<BS>() * sizeof(Pix);
   return (size_t)wpc * (t_ints<BS>() * 4 + lev_elems<BS>() * 2 +
-                        rec_bytes<BS>()) +
-         rec_bytes<BS>() + halves<BS>() * n_edge<BS>() * 4 +
+                        rec_bytes) +
+         rec_bytes + halves<BS>() * n_edge<BS>() * 4 +
          4 * MAXC * 4 + 8 + (size_t)wpc * BS * BS * 4 + BS * 4;
 }
 
@@ -210,7 +227,7 @@ __device__ int edge_value(const WfParams& p, int f, int r, int cb,
   const bool ha = r > 0, hl = cb > 0;
   const int rm1 = max(r - 1, 0), cm1 = max(cb - 1, 0);
   const int y = r * BS, x = cb * BS;
-  const int base = 128;
+  const int base = p.base;
   auto above_real = [&](int j) { return __ldcg(rb + rm1 * p.w + x + j); };
   auto left_real = [&](int j) {
     return __ldcg(cbf + min(y + j, p.vh - 1) * p.bw + cm1);
@@ -258,7 +275,7 @@ __device__ __forceinline__ void inv_net(int* v, int kind, int lo, int hi) {
   else net_inv_dct16(v, lo, hi);
 }
 
-template <int BS>
+template <int BS, typename Pix>
 __global__ void __launch_bounds__(32 * MAXW, 1)
 wf_plane_kernel(const WfParams p) {
   constexpr int H = halves<BS>(), NE = n_edge<BS>(), N = BS * BS;
@@ -267,9 +284,11 @@ wf_plane_kernel(const WfParams p) {
   const int tid = threadIdx.x, nthr = blockDim.x, wpc = nthr >> 5;
   int* sT = reinterpret_cast<int*>(smem);                // [wpc][H][BS][TP]
   int16_t* sLev = reinterpret_cast<int16_t*>(sT + wpc * t_ints<BS>());
-  uint8_t* sRec = reinterpret_cast<uint8_t*>(sLev + wpc * lev_elems<BS>());
-  uint8_t* sSrc = sRec + wpc * rec_bytes<BS>();            // [H][BS][BS]
-  int* sE = reinterpret_cast<int*>(sSrc + rec_bytes<BS>());  // [H][NE]
+  constexpr int RE = rec_elems<BS>();
+  Pix* sRec = reinterpret_cast<Pix*>(sLev + wpc * lev_elems<BS>());
+  Pix* sSrc = sRec + wpc * RE;                              // [H][BS][BS]
+  int* sE = reinterpret_cast<int*>(sSrc + RE);              // [H][NE]
+  const Pix* src = static_cast<const Pix*>(p.src);
   float* sCost = reinterpret_cast<float*>(sE + H * NE);  // [2][C], own
   float* sAll = sCost + 2 * MAXC;                    // [2][C], gathered
   int* sMisc = reinterpret_cast<int*>(sAll + 2 * MAXC);  // ticket, pad
@@ -321,13 +340,13 @@ wf_plane_kernel(const WfParams p) {
     const bool real1 = fr1 != u;
     const int need = 1 + real1;     // halves that publish a block's flag
 
-    // the source block(s), loaded before the wait
-    for (int e = tid; e < H * N / 4; e += nthr) {
-      const int hh = e / (N / 4), q = e % (N / 4);
+    // the source block(s), loaded before the wait, in 4-byte words
+    constexpr int WPR = BS * (int)sizeof(Pix) / 4;     // words a row
+    for (int e = tid; e < H * BS * WPR; e += nthr) {
+      const int hh = e / (BS * WPR), q = e % (BS * WPR);
       const int f = hh ? fr1 : u;
       const uint32_t* s = reinterpret_cast<const uint32_t*>(
-          p.src + ((size_t)f * p.h + y + q / (BS / 4)) * p.w + x) +
-          q % (BS / 4);
+          src + ((size_t)f * p.h + y + q / WPR) * p.w + x) + q % WPR;
       reinterpret_cast<uint32_t*>(sSrc)[e] = __ldg(s);
     }
     // wait for the blocks whose boundary pixels this one reads.  Past
@@ -366,13 +385,13 @@ wf_plane_kernel(const WfParams p) {
       const int mode = p.cand_mode[c], kind = p.cand_kind[c];
       const int rk = kind & 1, ck = (kind >> 1) & 1;
       const int* E = sE + hf * NE;
-      const uint8_t* S = sSrc + hf * N;
+      const Pix* S = sSrc + hf * N;
       const int fr = hf ? fr1 : u;                     // this lane's frame
       const size_t bix = ((size_t)fr * p.bh + r) * p.bw + cb;
       const size_t xix = (((size_t)fr * p.nE + (c - p.NI)) * p.bh + r) *
                          p.bw + cb;                    // inter lanes only
       const bool ha = r > 0, hl = cb > 0;
-      int dcv = 128;
+      int dcv = p.base;
       if (mode == 0) {                                 // DC: one tree
         int sa = E[A + j], sl = E[L + j];
 #pragma unroll
@@ -382,7 +401,7 @@ wf_plane_kernel(const WfParams p) {
         }
         dcv = (ha && hl) ? (sa + sl + BS) / (2 * BS)
                          : ha ? (sa + BS / 2) / BS
-                              : hl ? (sl + BS / 2) / BS : 128;
+                              : hl ? (sl + BS / 2) / BS : p.base;
       }
       // Column j of the prediction (kept in Rw until the reconstruction)
       // and of the residual (in Tw), one loop per predictor family so
@@ -390,13 +409,13 @@ wf_plane_kernel(const WfParams p) {
       // unrolled 32 times, the predictors, quantizer and reconstruction
       // would be code the instruction cache cannot hold.
       int* Tw = sT + warp * t_ints<BS>() + hf * BS * TP;
-      uint8_t* Rw = sRec + warp * rec_bytes<BS>() + hf * N;
+      Pix* Rw = sRec + warp * RE + hf * N;
       auto put = [&](int i, int pr) {
-        Rw[i * BS + j] = (uint8_t)pr;
+        Rw[i * BS + j] = (Pix)pr;
         Tw[i * TP + j] = rshift_signed((int)S[i * BS + j] - pr, p.fwd_s0);
       };
       if (mode < 0) {                                  // inter lane
-        const uint8_t* X = p.xpred + xix * N + j;
+        const Pix* X = static_cast<const Pix*>(p.xpred) + xix * N + j;
 #pragma unroll 8
         for (int i = 0; i < BS; ++i) put(i, __ldg(X + i * BS));
       } else if (mode == 0) {                          // DC
@@ -409,7 +428,8 @@ wf_plane_kernel(const WfParams p) {
           const int m = dm[i * BS];
           const int i0 = m & 0xFF, i1 = (m >> 8) & 0xFF;
           const int sh = (m >> 16) & 0x3F;
-          put(i, clampi((E[i0] * (32 - sh) + E[i1] * sh + 16) >> 5, 0, 255));
+          put(i, clampi((E[i0] * (32 - sh) + E[i1] * sh + 16) >> 5, 0,
+                        p.pix_max));
         }
       } else if (mode == 12) {                         // PAETH
         const int top = E[A + j], tl = E[0];
@@ -471,25 +491,26 @@ wf_plane_kernel(const WfParams p) {
         Lw[i] = (int16_t)(co < 0 ? -lv : lv);
         int dq = ((lv * dqv) & 0xFFFFFF) >> p.qshift;
         dq = co < 0 ? -dq : dq;
-        Trow[i] = clampi(dq, -(1 << 15), (1 << 15) - 1);  // ±2^(bd+7)
+        Trow[i] = clampi(dq, p.dq_lo, p.dq_hi);             // ±2^(bd+7)
         nnz += lv != 0;
         lbits = __fadd_rn(lbits, log2f(1.0f + (float)lv));
       }
 
       if (ws) ws[3] = gtime();
-      // inverse transform in place: pass 0 row j (then the 16-bit clamp),
-      // pass 1 column j (then the residual clamp); reconstruction
-      constexpr int res_max = (1 << 15) - 1 + (914 << 1);
+      // inverse transform in place: pass 0 row j (row network clamp, then
+      // the row output clamp), pass 1 column j (column network clamp, then
+      // the residual clamp); reconstruction
 #pragma unroll 1
       for (int pass = 0; pass < 2; ++pass) {
         const int base = pass ? j : j * TP, step = pass ? TP : 1;
         const int s = pass ? p.inv_s1 : p.inv_s0;
-        const int lo = pass ? -res_max - 1 : -(1 << 15);
-        const int hi = pass ? res_max : (1 << 15) - 1;
+        const int lo = pass ? p.res_lo : p.mid_lo;
+        const int hi = pass ? p.res_hi : p.mid_hi;
         __syncwarp();
 #pragma unroll
         for (int i = 0; i < BS; ++i) v[i] = Tw[base + i * step];
-        inv_net<BS>(v, pass ? ck : rk, p.inv_lo, p.inv_hi);
+        inv_net<BS>(v, pass ? ck : rk, pass ? p.col_lo : p.row_lo,
+                    pass ? p.col_hi : p.row_hi);
 #pragma unroll
         for (int i = 0; i < BS; ++i)
           Tw[base + i * step] = clampi(rshift_signed(v[i], s), lo, hi);
@@ -498,8 +519,9 @@ wf_plane_kernel(const WfParams p) {
       int sse = 0;
 #pragma unroll 4
       for (int i = 0; i < BS; ++i) {
-        const int rec = clampi((int)Rw[i * BS + j] + Tw[i * TP + j], 0, 255);
-        Rw[i * BS + j] = (uint8_t)rec;
+        const int rec = clampi((int)Rw[i * BS + j] + Tw[i * TP + j], 0,
+                               p.pix_max);
+        Rw[i * BS + j] = (Pix)rec;
         const int d = (int)S[i * BS + j] - rec;
         sse += d * d;
       }
@@ -568,8 +590,7 @@ wf_plane_kernel(const WfParams p) {
       const int hh = e / (2 * BS), q = e % (2 * BS);
       if (!(hh ? mine1 : mine0)) continue;
       const int f = hh ? fr1 : u;
-      const uint8_t* R = sRec + ((hh ? best1 : best0) / K) * rec_bytes<BS>() +
-                         hh * N;
+      const Pix* R = sRec + ((hh ? best1 : best0) / K) * RE + hh * N;
       if (q < BS)
         p.rowbuf[((size_t)f * p.bh + r) * p.w + x + q] = R[(BS - 1) * BS + q];
       else
@@ -594,7 +615,7 @@ wf_plane_kernel(const WfParams p) {
       p.levels[blk * N + q] =
           sLev[(bh_ / K) * lev_elems<BS>() + (hh * BS + i) * LSTR + jj];
       p.recon[((size_t)f * p.h + y + i) * p.w + x + jj] =
-          sRec[(bh_ / K) * rec_bytes<BS>() + hh * N + q];
+          sRec[(bh_ / K) * RE + hh * N + q];
       if (q == 0) p.mode_idx[blk] = bh_;
     }
   }
@@ -603,16 +624,16 @@ wf_plane_kernel(const WfParams p) {
 
 // Launch geometry for C candidates: warps per CTA, shared bytes per CTA,
 // CTAs per SM and the clusters that fit on the card at once.
-template <int BS>
+template <int BS, typename Pix>
 int configure(int C, int* wpc, size_t* smem, int* per_sm, int* clusters) {
   *wpc = (C + CLUSTER - 1) / CLUSTER;
-  *smem = smem_bytes<BS>(*wpc);
+  *smem = smem_bytes<BS, Pix>(*wpc);
   cudaError_t e = cudaFuncSetAttribute(
-      wf_plane_kernel<BS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wf_plane_kernel<BS, Pix>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)*smem);
   if (e != cudaSuccess) return (int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, wf_plane_kernel<BS>, 32 * *wpc, *smem);
+      per_sm, wf_plane_kernel<BS, Pix>, 32 * *wpc, *smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
@@ -625,7 +646,8 @@ int configure(int C, int* wpc, size_t* smem, int* per_sm, int* clusters) {
   cfg.dynamicSmemBytes = *smem;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaOccupancyMaxActiveClusters(clusters, wf_plane_kernel<BS>, &cfg);
+  e = cudaOccupancyMaxActiveClusters(clusters, wf_plane_kernel<BS, Pix>,
+                                     &cfg);
   if (e != cudaSuccess) return (int)e;
   return *clusters > 0 ? 0 : (int)cudaErrorInvalidConfiguration;
 }
@@ -637,11 +659,11 @@ int sm_count() {
   return n;
 }
 
-template <int BS>
+template <int BS, typename Pix>
 int launch(const WfParams* p, cudaStream_t st) {
   int wpc, per_sm, clusters;
   size_t smem;
-  int e = configure<BS>(p->C, &wpc, &smem, &per_sm, &clusters);
+  int e = configure<BS, Pix>(p->C, &wpc, &smem, &per_sm, &clusters);
   if (e) return e;
   const int ntick = p->NU * p->nblk;
   cudaLaunchConfig_t cfg = {};
@@ -656,18 +678,18 @@ int launch(const WfParams* p, cudaStream_t st) {
   cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = (int)cudaLaunchKernelEx(&cfg, wf_plane_kernel<BS>, *p);
+  e = (int)cudaLaunchKernelEx(&cfg, wf_plane_kernel<BS, Pix>, *p);
   return e ? e : (int)cudaGetLastError();
 }
 
-template <int BS>
+template <int BS, typename Pix>
 int info(int C, int* out) {
   cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, wf_plane_kernel<BS>);
+  cudaError_t e = cudaFuncGetAttributes(&a, wf_plane_kernel<BS, Pix>);
   if (e != cudaSuccess) return (int)e;
   int wpc, per_sm, clusters;
   size_t smem;
-  const int r = configure<BS>(C, &wpc, &smem, &per_sm, &clusters);
+  const int r = configure<BS, Pix>(C, &wpc, &smem, &per_sm, &clusters);
   if (r) return r;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
@@ -685,22 +707,27 @@ extern "C" {
 
 int wf_params_size() { return (int)sizeof(WfParams); }
 
-// One plane call: the persistent kernel on the caller's stream.
-int wf_plane(const WfParams* p, int bs, void* stream) {
+// One plane call: the persistent kernel of bs x bs blocks and bd-bit
+// pixels (8: uint8, 10: uint16) on the caller's stream.
+int wf_plane(const WfParams* p, int bs, int bd, void* stream) {
   if (p->C < 1 || p->C > MAXC) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (bs == 32) return launch<32>(p, st);
-  if (bs == 16) return launch<16>(p, st);
+  if (bd == 8 && bs == 32) return launch<32, uint8_t>(p, st);
+  if (bd == 8 && bs == 16) return launch<16, uint8_t>(p, st);
+  if (bd == 10 && bs == 32) return launch<32, uint16_t>(p, st);
+  if (bd == 10 && bs == 16) return launch<16, uint16_t>(p, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // Registers per thread, local (spill) bytes per thread, CTAs per SM,
 // shared bytes per CTA, the SM count, clusters resident at once and warps
-// per CTA, for C candidates.
-int wf_info(int bs, int C, int* out) {
+// per CTA, of the bs, bd form for C candidates.
+int wf_info(int bs, int bd, int C, int* out) {
   if (C < 1 || C > MAXC) return (int)cudaErrorInvalidValue;
-  if (bs == 32) return info<32>(C, out);
-  if (bs == 16) return info<16>(C, out);
+  if (bd == 8 && bs == 32) return info<32, uint8_t>(C, out);
+  if (bd == 8 && bs == 16) return info<16, uint8_t>(C, out);
+  if (bd == 10 && bs == 32) return info<32, uint16_t>(C, out);
+  if (bd == 10 && bs == 16) return info<16, uint16_t>(C, out);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -41,6 +41,35 @@ def plane_src(seed, B, h, w):
     return np.stack(out).astype(np.uint8)
 
 
+def plane_src10(seed, B, h, w):
+    """[B, h, w] uint16 10-bit planes: plane_src's pattern at 10 bits with
+    its own noise (not 8-bit values scaled by 4)."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    out = [np.clip(480 + 240 * np.sin((xx + 7 * b) / 17.0) +
+                   160 * np.cos((yy + 3 * b) / 11.0) +
+                   rng.randint(-24, 25, (h, w)), 0, 1023) for b in range(B)]
+    return np.stack(out).astype(np.uint16)
+
+
+def synth_frames10(width, height, n, seed=0):
+    """A 10-bit clip (uint16): a moving sine/cosine luma pattern with
+    uniform noise of +-20 and smooth chroma, as the JAX package's 10-bit
+    video test makes it."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:height, 0:width]
+    out = []
+    for t in range(n):
+        y = np.clip(400 + 200 * np.sin((xx + 4 * t) / 17.0) +
+                    160 * np.cos(yy / 23.0) +
+                    rng.randint(-20, 21, (height, width)), 0, 1023)
+        u = np.clip(480 + 120 * np.sin((xx[::2, ::2] + 2 * t) / 31.0), 0,
+                    1023)
+        v = np.clip(520 + 100 * np.cos(yy[::2, ::2] / 29.0), 0, 1023)
+        out.append(tuple(p.astype(np.uint16) for p in (y, u, v)))
+    return out
+
+
 def synth_frames(width, height, n, seed=0):
     """The JAX benchmark's synthetic 1080p clip (bench.py), frame for
     frame: a moving sine/cosine pattern plus uniform noise."""
@@ -101,6 +130,26 @@ def edge_frames(width, height, n, seed=0):
     return out
 
 
+def edge_frames10(width, height, n, seed=0):
+    """edge_frames at 10 bits (uint16): the same layout of sharp diagonal
+    edges and noise bands, drawn at 10-bit amplitudes with 10-bit noise."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:height, 0:width]
+    cy, cx = yy[::2, ::2], xx[::2, ::2]
+    out = []
+    for b in range(n):
+        edges = 512 + 280 * np.sign(np.sin((xx + 2 * yy) / 6.0 + b)) + \
+            rng.randint(-48, 49, (height, width))
+        noise = 512 + rng.randint(-160, 161, (height, width))
+        y = np.where((xx // 64) % 2 == 0, edges, noise)
+        u = 480 + 120 * np.sign(np.sin((cx + 2 * cy) / 3.0 + b)) + \
+            rng.randint(-24, 25, cy.shape)
+        v = 520 + 100 * np.cos(cy / 4.0) + rng.randint(-32, 33, cy.shape)
+        out.append(tuple(np.clip(p, 0, 1023).astype(np.uint16)
+                         for p in (y, u, v)))
+    return out
+
+
 def moving_frames(width, height, n, seed=0):
     """A panned clip for the inter path: one texture drawn once from the
     seed, larger than the frame (the synthetic pattern with
@@ -143,5 +192,48 @@ def moving_frames(width, height, n, seed=0):
                      p[1::2, 1::2] + 2) >> 2
             p = p + rng.randint(-2, 3, p.shape)
             planes.append(np.clip(p, 0, 255).astype(np.uint8))
+        frames.append(tuple(planes))
+    return frames
+
+
+def moving_frames10(width, height, n, seed=0):
+    """A panned 10-bit clip (uint16) for the inter paths, built as
+    moving_frames is: one texture drawn from the seed (a 10-bit sine
+    pattern with fixed noise, busy in every other of six vertical bands),
+    each frame a crop moved (2, 3) px a frame, a centred patch moved (-1,
+    -1.5) px a frame (half-pel columns averaged), +-3 of fresh noise a
+    frame, chroma the 2x2 mean of its own textures.  The decimated luma
+    SAD between frames (about 18) stays below the scene-cut threshold of
+    26, which the encoders apply to 10-bit values unscaled."""
+    rng = np.random.RandomState(seed)
+    m = 4 * n + 32
+    th, tw = height + 2 * m, width + 2 * m
+    yy, xx = np.mgrid[0:th, 0:tw]
+    flat = (512 + 150 * np.sin(xx / 23.0) + 120 * np.cos(yy / 19.0) +
+            rng.randint(-6, 7, (th, tw)))
+    busy = flat + 16 * np.sin(xx / 2.0 + yy / 3.0) + \
+        rng.randint(-6, 7, (th, tw))
+    band = (xx // max(width // 6, 1)) % 2 == 1
+    tex = [np.where(band, busy, flat),
+           480 + 100 * np.sin(xx / 29.0) + rng.randint(-2, 3, (th, tw)),
+           540 + 90 * np.cos(yy / 31.0) + rng.randint(-2, 3, (th, tw))]
+    tex = [np.clip(t, 0, 1023).astype(np.int32) for t in tex]
+    ps = min(256, height // 2, width // 2)
+    py, px = (height - ps) // 2, (width - ps) // 2
+    frames = []
+    for t in range(n):
+        planes = []
+        for k, tx in enumerate(tex):
+            p = tx[m - 2 * t:m - 2 * t + height,
+                   m - 3 * t:m - 3 * t + width].copy()
+            r0, c0 = m + py + t, m + px + (3 * t) // 2
+            a = tx[r0:r0 + ps, c0:c0 + ps]
+            b = tx[r0:r0 + ps, c0 + (3 * t) % 2:c0 + (3 * t) % 2 + ps]
+            p[py:py + ps, px:px + ps] = (a + b + 1) >> 1
+            if k:
+                p = (p[::2, ::2] + p[::2, 1::2] + p[1::2, ::2] +
+                     p[1::2, 1::2] + 2) >> 2
+            p = p + rng.randint(-3, 4, p.shape)
+            planes.append(np.clip(p, 0, 1023).astype(np.uint16))
         frames.append(tuple(planes))
     return frames

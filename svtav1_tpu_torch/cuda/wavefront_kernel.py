@@ -1,7 +1,8 @@
 """ctypes wrapper of the CUDA wavefront kernel (csrc/wavefront.cu).
 
 ``wavefront_cuda`` has the contract of ``encoder.wavefront
-._wavefront_body`` for a uint8 plane stack on a CUDA device: the flat
+._wavefront_body`` for a plane stack on a CUDA device, 8-bit (uint8) or
+10-bit (int16; the kernel's uint16 form reads the same bits): the flat
 intra wavefront, and with ``extra`` its mixed form, whose inter lanes
 (precomputed predictions, a rate and a mask a block each, and a mask of
 the intra candidates) follow the intra candidates.  It checks what the
@@ -17,7 +18,8 @@ copy, so call it where the caller copies to the host anyway).
 Host-side tables, built once per (shape, candidate list): the block list
 in ticket order with each block's dependencies (``schedule``), the
 predictor maps (``linear_pred_maps``), the deadzone reciprocals
-(``reciprocal``) and the transform shifts (``tx_params``).  ``work``
+(``reciprocal``) and the transform shifts and bd's clamps
+(``tx_params``).  ``work``
 counts the operations and bytes of one call for the kernel's bound.
 """
 
@@ -29,9 +31,11 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .. import pix_dtype
 from ..encoder.wavefront import _quad_tables, _tx_types, expand_candidates
 from ..ops.intra import SM_WEIGHTS
 from ..ops.intra_dir import MODE_ANGLE, _z1_maps, _z2_maps, _z3_maps
+from ..ops.transforms import inv_ranges
 from ..spec import tables as tbl
 from ..spec import txfm as T
 
@@ -59,7 +63,9 @@ class _Params(ctypes.Structure):
         [(n, ctypes.c_int) for n in (
             "sdc", "sac", "B", "NU", "h", "w", "bh", "bw", "vh", "C",
             "paired", "nblk", "NI", "nE", "dqdc", "dqac", "qshift", "fwd_s0",
-            "fwd_s1", "fwd_s2", "inv_s0", "inv_s1", "inv_lo", "inv_hi")] +
+            "fwd_s1", "fwd_s2", "inv_s0", "inv_s1", "base", "pix_max",
+            "dq_lo", "dq_hi", "row_lo", "row_hi", "mid_lo", "mid_hi",
+            "col_lo", "col_hi", "res_lo", "res_hi")] +
         [("lam", ctypes.c_float),
          ("cand_mode", ctypes.c_int * MAXC),
          ("cand_kind", ctypes.c_int * MAXC),
@@ -77,19 +83,19 @@ def _lib():
                            "wavefront.cu and _Params")
     lib.wf_plane.restype = ctypes.c_int
     lib.wf_plane.argtypes = [ctypes.POINTER(_Params), ctypes.c_int,
-                             ctypes.c_void_p]
+                             ctypes.c_int, ctypes.c_void_p]
     lib.wf_info.restype = ctypes.c_int
-    lib.wf_info.argtypes = [ctypes.c_int, ctypes.c_int,
+    lib.wf_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                             ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
-def kernel_info(bs: int, C: int) -> dict:
+def kernel_info(bs: int, C: int, bd: int = 8) -> dict:
     """Registers and local (spill) bytes per thread, CTAs per SM, dynamic
     shared bytes per CTA, the SM count, clusters resident at once and
-    warps per CTA of the kernel for bs, C."""
+    warps per CTA of the kernel's bs, bd form for C candidates."""
     out = (ctypes.c_int * 7)()
-    err = _lib().wf_info(bs, C, out)
+    err = _lib().wf_info(bs, bd, C, out)
     if err:
         raise RuntimeError(f"wf_info failed: CUDA error {err}")
     return dict(zip(("regs", "local_bytes", "ctas_per_sm", "smem_bytes",
@@ -204,16 +210,23 @@ def reciprocal(d: int) -> tuple:
 
 
 def tx_params(bs: int, bd: int = 8) -> dict:
-    """The kernel's transform constants for bs x bs blocks (shifts s in
-    round_shift_array form: s > 0 rounds right, s < 0 scales left)."""
+    """The kernel's transform and pixel constants for bs x bs blocks of
+    bd-bit pixels: shifts s in round_shift_array form (s > 0 rounds right,
+    s < 0 scales left); each clamp as (lo, hi) from the port's inverse
+    transform at bd (ops.transforms.inv_ranges); the edge base and the
+    pixel maximum."""
     fwd, inv = T.FWD_SHIFT[(bs, bs)], T.INV_SHIFT[(bs, bs)]
-    clamp = T.opt_range(bd, False)
-    if T.opt_range(bd, True) != clamp:
-        raise NotImplementedError("row and column clamps differ")
+    r = inv_ranges(bd)
+    bits = lambda n: (-(1 << (n - 1)), (1 << (n - 1)) - 1)
+    (dq_lo, dq_hi), (row_lo, row_hi), (mid_lo, mid_hi), (col_lo, col_hi) = (
+        bits(r[k]) for k in ("inp", "row", "mid", "col"))
     return dict(qshift=tbl.tx_scale_shift(_TX_OF_BS[bs]),
                 fwd_s0=-fwd[0], fwd_s1=-fwd[1], fwd_s2=-fwd[2],
                 inv_s0=-inv[0], inv_s1=-inv[1],
-                inv_lo=-(1 << (clamp - 1)), inv_hi=(1 << (clamp - 1)) - 1)
+                base=1 << (bd - 1), pix_max=(1 << bd) - 1,
+                dq_lo=dq_lo, dq_hi=dq_hi, row_lo=row_lo, row_hi=row_hi,
+                mid_lo=mid_lo, mid_hi=mid_hi, col_lo=col_lo, col_hi=col_hi,
+                res_lo=-r["res_max"] - 1, res_hi=r["res_max"])
 
 
 def _kinds_of(tx_type: int):
@@ -249,13 +262,13 @@ _PRED_OPS = 6
 
 
 def work(bs: int, B: int, h: int, w: int, modes, uv_tx: bool = False,
-         n_extra: int = 0, live=None):
+         n_extra: int = 0, live=None, bd: int = 8):
     """(int32 operations, bytes) of one call: the chain of every candidate
     (the intra ones, then n_extra inter lanes without the prediction) on
-    every pixel, the source, the lanes' predictions (uint8), rates and
-    masks read once and the outputs written once.  live: each candidate's
-    share of the blocks whose masks let it compete (what this call's data
-    needs; None: every block)."""
+    every pixel, the source, the lanes' predictions (1 byte a pixel at 8
+    bits, 2 at 10), rates and masks read once and the outputs written
+    once.  live: each candidate's share of the blocks whose masks let it
+    compete (what this call's data needs; None: every block)."""
     types = _tx_types(expand_candidates(modes), _TX_OF_BS[bs], uv_tx)
     n_intra = len(types)
     types = types + [T.DCT_DCT] * n_extra
@@ -269,14 +282,15 @@ def work(bs: int, B: int, h: int, w: int, modes, uv_tx: bool = False,
         per_px += share * chain
     px = B * h * w
     blocks = px // (bs * bs)
-    lanes = n_extra * (px + 5 * blocks) + (blocks if n_extra else 0)
-    return int(per_px * px), px * (1 + 4 + 4) + 4 * blocks + lanes
+    pb = 1 if bd == 8 else 2
+    lanes = n_extra * (pb * px + 5 * blocks) + (blocks if n_extra else 0)
+    return int(per_px * px), px * (pb + 4 + 4) + 4 * blocks + lanes
 
 
 def bound_ms(bs: int, B: int, h: int, w: int, modes, uv_tx=False,
-             n_extra: int = 0, live=None):
+             n_extra: int = 0, live=None, bd: int = 8):
     """(least time on the card in ms, "operations" or "bytes")."""
-    ops, nbytes = work(bs, B, h, w, modes, uv_tx, n_extra, live)
+    ops, nbytes = work(bs, B, h, w, modes, uv_tx, n_extra, live, bd)
     t_ops, t_bytes = ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), \
         "operations" if t_ops >= t_bytes else "bytes"
@@ -301,23 +315,24 @@ def _tables(bs: int, cands: tuple, uv_tx: bool, h: int, w: int, vh: int,
 def wavefront_cuda(src, rd, bs: int, tx_size: int, modes, bd: int = 8,
                    angle_deltas=(0,), valid_h: int = None,
                    paired: bool = False, uv_tx: bool = False, extra=None):
-    """Run the wavefront kernel: src [B, h, w] uint8 on a CUDA device ->
-    (mode_idx [B, bh, bw] int32, levels [B, bh, bw, bs, bs] int32,
-    recon [B, h, w] int32).  extra: the mixed form's (extra_preds [B, nE,
-    bh, bw, bs, bs] int32 or uint8 in [0, 255], extra_rate [B, nE, bh, bw]
-    float32, extra_ok [B, nE, bh, bw] bool, intra_ok [B, bh, bw] bool), on
-    src's device; mode_idx >= the intra count then selects a lane.
-    Asynchronous on the current stream."""
+    """Run the wavefront kernel: src [B, h, w] on a CUDA device, uint8 at
+    bd=8 or int16 at bd=10 -> (mode_idx [B, bh, bw] int32, levels [B, bh,
+    bw, bs, bs] int32, recon [B, h, w] int32).  extra: the mixed form's
+    (extra_preds [B, nE, bh, bw, bs, bs] int32 or the pixel dtype, in [0,
+    2^bd - 1], extra_rate [B, nE, bh, bw] float32, extra_ok [B, nE, bh,
+    bw] bool, intra_ok [B, bh, bw] bool), on src's device; mode_idx >= the
+    intra count then selects a lane.  Asynchronous on the current
+    stream."""
     return launch(src, rd, bs, tx_size, modes, bd, angle_deltas, valid_h,
                   paired, uv_tx, extra=extra)[:3]
 
 
-def _lane_tensors(extra, B: int, bh: int, bw: int, bs: int, dev):
-    """The mixed form's inputs as the kernel reads them: predictions
-    uint8, rates float32, masks bool, each contiguous on dev."""
+def _lane_tensors(extra, B: int, bh: int, bw: int, bs: int, dev, bd: int):
+    """The mixed form's inputs as the kernel reads them: predictions in
+    bd's pixel dtype, rates float32, masks bool, each contiguous on dev."""
     preds, rate, ok, intra_ok = extra
     nE = preds.shape[1]
-    want = [(preds, (B, nE, bh, bw, bs, bs), (torch.int32, torch.uint8)),
+    want = [(preds, (B, nE, bh, bw, bs, bs), (torch.int32, pix_dtype(bd))),
             (rate, (B, nE, bh, bw), (torch.float32,)),
             (ok, (B, nE, bh, bw), (torch.bool,)),
             (intra_ok, (B, bh, bw), (torch.bool,))]
@@ -327,7 +342,7 @@ def _lane_tensors(extra, B: int, bh: int, bw: int, bs: int, dev):
             raise ValueError(f"inter lane input {tuple(t.shape)} {t.dtype} "
                              f"on {t.device}: the kernel takes {shape} "
                              f"{dtypes} on {dev}")
-    return (preds.to(torch.uint8).contiguous(), rate.contiguous(),
+    return (preds.to(pix_dtype(bd)).contiguous(), rate.contiguous(),
             ok.contiguous(), intra_ok.contiguous())
 
 
@@ -345,18 +360,19 @@ def launch(src, rd, bs: int, tx_size: int, modes, bd: int = 8,
     if src.device.type != "cuda":
         raise ValueError(f"wavefront_cuda needs a CUDA tensor, got "
                          f"{src.device}")
-    if src.dtype != torch.uint8 or src.dim() != 3 or \
-            not src.is_contiguous():
-        raise ValueError("src must be a contiguous [B, h, w] uint8 tensor")
+    if bd not in (8, 10) or tuple(angle_deltas) != (0,):
+        raise NotImplementedError("the CUDA wavefront, with or without "
+                                  "inter lanes, covers bd 8 and 10 and "
+                                  "angle_deltas=(0,); svtav1_tpu has the rest")
+    pix = pix_dtype(bd)     # the uint16_t form reads int16's bits
+    if src.dtype != pix or src.dim() != 3 or not src.is_contiguous():
+        raise ValueError(f"src must be a contiguous [B, h, w] {pix} tensor "
+                         f"at bd={bd}, got {src.dtype}")
     if bs not in _TX_OF_BS or tx_size != _TX_OF_BS[bs]:
         raise NotImplementedError(f"bs {bs} / tx_size {tx_size}: the kernel "
                                   "takes 16/TX_16X16 and 32/TX_32X32")
     if paired and bs != 16:
         raise NotImplementedError("paired planes run as 16x16 blocks")
-    if bd != 8 or tuple(angle_deltas) != (0,):
-        raise NotImplementedError("the CUDA wavefront, with or without "
-                                  "inter lanes, covers bd=8 and "
-                                  "angle_deltas=(0,); svtav1_tpu has the rest")
     if extra is not None and (paired or uv_tx):
         raise NotImplementedError("inter lanes run on unpaired planes with "
                                   "DCT_DCT (the flat P frame's); the mixed "
@@ -375,7 +391,7 @@ def launch(src, rd, bs: int, tx_size: int, modes, bd: int = 8,
     bh, bw = h // bs, w // bs
     dev = src.device
     lanes = None if extra is None else _lane_tensors(extra, B, bh, bw, bs,
-                                                     dev)
+                                                     dev, bd)
     nE = 0 if lanes is None else lanes[0].shape[1]
     cands = cands + (LANE,) * nE
     C = len(cands)
@@ -414,7 +430,7 @@ def launch(src, rd, bs: int, tx_size: int, modes, bd: int = 8,
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().wf_plane(ctypes.byref(p), bs, stream)
+        err = _lib().wf_plane(ctypes.byref(p), bs, bd, stream)
     if err:
         raise RuntimeError(f"wf_plane launch failed: CUDA error {err}")
     LAUNCHES += 1

@@ -1,4 +1,4 @@
-"""All-intra AV1 encoder, flat path (8-bit 4:2:0, 32x32 luma blocks).
+"""All-intra AV1 encoder, flat path (8/10-bit 4:2:0, 32x32 luma blocks).
 
 Counterpart of the flat (part_search=False) path of
 ``svtav1_tpu/encoder/intra_encoder.py``:
@@ -14,8 +14,10 @@ The partition path (``_device_encode_part`` / ``_host_finish_part``, the
 default) adds the in-loop filters when they are enabled: per frame, on the
 recon's device, CDEF (search, apply), CCSO (search on the host, apply) and
 loop restoration (search, apply), in the JAX package's order, then the
-Python tile coder signals each tool.  10-bit, angle deltas and tile
-columns raise NotImplementedError: the JAX package has them.
+Python tile coder signals each tool.  Every path takes bit_depth 8 or 10
+(10-bit: uint16 source and recon planes, int16 pixel tensors on the
+device); angle deltas and tile columns raise NotImplementedError: the JAX
+package has them.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from .. import resolve_device, upload
+from .. import host_pixels, pix_dtype, resolve_device, upload
 from ..ec import native
 from ..ops import intra
 from ..ops.ccso import ccso_apply_frame
@@ -83,9 +85,9 @@ class EncoderConfig:
 
 def _unsupported(what: str):
     return NotImplementedError(
-        f"{what} is not ported to svtav1_tpu_torch (8-bit, one tile "
-        "column); the JAX package svtav1_tpu has it (python -m "
-        "svtav1_tpu.app)")
+        f"{what} is not ported to svtav1_tpu_torch (8/10-bit, one tile "
+        "column, no angle deltas); the JAX package svtav1_tpu has it "
+        "(python -m svtav1_tpu.app)")
 
 
 def _lambda(qindex: int) -> float:
@@ -102,8 +104,10 @@ class IntraEncoder:
     _CAP_QSTEPS = (24, 48, 88)
 
     def __init__(self, cfg: EncoderConfig, device="cuda"):
-        if cfg.bit_depth != 8:
-            raise _unsupported(f"bit_depth={cfg.bit_depth}")
+        if cfg.bit_depth not in (8, 10):
+            # as the JAX package's verify_settings
+            raise ValueError(f"bit_depth must be 8 or 10, got "
+                             f"{cfg.bit_depth}")
         if tuple(cfg.angle_deltas) != (0,):
             raise _unsupported(f"angle_deltas={tuple(cfg.angle_deltas)}")
         if cfg.tile_cols != 1:
@@ -143,7 +147,7 @@ class IntraEncoder:
         """Per-frame film_grain header dict (or None); the grain model is
         estimated from the first frame seen."""
         cfg = self.cfg
-        if not cfg.film_grain:
+        if not cfg.film_grain or cfg.bit_depth != 8:
             return None
         if self._fg_params is None:
             from .noise_model import estimate_grain_params
@@ -196,15 +200,18 @@ class IntraEncoder:
         return self.host_finish(self.device_encode(frames))
 
     def _upload(self, planes: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(planes, np.uint8))
+        """Source planes to the device as pixel tensors (uint8 / int16)."""
+        dt = np.uint8 if self.cfg.bit_depth == 8 else np.int16
+        t = torch.from_numpy(np.ascontiguousarray(planes, dt))
         if self.device.type == "cuda":
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
 
     def device_encode(self, frames):
-        """The device stage of a batch of (y, u, v) uint8 frames.  On the
-        flat path it is queued without waiting for the device; the
-        partition path waits once, for the DLF level search."""
+        """The device stage of a batch of (y, u, v) frames (uint8, or
+        uint16 at 10 bits).  On the flat path it is queued without waiting
+        for the device; the partition path waits once, for the DLF level
+        search."""
         cfg = self.cfg
         if cfg.part_search:
             return self._device_encode_part(frames)
@@ -212,32 +219,35 @@ class IntraEncoder:
         uvb = pad_plane_bottom(np.concatenate(
             [np.stack([f[1] for f in frames]),
              np.stack([f[2] for f in frames])]), self.ph // 2)
+        bd = cfg.bit_depth
         vh = None if self.ph == cfg.height else cfg.height
         vhc = None if vh is None else vh // 2
         y_mi, y_lev, y_rec = encode_plane_wavefront(
-            self._upload(yb), BLK, TX_32X32, cfg.qindex, CAND_MODES, 8,
+            self._upload(yb), BLK, TX_32X32, cfg.qindex, CAND_MODES, bd,
             valid_h=vh)
         # U and V ride one wavefront on the batch axis; paired=True makes
         # each (u, v) pair agree on one uv_mode
         uv_mi, uv_lev, uv_rec = encode_plane_wavefront(
-            self._upload(uvb), CBLK, TX_16X16, cfg.qindex, CAND_MODES, 8,
+            self._upload(uvb), CBLK, TX_16X16, cfg.qindex, CAND_MODES, bd,
             valid_h=vhc, paired=True, kf="uv", uv_tx=True)
         lf = self.lf_levels()
         if lf[0] or lf[1]:
             y_rec = deblock_plane_uniform(y_rec, BLK, 14, lf[0], lf[1],
-                                          bd=8, valid_h=vh)
+                                          bd=bd, valid_h=vh)
             uv_rec = deblock_plane_uniform(uv_rec, CBLK, 6, lf[2], lf[2],
-                                           bd=8, valid_h=vhc)
+                                           bd=bd, valid_h=vhc)
+        pix = pix_dtype(bd)
         return {"n": len(frames), "y_mi": y_mi, "uv_mi": uv_mi,
                 "y_lev": y_lev, "uv_lev": uv_lev,
-                "y_rec": y_rec.to(torch.uint8),
-                "uv_rec": uv_rec.to(torch.uint8), "frames": frames}
+                "y_rec": y_rec.to(pix), "uv_rec": uv_rec.to(pix),
+                "frames": frames}
 
     def _device_encode_part(self, frames):
         """Partition-path device stage.  Returns the JAX package's "part"
         tuple, with tensors on the encoder's device and the recon planes
-        as uint8."""
+        as pixel tensors (uint8, or int16 at 10 bits)."""
         cfg = self.cfg
+        bd = cfg.bit_depth
         B = len(frames)
         yb = pad_plane_bottom(np.stack([f[0] for f in frames]), self.ph)
         uvb = pad_plane_bottom(np.concatenate(
@@ -254,14 +264,14 @@ class IntraEncoder:
         (part, y_mi, y_lev, y_smi, y_slev, y_stx, y_rec,
          part_sb, y_mi_sb, y_lev_sb) = encode_plane_wavefront_part(
             y_src, BLK, cfg.qindex, fp, fsb, tx_search=cfg.tx_search,
-            valid_h=vh)
+            valid_h=vh, bd=bd)
         # U and V ride one paired wavefront: the partition tree is forced
         # by luma and each (u, v) pair picks one uv_mode
         two = lambda a: torch.cat([a, a])
         (_, uv_mi, uv_lev, uv_smi, uv_slev, _, uv_rec,
          _, uv_mi_sb, uv_lev_sb) = encode_plane_wavefront_part(
             self._upload(uvb), CBLK, cfg.qindex, two(part), two(part_sb),
-            chroma=True, valid_h=vhc)
+            chroma=True, valid_h=vhc, bd=bd)
         u_lev, v_lev = uv_lev[:B], uv_lev[B:]
         u_slev, v_slev = uv_slev[:B], uv_slev[B:]
         u_lev_sb, v_lev_sb = uv_lev_sb[:B], uv_lev_sb[B:]
@@ -275,21 +285,21 @@ class IntraEncoder:
             cand = [0, max(1, base // 2), max(1, base * 3 // 4),
                     max(1, base), base * 5 // 4 + 1, base * 3 // 2 + 1]
             cand = [min(63, c) for c in cand]
-            sse = dlf_sse_part(y_rec, y_src, part, cand, BLK, 14,
+            sse = dlf_sse_part(y_rec, y_src, part, cand, BLK, 14, bd=bd,
                                part_sb=part_sb, valid_h=vh).cpu().numpy()
             l = int(cand[int(np.argmin(sse))])
             lc = max(0, l * 3 // 4)
             lf = (l, l, lc, lc)
         if lf[0] or lf[1]:
             y_rec = deblock_plane_part(y_rec, part, BLK, 14, lf[0], lf[1],
-                                       part_sb=part_sb, valid_h=vh)
+                                       bd=bd, part_sb=part_sb, valid_h=vh)
             u_rec = deblock_plane_part(u_rec, part, CBLK, 6, lf[2], lf[2],
-                                       part_sb=part_sb, valid_h=vhc)
+                                       bd=bd, part_sb=part_sb, valid_h=vhc)
             v_rec = deblock_plane_part(v_rec, part, CBLK, 6, lf[3], lf[3],
-                                       part_sb=part_sb, valid_h=vhc)
-        u8 = lambda a: a.to(torch.uint8)
+                                       bd=bd, part_sb=part_sb, valid_h=vhc)
+        pix = lambda a: a.to(pix_dtype(bd))
         return ("part", B, part, y_mi, y_lev, y_smi, y_slev, u_lev, u_slev,
-                v_lev, v_slev, y_stx, u8(y_rec), u8(u_rec), u8(v_rec),
+                v_lev, v_slev, y_stx, pix(y_rec), pix(u_rec), pix(v_rec),
                 frames, part_sb, y_mi_sb, y_lev_sb, u_lev_sb, v_lev_sb,
                 uv_mi[:B], uv_smi[:B], uv_mi_sb[:B], lf)
 
@@ -387,13 +397,14 @@ class IntraEncoder:
                 self.seq, fr, tile, first=self._first,
                 metadata=cfg.metadata if self._first else b""))
             self._first = False
-            y, u, v = (p.to(torch.uint8).cpu().numpy() for p in rec)
+            y, u, v = (host_pixels(p, cfg.bit_depth) for p in rec)
             recons.append((y[:ch], u[:cch], v[:cch]))
         return self._capped_recode(frames, payloads, recons, first0)
 
     def host_finish(self, dev):
         """Entropy-code a device batch (waits for its device work).
-        Returns (payloads, recons) with recons as uint8 numpy planes."""
+        Returns (payloads, recons) with recons as numpy planes, uint8 (or
+        uint16 at 10 bits)."""
         if isinstance(dev, tuple) and dev and dev[0] == "part":
             return self._host_finish_part(dev)
         cfg = self.cfg
@@ -403,8 +414,8 @@ class IntraEncoder:
         uv_mi = dev["uv_mi"].cpu().numpy()[:n]     # halves agree (paired)
         y_lev = dev["y_lev"].cpu().numpy()
         uv_lev = dev["uv_lev"].cpu().numpy()
-        y_rec = dev["y_rec"].cpu().numpy()
-        uv_rec = dev["uv_rec"].cpu().numpy()
+        y_rec = host_pixels(dev["y_rec"], cfg.bit_depth)
+        uv_rec = host_pixels(dev["uv_rec"], cfg.bit_depth)
         if self.device.type == "cuda":
             # the kernel's error word; the copies above already waited
             from ..cuda.wavefront_kernel import raise_on_error

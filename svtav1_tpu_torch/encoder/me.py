@@ -74,7 +74,7 @@ def _argmin_offset(sads, r: int):
 
 
 def motion_estimate(src, ref, bs: int = BLK, long_range: bool = False):
-    """src/ref [B, H, W] luma tensors (uint8 or int32) -> (mv8 [B, bh, bw,
+    """src/ref [B, H, W] luma tensors (any integer dtype) -> (mv8 [B, bh, bw,
     2] int32 quarter-pel mvs in 1/8-pel units, full-pel SAD [B, bh, bw]
     int32 of the chosen position)."""
     B, H, W = src.shape

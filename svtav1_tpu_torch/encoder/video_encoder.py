@@ -48,7 +48,8 @@ own qindex (the anchor's from a TPL-lite measure of how well the GoP is
 predicted), its own DPB slot, CDF snapshot and GM parameters; references
 more than 4 frames away search with the long-range level of ``me.py``.
 With ``tf=True`` the anchors' and key frames' sources are temporally
-filtered first (``ops/tf.py``).  The pyramid on the partition path (its
+filtered first (``ops/tf.py``).  Every path takes bit_depth 8 or 10 (the
+DPB then holds uint16 planes).  The pyramid on the partition path (its
 interior frames are compound, with per-block TPL lambdas) and tile columns
 raise NotImplementedError: the JAX package has them.
 """
@@ -61,7 +62,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .. import upload
+from .. import host_pixels, pix_dtype, upload
 from ..ops.deblock import (deblock_plane_part, deblock_plane_uniform,
                            dlf_sse_part)
 from ..ops.mc import pad_plane, predict_inter_blocks
@@ -196,7 +197,8 @@ class VideoEncoder:
         self.last_p = None            # host maps of the last P frame
 
     def encode_frames(self, frames):
-        """Encode (y, u, v) uint8 frames: (payloads in decode order, recons
+        """Encode (y, u, v) frames, uint8 (uint16 at 10 bits): (payloads
+        in decode order, recons
         in display order).  Low-delay: one of each a frame.  Pyramid: the
         frames buffer until a mini-GoP is complete (call flush() at the end
         of the stream), and the payloads include show_existing overlay
@@ -454,7 +456,7 @@ class VideoEncoder:
         lc = max(0, l * 3 // 4)
         return (l, l, lc, lc)
 
-    def _dlf_levels(self, q, y_rec, part, part_sb, src_y, valid_h=None):
+    def _dlf_levels(self, q, y_rec, part, part_sb, src_y, bd, valid_h=None):
         """Frame-level DLF level search: the luma level of least SSE
         against the source among levels around the qindex heuristic,
         chroma at 3/4 (an explicit cfg.lf_level overrides).  One host
@@ -465,7 +467,7 @@ class VideoEncoder:
         cand = [0, max(1, base // 2), max(1, base * 3 // 4),
                 max(1, base), base * 5 // 4 + 1, base * 3 // 2 + 1]
         cand = [min(63, c) for c in cand]
-        sse = dlf_sse_part(y_rec, src_y, part, cand, BLK, 14,
+        sse = dlf_sse_part(y_rec, src_y, part, cand, BLK, 14, bd=bd,
                            part_sb=part_sb, valid_h=valid_h).cpu().numpy()
         l = int(cand[int(np.argmin(sse))])
         lc = max(0, l * 3 // 4)
@@ -527,7 +529,7 @@ class VideoEncoder:
                 (b_c * BLK + (zz & 1) * 16)[None])
 
     def _luma_lanes(self, ryp, mvs, mvps, gmv, origins, h, w, filt,
-                    free, free_sb):
+                    free, free_sb, bd):
         """Motion compensation and rates of the three lanes at the 32, 16
         and 64 depths, as the scan's InterLanes."""
         preds, rates = [], []
@@ -539,7 +541,7 @@ class VideoEncoder:
             p = predict_inter_blocks(
                 ryp.expand(N_LANES, -1, -1), y0.expand(N_LANES, n),
                 x0.expand(N_LANES, n), torch.cat([mvf, gm, mvpf]), h, w, bs,
-                0, 8, filt)
+                0, bd, filt)
             preds.append(p.reshape((1, N_LANES) + shape[1:] + (bs, bs)))
             rates.append(torch.stack([
                 MODE_NEW + _mv_bits(mv, mvp),
@@ -552,7 +554,7 @@ class VideoEncoder:
                           r_sb, one(r_sb), one(free), one(free)[..., None]
                           .expand(-1, -1, -1, 4), one(free_sb))
 
-    def _chroma_lanes(self, rup, rvp, mvs, origins, h, w, filt, inter):
+    def _chroma_lanes(self, rup, rvp, mvs, origins, h, w, filt, inter, bd):
         """Chroma motion compensation at the luma decisions' mvs (U and V
         in one call each depth): [U, V] predictions of the top, sub and
         SB blocks, as the paired scan's InterLanes; inter (top, sub, sb
@@ -564,7 +566,7 @@ class VideoEncoder:
             n, cbs = mvf.shape[1], bs // 2
             p = predict_inter_blocks(ref, (y0 // 2).expand(2, n),
                                      (x0 // 2).expand(2, n),
-                                     mvf.expand(2, -1, -1), h, w, cbs, 1, 8,
+                                     mvf.expand(2, -1, -1), h, w, cbs, 1, bd,
                                      filt)
             preds.append(p.reshape((2, 1) + mv.shape[1:-1] + (cbs, cbs)))
         top, sub, sb = preds
@@ -584,6 +586,7 @@ class VideoEncoder:
         """A partition P frame against the previous frame, at qindex q, on
         the CDF chain."""
         cfg = self.cfg
+        bd = cfg.bit_depth
         cdf0 = self._cdf_state
         dev = self.device
         # h is the true (signalled) height: the MC clamp's and the DPB's;
@@ -619,17 +622,17 @@ class VideoEncoder:
         y0s, x0s = (ars // sw * 64)[None], (ars % sw * 64)[None]
         origins = ((y0, x0, BLK), (sy0, sx0, 16), (y0s, x0s, 64))
         filt = _pick_interp_filt(ys, ryp, y0, x0, mv32.reshape(1, N, 2), h,
-                                 w) if cfg.filter_search else 0
+                                 w, bd) if cfg.filter_search else 0
 
         free_np, free_sb_np = bottom_force_masks(bh, bw, sh, sw, h // 4)
         free, free_sb = (upload(a[None], dev) for a in (free_np, free_sb_np))
         lanes = self._luma_lanes(ryp, (mv32, mv16z, mv64),
                                  (mvp32, mvp16z, mvp64), gmv, origins, h, w,
-                                 filt, free, free_sb)
+                                 filt, free, free_sb, bd)
         (part, y_mi, y_lev, y_smi, y_slev, y_stx, y_rec,
          part_sb, y_mi_sb, y_lev_sb) = encode_plane_wavefront_part(
             ys, BLK, q, free, free_sb, tx_search=cfg.tx_search, valid_h=vh,
-            inter=lanes)
+            inter=lanes, bd=bd)
 
         n_i_top = len(expand_candidates(CAND_MODES))
         n_i_sub = len(expand_candidates(SUB_MODES))
@@ -648,23 +651,23 @@ class VideoEncoder:
 
         c_lanes = self._chroma_lanes(
             rup, rvp, (mv_top, mv_sub, mv_sb), origins, h, w, filt,
-            (lane_t >= 0, lane_s >= 0, lane_b >= 0))
+            (lane_t >= 0, lane_s >= 0, lane_b >= 0), bd)
         two = lambda a: torch.cat([a, a])
         (_, uv_mi, uv_lev, uv_smi, uv_slev, _, uv_rec,
          _, uv_mi_sb, uv_lev_sb) = encode_plane_wavefront_part(
             torch.cat([us, vs]), CBLK, q, two(part), two(part_sb),
-            chroma=True, valid_h=vhc, inter=c_lanes)
+            chroma=True, valid_h=vhc, inter=c_lanes, bd=bd)
 
-        lf = self._dlf_levels(q, y_rec, part, part_sb, ys, valid_h=vh)
+        lf = self._dlf_levels(q, y_rec, part, part_sb, ys, bd, valid_h=vh)
         u_rec, v_rec = uv_rec[:1], uv_rec[1:]
         if lf[0] or lf[1]:
             y_rec = deblock_plane_part(y_rec, part, BLK, 14, lf[0], lf[1],
-                                       part_sb=part_sb, valid_h=vh)
+                                       bd=bd, part_sb=part_sb, valid_h=vh)
             u_rec = deblock_plane_part(u_rec, part, CBLK, 6, lf[2], lf[2],
-                                       part_sb=part_sb, valid_h=vhc)
+                                       bd=bd, part_sb=part_sb, valid_h=vhc)
             v_rec = deblock_plane_part(v_rec, part, CBLK, 6, lf[3], lf[3],
-                                       part_sb=part_sb, valid_h=vhc)
-        u8 = lambda a: a.to(torch.uint8)
+                                       bd=bd, part_sb=part_sb, valid_h=vhc)
+        pix = lambda a: a.to(pix_dtype(bd))
         m = self._fetch(dict(
             part=part[0], y_mi=y_mi[0], y_lev=y_lev[0], y_smi=y_smi[0],
             y_slev=y_slev[0], y_stx=y_stx[0], part_sb=part_sb[0],
@@ -679,7 +682,7 @@ class VideoEncoder:
 
         rec, cdef_params, ccso_info, lr_types, lr_infos = \
             self.intra._filter_frame((y, u, v), (
-                u8(y_rec[0]), u8(u_rec[0]), u8(v_rec[0])), tuple(
+                pix(y_rec[0]), pix(u_rec[0]), pix(v_rec[0])), tuple(
                 m[k] for k in ("part", "y_lev", "u_lev", "v_lev", "y_slev",
                                "u_slev", "v_slev", "part_sb", "y_lev_sb",
                                "u_lev_sb", "v_lev_sb")), qindex=q)
@@ -726,12 +729,12 @@ class VideoEncoder:
         if cfg.cdf_update:
             self._cdf_state = end_cdf.snapshot()
         payload = assemble_frame(self.seq, fr, tile, first=False)
-        y_n, u_n, v_n = (p.to(torch.uint8).cpu().numpy() for p in rec)
+        y_n, u_n, v_n = (host_pixels(p, bd) for p in rec)
         return payload, (y_n[:h], u_n[:h // 2], v_n[:h // 2])
 
     # ------------------------------------------------------- flat P frame
 
-    def _flat_luma_lanes(self, ryp, mv8, gmv, y0, x0, h, w, filt):
+    def _flat_luma_lanes(self, ryp, mv8, gmv, y0, x0, h, w, filt, bd):
         """The flat P frame's two luma lanes, NEWMV at the searched mv and
         GLOBALMV at the fit (one MC call): predictions [1, 2, bh, bw, 32,
         32] int32, rates [1, 2, bh, bw] float32."""
@@ -741,13 +744,13 @@ class VideoEncoder:
         gm = upload(np.array(gmv, np.int32), mvf.device).expand_as(mvf)
         pred = predict_inter_blocks(ryp.expand(2, -1, -1), y0.expand(2, n),
                                     x0.expand(2, n), torch.cat([mvf, gm]), h,
-                                    w, BLK, 0, 8, filt)
+                                    w, BLK, 0, bd, filt)
         rate = torch.stack([_flat_new_rate(mv8),
                             torch.full((1, bh, bw), R_ZERO,
                                        device=mv8.device)], 1)
         return pred.reshape(1, 2, bh, bw, BLK, BLK), rate
 
-    def _flat_chroma_lanes(self, rup, rvp, mv, y0, x0, h, w, filt):
+    def _flat_chroma_lanes(self, rup, rvp, mv, y0, x0, h, w, filt, bd):
         """Chroma motion compensation at the luma decisions' mvs [1, bh,
         bw, 2], U and V in one call: [2, 1, bh, bw, 16, 16] int32."""
         _, bh, bw, _ = mv.shape
@@ -755,7 +758,7 @@ class VideoEncoder:
         pred = predict_inter_blocks(
             torch.cat([rup, rvp]), (y0 // 2).expand(2, n),
             (x0 // 2).expand(2, n), mv.reshape(1, n, 2).expand(2, -1, -1), h,
-            w, CBLK, 1, 8, filt)
+            w, CBLK, 1, bd, filt)
         return pred.reshape(2, 1, bh, bw, CBLK, CBLK)
 
     def _p_flat_device(self, y, u, v, q, ref=None, ref_dist=1):
@@ -765,6 +768,7 @@ class VideoEncoder:
         (tensors), and gm, filt, lf.  A reference more than 4 frames away
         searches long-range."""
         cfg = self.cfg
+        bd = cfg.bit_depth
         dev = self.device
         # h is the true (signalled) height: the MC clamp's and the DPB's;
         # hp the SB-padded plane height of the block grid
@@ -790,14 +794,16 @@ class VideoEncoder:
         ar = torch.arange(N, device=dev)
         y0, x0 = (ar // bw * BLK)[None], (ar % bw * BLK)[None]
         filt = _pick_interp_filt(ys, ryp, y0, x0, mv8.reshape(1, N, 2), h,
-                                 w) if cfg.filter_search else 0
+                                 w, bd) if cfg.filter_search else 0
 
         # luma: the 13 intra candidates and the two lanes, every one allowed
-        pred, rate = self._flat_luma_lanes(ryp, mv8, gmv, y0, x0, h, w, filt)
+        pred, rate = self._flat_luma_lanes(ryp, mv8, gmv, y0, x0, h, w, filt,
+                                           bd)
         ones = lambda *shape: torch.ones(shape, dtype=torch.bool, device=dev)
+        pix = pix_dtype(bd)             # the kernel's source dtype
         y_mi, y_lev, y_rec = encode_plane_wavefront_mixed(
-            ys, BLK, TX_32X32, q, pred, rate, ones(1, 2, bh, bw),
-            ones(1, bh, bw), 2, CAND_MODES, 8, valid_h=vh)
+            ys.to(pix), BLK, TX_32X32, q, pred, rate, ones(1, 2, bh, bw),
+            ones(1, bh, bw), 2, CAND_MODES, bd, valid_h=vh)
         n_intra = len(expand_candidates(CAND_MODES))
         is_inter = y_mi >= n_intra                       # [1, bh, bw]
         gm_t = upload(np.array(gmv, np.int32), dev)
@@ -807,19 +813,19 @@ class VideoEncoder:
         # luma is intra) or the inter lane (where luma is inter)
         two = lambda a: torch.cat([a, a])
         c_pred = self._flat_chroma_lanes(rup, rvp, mv_final, y0, x0, h, w,
-                                         filt)
+                                         filt, bd)
         uv_mi, uv_lev, uv_rec = encode_plane_wavefront_mixed(
-            torch.cat([us, vs]), CBLK, TX_16X16, q, c_pred,
+            torch.cat([us, vs]).to(pix), CBLK, TX_16X16, q, c_pred,
             torch.zeros((2, 1, bh, bw), device=dev), two(is_inter[:, None]),
-            two(~is_inter), 1, (0,), 8, valid_h=vhc)
+            two(~is_inter), 1, (0,), bd, valid_h=vhc)
 
         lf = self._p_lf_levels(q)
         if lf[0] or lf[1]:
-            y_rec = deblock_plane_uniform(y_rec, BLK, 14, lf[0], lf[1], bd=8,
+            y_rec = deblock_plane_uniform(y_rec, BLK, 14, lf[0], lf[1], bd=bd,
                                           valid_h=vh)
             # U and V share one level (lf[2] == lf[3])
             uv_rec = deblock_plane_uniform(uv_rec, CBLK, 6, lf[2], lf[2],
-                                           bd=8, valid_h=vhc)
+                                           bd=bd, valid_h=vhc)
         return dict(y_mi=y_mi[0], y_lev=y_lev[0], u_lev=uv_lev[0],
                     v_lev=uv_lev[1], uv_mi=uv_mi, mv_t=mv_final[0],
                     mv32=mv8[0], y_rec=y_rec, uv_rec=uv_rec, gm=gm,
@@ -877,7 +883,7 @@ class VideoEncoder:
             self._cdf_state = snap
         m.update(ref_slot=ref_idx[0], refresh=refresh)
         payload = assemble_frame(self.seq, fr, tile, first=False)
-        y_n, uv_n = (d[k].to(torch.uint8).cpu().numpy()
+        y_n, uv_n = (host_pixels(d[k], cfg.bit_depth)
                      for k in ("y_rec", "uv_rec"))
         return payload, (y_n[0, :h], uv_n[0, :h // 2], uv_n[1, :h // 2]), \
             snap

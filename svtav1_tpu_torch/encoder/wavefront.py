@@ -162,7 +162,7 @@ def encode_plane_wavefront(src, bs: int, tx_size: int, qindex: int,
                            angle_deltas: tuple = (0,), valid_h: int = None,
                            paired: bool = False, kf=True,
                            uv_tx: bool = False):
-    """src [B, h, w] uint8 tensor (h, w multiples of 2*bs) ->
+    """src [B, h, w] pixel tensor (h, w multiples of 2*bs) ->
     (mode_idx [B, bh, bw] int32, levels [B, bh, bw, bs, bs] int32,
     recon [B, h, w] int32); mode_idx indexes expand_candidates(modes,
     angle_deltas).

@@ -72,7 +72,6 @@ CHROMA_SB_MODES = SUB_MODES
 # EXT_TX_SET_DTT4_IDTX (DCT, ADST_ADST, ADST_DCT, DCT_ADST, IDTX)
 TX_SEARCH_TYPES = (0, 3, 1, 2, 9)
 
-BD = 8                        # bit depth (the port codes 8-bit only)
 # square tx size of an n x n block
 _SQ_TX = {8: TX_8X8, 16: TX_16X16, 32: TX_32X32, 64: TX_64X64}
 BIG = 3e38                    # RD cost of a gated-off candidate (float32)
@@ -143,14 +142,15 @@ def partition_bits_sb(qindex: int, bs2: int, cdf: CdfContext = None):
 
 
 def rd_params_part(qindex: int, bs: int, cands_top, cands_sub, cands_sbl,
-                   uv_rates: bool = False, kf: bool = True):
+                   uv_rates: bool = False, kf: bool = True, bd: int = 8):
     """RD inputs of a partition wavefront call, as numpy on the host: (dc
     step, ac step, lambda, top / sub / SB mode-rate tables, NONE and SPLIT
     bits at the 32 and the SB depth, the tx-type rate table, the sub
     candidates' mode ids).  kf=False takes the inter frame's intra-mode
-    rates (chroma keeps the uv_mode rates)."""
+    rates (chroma keeps the uv_mode rates).  The steps are bd's; the
+    lambda is the 8-bit ac step's at every bd, as in the JAX package."""
     cdf = CdfContext(qindex)
-    dc, ac = tbl.qindex_to_dq(qindex, BD)
+    dc, ac = tbl.qindex_to_dq(qindex, bd)
     rate_kf = "uv" if uv_rates else kf
     rate = lambda c: intra_mode_rate_table(c, qindex, kf=rate_kf, cdf=cdf)
     f32 = np.float32
@@ -168,8 +168,8 @@ def encode_plane_wavefront_part(src, bs: int, qindex: int, force_part,
                                 force_sb, chroma: bool = False,
                                 tx_search: bool = False,
                                 valid_h: int = None,
-                                inter: InterLanes = None):
-    """src [B, h, w] uint8 tensor (h, w multiples of 2*bs) ->
+                                inter: InterLanes = None, bd: int = 8):
+    """src [B, h, w] pixel tensor (h, w multiples of 2*bs) ->
     (part [B, bh, bw] int32 (1 = SPLIT), mi_top [B, bh, bw],
     lev_top [B, bh, bw, bs, bs], mi_sub [B, bh, bw, 4],
     lev_sub [B, bh, bw, 4, bs/2, bs/2], stx_sub [B, bh, bw, 4] (index into
@@ -186,20 +186,22 @@ def encode_plane_wavefront_part(src, bs: int, qindex: int, force_part,
     the tx type of the sub-block winners over TX_SEARCH_TYPES.  valid_h:
     true (unpadded) frame height; left edge rows clamp at valid_h-1.
     inter: the P frame's lanes (the inter form; mode indices past the
-    intra candidates are lanes)."""
+    intra candidates are lanes).  bd: the bit depth (8 or 10) of src
+    and of the lanes' predictions."""
     if chroma:
         modes = (CHROMA_TOP_MODES, CHROMA_SUB_MODES, CHROMA_SB_MODES)
     else:
         modes = (DEFAULT_MODES, SUB_MODES, DEFAULT_MODES)
     cands_top, cands_sub, cands_sbl = (expand_candidates(m) for m in modes)
     rd = rd_params_part(qindex, bs, cands_top, cands_sub, cands_sbl, chroma,
-                        kf=inter is None)
+                        kf=inter is None, bd=bd)
     dev = src.device
     rd_t = {k: (v if k in ("dc", "ac") else upload(np.asarray(v), dev))
             for k, v in rd.items()}
     return _wavefront_part_impl(src, rd_t, force_part.to(dev),
                                 force_sb.to(dev), bs, cands_top, cands_sub,
-                                cands_sbl, tx_search, valid_h, chroma, inter)
+                                cands_sbl, tx_search, valid_h, chroma, inter,
+                                bd)
 
 
 def _intra_pred(mode, delta, above, left, corner, ha, hl, n, bd,
@@ -226,13 +228,14 @@ def _intra_pred(mode, delta, above, left, corner, ha, hl, n, bd,
 
 def _wavefront_part_impl(src, rd, force_part, force_sb, bs: int, cands_top,
                          cands_sub, cands_sbl, tx_search: bool,
-                         valid_h: int, chroma: bool, inter=None):
+                         valid_h: int, chroma: bool, inter=None,
+                         bd: int = 8):
     """The scan, plain PyTorch on src's device; rd holds rd_params_part's
     tables as tensors on that device (dc and ac as ints).  chroma: paired
     U/V lanes and implied uv tx types; inter: InterLanes (the inter
     form)."""
     dqdc, dqac, lam = rd["dc"], rd["ac"], rd["lam"]
-    bd, paired, uv_tx = BD, chroma, chroma
+    paired, uv_tx = chroma, chroma
     dev = src.device
     B, h, w = src.shape
     vh = h if valid_h is None else valid_h

@@ -113,9 +113,9 @@ def tf_decay(qindex: int, n_neighbors: int) -> float:
 
 def temporal_filter_frame(center, neighbors, qindex: int, bd: int = 8,
                           device="cpu"):
-    """center (y, u, v) uint8 arrays; neighbors a list of such tuples.
-    Filters on `device`; returns the filtered (y, u, v) uint8 arrays, or
-    center unchanged when no neighbours are given."""
+    """center (y, u, v) uint8 (or uint16) arrays; neighbors a list of such
+    tuples.  Filters on `device`; returns the filtered (y, u, v) arrays of
+    center's dtype, or center unchanged when no neighbours are given."""
     if not neighbors:
         return center
     from ..encoder.me import motion_estimate
@@ -140,6 +140,6 @@ def temporal_filter_frame(center, neighbors, qindex: int, bd: int = 8,
                                   decay * (0.5 if i else 1.0), bd)
             for i in range(3)]
     peak = (1 << bd) - 1
-    out = tuple(p.round().clamp(0, peak).to(torch.uint8).cpu().numpy()
-                for p in filt)
+    out = tuple(p.round().clamp(0, peak).to(torch.int32).cpu().numpy()
+                .astype(cy.dtype) for p in filt)
     return out[0][:th], out[1][:th // 2], out[2][:th // 2]

@@ -100,24 +100,35 @@ def _apply_1d(x, kind: str, n: int, direction: str, cos_bit: int,
     return _apply_network(x, kind, n, direction, cos_bit, clamp_bit)
 
 
+def inv_ranges(bd: int) -> dict:
+    """The inverse transform's clamps at bd, as bit widths: its input (the
+    dequantizer's range), the row network's stages, the row output and the
+    column network's stages (row and column differ above 8 bits); and
+    res_max, the residual's limit before reconstruction.  inv_txfm2d and
+    add_residual_clip use them, and so does the CUDA wavefront kernel
+    (cuda/wavefront_kernel.tx_params)."""
+    return dict(inp=bd + 8, row=T.opt_range(bd, False), mid=max(bd + 6, 16),
+                col=T.opt_range(bd, True),
+                res_max=(1 << (7 + bd)) - 1 + (914 << (bd - 7)))
+
+
 def inv_txfm2d(coeffs, tx_size: int, tx_type: int, bd: int = 8):
     """Inverse 2D transform of dequantized coeffs [..., n, n] -> residual."""
     n, row_kind, col_kind = _kinds(tx_size, tx_type)
     shift = T.INV_SHIFT[(n, n)]
-    x = _clamp(coeffs.to(torch.int32), bd + 8)
-    x = _apply_1d(x, row_kind, n, "inv", T.INV_COS_BIT,
-                  T.opt_range(bd, False))
+    r = inv_ranges(bd)
+    x = _clamp(coeffs.to(torch.int32), r["inp"])
+    x = _apply_1d(x, row_kind, n, "inv", T.INV_COS_BIT, r["row"])
     x = _round_shift_signed(x, -shift[0])
-    x = _clamp(x.transpose(-1, -2), max(bd + 6, 16))
-    x = _apply_1d(x, col_kind, n, "inv", T.INV_COS_BIT,
-                  T.opt_range(bd, True))
+    x = _clamp(x.transpose(-1, -2), r["mid"])
+    x = _apply_1d(x, col_kind, n, "inv", T.INV_COS_BIT, r["col"])
     x = _round_shift_signed(x, -shift[1])
     return x.transpose(-1, -2)
 
 
 def add_residual_clip(pred, residual, bd: int = 8):
     """recon = clip(pred + wraplow(residual))."""
-    int_max = (1 << (7 + bd)) - 1 + (914 << (bd - 7))
+    int_max = inv_ranges(bd)["res_max"]
     res = residual.clamp(-int_max - 1, int_max)
     return (pred.to(torch.int32) + res).clamp(0, (1 << bd) - 1)
 

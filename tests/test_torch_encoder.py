@@ -120,6 +120,13 @@ def test_cuda_device_raises_without_card():
     {"enable_ccso": True}])
 def test_outside_the_slice_raises(change):
     cfg = replace(tie.EncoderConfig(128, 64, part_search=False), **change)
+    if cfg.bit_depth == 10:
+        # ported: 10-bit takes every path (tests/test_torch_10bit_*.py);
+        # other depths raise as the JAX package's verify_settings does
+        assert tie.IntraEncoder(cfg, device="cpu").seq.bit_depth == 10
+        with pytest.raises(ValueError, match="bit_depth must be 8 or 10"):
+            tie.IntraEncoder(replace(cfg, bit_depth=12), device="cpu")
+        return
     # the in-loop filters ride the partition path, in the JAX package too
     filters = cfg.enable_cdef or cfg.enable_lr or cfg.enable_ccso
     match = "partition coding path" if filters else "svtav1_tpu has it"

@@ -5,7 +5,8 @@ path, with the in-loop filters on, on the low-delay inter path (a key
 frame and a P frame, partition and flat) and on the flat pyramid with
 temporal filtering and rate control (a key frame and a mini-GoP of 4).
 It also decodes with all three blocked: a flat pyramid stream it encodes
-and the JAX encoder's compound pyramid fixture.
+and the JAX encoder's compound pyramid fixture; and at 10 bits it encodes
+a flat key frame and a partition I+P and decodes both streams.
 """
 
 import ast
@@ -128,6 +129,49 @@ _DECODE_BLOCKED = textwrap.dedent("""
 
 def test_port_decodes_with_the_reference_blocked():
     code = _DECODE_BLOCKED.format(blocked=BLOCKED)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300,
+                       env=_ONE_THREAD)
+    assert r.returncode == 0, r.stderr
+    assert "ISOLATED_OK" in r.stdout
+
+
+_TEN_BIT_BLOCKED = textwrap.dedent("""
+    import sys
+    for name in {blocked!r}:
+        sys.modules[name] = None          # any import of it raises
+    import numpy as np
+    from svtav1_tpu_torch import Decoder
+    from svtav1_tpu_torch.cuda.inputs import moving_frames10, synth_frames10
+    from svtav1_tpu_torch.encoder.intra_encoder import (EncoderConfig,
+                                                        IntraEncoder)
+    from svtav1_tpu_torch.encoder.video_encoder import VideoEncoder
+
+    def decodes_to(payloads, recons):
+        dec = Decoder(device="cpu")
+        outs = [o for o in map(dec.decode_frame_obus, payloads) if o]
+        assert len(outs) == len(recons)
+        for o, rec in zip(outs, recons):
+            assert all(a.dtype == np.uint16 and np.array_equal(a, b)
+                       for a, b in zip(o, rec))
+
+    enc = IntraEncoder(EncoderConfig(128, 64, bit_depth=10,
+                                     part_search=False), device="cpu")
+    payloads, recons = enc.encode_frames(synth_frames10(128, 64, 1))
+    assert recons[0][0].dtype == np.uint16 and recons[0][0].max() > 255
+    decodes_to(payloads, recons)
+    enc = VideoEncoder(EncoderConfig(128, 64, bit_depth=10), keyint=64,
+                       device="cpu")
+    payloads, recons = enc.encode_frames(moving_frames10(128, 64, 2))
+    assert len(payloads[1]) < len(payloads[0])
+    assert sum(enc.last_p["mode_counts"].values()) > 0
+    decodes_to(payloads, recons)
+    print("ISOLATED_OK")
+""")
+
+
+def test_port_encodes_10bit_with_the_reference_blocked():
+    code = _TEN_BIT_BLOCKED.format(blocked=BLOCKED)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=300,
                        env=_ONE_THREAD)

@@ -275,6 +275,11 @@ def test_rate_tables(qindex):
 def test_partition_config_raises(change):
     cfg = replace(tie.EncoderConfig(128, 64), **change)
     assert cfg.part_search
+    if cfg.bit_depth == 10:
+        # ported: the partition path takes 10-bit
+        # (tests/test_torch_10bit_intra.py holds it to JAX)
+        assert tie.IntraEncoder(cfg, device="cpu").seq.bit_depth == 10
+        return
     if cfg.enable_cdef or cfg.enable_lr:
         # the filters are ported; like the JAX package, they need a height
         # that is a multiple of 64

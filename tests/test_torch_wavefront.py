@@ -203,11 +203,14 @@ def test_stage_tables_match_transforms(tx_size, tx_type, nets_lib):
     want = transforms.fwd_txfm2d(torch.from_numpy(resid), tx_size, tx_type)
     np.testing.assert_array_equal(v, want.numpy())
 
-    lo, hi = p["inv_lo"], p["inv_hi"]
-    coef = (v // 7).clip(-(1 << 15), (1 << 15) - 1)
-    u = _net(nets_lib, f"net_inv_{rk}{bs}", coef, False, lo, hi)
-    u = np.clip(_rshift(u, p["inv_s0"]), -(1 << 15), (1 << 15) - 1)
-    u = _net(nets_lib, f"net_inv_{ck}{bs}", u, True, lo, hi)
+    assert (p["dq_lo"], p["row_lo"], p["mid_lo"], p["col_lo"]) == \
+        (-(1 << 15),) * 4
+    coef = (v // 7).clip(p["dq_lo"], p["dq_hi"])
+    u = _net(nets_lib, f"net_inv_{rk}{bs}", coef, False, p["row_lo"],
+             p["row_hi"])
+    u = np.clip(_rshift(u, p["inv_s0"]), p["mid_lo"], p["mid_hi"])
+    u = _net(nets_lib, f"net_inv_{ck}{bs}", u, True, p["col_lo"],
+             p["col_hi"])
     u = _rshift(u, p["inv_s1"])
     want = transforms.inv_txfm2d(torch.from_numpy(coef.astype(np.int32)),
                                  tx_size, tx_type)
