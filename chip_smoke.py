@@ -8,7 +8,12 @@ filtering, long-range motion search and rate control), whose P frames run
 the kernel with inter lanes; then decode the card's streams on the card
 with the port's decoder; then the same at 10 bits: the 10-bit form of the
 kernel, the 10-bit main path and flat I+P at 1080p, their decode, and the
-four 10-bit paths card against CPU at 256x128.
+four 10-bit paths card against CPU at 256x128; and the compound partition
+pyramid (--pyramid --tf on the partition path) at 1080p and card against
+CPU at 256x128 at 8 and 10 bits.  The partition scans run as CUDA graphs
+(``wavefront2.PartScan``: one graph a scan shape and step width, captured
+at its first step and replayed after that), held against their eager
+steps in phase 24.
 
     python3 chip_smoke.py
 
@@ -60,8 +65,15 @@ its last line):
      the agreement fraction of each decision map, and byte-identical
      payloads whenever every map agrees;
   7. one luma partition wavefront call on a 512x128 crop under
-     torch.profiler: device events per scan step and the device's busy
-     share of the window (the plain scan is launch-bound);
+     torch.profiler, its steps run eagerly: device events per scan step
+     and the device's busy share of the window (the plain scan is
+     launch-bound);
+ 24. (after 7) the scan's graphs against its eager steps on that crop:
+     the key-frame form and seeded inter lanes of 3 and 5 (compound),
+     each replayed at q100 (weight 1.0, no map) and q140 (weight 1.15, a
+     seeded lambda map): all ten outputs equal the eager steps' on the
+     same buffers, bit for bit; call and eager times, step graphs, nodes,
+     capture and instantiate seconds, device memory and host RSS;
   8. the partition path with the in-loop filters (CDEF, CCSO, loop
      restoration) at 1920x1088, q100, on the first frame of the edge clip
      (``cuda/inputs.edge_frames``: CCSO stays off on the smooth clip; the
@@ -88,11 +100,12 @@ its last line):
      pick, luma MC, luma scan, chroma MC, chroma scan, DLF search, deblock,
      read-back, tile coder) and e2e fps; device events of the P frame's ME,
      luma and chroma MC and of one inter luma scan step (a 512x128 crop of
-     its inputs; torch.profiler); the device syncs of the P frame by source
-     line; the GM fit, the filter, the inter share at each depth and the
-     inter modes coded.  Checks: payloads parse, KEY then INTER, luma PSNR
-     > 30 dB, more than half the P frame's luma area inter, a NEWMV and a
-     non-NEWMV block, the P payload smaller than the key payload;
+     its inputs, its steps run eagerly; torch.profiler); the device
+     syncs of the P frame by source line; the GM fit, the filter, the
+     inter share at each depth and the inter modes coded.  Checks:
+     payloads parse, KEY then INTER, luma PSNR > 30 dB, more than half
+     the P frame's luma area inter, a NEWMV and a non-NEWMV block, the P
+     payload smaller than the key payload;
  11. the low-delay path at 256x128 (I, P, P) on the card and on the CPU,
      with the defaults and with CDEF on: per frame the agreement of every
      decision map, the ME fields (integer SADs: exact whenever the frame's
@@ -133,15 +146,39 @@ its last line):
      count of pixels that differ, at most one off: exp is not correctly
      rounded), then the card's planes fed to the CPU encoder, and every
      map, mv, q, reference slot, payload and recon must be equal.
+ 22. (after 15) the compound partition pyramid: VideoEncoder(1920, 1080,
+     qindex=100, keyint=64, pyramid=True, gop=2, tf=True) on 3 frames of
+     ``moving_frames``: the key frame, the no-show anchor (layer 0, the
+     TPL lambda map), the no-show compound frame (LAST + ALTREF), two
+     overlays.  Per frame: the stage times after a synchronize (key
+     frame: scans, DLF search, deblock, tile coder; anchor and compound
+     frame: ME against each reference, GM fit, filter pick, luma MC,
+     compound MC, luma scan, chroma MC, chroma scan, DLF search, deblock,
+     read-back, tile coder), the scans' step graphs captured and
+     replayed with their seconds, q, bytes, the lambda weight and the
+     map's min and max, the compound (NEW_NEW, GLOBAL_GLOBAL,
+     NEAREST_NEAREST), single-reference and intra blocks coded; the
+     compound frame's device syncs by source line; e2e fps over the 3
+     frames.  Checks: TU kinds key, no-show inter twice, two overlays;
+     payloads parse; luma PSNR > 30 dB on every shown frame; at least one
+     compound block; the stream goes to phase 16;
+ 23. (after 22) the compound partition pyramid at 256x128 on the card and
+     on the CPU, TF on (the card's filtered anchors fed to the CPU
+     encoder): gop 4 at 8 bits (5 frames: layers 0-2, lambda weights 1.0
+     and 1.15) under CQ q100 and under CBR at half the bitrate CQ
+     reached, and gop 2 at 10 bits (3 frames of ``moving_frames10``): per
+     coded frame the agreement of every map, and byte-identical payloads
+     and equal recons whenever every map agrees;
  16. the decoder on the card: a fresh Decoder(device="cuda") (CCSO on
      for phase 8's stream) decodes the 1080p streams that phases 3 (the
-     first TU), 8 (the filtered edge frame), 10 (I+P) and 14 (the
-     pyramid in decode order up to its first overlay) encoded on the
-     card.  Every output equals the encoder's recon in display order,
-     every no-show frame's DPB entry its recon, and the frame count is
-     right.  Per TU: kind, q, bytes, parse / residual / inter / intra /
-     filters / output ms (each between two synchronizes) and device syncs;
-     per stream decode fps and peak device memory;
+     first TU), 8 (the filtered edge frame), 10 (I+P), 14 (the pyramid in
+     decode order up to its first overlay) and 22 (the compound
+     partition pyramid) encoded on the card.  Every output equals the
+     encoder's recon in display order, every no-show frame's DPB entry
+     its recon, and the frame count is right.  Per TU: kind, q, bytes,
+     parse / residual / inter / intra / filters / output ms (each between
+     two synchronizes) and device syncs; per stream decode fps and peak
+     device memory;
  17. the decoder's full syntax, card against CPU: the JAX encoder's
      fixture streams (``tests/data/torch_dec``: compound pyramid, two
      tile columns, 10-bit, angle deltas; their outputs also equal the
@@ -189,7 +226,11 @@ cs.phase_decode_card_vs_cpu()"``; the 10-bit phases alone (2c, 18-21):
 ``python3 -c "import chip_smoke as cs; cs.CARD = cs.card();
 cs.phase_build(); cs.phase_compare(); cs.phase_compare_10bit();
 cs.phase_main_path(10); cs.phase_flat_video(10);
-cs.phase_decode(cs.DECODE10); cs.phase_10bit_card_vs_cpu()"``.  Imports
+cs.phase_decode(cs.DECODE10); cs.phase_10bit_card_vs_cpu()"``; the
+compound partition pyramid and the graphs alone (phases 24, 22, 23 and
+22's decode): ``python3 -c "import chip_smoke as cs; cs.CARD = cs.card();
+cs.phase_graph_vs_eager(); cs.phase_part_pyramid();
+cs.phase_part_pyramid_card_vs_cpu(); cs.phase_decode()"``.  Imports
 nothing of JAX or of the JAX package.
 """
 
@@ -209,9 +250,10 @@ from svtav1_tpu_torch.cuda import build
 from svtav1_tpu_torch.cuda import wavefront_kernel as wk
 from svtav1_tpu_torch.cuda.inputs import (SHAPES_1080P, banded_frames,
                                           card, edge_frames, edge_frames10,
-                                          moving_frames, moving_frames10,
-                                          plane_src, plane_src10,
-                                          synth_frames, synth_frames10)
+                                          lane_arrays, moving_frames,
+                                          moving_frames10, plane_src,
+                                          plane_src10, synth_frames,
+                                          synth_frames10)
 from svtav1_tpu_torch.ec import native
 from svtav1_tpu_torch.encoder import intra_encoder as ie
 from svtav1_tpu_torch.encoder import lr_search as lrs
@@ -534,6 +576,8 @@ class StageClock:
                (ve.VideoEncoder, "_dlf_levels"), (ve, "deblock_plane_part"),
                (ve.VideoEncoder, "_fetch"), (ie.IntraEncoder, "_filter_frame"),
                (tile_codec.TileCoder, "encode")]
+    # a compound frame's: its compound MC calls (inside the MC stages)
+    P_COMP = P_FRAME + [(ve, "predict_inter_blocks_compound")]
     FLAT_P = [(ve, "motion_estimate"), (ve.VideoEncoder, "_fit_gm"),
               (ve, "_pick_interp_filt"), (ve.VideoEncoder, "_flat_luma_lanes"),
               (ve, "encode_plane_wavefront_mixed"),
@@ -548,7 +592,8 @@ class StageClock:
              "deblock_plane_uniform": "deblock",
              "encode_inter_tile": "tile coder",
              "_dlf_levels": "DLF search", "_fetch": "read-back",
-             "_filter_frame": "filters"}
+             "_filter_frame": "filters",
+             "predict_inter_blocks_compound": "compound MC"}
 
     def __init__(self, targets=PART):
         self.targets = targets
@@ -556,6 +601,7 @@ class StageClock:
         self.out = {}
         self.args = {}
         self.launches = {}          # wavefront kernel launches by stage
+        self.calls = []             # (stage, ms) of every call in order
         self.saved = []
 
     @classmethod
@@ -575,8 +621,9 @@ class StageClock:
             out = fn(*a, **kw)
             torch.cuda.synchronize()
             key = self._key(name, a)
-            self.ms[key] = self.ms.get(key, 0.0) + \
-                1e3 * (time.perf_counter() - t0)
+            ms = 1e3 * (time.perf_counter() - t0)
+            self.ms[key] = self.ms.get(key, 0.0) + ms
+            self.calls.append((key, ms))
             self.launches[key] = self.launches.get(key, 0) + \
                 wk.LAUNCHES - n0
             self.out.setdefault(key, []).append(out)
@@ -685,7 +732,7 @@ def phase_part_launches():
         torch.cuda.set_sync_debug_mode("error")
         try:
             wf2.encode_plane_wavefront_part(src, 32, 100, fp, fsb,
-                                            tx_search=True)
+                                            tx_search=True, eager=True)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
@@ -1044,7 +1091,7 @@ def phase_video():
     def scan():
         torch.cuda.set_sync_debug_mode("error")
         try:
-            wf2.encode_plane_wavefront_part(*a, **kw)
+            wf2.encode_plane_wavefront_part(*a, eager=True, **kw)
         finally:
             torch.cuda.set_sync_debug_mode("default")
     n_ev, busy, window = profile_events(scan)
@@ -1642,7 +1689,7 @@ def phase_flat_pyramid_card_vs_cpu():
 DECODE10 = {}        # the same for the 10-bit streams of phases 18-19
 DECODE = {}          # label -> (payloads, recons, ccso, display index
 #                      of each TU's coded frame or None), from phases
-#                      3, 8, 10 and 14
+#                      3, 8, 10, 14 and 22
 DEC_STAGES = (("_parse_tiles", "parse"), ("_residuals", "residual"),
               ("_predict_inter", "inter"), ("_predict_intra", "intra"),
               ("_filter_frame", "filters"), ("_output_frame", "output"))
@@ -1669,7 +1716,7 @@ def same_planes(a, b):
 
 def phase_decode(streams=None):
     """The port's Decoder on the card over the 1080p streams that phases
-    3, 8, 10 and 14 encoded on the card (phase 16; phase 20: the 10-bit
+    3, 8, 10, 14 and 22 encoded on the card (phase 16; phase 20: the 10-bit
     streams of phases 18 and 19, whose uint16 outputs must equal the
     encoder's recons): every output equals the encoder's recon in display
     order, every no-show frame's DPB entry its recon, and the frame count
@@ -1916,7 +1963,7 @@ def phase_decode_card_vs_cpu():
           "stored (the context is not poisoned)", flush=True)
 
 
-def frames_agree(label, card, cpu, modes_bar=False):
+def frames_agree(label, card, cpu, modes_bar=False, tag="10-bit"):
     """card / cpu: (payload(s), recon(s), maps) of each coded unit in
     coding order, from the card and the CPU.  Per unit the agreement of
     every map; byte-identical payloads and equal recons whenever every map
@@ -1945,7 +1992,7 @@ def frames_agree(label, card, cpu, modes_bar=False):
                 "other references)"
             break
     for line in lines:
-        print(f"card vs CPU, 10-bit {label}: {line}", flush=True)
+        print(f"card vs CPU, {tag} {label}: {line}", flush=True)
 
 
 def phase_10bit_card_vs_cpu():
@@ -2055,6 +2102,326 @@ def phase_10bit_card_vs_cpu():
                                  "or recons differ")
 
 
+# ---- the compound partition pyramid and the scan's graphs -------------------
+
+COMP_MODES = {17: "NEAREST_NEAREST", 23: "GLOBAL_GLOBAL", 24: "NEW_NEW"}
+
+
+def graph_snapshot():
+    return {k: v for k, v in wf2.GRAPHS.items() if k != "log"}
+
+
+def graph_delta(g0):
+    """The scan's graph captures and replays since the GRAPHS snapshot g0,
+    with their seconds."""
+    g = wf2.GRAPHS
+    return (f"step graphs captured {g['captures'] - g0['captures']} "
+            f"({g['capture_s'] - g0['capture_s']:.1f} s), replayed "
+            f"{g['replays'] - g0['replays']} times in "
+            f"{g['calls'] - g0['calls']} scan calls "
+            f"({g['replay_s'] - g0['replay_s']:.3f} s to enqueue)")
+
+
+def print_captures(label, log):
+    """One line per scan shape captured in log (wf2.GRAPHS["log"]
+    entries, one a step graph): its step graphs, nodes, capture and
+    instantiate seconds, the device memory reserved and the host RSS after
+    its last capture."""
+    shapes = {}
+    for c in log:
+        shapes.setdefault(c["key"], []).append(c)
+    for key, cs in shapes.items():
+        _, B, h, w, bs, chroma, bd, _, _, n_extra = key
+        form = "key-frame" if n_extra is None else f"{n_extra} lanes"
+        nodes = [c["nodes"] for c in cs]
+        n_txt = "not read" if None in nodes else f"{sum(nodes)}"
+        rss = cs[-1]["rss_bytes"]
+        rss = "not read" if rss is None else f"{rss / 2 ** 30:.2f} GiB"
+        print(f"{label}: captured {'U+V' if chroma else 'luma'} scan "
+              f"{B}x{h}x{w} bs {bs} bd {bd} {form}: {len(cs)} step graphs "
+              f"(widths {sorted(c['D'] for c in cs)}), {n_txt} nodes, "
+              f"capture {sum(c['capture_s'] for c in cs):.1f} s, "
+              f"instantiate {sum(c['instantiate_s'] for c in cs):.1f} s; "
+              f"device memory reserved "
+              f"{cs[-1]['reserved_bytes'] / 2 ** 20:.0f} MiB, host RSS "
+              f"{rss} after it [{CARD}]", flush=True)
+
+
+def block_counts(m):
+    """(compound blocks by mode, single-reference blocks, intra blocks)
+    that a P frame's tile coder coded."""
+    mc = m["mode_counts"]
+    comp = {n: mc.get(k, 0) for k, n in COMP_MODES.items()}
+    single = sum(v for k, v in mc.items() if k in MODE_NAMES)
+    return comp, single, m["n_intra"]
+
+
+def phase_part_pyramid():
+    """Phase 22: the compound partition pyramid at 1920x1080 on the card,
+    VideoEncoder(qindex=100, keyint=64, pyramid=True, gop=2, tf=True) on 3
+    frames of moving_frames: the key frame, the no-show anchor (layer 0,
+    the TPL lambda map), the no-show compound frame, the overlays.  Stage
+    times of each frame after a synchronize, the scan's graph captures
+    and replays, q and bytes, the block counts, the compound frame's
+    device syncs, e2e fps; the stream goes to phase 16."""
+    n_src = 3
+    frames = moving_frames(W, H, n_src)
+    enc = ve.VideoEncoder(ie.EncoderConfig(W, H, qindex=100), keyint=64,
+                          pyramid=True, gop=2, tf=True, device="cuda")
+    here = os.path.basename(__file__)
+    coded, tf_log, key_log, coded_t = [], [], [], []
+    code, ref_frame = enc._encode_p_part, enc._encode_ref_frame
+    key_clock = StageClock(StageClock.KEY)
+    key_run = timed(enc.intra.encode_frames, key_log)
+    n_log = len(wf2.GRAPHS["log"])
+
+    def key_frames(fr):
+        g0 = graph_snapshot()
+        with key_clock:
+            out = key_run(fr)
+        key_log[-1] += (graph_delta(g0),)
+        return out
+
+    def code_frame(*a, **kw):
+        comp = kw.get("ref2") is not None
+        g0 = graph_snapshot()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if comp:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with StageClock(StageClock.P_COMP) as clock:
+                    t0 = time.perf_counter()
+                    out = code(*a, **kw)
+                    ms = 1e3 * (time.perf_counter() - t0)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = Counter(f"{os.path.basename(c.filename)}:{c.lineno}"
+                        for c in caught if "synchroniz" in str(c.message) and
+                        os.path.basename(c.filename) != here)
+        coded.append(dict(ms=ms, clock=clock, m=dict(enc.last_p),
+                          bytes=len(out[0]), syncs=syncs,
+                          graphs=graph_delta(g0)))
+        return out
+
+    def ref_frame_t(frame, cand_slots, layer, refresh_slot, show,
+                    refresh_t):
+        coded_t.append(refresh_t)
+        return ref_frame(frame, cand_slots, layer, refresh_slot, show,
+                         refresh_t)
+
+    enc._encode_p_part, enc._encode_ref_frame = code_frame, ref_frame_t
+    enc._tf_filter = timed(enc._tf_filter, tf_log)
+    enc.intra.encode_frames = key_frames
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    payloads, recons = enc.encode_frames(frames)
+    p, r = enc.flush()
+    payloads, recons = payloads + p, recons + r
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    kinds = [tu_kind(x) for x in payloads]
+    fmt = lambda d: ", ".join(f"{k} {v:.1f}" for k, v in d.items())
+    print(f"partition pyramid: {W}x{H} q100 --pyramid --tf gop 2 keyint "
+          f"64, {n_src} frames: {len(payloads)} TUs {kinds}, e2e "
+          f"{n_src / dt:.4f} fps ({dt:.1f} s, first encode_frames to the "
+          f"end of flush) [{CARD}]", flush=True)
+    print(f"partition pyramid: key frame (q{enc.intra.cfg.qindex}) "
+          f"{key_log[0][0]:.1f} ms ({fmt(key_clock.ms)} ms), "
+          f"{len(payloads[0])} bytes, {key_log[0][2]}; TF of the key frame "
+          f"and the anchor {', '.join(f'{t[0]:.1f}' for t in tf_log)} ms",
+          flush=True)
+    n_comp = 0
+    for k, c in enumerate(coded):
+        m, st = c["m"], c["clock"]
+        me = [ms for key, ms in st.calls if key.startswith("ME ")]
+        me_txt = (f"ME vs LAST {sum(me[:3]):.1f} ms (32/16/64 "
+                  + "/".join(f"{x:.1f}" for x in me[:3]) + ")")
+        if m["comp"]:
+            me_txt += (f", vs ALTREF {sum(me[3:]):.1f} ms ("
+                       + "/".join(f"{x:.1f}" for x in me[3:]) + ")")
+        rest = {k_: v for k_, v in st.ms.items() if not k_.startswith("ME ")}
+        comp, single, intra = block_counts(m)
+        if m["comp"]:
+            n_comp += sum(comp.values())
+        lm = m["lam_map"]
+        lm_txt = "" if lm is None else \
+            f", TPL lambda map min {lm.min():.4f} max {lm.max():.4f}"
+        print(f"partition pyramid: decode order {k + 1}: "
+              f"{'compound' if m['comp'] else 'anchor'}, q {m['q']}, lambda "
+              f"weight {m['lam_scale']}{lm_txt}, reference distance "
+              f"{m['ref_dist']}; {me_txt}; {fmt(rest)} ms (luma and chroma "
+              f"MC include the compound MC); frame {c['ms']:.1f} ms; "
+              f"{c['bytes']} bytes; blocks: compound {comp}, "
+              f"single-reference {single}, intra {intra}; {c['graphs']} "
+              f"[{CARD}]", flush=True)
+    comp_frame = next(c for c in coded if c["m"]["comp"])
+    print(f"partition pyramid: device syncs of the compound frame: "
+          f"{sum(comp_frame['syncs'].values())} "
+          f"({dict(comp_frame['syncs'])})", flush=True)
+    print_captures("partition pyramid", wf2.GRAPHS["log"][n_log:])
+    want = ["key", "inter, no-show", "inter, no-show", "overlay", "overlay"]
+    if kinds != want or len(recons) != n_src:
+        raise AssertionError(f"partition pyramid: TU kinds {kinds}, "
+                             f"{len(recons)} recons")
+    for k, x in enumerate(payloads[:3]):
+        if not any(t == OBU_FRAME and len(d) for t, _, _, d in
+                   parse_obus(x)):
+            raise AssertionError(f"partition pyramid: TU {k}: no OBU_FRAME")
+    ps_y = [psnr(f[0], r_[0]) for f, r_ in zip(frames, recons)]
+    print(f"partition pyramid: luma PSNR (display order) "
+          f"{', '.join(f'{x:.2f}' for x in ps_y)} dB", flush=True)
+    if min(ps_y) <= 30.0:
+        raise AssertionError(f"luma PSNR {min(ps_y):.2f} dB <= 30")
+    if not n_comp:
+        raise AssertionError("partition pyramid: no compound block coded")
+    DECODE["partition compound pyramid (phase 22)"] = (
+        payloads, recons, False, [None] + coded_t + [None, None])
+
+
+def part_pyramid_maps(enc):
+    """A partition pyramid frame's maps, mvs, q, lambdas and slots (a
+    frame without a lambda map holds [0])."""
+    m = enc.last_p
+    lm = m["lam_map"]
+    return p_maps(enc) | {k: np.array(m[k]) for k in (
+        "q", "lf", "lam_scale", "ref_slot", "refresh")} | {
+        "lam_map": np.zeros(1, np.float32) if lm is None else lm}
+
+
+def run_part_pyramid(cfg, frames, device, rc, tf_hook, gop):
+    """The partition pyramid (TF on) on `device`: (units: (payloads,
+    recons, maps) of the key frame, then (None, [], maps) of each coded P
+    frame; every payload; every recon; seconds)."""
+    enc = ve.VideoEncoder(cfg, keyint=64, pyramid=True, gop=gop, tf=True,
+                          rc=rc, device=device)
+    key_dev, units = [], []
+    run, code, filt = (enc.intra.device_encode, enc._encode_p_part,
+                       enc._tf_filter)
+    enc.intra.device_encode = lambda fr: key_dev.append(run(fr)) or \
+        key_dev[-1]
+
+    def code_frame(*a, **kw):
+        out = code(*a, **kw)
+        units.append((None, [], part_pyramid_maps(enc)))
+        return out
+
+    enc._encode_p_part = code_frame
+    enc._tf_filter = lambda *a: tf_hook(filt(*a))
+    t0 = time.perf_counter()
+    payloads, recons = enc.encode_frames(frames)
+    p, r = enc.flush()
+    payloads, recons = payloads + p, recons + r
+    units.insert(0, ([payloads[0]], [recons[0]], part_maps(key_dev[0])))
+    return units, payloads, recons, time.perf_counter() - t0
+
+
+def phase_part_pyramid_card_vs_cpu():
+    """Phase 23: the compound partition pyramid at 256x128 on the card and
+    on the CPU, TF on: gop 4 at 8 bits (5 frames: layers 0-2, lambda
+    weights 1.0 and 1.15) under CQ q100 and under CBR at half the bitrate
+    CQ reached; gop 2 at 10 bits (3 frames of moving_frames10).  The
+    card's filtered anchors go to the CPU encoder; per coded frame the
+    agreement of every map, and when every map agrees, byte-identical
+    payloads and equal recons."""
+    from svtav1_tpu_torch.encoder.rate_control import RateControl
+    w, h = 256, 128
+    kbps = None
+    for label, bd, gop, frames, mode in (
+            ("8-bit gop 4 CQ q100", 8, 4, moving_frames(w, h, 5), None),
+            ("8-bit gop 4 CBR", 8, 4, moving_frames(w, h, 5), "cbr"),
+            ("10-bit gop 2 CQ q100", 10, 2, moving_frames10(w, h, 3),
+             None)):
+        cfg = ie.EncoderConfig(w, h, qindex=100, bit_depth=bd)
+        rc = (lambda: RateControl("cbr", qindex=100, target_kbps=kbps,
+                                  fps=30.0)) if mode else (lambda: None)
+        card_tf, diffs = [], []
+        card = run_part_pyramid(cfg, frames, "cuda", rc(),
+                                lambda x: card_tf.append(x) or x, gop)
+
+        def use_card(planes):
+            got = card_tf[len(diffs)]
+            diffs.append([int((a != b).sum()) for a, b in zip(got, planes)])
+            return got
+        cpu = run_part_pyramid(cfg, frames, "cpu", rc(), use_card, gop)
+        kinds = [tu_kind(x) for x in card[1]]
+        qs = [int(u[2]["q"]) for u in card[0][1:]]
+        lams = [float(u[2]["lam_scale"]) for u in card[0][1:]]
+        nbytes = sum(len(x) for x in card[1])
+        print(f"card vs CPU, partition pyramid {w}x{h} {label} TF "
+              f"({len(frames)} frames; card {card[3]:.1f} s, CPU "
+              f"{cpu[3]:.1f} s): {len(card_tf)} TF calls, pixels the card's "
+              f"TF planes differ by from the CPU's {diffs}; {len(card[1])} "
+              f"TUs ({kinds.count('overlay')} overlays); P-frame q {qs}, "
+              f"lambda weights {lams}; "
+              f"{nbytes * 8 * 30 / len(frames) / 1000:.1f} kbps", flush=True)
+        if kinds.count("overlay") != len(frames) - 1 or \
+                len(card[2]) != len(frames):
+            raise AssertionError(f"partition pyramid {label}: TUs {kinds}")
+        frames_agree(label, card[0], cpu[0], tag="partition pyramid")
+        if all(all(np.array_equal(mc[n], mp[n]) for n in mc)
+               for (_, _, mc), (_, _, mp) in zip(card[0], cpu[0])):
+            same = card[1] == cpu[1] and all(
+                np.array_equal(a, b) for x, y in zip(card[2], cpu[2])
+                for a, b in zip(x, y))
+            print(f"card vs CPU, partition pyramid {label}: every map "
+                  f"agrees; {len(card[1])} payloads and {len(card[2])} "
+                  f"recons identical {same}", flush=True)
+            if not same:
+                raise AssertionError(f"partition pyramid {label}: maps "
+                                     "agree but payloads or recons differ")
+        if mode is None and bd == 8:
+            kbps = max(1, int(nbytes * 8 * 30 / len(frames) / 1000 / 2))
+
+
+def phase_graph_vs_eager():
+    """Phase 24: one captured scan graph against the eager body on the
+    card, on the 512x128 crop of phases 7 and 10, in the key-frame form
+    and with 3 (inter) and 5 (compound) seeded lanes: each form's graph
+    replayed at q100 with weight 1.0 and no map, then at q140 with weight
+    1.15 and a seeded non-uniform lambda map; all ten outputs of every
+    replay equal the eager body's on the same buffers, bit for bit."""
+    h, w = CROP_H, CROP_W
+    bh, bw = h // 32, w // 32
+    src = torch.from_numpy(plane_src(11, 1, h, w)).to(DEV)
+    fp, fsb = (torch.from_numpy(a[None].copy()).to(DEV) for a in
+               bottom_force_masks(bh, bw, h // 64, w // 64, h // 4))
+    rng = np.random.RandomState(24)
+    lam_map = upload(rng.uniform(0.68, 1.18, (1, bh, bw)).astype(
+        np.float32), DEV)
+    n_log = len(wf2.GRAPHS["log"])
+    for form, n in (("key-frame", None), ("inter, 3 lanes", 3),
+                    ("compound, 5 lanes", 5)):
+        inter = None if n is None else wf2.InterLanes(*(
+            upload(a, DEV) for a in lane_arrays(src[0].cpu().numpy(), n,
+                                                 rng)))
+        for q, scale, lm in ((100, 1.0, None), (140, 1.15, lam_map)):
+            kw = dict(tx_search=True, inter=inter, lam_scale=scale,
+                      lam_map=lm)
+            g0 = graph_snapshot()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = wf2.encode_plane_wavefront_part(src, 32, q, fp, fsb, **kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            want = wf2.encode_plane_wavefront_part(src, 32, q, fp, fsb,
+                                                   eager=True, **kw)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            bad = [i for i, (a, b) in enumerate(zip(got, want))
+                   if not torch.equal(a, b)]
+            print(f"graph vs eager: luma 1x{h}x{w} {form}, q{q}, weight "
+                  f"{scale}, {'a seeded' if lm is not None else 'no'} "
+                  f"lambda map: graph call {1e3 * (t1 - t0):.1f} ms "
+                  f"({graph_delta(g0)}), eager body "
+                  f"{1e3 * (t2 - t1):.1f} ms; outputs equal "
+                  f"{10 - len(bad)} of 10 [{CARD}]", flush=True)
+            if bad:
+                raise AssertionError(f"graph vs eager {form} q{q}: outputs "
+                                     f"{bad} differ")
+    print_captures("graph vs eager", wf2.GRAPHS["log"][n_log:])
+
+
 CARD = ""
 
 
@@ -2113,6 +2480,7 @@ def main():
     phase(phase_partition)
     phase(phase_card_vs_cpu)
     phase(phase_part_launches)
+    phase(phase_graph_vs_eager)
     phase(phase_filters)
     phase(phase_filters_card_vs_cpu)
     phase(phase_video)
@@ -2121,6 +2489,8 @@ def main():
     phase(phase_flat_video_card_vs_cpu)
     pyr_launches = phase(phase_flat_pyramid)
     phase(phase_flat_pyramid_card_vs_cpu)
+    phase(phase_part_pyramid)
+    phase(phase_part_pyramid_card_vs_cpu)
     phase(phase_decode)
     phase(phase_decode_card_vs_cpu)
     launches10 = phase(phase_main_path, 10)[0]

@@ -26,11 +26,12 @@ heights a multiple of 64), over the preset as in ``svtav1_tpu/app.py``;
 CCSO streams are the fork's nonstandard AV1.  --rc (with --tbr for cbr and
 vbr) sets each frame's base qindex on the low-delay paths; --crf N is
 qindex 4N in crf mode.  --pyramid at --keyint > 1 codes hierarchical
-mini-GoPs on the flat path (--tf filters their anchors), reading 16 frames
-at a time as ``svtav1_tpu/app.py`` does; its payloads include
-show_existing overlay TUs.  Any other mode (presets 0..5, which search
-angle deltas; --pyramid with the partition search) exits with status 2:
-the JAX package's ``python -m svtav1_tpu.app`` has it.
+mini-GoPs (--tf filters their anchors), reading 16 frames at a time as
+``svtav1_tpu/app.py`` does: on the partition path their interior frames
+are compound (LAST + ALTREF), on the flat path single-reference; its
+payloads include show_existing overlay TUs.  Presets 0..5 (which search
+angle deltas) exit with status 2: the JAX package's ``python -m
+svtav1_tpu.app`` has them.
 --mastering-display and --content-light write HDR metadata OBUs into
 the first temporal unit, and --film-grain N (0..50) film grain
 parameters (8-bit only, as in the JAX package: a 10-bit stream carries
@@ -174,7 +175,8 @@ def main(argv=None) -> int:
             if args.keyint == 1:
                 enc = IntraEncoder(cfg, device=args.device)
             elif args.pyramid:
-                # VideoEncoder refuses the partition pyramid
+                # hierarchical mini-GoPs: compound interior frames on the
+                # partition path, single-reference ones on the flat path
                 enc = VideoEncoder(cfg, keyint=args.keyint, pyramid=True,
                                    tf=args.tf, rc=rc, device=args.device)
                 # the mini-GoP lookahead: the frames buffered when a GoP

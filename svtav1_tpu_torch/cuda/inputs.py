@@ -237,3 +237,26 @@ def moving_frames10(width, height, n, seed=0):
             planes.append(np.clip(p, 0, 1023).astype(np.uint16))
         frames.append(tuple(planes))
     return frames
+
+
+def lane_arrays(plane, n, rng):
+    """n seeded inter lanes of a luma partition scan over `plane` [h, w]
+    (h, w multiples of 64), as numpy in ``wavefront2.InterLanes``' order:
+    the plane's 32x32, z-order 16x16 and 64x64 blocks plus noise (int32),
+    rates in [3, 24) bits (float32), lane and intra masks open nine times
+    in ten (bool), each with a leading batch axis of 1."""
+    h, w = plane.shape
+    p = plane.astype(np.int32)
+
+    def pred(bs):
+        b = p.reshape(h // bs, bs, w // bs, bs).transpose(0, 2, 1, 3)
+        noise = rng.randint(-12, 13, (1, n) + b.shape)
+        return np.clip(b[None, None] + noise, 0, 255).astype(np.int32)
+    g32, g64 = (h // 32, w // 32), (h // 64, w // 64)
+    sub = pred(16).reshape((1, n, g32[0], 2, g32[1], 2, 16, 16)).transpose(
+        0, 1, 2, 4, 3, 5, 6, 7).reshape((1, n) + g32 + (4, 16, 16))
+    rate = lambda *s: rng.uniform(3, 24, (1, n) + s).astype(np.float32)
+    ok = lambda *s: rng.rand(*s) < 0.9
+    return (pred(32), rate(*g32), ok(1, n, *g32), sub, rate(*g32, 4),
+            ok(1, n, *g32, 4), pred(64), rate(*g64), ok(1, n, *g64),
+            ok(1, *g32), ok(1, *g32, 4), ok(1, *g64))

@@ -3,9 +3,9 @@
 Copy of ``svtav1_tpu/ec/inter_modes.py``: write/read pairs for is_inter,
 the single LAST reference, the inter modes (NEWMV / NEARESTMV / NEARMV /
 GLOBALMV), the DRL index, motion-vector residuals and the intra y mode of
-inter frames, with their contexts; and the readers of the compound
-syntax (reference mode, the LAST+ALTREF pair, the compound modes), which
-the encoder does not write yet.  Context derivations mirror the
+inter frames, with their contexts; and the compound syntax of
+REFERENCE_MODE_SELECT frames (the reference mode, the LAST+ALTREF pair,
+the compound modes), written and read.  Context derivations mirror the
 reference's spec-conformant decoder (EbDecParseInterBlock.c:27-347
 neighbour ref counts and single-ref contexts, :57 reference-mode context,
 :1167 drl ctx, :1217-1257 read_mv; EbDecParseHelper.c:129 intra/inter ctx,
@@ -178,6 +178,27 @@ def comp_ref_type_ctx(above, left):
 
 def comp_bwdref_p_ctx(counts):
     return _ctx3(counts[5] + counts[6], counts[7])
+
+
+def write_comp_mode(enc, cdf, ctx: int, is_comp: bool):
+    """comp_mode symbol (REFERENCE_MODE_SELECT frames)."""
+    _sym(enc, cdf, cdf.comp_inter_cdf[ctx], int(is_comp))
+
+
+def write_comp_refs_last_altref(enc, cdf, above, left, counts):
+    """Signal the BIDIR pair (LAST, ALTREF) (read_ref_frames compound
+    branch, EbDecParseInterBlock.c:245)."""
+    _sym(enc, cdf, cdf.comp_ref_type_cdf[comp_ref_type_ctx(above, left)],
+         1)                                   # BIDIR_COMP_REFERENCE
+    _sym(enc, cdf, cdf.comp_ref_cdf[single_ref_p3_ctx(counts)][0], 0)
+    _sym(enc, cdf, cdf.comp_ref_cdf[single_ref_p4_ctx(counts)][1], 0)
+    _sym(enc, cdf, cdf.comp_bwdref_cdf[comp_bwdref_p_ctx(counts)][0], 1)
+
+
+def write_inter_compound_mode(enc, cdf, mode: int, mode_context: int):
+    ctx = M.compound_mode_ctx(mode_context)
+    _sym(enc, cdf, cdf.inter_compound_mode_cdf[ctx],
+         mode - M.NEAREST_NEARESTMV, 8)
 
 
 def write_inter_mode(enc, cdf, mode: int, mode_context: int):

@@ -1,16 +1,20 @@
-"""Tile entropy coder of the partition path: key and single-reference
-inter frames, 64x64 NONE or SPLIT into 32x32 blocks, each NONE or SPLIT
-into 16x16 leaves (chroma 32/16/8).
+"""Tile entropy coder of the partition path: key, single-reference and
+compound inter frames, 64x64 NONE or SPLIT into 32x32 blocks, each NONE or
+SPLIT into 16x16 leaves (chroma 32/16/8).
 
 Counterpart of ``svtav1_tpu/encoder/tile_codec.py`` (with
-``tile_inter.choose_inter_mode``), cut to a single tile: no compound
-blocks and no 16x8 bottom strip (``geometry.check_dims`` and the bottom
-force masks exclude it on this path).  In inter frames (kf=False) each
-block codes is_inter; an inter block codes the LAST reference, its mode
-against the block's MV stack (NEARESTMV / NEARMV / GLOBALMV when its mv
-equals that predictor, NEWMV otherwise, with the DRL index and the mv
-residual) and its residuals with the inter tx set (DCT only); an intra
-block codes its y mode from the inter frame's y_mode CDF.  It codes the
+``tile_inter.choose_inter_mode``), cut to a single tile and no 16x8 bottom
+strip (``geometry.check_dims`` and the bottom force masks exclude it on
+this path).  In inter frames (kf=False) each block codes is_inter; an
+inter block codes the LAST reference, its mode against the block's MV
+stack (NEARESTMV / NEARMV / GLOBALMV when its mv equals that predictor,
+NEWMV otherwise, with the DRL index and the mv residual) and its
+residuals with the inter tx set (DCT only); an intra block codes its y
+mode from the inter frame's y_mode CDF.  A compound frame (comp=True,
+REFERENCE_MODE_SELECT) codes comp_mode on every inter block; its
+compound blocks (lanes 3 and 4) code the LAST+ALTREF pair and
+NEAREST_NEARESTMV, GLOBAL_GLOBALMV or NEW_NEWMV against the pair's stack,
+with four mv components.  It codes the
 in-loop filters' block-level syntax: the CDEF index, the CCSO unit flags
 and the loop-restoration units.  The reference analogue is
 svt_aom_write_sb's recursive partition walk (EbEntropyCoding.c:5440).
@@ -58,7 +62,7 @@ class TileCoder:
 
     def __init__(self, width, height, qindex, cdf_update, true_h=None,
                  cdef_bits: int = 0, cdef_idx=None, kf: bool = True,
-                 cdf_init=None, gm_mv=(0, 0)):
+                 cdf_init=None, gm_mv=(0, 0), comp: bool = False):
         """width/height are the padded (SB-aligned) plane dims the block
         maps were produced at; true_h (<= height, multiple of 8) is the
         signalled frame height: blocks whose top-left falls outside it are
@@ -69,7 +73,9 @@ class TileCoder:
         write_cdef).  kf=False codes an inter frame: cdf_init (a CDF
         snapshot, the primary reference frame's) seeds its CDFs, and gm_mv
         is the frame's translation global mv of LAST (1/8 pel, identity
-        (0, 0)), which GLOBALMV blocks take."""
+        (0, 0)), which GLOBALMV blocks take.  comp=True codes a compound
+        frame: lanes 3 and 4 are LAST+ALTREF blocks and the mv maps carry
+        four components (the ALTREF mv last)."""
         self.w, self.h = width, height
         self.kf = kf
         self.true_h = true_h if true_h is not None else height
@@ -78,11 +84,16 @@ class TileCoder:
         self.cdf = (cdf_init.clone() if cdf_init is not None
                     else CdfContext(qindex, update=cdf_update))
         self.gm_mv = tuple(gm_mv)
+        self.comp = comp
         # the mode info the inter branch's mv stack and contexts read
         self.grid = None if kf else MiGrid(self.mi_rows, self.mi_cols)
-        # inter modes coded, by mode (NEARESTMV..NEWMV)
+        # inter modes coded, by mode (NEARESTMV..NEWMV, and the compound
+        # modes of a compound frame); intra blocks of an inter frame
         self.mode_counts = dict.fromkeys(
-            (MV.NEARESTMV, MV.NEARMV, MV.GLOBALMV, MV.NEWMV), 0)
+            (MV.NEARESTMV, MV.NEARMV, MV.GLOBALMV, MV.NEWMV) +
+            ((MV.NEAREST_NEARESTMV, MV.GLOBAL_GLOBALMV, MV.NEW_NEWMV)
+             if comp else ()), 0)
+        self.n_intra = 0
         self.above_part = np.zeros(self.mi_cols, np.uint8)
         self.skip_grid = np.zeros((self.mi_rows, self.mi_cols), np.uint8)
         self.mode_grid = np.zeros((self.mi_rows, self.mi_cols), np.uint8)
@@ -270,7 +281,7 @@ class TileCoder:
                 grid.is_inter(mi_r, mi_c - 1) if have_left else None),
                 is_inter)
         if is_inter:
-            self._code_inter(mi_r, mi_c, bw4, mv)
+            self._code_inter(mi_r, mi_c, bw4, mv, idx - len(cands))
             mode, y_tx_type = 0, DCT_DCT
         else:
             mode, delta = cands[idx]
@@ -293,19 +304,39 @@ class TileCoder:
             if not self.kf:
                 self.grid.set_block(mi_r, mi_c, bw4, bw4, MV.INTRA_FRAME,
                                     mode)
+                self.n_intra += 1
 
         self._code_residuals(mi_r, mi_c, bs, skip, mode, y_lev, u_lev,
                              v_lev, tx_y, tx_uv, y_tx_type, is_inter)
         self.skip_grid[mi_r:mi_r + bw4, mi_c:mi_c + bw4] = skip
 
-    def _code_inter(self, mi_r, mi_c, bw4, mv):
-        """The LAST reference and the block's mode, DRL index and mv."""
+    def _code_inter(self, mi_r, mi_c, bw4, mv, lane):
+        """The block's reference (LAST, or in a compound frame the comp
+        mode and, on lanes 3-4, the LAST+ALTREF pair), its mode, DRL index
+        and mv(s)."""
         enc, cdf, grid = self.enc, self.cdf, self.grid
-        nb_ref = lambda r, c, avail: (
-            int(grid.ref0[r, c]) if avail and grid.ref0[r, c] >= 1 else None)
-        IM.write_ref_frame_last(enc, cdf, IM.neighbor_ref_counts(
-            nb_ref(mi_r - 1, mi_c, mi_r > 0),
-            nb_ref(mi_r, mi_c - 1, mi_c > 0)))
+        have_above, have_left = mi_r > 0, mi_c > 0
+
+        def nb_ref(r, c, avail):
+            if not avail or grid.ref0[r, c] < 1:
+                return None
+            r0, r1 = int(grid.ref0[r, c]), int(grid.ref1[r, c])
+            return (r0, r1) if r1 >= 1 else r0
+
+        counts = IM.neighbor_ref_counts(nb_ref(mi_r - 1, mi_c, have_above),
+                                        nb_ref(mi_r, mi_c - 1, have_left))
+        if self.comp:
+            nb_info = lambda r, c, avail: (
+                (grid.ref0[r, c] >= 1, int(grid.ref0[r, c]),
+                 int(grid.ref1[r, c])) if avail else None)
+            a_i = nb_info(mi_r - 1, mi_c, have_above)
+            l_i = nb_info(mi_r, mi_c - 1, have_left)
+            IM.write_comp_mode(enc, cdf, IM.ref_mode_ctx(a_i, l_i),
+                               lane >= 3)
+            if lane >= 3:
+                self._code_compound(mi_r, mi_c, bw4, mv, a_i, l_i, counts)
+                return
+        IM.write_ref_frame_last(enc, cdf, counts)
         mvv = (int(mv[0]), int(mv[1]))
         res = find_mv_stack(grid, mi_r, mi_c, bw4, bw4, gm_mv=self.gm_mv)
         mode, ref_mv = choose_inter_mode(mvv, res, gm=self.gm_mv)
@@ -315,6 +346,36 @@ class TileCoder:
         if mode == MV.NEWMV:
             IM.write_mv(enc, cdf, mvv, ref_mv)
         grid.set_block(mi_r, mi_c, bw4, bw4, MV.LAST_FRAME, mode, *mvv)
+        self.mode_counts[mode] += 1
+
+    def _code_compound(self, mi_r, mi_c, bw4, mv, a_i, l_i, counts):
+        """A LAST+ALTREF block: the pair, then NEAREST_NEARESTMV when its
+        four mv components equal the pair stack's precision-lowered first
+        entry, GLOBAL_GLOBALMV when they are all zero (compound frames fit
+        no global motion), else NEW_NEWMV with the DRL index and both mv
+        residuals against that entry."""
+        enc, cdf, grid = self.enc, self.cdf, self.grid
+        IM.write_comp_refs_last_altref(enc, cdf, a_i, l_i, counts)
+        mvp = tuple(int(v) for v in mv[:4])
+        res = find_mv_stack(grid, mi_r, mi_c, bw4, bw4,
+                            ref_frame=(MV.LAST_FRAME, MV.ALTREF_FRAME))
+        s0 = res.ref_list[0]
+        p0 = (MV.lower_mv_precision(s0[0], s0[1]) +
+              MV.lower_mv_precision(s0[2], s0[3]))
+        if mvp == p0:
+            mode = MV.NEAREST_NEARESTMV
+        elif mvp == (0, 0, 0, 0):
+            mode = MV.GLOBAL_GLOBALMV
+        else:
+            mode = MV.NEW_NEWMV
+        IM.write_inter_compound_mode(enc, cdf, mode, res.mode_context)
+        if mode == MV.NEW_NEWMV:
+            IM.write_drl_idx(enc, cdf, mode, res.stack, res.num_found)
+            IM.write_mv(enc, cdf, mvp[:2], p0[:2])
+            IM.write_mv(enc, cdf, mvp[2:], p0[2:])
+        grid.set_block(mi_r, mi_c, bw4, bw4, MV.LAST_FRAME, mode, mvp[0],
+                       mvp[1], ref1=MV.ALTREF_FRAME, mv1r=mvp[2],
+                       mv1c=mvp[3])
         self.mode_counts[mode] += 1
 
     def _code_residuals(self, mi_r, mi_c, bs, skip, y_mode, y_lev, u_lev,

@@ -36,26 +36,32 @@ Rate control (``rate_control.RateControl``, CQ / CRF / CBR / VBR) sets the
 base qindex on every low-delay path: a key frame at 0.7 of it, a P frame at
 it, the controller fed each frame's bytes.
 
-With ``pyramid=True`` on the flat path, frames buffer into hierarchical
-mini-GoPs (the reference's prediction structures, EbPredictionStructure.c
-:77-161, mapped to single-reference P frames): a scene cut or the key frame
-interval starts a key frame; each mini-GoP (the largest power of two, up to
-``gop``, that crosses neither) codes its last frame first as a no-show
-anchor referencing the previous anchor, then bisects, each interior frame a
-no-show P frame referencing the nearer (by decimated SAD) of its interval's
-two ends; show_existing overlays display them in order.  Each layer has its
+With ``pyramid=True``, frames buffer into hierarchical mini-GoPs (the
+reference's prediction structures, EbPredictionStructure.c:77-161): a
+scene cut or the key frame interval starts a key frame; each mini-GoP (the
+largest power of two, up to ``gop``, that crosses neither) codes its last
+frame first as a no-show anchor referencing the previous anchor, then
+bisects; show_existing overlays display them in order.  Each layer has its
 own qindex (the anchor's from a TPL-lite measure of how well the GoP is
 predicted), its own DPB slot, CDF snapshot and GM parameters; references
 more than 4 frames away search with the long-range level of ``me.py``.
-With ``tf=True`` the anchors' and key frames' sources are temporally
-filtered first (``ops/tf.py``).  Every path takes bit_depth 8 or 10 (the
-DPB then holds uint16 planes).  The pyramid on the partition path (its
-interior frames are compound, with per-block TPL lambdas) and tile columns
-raise NotImplementedError: the JAX package has them.
+On the flat path each interior frame is a no-show P frame referencing the
+nearer (by decimated SAD) of its interval's two ends.  On the partition
+path (the compound pyramid) each interior frame is compound: LAST is its
+interval's low end and ALTREF its high end, a second motion search runs
+against ALTREF, two compound lanes (NEW_NEWMV at both searched mvs,
+GLOBAL_GLOBALMV) join the three single-reference lanes at each depth and
+their chroma predictions are compound too; its RD lambda carries the
+layer's weight (``LAYER_LAM``), and the anchor's scans take the GoP's
+per-block TPL lambda map.  With ``tf=True`` the anchors' and key frames'
+sources are temporally filtered first (``ops/tf.py``).  Every path takes
+bit_depth 8 or 10 (the DPB then holds uint16 planes).  Tile columns raise
+NotImplementedError: the JAX package has them.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import replace
 from functools import lru_cache
 
@@ -65,14 +71,14 @@ import torch
 from .. import host_pixels, pix_dtype, upload
 from ..ops.deblock import (deblock_plane_part, deblock_plane_uniform,
                            dlf_sse_part)
-from ..ops.mc import pad_plane, predict_inter_blocks
+from ..ops.mc import (pad_plane, predict_inter_blocks,
+                      predict_inter_blocks_compound)
 from ..ops.tf import temporal_filter_frame
 from ..spec.txfm import TX_16X16, TX_32X32
 from .cdef_search import cdef_frame_config_fields
 from .geometry import bottom_force_masks, pad_plane_bottom
 from .headers import FrameConfig, assemble_frame, assemble_show_existing
-from .intra_encoder import (CAND_MODES, EncoderConfig, IntraEncoder,
-                            _unsupported)
+from .intra_encoder import CAND_MODES, EncoderConfig, IntraEncoder
 from .me import _blocks, motion_estimate
 from .tile_codec import TileCoder
 from .tile_inter import encode_inter_tile
@@ -82,7 +88,10 @@ from .wavefront2 import (CHROMA_SB_MODES, CHROMA_SUB_MODES, CHROMA_TOP_MODES,
 
 BLK = 32
 CBLK = 16
-N_LANES = 3          # 0 NEWMV (the searched mv), 1 GLOBALMV, 2 the mvp
+# lanes 0 NEWMV (the searched mv), 1 GLOBALMV, 2 the mvp; a compound frame
+# adds 3 NEW_NEWMV (the mvs searched against LAST and ALTREF) and 4
+# GLOBAL_GLOBALMV
+N_LANES = 3
 MODE_NEW = 5.0       # NEWMV mode + DRL signalling bits
 MODE_NEAR = 3.0      # NEAREST/GLOBAL-class signalling bits
 _INV_LN2 = float(np.float32(1.0 / np.log(2.0)))
@@ -151,8 +160,12 @@ def _flat_new_rate(mv8):
 
 
 class VideoEncoder:
-    """Low-delay I/P encoder, or hierarchical mini-GoPs with ``pyramid``
-    (flat path); keyint=1 degenerates to all-intra."""
+    """Low-delay I/P encoder, or hierarchical mini-GoPs with ``pyramid``;
+    keyint=1 degenerates to all-intra."""
+
+    # per-layer RD lambda weights of the compound pyramid: interior layers
+    # price rate harder (the reference's layer lambda weighting)
+    LAYER_LAM = (1.0, 1.0, 1.15, 1.3, 1.45)
 
     def __init__(self, cfg: EncoderConfig, keyint: int = 64,
                  pyramid: bool = False, gop: int = 16, tf: bool = False,
@@ -160,11 +173,6 @@ class VideoEncoder:
         self.cfg = cfg
         self.keyint = max(1, keyint)
         self.pyramid = pyramid and self.keyint > 1
-        if self.pyramid and cfg.part_search:
-            raise _unsupported(
-                "the compound partition pyramid (--pyramid with the "
-                "partition search: compound interior frames, per-block TPL "
-                "lambdas; the flat path's pyramid is ported)")
         # key frames get a quality boost (the reference's CRF kf_qindex
         # scaling, EbRateControlProcess.c:782)
         kf_q = max(2, int(round(cfg.qindex * 0.7))) if keyint > 1 \
@@ -188,6 +196,7 @@ class VideoEncoder:
         self._slot_cdf = {}
         self._slot_t = {}
         self._anchor_slot = 0
+        self._lam_map_np = None       # the GoP anchor's TPL lambda map
         # scene-change state: keyint is the MAX interval, cuts insert key
         # frames (scene_transition_detector analogue)
         self._kf_at = 0               # next forced-KF display index
@@ -264,7 +273,7 @@ class VideoEncoder:
         else:
             q = self._base_q()
             if self.cfg.part_search:
-                payload, rec = self._encode_p_part(y, u, v, q)
+                payload, rec, _ = self._encode_p_part(y, u, v, qindex=q)
             else:
                 payload, rec, _ = self._encode_p_flat(y, u, v, q)
         if self.rc is not None:
@@ -330,6 +339,9 @@ class VideoEncoder:
 
     _anchor_mult = 0.85                # set per GoP by _tpl_boost
 
+    def _layer_lam(self, layer: int) -> float:
+        return self.LAYER_LAM[min(layer, len(self.LAYER_LAM) - 1)]
+
     def _layer_q(self, layer: int) -> int:
         """Per-layer qindex (the reference's hierarchical-layer q offsets):
         anchors below the base q (by the GoP's TPL-lite multiplier), top
@@ -341,12 +353,15 @@ class VideoEncoder:
         return max(1, min(255, int(round(self._base_q() * mult))))
 
     def _tpl_boost(self, gframes):
-        """TPL-lite anchor multiplier: how well the GoP's interior frames
-        are predicted from its anchor (decimated SAD against a spatial
-        activity proxy) deepens the anchor's q boost
-        (EbSourceBasedOperationsProcess.c tpl_mc_flow r0 boost).  The JAX
-        package's per-block lambda map of the same measure feeds only the
-        partition pyramid."""
+        """TPL-lite: how well the GoP's interior frames are predicted from
+        its anchor (decimated SAD against a spatial activity proxy) (a)
+        deepens the anchor's q boost (EbSourceBasedOperationsProcess.c
+        tpl_mc_flow r0 boost) and (b) gives the anchor a per-32x32-block
+        lambda map (_lam_map_np, float32 on the SB-padded block grid):
+        blocks whose pixels propagate price rate cheaper, chaotic ones
+        dearer.  SVT_TPU_NO_TPL set keeps the map off, as in the JAX
+        package.  Only the partition path's scans read the map."""
+        self._lam_map_np = None
         if len(gframes) < 2:
             self._anchor_mult = 0.85
             return
@@ -359,6 +374,26 @@ class VideoEncoder:
             pq += max(0.0, 1.0 - d / (4.0 * act))
         pq /= (len(gframes) - 1)
         self._anchor_mult = float(np.clip(0.92 - 0.18 * pq, 0.72, 0.92))
+        if os.environ.get("SVT_TPU_NO_TPL"):
+            return
+        # 8x8 decimated pixels a 32x32 block, edge-padded to the grid
+        bh, bw = self.intra.ph // BLK, anchor.shape[1] * 4 // BLK
+        H8, W8 = bh * 8, bw * 8
+        pad = lambda a: np.pad(a, ((0, max(0, H8 - a.shape[0])),
+                                   (0, max(0, W8 - a.shape[1]))),
+                               mode="edge")[:H8, :W8]
+        blk = lambda a: a.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3)
+        ab = blk(pad(anchor)).astype(np.float32)
+        act_b = (np.abs(np.diff(ab, axis=2)).mean((2, 3)) +
+                 np.abs(np.diff(ab, axis=3)).mean((2, 3)) + 1e-3)
+        p_b = np.zeros((bh, bw), np.float32)
+        for f in gframes[:-1]:
+            fd = pad(np.asarray(f[0], np.int32)[::4, ::4])
+            d_b = np.abs(blk(fd).astype(np.float32) - ab).mean((2, 3))
+            p_b += np.clip(1.0 - d_b / (4.0 * act_b), 0.0, 1.0)
+        p_b /= (len(gframes) - 1)
+        self._lam_map_np = np.clip(1.18 - 0.55 * p_b, 0.68,
+                                   1.18).astype(np.float32)
 
     def _pick_ref(self, y, cand_slots):
         """The reference slot of least decimated-luma SAD against the
@@ -382,15 +417,42 @@ class VideoEncoder:
 
     def _encode_ref_frame(self, frame, cand_slots, layer, refresh_slot,
                           show, refresh_t):
-        """Code one pyramid frame as a P frame on the nearer of cand_slots,
-        at its layer's qindex, into DPB slot refresh_slot (display index
-        refresh_t)."""
-        slot = self._pick_ref(frame[0], cand_slots)
-        hdr = dict(show_frame=show, refresh_frame_flags=1 << refresh_slot,
-                   ref_frame_idx=(slot,) * 7)
-        dist = max(1, abs(refresh_t - self._slot_t.get(slot, refresh_t)))
-        payload, rec, snap = self._encode_p_flat(
-            *frame, self._layer_q(layer), ref=self._slots[slot], cdf_init=self._slot_cdf.get(slot), hdr_extra=hdr, ref_dist=dist)
+        """Code one pyramid frame at its layer's qindex into DPB slot
+        refresh_slot (display index refresh_t).  On the partition path a
+        frame between two distinct slots is compound (LAST the interval's
+        low end, ALTREF its high end, the CDFs of the nearer by decimated
+        SAD) at its layer's lambda weight; otherwise a P frame on the
+        nearer of cand_slots, on the partition path at the layer's weight
+        and, for the anchor, the GoP's TPL lambda map."""
+        q = self._layer_q(layer)
+        dist = lambda s: max(1, abs(refresh_t -
+                                    self._slot_t.get(s, refresh_t)))
+        part = self.cfg.part_search
+        if part and len(cand_slots) == 2 and cand_slots[0] != cand_slots[1]:
+            lo, hi = cand_slots
+            chain = self._pick_ref(frame[0], cand_slots)
+            primary = ((0 if chain == lo else 6)
+                       if self._slot_cdf.get(chain) is not None else 7)
+            hdr = dict(show_frame=show, refresh_frame_flags=1 << refresh_slot,
+                       ref_frame_idx=(lo,) * 6 + (hi,), reference_select=True,
+                       primary_ref_frame=primary)
+            payload, rec, snap = self._encode_p_part(
+                *frame, ref=self._slots[lo], qindex=q,
+                cdf_init=self._slot_cdf.get(chain), hdr_extra=hdr,
+                ref_dist=dist(lo), ref2=self._slots[hi], ref2_dist=dist(hi),
+                lam_scale=self._layer_lam(layer))
+        else:
+            slot = self._pick_ref(frame[0], cand_slots)
+            hdr = dict(show_frame=show, refresh_frame_flags=1 << refresh_slot,
+                       ref_frame_idx=(slot,) * 7)
+            kw = dict(ref=self._slots[slot], cdf_init=self._slot_cdf.get(slot),
+                      hdr_extra=hdr, ref_dist=dist(slot))
+            if part:
+                payload, rec, snap = self._encode_p_part(
+                    *frame, qindex=q, lam_scale=self._layer_lam(layer),
+                    lam_map=self._lam_map_np if layer == 0 else None, **kw)
+            else:
+                payload, rec, snap = self._encode_p_flat(*frame, q, **kw)
         rec = tuple(np.asarray(p) for p in rec)
         self._slots[refresh_slot] = rec
         self._slot_cdf[refresh_slot] = snap
@@ -515,9 +577,10 @@ class VideoEncoder:
 
     # ------------------------------------------------------------ P frame
 
-    def _me(self, ys, rj):
+    def _me(self, ys, rj, long_range=False):
         """Motion search at 32, 16 and 64: mv fields [1, h/bs, w/bs, 2]."""
-        return tuple(motion_estimate(ys, rj, bs)[0] for bs in (BLK, 16, 64))
+        return tuple(motion_estimate(ys, rj, bs, long_range=long_range)[0]
+                     for bs in (BLK, 16, 64))
 
     @staticmethod
     def _sub_origins(bh, bw, dev):
@@ -529,11 +592,13 @@ class VideoEncoder:
                 (b_c * BLK + (zz & 1) * 16)[None])
 
     def _luma_lanes(self, ryp, mvs, mvps, gmv, origins, h, w, filt,
-                    free, free_sb, bd):
+                    free, free_sb, bd, comp=None):
         """Motion compensation and rates of the three lanes at the 32, 16
-        and 64 depths, as the scan's InterLanes."""
+        and 64 depths, as the scan's InterLanes.  comp (a compound frame):
+        (ALTREF's padded luma, its mv fields, their mvps), adding the
+        NEW_NEWMV and GLOBAL_GLOBALMV lanes."""
         preds, rates = [], []
-        for (y0, x0, bs), mv, mvp in zip(origins, mvs, mvps):
+        for d, ((y0, x0, bs), mv, mvp) in enumerate(zip(origins, mvs, mvps)):
             shape = mv.shape[:-1]
             mvf, mvpf = mv.reshape(1, -1, 2), mvp.reshape(1, -1, 2)
             gm = upload(np.array(gmv, np.int32), mvf.device).expand_as(mvf)
@@ -542,11 +607,21 @@ class VideoEncoder:
                 ryp.expand(N_LANES, -1, -1), y0.expand(N_LANES, n),
                 x0.expand(N_LANES, n), torch.cat([mvf, gm, mvpf]), h, w, bs,
                 0, bd, filt)
-            preds.append(p.reshape((1, N_LANES) + shape[1:] + (bs, bs)))
-            rates.append(torch.stack([
-                MODE_NEW + _mv_bits(mv, mvp),
-                torch.full(shape, MODE_NEAR + 1.0, device=mv.device),
-                torch.full(shape, MODE_NEAR + 1.4, device=mv.device)], 1))
+            r = [MODE_NEW + _mv_bits(mv, mvp),
+                 torch.full(shape, MODE_NEAR + 1.0, device=mv.device),
+                 torch.full(shape, MODE_NEAR + 1.4, device=mv.device)]
+            if comp is not None:
+                r2yp, mv_b, mvp_b = comp[0], comp[1][d], comp[2][d]
+                z = torch.zeros_like(mvf)
+                p = torch.cat([p, predict_inter_blocks_compound(
+                    ryp.expand(2, -1, -1), r2yp.expand(2, -1, -1),
+                    y0.expand(2, n), x0.expand(2, n), torch.cat([mvf, z]),
+                    torch.cat([mv_b.reshape(1, -1, 2), z]), h, w, bs, 0, bd,
+                    filt)])
+                r += [2 * MODE_NEW + _mv_bits(mv, mvp) + _mv_bits(mv_b, mvp_b),
+                      torch.full(shape, MODE_NEAR + 2.0, device=mv.device)]
+            preds.append(p.reshape((1, p.shape[0]) + shape[1:] + (bs, bs)))
+            rates.append(torch.stack(r, 1))
         (top, sub, sb), (r_top, r_sub, r_sb) = preds, rates
         one = lambda a: torch.ones(a.shape, dtype=torch.bool,
                                    device=a.device)
@@ -554,25 +629,34 @@ class VideoEncoder:
                           r_sb, one(r_sb), one(free), one(free)[..., None]
                           .expand(-1, -1, -1, 4), one(free_sb))
 
-    def _chroma_lanes(self, rup, rvp, mvs, origins, h, w, filt, inter, bd):
+    def _chroma_lanes(self, rup, rvp, mvs, origins, h, w, filt, lanes, bd,
+                      comp=None):
         """Chroma motion compensation at the luma decisions' mvs (U and V
         in one call each depth): [U, V] predictions of the top, sub and
-        SB blocks, as the paired scan's InterLanes; inter (top, sub, sb
-        bool maps of luma's inter blocks) gates lanes and intra."""
+        SB blocks, as the paired scan's InterLanes; lanes (the top, sub
+        and SB lane maps of luma, < 0 intra) gate the inter lane and
+        intra.  comp (a compound frame): ALTREF's padded (U, V); blocks on
+        lanes 3-4 take the compound prediction at their 4-component mvs."""
         ref = torch.cat([rup, rvp])
         preds = []
-        for (y0, x0, bs), mv in zip(origins, mvs):
-            mvf = mv.reshape(1, -1, 2)
+        for (y0, x0, bs), mv, lane in zip(origins, mvs, lanes):
+            mvf = mv.reshape(1, -1, mv.shape[-1])
             n, cbs = mvf.shape[1], bs // 2
-            p = predict_inter_blocks(ref, (y0 // 2).expand(2, n),
-                                     (x0 // 2).expand(2, n),
-                                     mvf.expand(2, -1, -1), h, w, cbs, 1, bd,
-                                     filt)
+            org = ((y0 // 2).expand(2, n), (x0 // 2).expand(2, n))
+            p = predict_inter_blocks(ref, *org,
+                                     mvf[..., :2].expand(2, -1, -1), h, w,
+                                     cbs, 1, bd, filt)
+            if comp is not None:
+                pc = predict_inter_blocks_compound(
+                    ref, torch.cat(comp), *org, mvf[..., :2].expand(2, -1, -1),
+                    mvf[..., 2:].expand(2, -1, -1), h, w, cbs, 1, bd, filt)
+                c = (lane >= 3).reshape(1, n, 1, 1)
+                p = torch.where(c, pc, p)
             preds.append(p.reshape((2, 1) + mv.shape[1:-1] + (cbs, cbs)))
         top, sub, sb = preds
         two = lambda a: torch.cat([a, a])
         zero = lambda a: torch.zeros((2, 1) + a.shape[1:], device=a.device)
-        t_in, s_in, b_in = inter
+        t_in, s_in, b_in = (l >= 0 for l in lanes)
         return InterLanes(top, zero(t_in), two(t_in[:, None]), sub,
                           zero(s_in), two(s_in[:, None]), sb, zero(b_in),
                           two(b_in[:, None]), two(~t_in), two(~s_in),
@@ -582,12 +666,25 @@ class VideoEncoder:
         """The P frame's maps, levels and recon to the host."""
         return {k: v.cpu().numpy() for k, v in tensors.items()}
 
-    def _encode_p_part(self, y, u, v, q):
-        """A partition P frame against the previous frame, at qindex q, on
-        the CDF chain."""
+    def _encode_p_part(self, y, u, v, ref=None, qindex=None,
+                       cdf_init="chain", hdr_extra=None, ref_dist=1,
+                       ref2=None, ref2_dist=1, lam_scale=1.0, lam_map=None):
+        """A partition P frame: (payload, recon, end-CDF snapshot or None).
+
+        The defaults code the low-delay frame: against the previous frame,
+        at the base qindex, on the CDF chain.  The pyramid's arguments (as
+        _encode_p_flat's): the reference's recon, qindex, the CDFs it
+        starts from ("chain", a slot's snapshot or None), header fields
+        and the reference's distance in frames (long-range ME beyond 4);
+        ref2 (with ref2_dist) makes the frame compound, its ALTREF ref2;
+        lam_scale multiplies the RD lambda and lam_map [bh, bw] float32
+        (the anchor's TPL map) scales it per 32x32 block."""
         cfg = self.cfg
         bd = cfg.bit_depth
-        cdf0 = self._cdf_state
+        q = self._base_q() if qindex is None else qindex
+        chain = cdf_init == "chain"
+        cdf0 = self._cdf_state if chain else cdf_init
+        comp = ref2 is not None
         dev = self.device
         # h is the true (signalled) height: the MC clamp's and the DPB's;
         # hp the SB-padded plane height of the block grids
@@ -599,21 +696,34 @@ class VideoEncoder:
                    for p, n in ((y, hp), (u, hp // 2), (v, hp // 2)))
         bh, bw, sh, sw = hp // BLK, w // BLK, hp // 64, w // 64
         N, Nsb = bh * bw, sh * sw
-        ry, ru, rv = self._dpb
 
         i32 = torch.int32
         ys, us, vs = (upload(p[None], dev) for p in (y, u, v))
-        ryp, rup, rvp = (pad_plane(upload(p[None], dev).to(i32))
-                         for p in (ry, ru, rv))
-        rj = upload(pad_plane_bottom(np.asarray(ry), hp)[None], dev)
 
-        mv32, mv16, mv64 = self._me(ys, rj)
-        gm = self._fit_gm(mv32) if cfg.gm_search else None
+        def planes(r):
+            """A reference's padded planes and its luma on the source
+            grid (ME)."""
+            return tuple(pad_plane(upload(p[None], dev).to(i32))
+                         for p in r) + (upload(pad_plane_bottom(
+                             np.asarray(r[0]), hp)[None], dev),)
+
+        ryp, rup, rvp, rj = planes(self._dpb if ref is None else ref)
+        mv32, mv16, mv64 = self._me(ys, rj, long_range=ref_dist > 4)
+        # translation GM on single-reference frames only (the compound
+        # GLOBAL_GLOBALMV lane keeps identity)
+        gm = self._fit_gm(mv32) if cfg.gm_search and not comp else None
         gmv = gm or (0, 0)
-        mvp32, mvp64 = _mv_pred(mv32), _mv_pred(mv64)
-        mvp16z = mvp32[:, :, :, None].expand(-1, -1, -1, 4, -1)
-        mv16z = mv16.reshape(1, bh, 2, bw, 2, 2).permute(
+        z4 = lambda m32: m32[:, :, :, None].expand(-1, -1, -1, 4, -1)
+        zorder = lambda m16: m16.reshape(1, bh, 2, bw, 2, 2).permute(
             0, 1, 3, 2, 4, 5).reshape(1, bh, bw, 4, 2)
+        mvp32, mvp64 = _mv_pred(mv32), _mv_pred(mv64)
+        mvp16z, mv16z = z4(mvp32), zorder(mv16)
+        if comp:
+            r2yp, r2up, r2vp, rj2 = planes(ref2)
+            mv32b, mv16b, mv64b = self._me(ys, rj2,
+                                           long_range=ref2_dist > 4)
+            mvp32b, mvp64b = _mv_pred(mv32b), _mv_pred(mv64b)
+            mv16zb = zorder(mv16b)
 
         ar = torch.arange(N, device=dev)
         y0, x0 = (ar // bw * BLK)[None], (ar % bw * BLK)[None]
@@ -626,13 +736,17 @@ class VideoEncoder:
 
         free_np, free_sb_np = bottom_force_masks(bh, bw, sh, sw, h // 4)
         free, free_sb = (upload(a[None], dev) for a in (free_np, free_sb_np))
-        lanes = self._luma_lanes(ryp, (mv32, mv16z, mv64),
-                                 (mvp32, mvp16z, mvp64), gmv, origins, h, w,
-                                 filt, free, free_sb, bd)
+        lanes = self._luma_lanes(
+            ryp, (mv32, mv16z, mv64), (mvp32, mvp16z, mvp64), gmv, origins,
+            h, w, filt, free, free_sb, bd,
+            comp=(r2yp, (mv32b, mv16zb, mv64b),
+                  (mvp32b, z4(mvp32b), mvp64b)) if comp else None)
+        lmap = None if lam_map is None else upload(
+            np.asarray(lam_map, np.float32)[None], dev)
         (part, y_mi, y_lev, y_smi, y_slev, y_stx, y_rec,
          part_sb, y_mi_sb, y_lev_sb) = encode_plane_wavefront_part(
             ys, BLK, q, free, free_sb, tx_search=cfg.tx_search, valid_h=vh,
-            inter=lanes, bd=bd)
+            inter=lanes, bd=bd, lam_scale=lam_scale, lam_map=lmap)
 
         n_i_top = len(expand_candidates(CAND_MODES))
         n_i_sub = len(expand_candidates(SUB_MODES))
@@ -640,23 +754,30 @@ class VideoEncoder:
             y_mi_sb - n_i_top
         gm_t = upload(np.array(gmv, np.int32), dev)
 
-        def first_mv(lane, new, pred):
-            # lane 1 (GLOBALMV) and intra blocks carry the frame's gm mv
-            return torch.where((lane == 0)[..., None], new, torch.where(
-                (lane == 2)[..., None], pred, gm_t))
+        def first_mv(lane, new, pred, new_b=None):
+            # lanes 0 and 3 carry the searched mv, 2 the mvp; lanes 1 and 4
+            # (GLOBALMV, GLOBAL_GLOBALMV) and intra blocks the frame's gm
+            # mv; a compound frame's second mv is ALTREF's on lane 3, else 0
+            m = torch.where(((lane == 0) | (lane == 3))[..., None], new,
+                            torch.where((lane == 2)[..., None], pred, gm_t))
+            if new_b is None:
+                return m
+            return torch.cat([m, torch.where((lane == 3)[..., None], new_b,
+                                             0)], -1)
 
-        mv_top = first_mv(lane_t, mv32, mvp32)
-        mv_sub = first_mv(lane_s, mv16z, mvp16z)
-        mv_sb = first_mv(lane_b, mv64, mvp64)
+        mv_top = first_mv(lane_t, mv32, mvp32, mv32b if comp else None)
+        mv_sub = first_mv(lane_s, mv16z, mvp16z, mv16zb if comp else None)
+        mv_sb = first_mv(lane_b, mv64, mvp64, mv64b if comp else None)
 
         c_lanes = self._chroma_lanes(
             rup, rvp, (mv_top, mv_sub, mv_sb), origins, h, w, filt,
-            (lane_t >= 0, lane_s >= 0, lane_b >= 0), bd)
+            (lane_t, lane_s, lane_b), bd, comp=(r2up, r2vp) if comp else None)
         two = lambda a: torch.cat([a, a])
         (_, uv_mi, uv_lev, uv_smi, uv_slev, _, uv_rec,
          _, uv_mi_sb, uv_lev_sb) = encode_plane_wavefront_part(
             torch.cat([us, vs]), CBLK, q, two(part), two(part_sb),
-            chroma=True, valid_h=vhc, inter=c_lanes, bd=bd)
+            chroma=True, valid_h=vhc, inter=c_lanes, bd=bd,
+            lam_scale=lam_scale, lam_map=None if lmap is None else two(lmap))
 
         lf = self._dlf_levels(q, y_rec, part, part_sb, ys, bd, valid_h=vh)
         u_rec, v_rec = uv_rec[:1], uv_rec[1:]
@@ -677,7 +798,8 @@ class VideoEncoder:
             uv_smi=uv_smi[0], uv_mi_sb=uv_mi_sb[0], mv_t=mv_top[0],
             mv_s=mv_sub[0], mv_sb=mv_sb[0], mv32=mv32[0], mv16=mv16[0],
             mv64=mv64[0]))
-        m.update(gm=gm, filt=filt, lf=lf, q=q)
+        m.update(gm=gm, filt=filt, lf=lf, q=q, comp=comp, lam_scale=lam_scale,
+                 lam_map=lam_map, ref_dist=ref_dist)
         self.last_p = m
 
         rec, cdef_params, ccso_info, lr_types, lr_infos = \
@@ -693,7 +815,7 @@ class VideoEncoder:
                        cdef_bits=cdef_params["bits"] if cdef_params else 0,
                        cdef_idx=(cdef_params["idx_map"] if cdef_params
                                  else None),
-                       kf=False, cdf_init=cdf0, gm_mv=gmv)
+                       kf=False, cdf_init=cdf0, gm_mv=gmv, comp=comp)
         tc.ccso_info = ccso_info
         if any(lr_types):
             tc.set_lr(lr_types, lr_infos)
@@ -708,9 +830,14 @@ class VideoEncoder:
             uv_mode(CHROMA_SB_MODES, m["uv_mi_sb"]),
             mv_top=m["mv_t"], mv_sub=m["mv_s"], mv_sb=m["mv_sb"])
         m["mode_counts"] = dict(tc.mode_counts)
+        m["n_intra"] = tc.n_intra
 
-        primary_ref = 0 if cdf0 is not None else 7
-        ref_idx, refresh = (0,) * 7, 0x01
+        hdr = dict(hdr_extra or {})
+        hdr.setdefault("film_grain", self._fg_inter(hdr))
+        primary_ref = hdr.pop("primary_ref_frame",
+                              0 if cdf0 is not None else 7)
+        ref_idx = hdr.get("ref_frame_idx", (0,) * 7)
+        refresh = hdr.get("refresh_frame_flags", 0x01)
         gm_dict = {1: gmv} if gm else {}
         fr = FrameConfig(frame_type=1, base_q_idx=q,
                          disable_cdf_update=not cfg.cdf_update,
@@ -722,15 +849,16 @@ class VideoEncoder:
                          lr_frame_types=lr_types, ccso=ccso_info,
                          gm_mv=gm_dict or None,
                          gm_prev=self._gm_prev_for(primary_ref, ref_idx),
-                         film_grain=self._fg_inter(),
                          **(cdef_frame_config_fields(cdef_params)
-                            if cdef_params else {}))
+                            if cdef_params else {}), **hdr)
         self._gm_save(refresh, gm_dict)
-        if cfg.cdf_update:
-            self._cdf_state = end_cdf.snapshot()
+        snap = end_cdf.snapshot() if cfg.cdf_update else None
+        if chain and cfg.cdf_update:
+            self._cdf_state = snap
+        m.update(ref_slot=ref_idx[0], refresh=refresh)
         payload = assemble_frame(self.seq, fr, tile, first=False)
         y_n, u_n, v_n = (host_pixels(p, bd) for p in rec)
-        return payload, (y_n[:h], u_n[:h // 2], v_n[:h // 2])
+        return payload, (y_n[:h], u_n[:h // 2], v_n[:h // 2]), snap
 
     # ------------------------------------------------------- flat P frame
 

@@ -2,20 +2,21 @@
 block NONE vs SPLIT into four 16x16 leaves, decided by closed-loop RD in
 one z-order scan.
 
-Counterpart of ``svtav1_tpu/encoder/wavefront2.py`` with its lambda map
-all ones (the pyramid's TPL map is not ported).  Two forms: the key-frame
-form (every block intra, the key-frame rates) and the inter form of P
-frames (``InterLanes``): precomputed inter predictions join the intra
+Counterpart of ``svtav1_tpu/encoder/wavefront2.py``.  Two forms: the
+key-frame form (every block intra, the key-frame rates) and the inter form
+of P frames (``InterLanes``): precomputed inter predictions join the intra
 candidates at each depth as extra lanes with their own rates, masks gate
 the lanes and intra per block, and the rates are the inter frame's
-(y_mode CDF, tx-type bits on every coded txb).  Each quad step of the flat
-path's 2:1 wavefront (``wavefront._quad_tables``) evaluates the superblock
-as one block (``eval_sb``) from the boundary state as the step finds it,
-then the four z-order blocks (``sub_step``): the whole block with every
-candidate, and its four sub-blocks with the Z2-safe mode set, their
-neighbour recon threaded through a local buffer; the cheaper tree wins at
-each depth, and the boundary buffers end the step holding the chosen
-content.
+(y_mode CDF, tx-type bits on every coded txb).  The RD lambda takes a
+weight (``lam_scale``, the pyramid's per-layer weighting) and a per-block
+map (``lam_map``, the pyramid anchor's TPL map; the SB takes its first
+block's).  Each quad step of the flat path's 2:1 wavefront
+(``wavefront._quad_tables``) evaluates the superblock as one block
+(``eval_sb``) from the boundary state as the step finds it, then the four
+z-order blocks (``sub_step``): the whole block with every candidate, and
+its four sub-blocks with the Z2-safe mode set, their neighbour recon
+threaded through a local buffer; the cheaper tree wins at each depth, and
+the boundary buffers end the step holding the chosen content.
 
 Every candidate runs the normative integer chain, so levels and recon are
 bit-final, and the float32 RD sums keep the JAX package's association.
@@ -23,14 +24,21 @@ Used for luma (bs=32, tx search on the 16x16 leaves) and for paired U+V
 chroma (bs=16, partition forced by luma).
 
 The scan is plain PyTorch on src's device: the JAX package runs it as
-XLA code, with no Pallas kernel.  Its tables are built on the host and
-uploaded once a call without a synchronisation, and the scan itself reads
-nothing back, so on a CUDA device the whole call only queues work.
+XLA code, with no Pallas kernel.  A call is split as the JAX package's
+jit boundary splits it: a prepare step (``PartScan.fill``) writes the
+host tables of the qindex and every lambda-dependent value into static
+device buffers without a synchronisation, and the steps read those
+buffers alone.  On a CUDA device each step runs as a CUDA graph captured
+once a shape and step width and replayed after that (``PartScan``), so a
+plane's tens of thousands of launches a step cost one graph launch.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import ctypes
+import time
 
 import numpy as np
 import torch
@@ -142,13 +150,15 @@ def partition_bits_sb(qindex: int, bs2: int, cdf: CdfContext = None):
 
 
 def rd_params_part(qindex: int, bs: int, cands_top, cands_sub, cands_sbl,
-                   uv_rates: bool = False, kf: bool = True, bd: int = 8):
+                   uv_rates: bool = False, kf: bool = True, bd: int = 8,
+                   lam_scale: float = 1.0):
     """RD inputs of a partition wavefront call, as numpy on the host: (dc
-    step, ac step, lambda, top / sub / SB mode-rate tables, NONE and SPLIT
-    bits at the 32 and the SB depth, the tx-type rate table, the sub
-    candidates' mode ids).  kf=False takes the inter frame's intra-mode
-    rates (chroma keeps the uv_mode rates).  The steps are bd's; the
-    lambda is the 8-bit ac step's at every bd, as in the JAX package."""
+    step, ac step, lambda times lam_scale, top / sub / SB mode-rate
+    tables, NONE and SPLIT bits at the 32 and the SB depth, the tx-type
+    rate table, the sub candidates' mode ids).  kf=False takes the inter
+    frame's intra-mode rates (chroma keeps the uv_mode rates).  The steps
+    are bd's; the lambda is the 8-bit ac step's at every bd, as in the JAX
+    package."""
     cdf = CdfContext(qindex)
     dc, ac = tbl.qindex_to_dq(qindex, bd)
     rate_kf = "uv" if uv_rates else kf
@@ -156,7 +166,8 @@ def rd_params_part(qindex: int, bs: int, cands_top, cands_sub, cands_sbl,
     f32 = np.float32
     bn, bsp = partition_bits(qindex, bs, cdf)
     bn2, bsp2 = partition_bits_sb(qindex, 2 * bs, cdf)
-    return dict(dc=dc, ac=ac, lam=f32(_lambda(qindex)),
+    return dict(dc=np.int32(dc), ac=np.int32(ac),
+                lam=f32(_lambda(qindex) * lam_scale),
                 rate_top=rate(cands_top), rate_sub=rate(cands_sub),
                 rate_sb=rate(cands_sbl), bits_none=f32(bn),
                 bits_split=f32(bsp), bits_none_sb=f32(bn2),
@@ -164,11 +175,228 @@ def rd_params_part(qindex: int, bs: int, cands_top, cands_sub, cands_sbl,
                 mode_ids=np.array([m for m, _ in cands_sub], np.int64))
 
 
+def _mode_lists(chroma: bool):
+    if chroma:
+        modes = (CHROMA_TOP_MODES, CHROMA_SUB_MODES, CHROMA_SB_MODES)
+    else:
+        modes = (DEFAULT_MODES, SUB_MODES, DEFAULT_MODES)
+    return tuple(expand_candidates(m) for m in modes)
+
+
+# the scan's CUDA graphs (cumulative): step graphs captured, step graphs
+# replayed, scan calls that ran on graphs, the host seconds of the
+# captures (instantiation included) and of the calls' replay loops; "log"
+# holds one entry per capture: its scan key, step width D, node count
+# (None where the driver could not be asked), capture and instantiate
+# seconds, the device memory reserved after it and the host RSS
+GRAPHS = dict(captures=0, replays=0, calls=0, capture_s=0.0, replay_s=0.0,
+              log=[])
+_SCANS = {}          # key -> PartScan of the card's shapes (for the process)
+_OUTPUTS = ("part", "mi_top", "lev_top", "mi_sub", "lev_sub", "stx_sub",
+            "recon", "part_sb", "mi_sb", "lev_sb")
+
+
+class PartScan:
+    """One shape of the partition scan, keyed by (device, B, h, w, bs,
+    chroma, bd, tx_search, valid_h, n_extra) with n_extra None for the
+    key-frame form.  It holds static buffers on the device: the inputs,
+    which ``fill`` writes (the prepare step: the host tables of the
+    qindex, the lambda times lam_scale, the lambda map, the source, the
+    force masks and the inter lanes), the scan's state and outputs, and
+    the step schedule.  ``run`` zeroes the state and runs the scan's
+    steps, each a function of those buffers and of its row of the
+    schedule alone.
+
+    On a CUDA device a step runs as a CUDA graph: one graph for each step
+    width D (the number of superblocks on the step's anti-diagonal), its
+    schedule row copied into the graph's step buffer before each replay,
+    captured at the first step of that width and replayed by every later
+    step and call of the shape (the steps of a width launch the same
+    kernels on other blocks, and the qindex and lambdas are buffer
+    contents).  A 1080p plane has 62 steps of 17 widths.  The graphs of a
+    shape share one memory pool.  ``run(eager=True)`` runs the same steps
+    eagerly on the same buffers.  A failed capture or replay raises.  On
+    the CPU the steps run eagerly."""
+
+    def __init__(self, device, B: int, h: int, w: int, bs: int,
+                 chroma: bool, bd: int, tx_search: bool, valid_h,
+                 n_extra=None):
+        self.key = (str(device), B, h, w, bs, chroma, bd, tx_search,
+                    valid_h, n_extra)
+        dev = self.dev = torch.device(device)
+        self.bs, self.chroma, self.bd = bs, chroma, bd
+        self.cands = _mode_lists(chroma)
+        bh, bw, sh, sw, hs = h // bs, w // bs, h // (2 * bs), w // (2 * bs), \
+            bs // 2
+        bs2 = 2 * bs
+        nC = 32 if bs2 == 64 else bs2      # coded coefficient area of tx_sb
+        z = lambda shape, dt=torch.int32: torch.zeros(shape, dtype=dt,
+                                                      device=dev)
+        f32, b8 = torch.float32, torch.bool
+        self.src = z((B, h, w))
+        self.force_part, self.force_sb = z((B, bh, bw)), z((B, sh, sw))
+        self.lam_map = z((B, bh, bw), f32)
+        ct, cs_, cb = (len(c) for c in self.cands)
+        self.rd = dict(dc=z(()), ac=z(()), lam=z((), f32),
+                       rate_top=z((ct,), f32), rate_sub=z((cs_,), f32),
+                       rate_sb=z((cb,), f32), bits_none=z((), f32),
+                       bits_split=z((), f32), bits_none_sb=z((), f32),
+                       bits_split_sb=z((), f32),
+                       txt=z((13, len(TX_SEARCH_TYPES)), f32),
+                       mode_ids=z((cs_,), torch.int64))
+        self.inter = None
+        if n_extra is not None:
+            nE = n_extra
+            self.inter = InterLanes(
+                z((B, nE, bh, bw, bs, bs)), z((B, nE, bh, bw), f32),
+                z((B, nE, bh, bw), b8), z((B, nE, bh, bw, 4, hs, hs)),
+                z((B, nE, bh, bw, 4), f32), z((B, nE, bh, bw, 4), b8),
+                z((B, nE, sh, sw, bs2, bs2)), z((B, nE, sh, sw), f32),
+                z((B, nE, sh, sw), b8), z((B, bh, bw), b8),
+                z((B, bh, bw, 4), b8), z((B, sh, sw), b8))
+        # coding-order boundary state: bottom row of every completed block
+        # (rowbuf [B, bh, w]) and its right column (colbuf [B, h, bw]);
+        # the outputs, written in place by the steps
+        self.state = dict(
+            rowbuf=z((B, bh, w)), colbuf=z((B, h, bw)), part=z((B, bh, bw)),
+            mi_top=z((B, bh, bw)), lev_top=z((B, bh, bw, bs, bs)),
+            mi_sub=z((B, bh, bw, 4)), lev_sub=z((B, bh, bw, 4, hs, hs)),
+            stx_sub=z((B, bh, bw, 4)), part_sb=z((B, sh, sw)),
+            mi_sb=z((B, sh, sw)), lev_sb=z((B, sh, sw, nC, nC)),
+            rec_sb=z((B, sh, sw, bs2, bs2)))
+        # the schedule [steps, (rs, cs, has_tr, has_bl), 4 z, D], uploaded
+        # once; the valid lanes of a step are a prefix, the same for its
+        # four z
+        rs_t, cs_t, valid_t, has_tr_t, has_bl_t = _quad_tables(bh, bw)
+        self.widths = [int(d) for d in valid_t[:, 0].sum(1)]
+        self.sched = upload(np.stack([rs_t, cs_t, has_tr_t, has_bl_t],
+                                     1).astype(np.int64), dev)
+        # the chroma candidates' tx-type groups fill at the first step,
+        # outside any capture
+        self.step = _scan_step(self.src, self.rd, self.force_part,
+                               self.force_sb, self.lam_map, bs, *self.cands,
+                               tx_search, valid_h, chroma, self.inter, bd,
+                               {}, self.state)
+        self.graphs = {}             # D -> (CUDAGraph, its step buffer)
+        self.pool = None
+        self.warm = False
+
+    def fill(self, src, qindex: int, force_part, force_sb, inter=None,
+             lam_scale: float = 1.0, lam_map=None):
+        """The prepare step: the call's inputs into the static buffers, on
+        the device's stream without a synchronisation.  lam_map [B, bh,
+        bw] float32 tensor (None: all ones) scales the RD lambda of each
+        bs x bs block (the SB takes its first block's)."""
+        rd = rd_params_part(qindex, self.bs, *self.cands, self.chroma,
+                            kf=self.inter is None, bd=self.bd,
+                            lam_scale=lam_scale)
+        for k, buf in self.rd.items():
+            buf.copy_(upload(np.asarray(rd[k]), self.dev).reshape(buf.shape))
+        self.src.copy_(src)
+        self.force_part.copy_(force_part)
+        self.force_sb.copy_(force_sb)
+        if lam_map is None:
+            self.lam_map.fill_(1.0)
+        else:
+            self.lam_map.copy_(lam_map)
+        if self.inter is not None:
+            for buf, t in zip(self.inter, inter):
+                buf.copy_(t)
+
+    def run(self, eager: bool = False):
+        """The scan on the filled buffers: its ten outputs (new tensors)."""
+        graphs = self.dev.type == "cuda" and not eager
+        if graphs and not self.warm:
+            # one eager step first: the per-device tables the steps read
+            # are made outside any capture
+            self.step(self.sched[0, :, :, :self.widths[0]])
+            self.warm = True
+        for t in self.state.values():
+            t.zero_()
+        t0, cap = time.perf_counter(), GRAPHS["capture_s"]
+        for k, D in enumerate(self.widths):
+            sk = self.sched[k, :, :, :D]
+            if not graphs:
+                self.step(sk)
+                continue
+            if D not in self.graphs:
+                self._capture(D, sk)
+            g, buf = self.graphs[D]
+            buf.copy_(sk)
+            g.replay()
+            GRAPHS["replays"] += 1
+        if graphs:
+            GRAPHS["calls"] += 1
+            GRAPHS["replay_s"] += time.perf_counter() - t0 - \
+                (GRAPHS["capture_s"] - cap)
+        st = self.state
+        B, h, w = self.src.shape
+        out = {k: st[k].clone() for k in _OUTPUTS if k != "recon"}
+        out["recon"] = st["rec_sb"].permute(0, 1, 3, 2, 4).reshape(
+            B, h, w).clone()
+        return tuple(out[k] for k in _OUTPUTS)
+
+    def _capture(self, D: int, sk):
+        """Capture the step of width D on a step buffer of its own (in the
+        shape's pool)."""
+        buf = sk.clone()
+        g = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(g, pool=self.pool):
+            self.step(buf)
+            nodes = _captured_nodes()
+            t1 = time.perf_counter()
+        t2 = time.perf_counter()
+        if self.pool is None:
+            self.pool = g.pool()
+        self.graphs[D] = (g, buf)
+        GRAPHS["captures"] += 1
+        GRAPHS["capture_s"] += t2 - t0
+        GRAPHS["log"].append(dict(
+            key=self.key, D=D, nodes=nodes, capture_s=t1 - t0,
+            instantiate_s=t2 - t1,
+            reserved_bytes=torch.cuda.memory_reserved(self.dev),
+            rss_bytes=_host_rss()))
+
+
+def _captured_nodes():
+    """Node count of the graph being captured on the current stream, from
+    the CUDA driver (None where it cannot be asked)."""
+    try:
+        cu = ctypes.CDLL("libcuda.so.1")
+        status = ctypes.c_int()
+        graph = ctypes.c_void_p()
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        if cu.cuStreamGetCaptureInfo_v2(stream, ctypes.byref(status), None,
+                                        ctypes.byref(graph), None, None):
+            return None
+        n = ctypes.c_size_t()
+        if cu.cuGraphGetNodes(graph, None, ctypes.byref(n)):
+            return None
+        return int(n.value)
+    except (OSError, AttributeError):
+        return None
+
+
+def _host_rss():
+    """The process's resident host memory in bytes (Linux), or None."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
+
+
 def encode_plane_wavefront_part(src, bs: int, qindex: int, force_part,
                                 force_sb, chroma: bool = False,
                                 tx_search: bool = False,
                                 valid_h: int = None,
-                                inter: InterLanes = None, bd: int = 8):
+                                inter: InterLanes = None, bd: int = 8,
+                                lam_scale: float = 1.0, lam_map=None,
+                                eager: bool = False):
     """src [B, h, w] pixel tensor (h, w multiples of 2*bs) ->
     (part [B, bh, bw] int32 (1 = SPLIT), mi_top [B, bh, bw],
     lev_top [B, bh, bw, bs, bs], mi_sub [B, bh, bw, 4],
@@ -187,21 +415,23 @@ def encode_plane_wavefront_part(src, bs: int, qindex: int, force_part,
     true (unpadded) frame height; left edge rows clamp at valid_h-1.
     inter: the P frame's lanes (the inter form; mode indices past the
     intra candidates are lanes).  bd: the bit depth (8 or 10) of src
-    and of the lanes' predictions."""
-    if chroma:
-        modes = (CHROMA_TOP_MODES, CHROMA_SUB_MODES, CHROMA_SB_MODES)
-    else:
-        modes = (DEFAULT_MODES, SUB_MODES, DEFAULT_MODES)
-    cands_top, cands_sub, cands_sbl = (expand_candidates(m) for m in modes)
-    rd = rd_params_part(qindex, bs, cands_top, cands_sub, cands_sbl, chroma,
-                        kf=inter is None, bd=bd)
-    dev = src.device
-    rd_t = {k: (v if k in ("dc", "ac") else upload(np.asarray(v), dev))
-            for k, v in rd.items()}
-    return _wavefront_part_impl(src, rd_t, force_part.to(dev),
-                                force_sb.to(dev), bs, cands_top, cands_sub,
-                                cands_sbl, tx_search, valid_h, chroma, inter,
-                                bd)
+    and of the lanes' predictions.  lam_scale multiplies the RD lambda
+    (the pyramid's per-layer weighting); lam_map [B, bh, bw] float32
+    scales it per block (the pyramid anchor's TPL map).
+
+    On a CUDA device the call goes through ``PartScan``'s graph of its
+    shape (captured at the shape's first call); eager=True runs the body
+    on the same buffers instead, to hold a replay against it."""
+    B, h, w = src.shape
+    key = (str(src.device), B, h, w, bs, chroma, bd, tx_search, valid_h,
+           None if inter is None else inter.top.shape[1])
+    scan = _SCANS.get(key) if src.device.type == "cuda" else None
+    if scan is None:
+        scan = PartScan(*key)
+        if src.device.type == "cuda":
+            _SCANS[key] = scan
+    scan.fill(src, qindex, force_part, force_sb, inter, lam_scale, lam_map)
+    return scan.run(eager)
 
 
 def _intra_pred(mode, delta, above, left, corner, ha, hl, n, bd,
@@ -226,14 +456,18 @@ def _intra_pred(mode, delta, above, left, corner, ha, hl, n, bd,
     return intra.predict(mode, above, left, corner)
 
 
-def _wavefront_part_impl(src, rd, force_part, force_sb, bs: int, cands_top,
-                         cands_sub, cands_sbl, tx_search: bool,
-                         valid_h: int, chroma: bool, inter=None,
-                         bd: int = 8):
-    """The scan, plain PyTorch on src's device; rd holds rd_params_part's
-    tables as tensors on that device (dc and ac as ints).  chroma: paired
-    U/V lanes and implied uv tx types; inter: InterLanes (the inter
-    form)."""
+def _scan_step(src, rd, force_part, force_sb, lam_map, bs: int, cands_top,
+               cands_sub, cands_sbl, tx_search: bool, valid_h: int,
+               chroma: bool, inter, bd: int, groups, state):
+    """The scan's step, plain PyTorch on src's device: step(sk) codes the
+    blocks of one quad step, sk [4 (rs, cs, has_tr, has_bl), 4 (z), D]
+    int64, with device ops on its inputs and on `state` alone (no upload
+    and no read-back), so that it can be captured.  rd holds
+    rd_params_part's values as tensors on that device (dc and ac 0-d
+    int32); lam_map [B, bh, bw] float32; chroma: paired U/V lanes and
+    implied uv tx types; inter: InterLanes (the inter form), or None;
+    groups: the tx-type index tensors, filled at first use; state: the
+    boundary buffers and outputs (PartScan.state), written in place."""
     dqdc, dqac, lam = rd["dc"], rd["ac"], rd["lam"]
     paired, uv_tx = chroma, chroma
     dev = src.device
@@ -253,30 +487,17 @@ def _wavefront_part_impl(src, rd, force_part, force_sb, bs: int, cands_top,
     txb_sb = 0.0 if kf else 1.0
     n_extra = 0 if kf else inter.top.shape[1]
     n_mode_ids = len(cands_sub)
-    rs_t, cs_t, valid_t, has_tr_t, has_bl_t = _quad_tables(bh, bw)
-    # the valid lanes of a step are a prefix, the same for its four z
-    n_valid = valid_t[:, 0].sum(1)
-    rs_a, cs_a, htr_a, hbl_a = (upload(a, dev) for a in (
-        rs_t.astype(np.int64), cs_t.astype(np.int64), has_tr_t, has_bl_t))
 
-    src = src.to(i32)
     src_b = src.reshape(B, bh, bs, bw, bs).permute(0, 1, 3, 2, 4)
     src_sb = src.reshape(B, sh, bs2, sw, bs2).permute(0, 1, 3, 2, 4)
     ar = torch.arange(bs, device=dev)
     ar2 = torch.arange(bs2, device=dev)
-
-    # coding-order boundary state: bottom row of every completed block
-    # (rowbuf [B, bh, w]) and its right column (colbuf [B, h, bw])
-    rowbuf = torch.zeros((B, bh, w), dtype=i32, device=dev)
-    colbuf = torch.zeros((B, h, bw), dtype=i32, device=dev)
-    zeros = lambda *s: torch.zeros((B,) + s, dtype=i32, device=dev)
-    part, mi_top = zeros(bh, bw), zeros(bh, bw)
-    lev_top = zeros(bh, bw, bs, bs)
-    mi_sub, lev_sub = zeros(bh, bw, 4), zeros(bh, bw, 4, hs, hs)
-    stx_sub = zeros(bh, bw, 4)
-    part_sb, mi_sb = zeros(sh, sw), zeros(sh, sw)
-    lev_sb = zeros(sh, sw, nC, nC)
-    rec_sb = zeros(sh, sw, bs2, bs2)
+    rowbuf, colbuf = state["rowbuf"], state["colbuf"]
+    part, mi_top, lev_top = state["part"], state["mi_top"], state["lev_top"]
+    mi_sub, lev_sub, stx_sub = (state["mi_sub"], state["lev_sub"],
+                                state["stx_sub"])
+    part_sb, mi_sb, lev_sb, rec_sb = (state["part_sb"], state["mi_sb"],
+                                      state["lev_sb"], state["rec_sb"])
 
     def txq(pred, f_src, tx_size, n, tx_bits, tx_type=DCT_DCT):
         lev = quantize_dq_opt(fwd_txfm2d(f_src - pred, tx_size, tx_type, bd),
@@ -328,12 +549,11 @@ def _wavefront_part_impl(src, rd, force_part, force_sb, bs: int, cands_top,
         return [(fl(pred[:, e][idx]), fl(rate[:, e][idx]), fl(ok[:, e][idx]))
                 for e in range(n_extra)]
 
-    groups = {}
-
     def tx_groups(tx_types):
         """[(tx type, candidate indices)] in type order, the indices as a
-        tensor on the scan's device (uploaded once a call: a list index
-        would copy from pageable memory and synchronise every step)."""
+        tensor on the scan's device (uploaded at the first use of the
+        buffers: a list index would copy from pageable memory and
+        synchronise every step)."""
         if tx_types not in groups:
             groups[tx_types] = [
                 (tt, upload(np.array([i for i, t in enumerate(tx_types)
@@ -341,10 +561,12 @@ def _wavefront_part_impl(src, rd, force_part, force_sb, bs: int, cands_top,
                 for tt in sorted(set(tx_types))]
         return groups[tx_types]
 
-    def stack_eval(preds, rates, f_src, txq_fn, tx_types=None, oks=None):
+    def stack_eval(preds, rates, f_src, txq_fn, f_lam, tx_types=None,
+                   oks=None):
         """All candidates through one txq chain per distinct tx type; the
-        first minimum of the RD cost wins.  rates: [C] or [C, BD]; oks
-        [C, BD] or None gates candidates (a gated one costs BIG).  paired:
+        first minimum of the RD cost wins.  rates: [C] or [C, BD]; f_lam
+        [BD] the lanes' lambda-map factors; oks [C, BD] or None gates
+        candidates (a gated one costs BIG).  paired:
         the u/v halves of the lane axis pick one candidate on the pair's
         summed cost.  Returns (cost, mi, lev, rec, pred, rcost) of the
         winners."""
@@ -367,9 +589,10 @@ def _wavefront_part_impl(src, rd, force_part, force_sb, bs: int, cands_top,
                         outs[k] = a.new_empty((C, BD) + a.shape[1:])
                     outs[k][idx] = a.reshape((len(idx), BD) + a.shape[1:])
             lev, recb, sse, rb = outs
-        rcost_s = sse + lam * rb
-        cost_s = rcost_s + lam * (rates[:, None] if rates.dim() == 1
-                                  else rates)
+        lamv = lam * f_lam[None, :]
+        rcost_s = sse + lamv * rb
+        cost_s = rcost_s + lamv * (rates[:, None] if rates.dim() == 1
+                                   else rates)
         if oks is not None:
             cost_s = torch.where(oks, cost_s, BIG)
         if paired:
@@ -381,8 +604,8 @@ def _wavefront_part_impl(src, rd, force_part, force_sb, bs: int, cands_top,
         return (cost_s[mi, lanes], mi.to(i32), lev[mi, lanes],
                 recb[mi, lanes], pred_s[mi, lanes], rcost_s[mi, lanes])
 
-    def eval_set(f_src, above, left, corner, ha, hl, n, tx_size, iok=None,
-                 extras=()):
+    def eval_set(f_src, above, left, corner, ha, hl, n, tx_size, f_lam,
+                 iok=None, extras=()):
         """Best sub-block candidate (intra, then the inter form's lanes
         extras [(pred, rate, ok)]), then (tx_search) the RD tx-type
         refinement of an intra winner.  Returns (cost, mi, lev, rec,
@@ -394,16 +617,18 @@ def _wavefront_part_impl(src, rd, force_part, force_sb, bs: int, cands_top,
                   [DCT_DCT] * len(extras) if uv_tx else None)
         cost, mi, lev, recb, pred, rcost = stack_eval(
             preds, rates, f_src,
-            lambda p, s, tt: txq(p, s, tx_size, n, txb_sub, tt), ttypes, oks)
+            lambda p, s, tt: txq(p, s, tx_size, n, txb_sub, tt), f_lam,
+            ttypes, oks)
         tx_idx = torch.zeros_like(mi)
         if tx_search:
             m_ids = rd["mode_ids"][mi.clamp(0, n_mode_ids - 1)]
             txt = rd["txt"][m_ids]                     # [BD, 5]
-            cur_eff = rcost + lam * txt[:, 0]
+            lamv = lam * f_lam
+            cur_eff = rcost + lamv * txt[:, 0]
             for ti in range(1, len(TX_SEARCH_TYPES)):
                 lev2, recb2, sse2, rb2 = txq(pred, f_src, tx_size, n, 0.0,
                                              TX_SEARCH_TYPES[ti])
-                new_eff = sse2 + lam * (rb2 + txt[:, ti])
+                new_eff = sse2 + lamv * (rb2 + txt[:, ti])
                 take = new_eff < cur_eff
                 if not kf:
                     take = take & (mi < len(cands_sub))
@@ -430,6 +655,7 @@ def _wavefront_part_impl(src, rd, force_part, force_sb, bs: int, cands_top,
         f_above_ext, f_left_ext = fb(above_ext), fb(left_ext)
         f_ha = (rs > 0).expand(B, D).reshape(-1)
         f_hl = (cs > 0).expand(B, D).reshape(-1)
+        f_lam = lam_map[:, rs, cs].reshape(-1)
 
         blk = (slice(None), rs, cs)
         if not kf:
@@ -448,8 +674,8 @@ def _wavefront_part_impl(src, rd, force_part, force_sb, bs: int, cands_top,
                   [DCT_DCT] * n_extra if uv_tx else None)
         best_top = stack_eval(
             preds_t, rates_t, f_src,
-            lambda p, s, tt: txq(p, s, tx_top, bs, txb_top, tt), tt_top,
-            oks_t)
+            lambda p, s, tt: txq(p, s, tx_top, bs, txb_top, tt), f_lam,
+            tt_top, oks_t)
 
         # SPLIT evaluation: 4 z-order sub-blocks
         loc = torch.zeros((B * D, bs, bs), dtype=i32, device=dev)
@@ -488,7 +714,7 @@ def _wavefront_part_impl(src, rd, force_part, force_sb, bs: int, cands_top,
             z = 2 * sr + sc
             cost, mi, lev, recb, stx = eval_set(
                 s_src, s_above, s_left, s_corner, s_ha, s_hl, hs, tx_sub,
-                *(() if kf else (f_iok_sub[:, z], [
+                f_lam, *(() if kf else (f_iok_sub[:, z], [
                     (p[:, z], r[:, z], o[:, z]) for p, r, o in sub_lanes])))
             sub_cost = sub_cost + cost
             sub_mi.append(mi)
@@ -497,8 +723,8 @@ def _wavefront_part_impl(src, rd, force_part, force_sb, bs: int, cands_top,
             loc[:, oy:oy + hs, ox:ox + hs] = recb
 
         # choose
-        cost_none = best_top[0] + lam * rd["bits_none"]
-        cost_split = sub_cost + lam * rd["bits_split"]
+        cost_none = best_top[0] + lam * f_lam * rd["bits_none"]
+        cost_split = sub_cost + lam * f_lam * rd["bits_split"]
         fp = force_part[:, rs, cs].reshape(-1)
         split = torch.where(fp < 0, cost_split < cost_none, fp == 1)
         cost_tree = torch.minimum(cost_none, cost_split)
@@ -563,24 +789,27 @@ def _wavefront_part_impl(src, rd, force_part, force_sb, bs: int, cands_top,
             None if kf else step_lanes(inter.sb, inter.rate_sb, inter.ok_sb,
                                        sbk))
         return stack_eval(preds, rates, f_src,
-                          lambda p, s, tt: txq_sb(p, s), oks=oks)[:4]
+                          lambda p, s, tt: txq_sb(p, s),
+                          lam_map[:, 2 * sbr, 2 * sbc].reshape(-1),
+                          oks=oks)[:4]
 
-    for k in range(len(n_valid)):
-        D = int(n_valid[k])
-        rs4, cs4 = rs_a[k, :, :D], cs_a[k, :, :D]
+    def step(sk):
+        rs4, cs4 = sk[0], sk[1]
+        htr4, hbl4 = sk[2] != 0, sk[3] != 0
+        D = rs4.shape[1]
         sbr, sbc = rs4[0] // 2, cs4[0] // 2
         sb_cost, sb_mi, sb_lev, sb_rec = eval_sb(sbr, sbc)
         cost_tot = 0.0
         recs = []
         for z in range(4):
-            cz, rz = sub_step(rs4[z], cs4[z], htr_a[k, z, :D],
-                              hbl_a[k, z, :D])
+            cz, rz = sub_step(rs4[z], cs4[z], htr4[z], hbl4[z])
             cost_tot = cost_tot + cz
             recs.append(rz)
         quad = torch.cat([torch.cat([recs[0], recs[1]], -1),
                           torch.cat([recs[2], recs[3]], -1)], -2)
-        cost_none = sb_cost.reshape(B, D) + lam * rd["bits_none_sb"]
-        cost_split = cost_tot + lam * rd["bits_split_sb"]
+        lam_sb = lam * lam_map[:, rs4[0], cs4[0]]
+        cost_none = sb_cost.reshape(B, D) + lam_sb * rd["bits_none_sb"]
+        cost_split = cost_tot + lam_sb * rd["bits_split_sb"]
         fsb = force_sb[:, sbr, sbc]
         use_sb = torch.where(fsb < 0, cost_none < cost_split, fsb == 0)
         rec_fin = torch.where(use_sb[..., None, None],
@@ -599,6 +828,4 @@ def _wavefront_part_impl(src, rd, force_part, force_sb, bs: int, cands_top,
         lev_sb[:, sbr, sbc] = sb_lev.reshape(B, D, nC, nC)
         rec_sb[:, sbr, sbc] = rec_fin
 
-    recon = rec_sb.permute(0, 1, 3, 2, 4).reshape(B, h, w)
-    return (part, mi_top, lev_top, mi_sub, lev_sub, stx_sub, recon, part_sb,
-            mi_sb, lev_sb)
+    return step

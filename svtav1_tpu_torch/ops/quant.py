@@ -4,8 +4,9 @@ Counterpart of ``svtav1_tpu/ops/quant.py``: the encoder's deadzone
 quantizer (rounding 48/128 of the step), its one-step coefficient
 optimization (``quantize_dq_opt``), and the normative dequantizer (spec
 §7.12.3: level * dqv masked to 24 bits, >> tx scale shift, re-signed,
-clamped to ±2^(bd+7)).  dc/ac are the dequant steps (Python ints); the dc
-step applies at position (0, 0) only.
+clamped to ±2^(bd+7)).  dc/ac are the dequant steps (Python ints, or 0-d
+int32 tensors on the coefficients' device); the dc step applies at
+position (0, 0) only.
 """
 
 from __future__ import annotations
@@ -26,9 +27,20 @@ def _dqv_t(dc: int, ac: int, h: int, w: int, device: str):
     return upload(m, device)
 
 
+@lru_cache(maxsize=None)
+def _dc_pos(h: int, w: int, device: str):
+    m = np.zeros((h, w), bool)
+    m[0, 0] = True
+    return upload(m, device)
+
+
 def _dqv(dc, ac, h: int, w: int, device):
-    """Per-position dequant step [h, w] on `device` (one upload per
-    (steps, shape, device))."""
+    """Per-position dequant step [h, w] on `device`: one upload per
+    (steps, shape, device) for int steps; for 0-d int32 tensors on
+    `device` (a captured graph's inputs) a select, so that the steps may
+    change between replays."""
+    if isinstance(dc, torch.Tensor) and dc.device == torch.device(device):
+        return torch.where(_dc_pos(h, w, str(device)), dc, ac)
     return _dqv_t(int(dc), int(ac), h, w, str(device))
 
 

@@ -36,8 +36,18 @@ from svtav1_tpu_torch.ops import convolve as tconv
 from svtav1_tpu_torch.ops import mc as tmc
 from svtav1_tpu_torch.ops import metrics as tmetrics
 from svtav1_tpu_torch.spec import cdf as tcdf
+from test_torch_part import one_thread
 
 DATA = Path(__file__).parent / "data"
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's CPU ops on one thread: the scans here are small, and the
+    test workers share the machine's cores (more threads crawl under
+    their load)."""
+    with one_thread():
+        yield
 
 
 def _eq(got, want, msg=""):
@@ -344,3 +354,208 @@ def test_tile_coder_inter_filters(w, h, seed, update, gm):
         for key in want_cdf._t:
             _eq(got_cdf._t[key], want_cdf._t[key], key)
         t_init, j_init = got_cdf.snapshot(), want_cdf.snapshot()
+
+
+# ---- the compound syntax ----------------------------------------------------
+
+def _nb_info(rng):
+    """A random neighbour as ref_mode_ctx reads it: None (unavailable) or
+    (is_inter, ref0, ref1), ref1 0 for single-reference and intra."""
+    k = rng.randint(4)
+    if k == 0:
+        return None
+    if k == 1:
+        return (False, 0, 0)
+    if k == 2:
+        return (True, int(rng.choice([1, 7])), 0)
+    return (True, 1, 7)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_compound_writers(seed):
+    """A random sequence of the compound writers' symbols (comp_mode, the
+    LAST+ALTREF pair, the compound modes) on random neighbour contexts
+    through both coders: equal contexts, bytes and adapted CDFs."""
+    rng = np.random.RandomState(50 + seed)
+    q = (40, 100, 160, 230)[seed]
+    te, tc = TRangeEncoder(), tcdf.CdfContext(q, update=bool(seed % 3))
+    je, jc = JRangeEncoder(), jcdf.CdfContext(q, update=bool(seed % 3))
+    for _ in range(300):
+        a, l = _nb_info(rng), _nb_info(rng)
+        ref = lambda nb: None if nb is None or not nb[0] else (
+            (nb[1], nb[2]) if nb[2] else nb[1])
+        counts = tim.neighbor_ref_counts(ref(a), ref(l))
+        _eq(counts, jim.neighbor_ref_counts(ref(a), ref(l)))
+        op = rng.randint(3)
+        if op == 0:
+            ctx = tim.ref_mode_ctx(a, l)
+            assert ctx == jim.ref_mode_ctx(a, l)
+            v = bool(rng.randint(2))
+            tim.write_comp_mode(te, tc, ctx, v)
+            jim.write_comp_mode(je, jc, ctx, v)
+        elif op == 1:
+            assert tim.comp_ref_type_ctx(a, l) == jim.comp_ref_type_ctx(a, l)
+            tim.write_comp_refs_last_altref(te, tc, a, l, counts)
+            jim.write_comp_refs_last_altref(je, jc, a, l, counts)
+        else:
+            mode = int(rng.randint(17, 25))
+            ctx = int(rng.randint(0, 6)) | (int(rng.randint(0, 6)) << 4) | \
+                (int(rng.randint(0, 2)) << 3)
+            tim.write_inter_compound_mode(te, tc, mode, ctx)
+            jim.write_inter_compound_mode(je, jc, mode, ctx)
+    assert te.done() == je.done()
+    for k in jc._t:
+        _eq(tc._t[k], jc._t[k], k)
+
+
+# pairs of (LAST, ALTREF) mvs, 1/8 pel (even: no high precision)
+_PAIRS = [(0, 0, 0, 0), (-8, 16, 8, -16), (4, -6, -4, 6), (-16, 24, 0, 0),
+          (2, 2, -2, -2)]
+
+
+def _compound_maps(w, h, seed):
+    """Random maps of a compound frame: intra candidates, the three
+    single-reference lanes and the two compound lanes mixed at every
+    depth; 4-component mvs as the encoder leaves them (a single-reference
+    block's ALTREF half 0, GLOBAL_GLOBALMV's all 0, NEW_NEWMV's from a
+    small pool of pairs)."""
+    d = _inter_maps(w, h, seed)
+    rng = np.random.RandomState(1000 + seed)
+    n_i = {"mi_top": 13, "mi_sub": 10, "mi_sb": 13}
+    for key, mv_key in (("mi_top", "mv_top"), ("mi_sub", "mv_sub"),
+                        ("mi_sb", "mv_sb")):
+        mi = d[key]
+        inter = mi >= n_i[key]
+        lane = rng.randint(0, 5, mi.shape)
+        d[key] = np.where(inter, n_i[key] + lane, mi).astype(np.int32)
+        pairs = np.array(_PAIRS, np.int32)[rng.randint(0, len(_PAIRS),
+                                                       mi.shape)]
+        single = np.concatenate([d[mv_key], np.zeros_like(d[mv_key])], -1)
+        lane = lane[..., None]
+        d[mv_key] = np.where(lane == 3, pairs, np.where(
+            lane == 4, 0, single)).astype(np.int32)
+    return d
+
+
+@pytest.mark.parametrize("w,h,seed,update,modes", [
+    (128, 64, 0, True, (17, 23, 24)), (192, 56, 1, True, (23, 24)),
+    (256, 128, 2, False, (17, 23, 24))])
+def test_tile_coder_compound(w, h, seed, update, modes):
+    """The compound frame's tile (comp=True): comp_mode on every inter
+    block, the LAST+ALTREF pair and NEAREST_NEARESTMV / GLOBAL_GLOBALMV /
+    NEW_NEWMV on lanes 3-4, on two frames of the CDF chain: equal bytes
+    and CDFs; `modes` (the compound modes the maps give) were coded."""
+    ph = tgeo.pad64(h)
+    cands = expand_candidates(tie.CAND_MODES)
+    cands_sub = expand_candidates(tw2.SUB_MODES)
+    counts = {}
+    t_init = j_init = None
+    for k in range(2):
+        d = _compound_maps(w, h, 20 * seed + k)
+        tc = ttc.TileCoder(w, ph, 100, update, true_h=h, kf=False,
+                           cdf_init=t_init, comp=True)
+        jc = jtc.TileCoder(w, ph, 100, update, kf=False, cdf_init=j_init,
+                           true_h=h, comp=True)
+        got, got_cdf = tc.encode(
+            d["part"], d["mi_top"], d["lev_top_y"], d["lev_top_u"],
+            d["lev_top_v"], d["mi_sub"], d["lev_sub_y"], d["lev_sub_u"],
+            d["lev_sub_v"], cands, cands_sub, d["stx_sub"], d["part_sb"],
+            d["mi_sb"], d["lev_sb_y"], d["lev_sb_u"], d["lev_sb_v"],
+            d["uv_top"], d["uv_sub"], d["uv_sb"], mv_top=d["mv_top"],
+            mv_sub=d["mv_sub"], mv_sb=d["mv_sb"])
+        want, want_cdf = jc.encode(
+            d["part"], d["mi_top"], d["lev_top_y"], d["lev_top_u"],
+            d["lev_top_v"], d["mi_sub"], d["lev_sub_y"], d["lev_sub_u"],
+            d["lev_sub_v"], d["mv_top"], d["mv_sub"], cands, cands_sub,
+            len(cands), len(cands_sub), stx_sub=d["stx_sub"],
+            part_sb=d["part_sb"], mi_sb=d["mi_sb"], lev_sb_y=d["lev_sb_y"],
+            lev_sb_u=d["lev_sb_u"], lev_sb_v=d["lev_sb_v"], mv_sb=d["mv_sb"],
+            uv_top=d["uv_top"], uv_sub=d["uv_sub"], uv_sb=d["uv_sb"])
+        assert got == want, f"frame {k}"
+        for key in want_cdf._t:
+            _eq(got_cdf._t[key], want_cdf._t[key], key)
+        t_init, j_init = got_cdf.snapshot(), want_cdf.snapshot()
+        for m, n in tc.mode_counts.items():
+            counts[m] = counts.get(m, 0) + n
+    assert all(counts[m] > 0 for m in modes), str(counts)
+
+
+# ---- the scan's prepare step and body ---------------------------------------
+
+def _scan_inputs(form, seed):
+    """Seeded inputs of a 128x64 scan call (chroma: U+V 2x32x64): src,
+    force masks and the inter lanes of `form` ("key", "inter" 3 lanes,
+    "compound" 5 lanes, "chroma" 1 lane forced by a random partition)."""
+    rng = np.random.RandomState(seed)
+    chroma = form == "chroma"
+    B, h, w, bs = (2, 32, 64, 16) if chroma else (1, 64, 128, 32)
+    bh, bw, sh, sw, hs = h // bs, w // bs, h // bs // 2, w // bs // 2, bs // 2
+    src = torch.from_numpy(rng.randint(0, 256, (B, h, w)).astype(np.uint8))
+    if chroma:
+        fp = torch.from_numpy(rng.randint(0, 2, (B, bh, bw)).astype(np.int32))
+        fsb = torch.from_numpy(rng.randint(0, 2, (B, sh, sw)).astype(
+            np.int32))
+    else:
+        fp, fsb = (torch.from_numpy(a[None].copy()) for a in
+                   tgeo.bottom_force_masks(bh, bw, sh, sw, h // 4))
+    n = {"key": 0, "inter": 3, "compound": 5, "chroma": 1}[form]
+    lanes = None
+    if n:
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+        pred = lambda *s: t(rng.randint(0, 256, (B, n) + s).astype(np.int32))
+        rate = lambda *s: t(rng.uniform(3, 30, (B, n) + s).astype(
+            np.float32))
+        ok = lambda *s: t(rng.rand(*s) < 0.8)
+        lanes = tw2.InterLanes(
+            pred(bh, bw, bs, bs), rate(bh, bw), ok(B, n, bh, bw),
+            pred(bh, bw, 4, hs, hs), rate(bh, bw, 4), ok(B, n, bh, bw, 4),
+            pred(sh, sw, 2 * bs, 2 * bs), rate(sh, sw), ok(B, n, sh, sw),
+            ok(B, bh, bw), ok(B, bh, bw, 4), ok(B, sh, sw))
+    lam_map = torch.from_numpy(rng.uniform(0.68, 1.18, (B, bh, bw)).astype(
+        np.float32))
+    return src, bs, fp, fsb, chroma, lanes, lam_map
+
+
+@pytest.mark.parametrize("form", ["key", "inter", "compound", "chroma"])
+def test_part_scan_refilled_equals_one_shot_calls(form):
+    """One PartScan's buffers refilled at q100 (weight 1, no map), at q140
+    (weight 1.15, a random lambda map) and at q100 again: each run equals
+    a one-shot call with the same arguments (on a card the refills are
+    what a captured graph replays); the map and the weight move the
+    decisions."""
+    src, bs, fp, fsb, chroma, lanes, lam_map = _scan_inputs(form, 7)
+    B, h, w = src.shape
+    scan = tw2.PartScan("cpu", B, h, w, bs, chroma, 8, not chroma, None,
+                        None if lanes is None else lanes.top.shape[1])
+    runs = []
+    for q, scale, lm in ((100, 1.0, None), (140, 1.15, lam_map),
+                         (100, 1.0, None)):
+        scan.fill(src, q, fp, fsb, lanes, scale, lm)
+        got = scan.run()
+        want = tw2.encode_plane_wavefront_part(
+            src, bs, q, fp, fsb, chroma=chroma, tx_search=not chroma,
+            inter=lanes, lam_scale=scale, lam_map=lm)
+        for k, (g, w_) in enumerate(zip(got, want)):
+            _eq(g, w_, f"q{q} output {k}")
+        runs.append(got)
+    for k, (a, b) in enumerate(zip(runs[0], runs[2])):
+        _eq(a, b, f"refill output {k}")
+    assert any(not torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+
+
+def test_part_scan_lambda_weight_scales_the_lambda():
+    """lam_scale is the product the JAX package forms: f32(lambda(q) *
+    scale); the map defaults to ones."""
+    cands = [expand_candidates(m) for m in (tie.CAND_MODES, tw2.SUB_MODES,
+                                            tie.CAND_MODES)]
+    for q in (60, 100, 200):
+        rd = tw2.rd_params_part(q, 32, *cands, lam_scale=1.3)
+        base = tw2.rd_params_part(q, 32, *cands)
+        assert rd["lam"] == np.float32(tw2._lambda(q) * 1.3)
+        for k in rd:
+            if k != "lam":
+                _eq(rd[k], base[k], k)
+    scan = tw2.PartScan("cpu", 1, 64, 128, 32, False, 8, True, None)
+    src, _, fp, fsb, _, _, _ = _scan_inputs("key", 3)
+    scan.fill(src, 100, fp, fsb)
+    assert bool((scan.lam_map == 1.0).all())

@@ -15,7 +15,8 @@ jit cache serves them, the file also holds motion_estimate (16/32/64),
 predict_inter_blocks (luma 64/32/16, chroma 32/16/8, the three filters,
 the 56-row UMV clamp) and the inter scans (luma, paired chroma) against
 JAX on random inputs; and the CLI with --keyint 64, its flat path
-(presets 11-13, --no-part-search) and the modes that still exit 2.
+(presets 11-13, --no-part-search), --pyramid [--tf] on the partition
+path and --rc cbr without --tbr, which exits 2.
 
 Rate control on this path: I, P, P under CBR with the port's VideoEncoder
 and with the JAX one, whose state is again set to what it holds after the
@@ -306,7 +307,7 @@ def _lanes(rng, src, nE, bs):
     bh, bw = h // bs, w // bs
     subs = subs.reshape(B, bh, 2, bw, 2, hs, hs).transpose(
         0, 1, 3, 2, 4, 5, 6).reshape(B, bh, bw, 4, hs, hs)
-    amp = (3, 12, 60)
+    amp = (3, 12, 60, 6, 24)        # up to the compound frame's 5 lanes
 
     def lanes_of(blocks):
         out = [blocks + rng.randint(-amp[e], amp[e] + 1, blocks.shape)
@@ -450,18 +451,30 @@ def test_cli_rate_control_writes_the_encoders_payloads(rc_runs, tmp_path):
 @pytest.mark.parametrize("extra", [
     ["--pyramid"], ["--rc", "cbr"], ["--pyramid", "--tf"]])
 def test_cli_unported_modes_exit_2(tmp_path, extra, capsys):
-    """The partition (compound) pyramid, with or without --tf, is not
-    ported; --rc cbr without --tbr is refused as the JAX CLI refuses it,
-    with its message."""
-    src = tmp_path / "in.y4m"
-    _write_y4m(src, moving_frames(W, H, 1))
-    rc = app.main(["-i", str(src), "-b", str(tmp_path / "o.ivf"),
-                   "--device", "cpu", *extra])
-    assert rc == 2
+    """--pyramid, with or without --tf, on the partition path (the
+    compound pyramid) is ported: on a key frame, an anchor and a compound
+    frame it exits 0 and writes the API's payloads.  --rc cbr without
+    --tbr is refused as the JAX CLI refuses it, with its message."""
+    pyramid = "--pyramid" in extra
+    frames = moving_frames(W, H, 3 if pyramid else 1)
+    src, out = tmp_path / "in.y4m", tmp_path / "o.ivf"
+    _write_y4m(src, frames)
+    rc = app.main(["-i", str(src), "-b", str(out), "--device", "cpu",
+                   *extra])
     err = capsys.readouterr().err
-    if "--pyramid" in extra:
-        assert "compound partition pyramid" in err and "svtav1_tpu" in err
+    if pyramid:
+        assert rc == 0, err
+        with open(out, "rb") as f:
+            _, got = read_ivf(f)
+            got = [p for p, _ in got]
+        enc = tve.VideoEncoder(tie.EncoderConfig(W, H, qindex=100),
+                               keyint=64, pyramid=True, tf="--tf" in extra,
+                               device="cpu")
+        want, _ = enc.encode_frames(frames)
+        tail, _ = enc.flush()
+        assert got == want + tail and len(got) == 5
     else:
+        assert rc == 2
         assert japp.main(["-i", str(src), "-b", str(tmp_path / "j.ivf"),
                           *extra]) == 2
         want = capsys.readouterr().err.splitlines()[-1]
