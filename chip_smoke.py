@@ -10,10 +10,12 @@ with the port's decoder; then the same at 10 bits: the 10-bit form of the
 kernel, the 10-bit main path and flat I+P at 1080p, their decode, and the
 four 10-bit paths card against CPU at 256x128; and the compound partition
 pyramid (--pyramid --tf on the partition path) at 1080p and card against
-CPU at 256x128 at 8 and 10 bits.  The partition scans run as CUDA graphs
-(``wavefront2.PartScan``: one graph a scan shape and step width, captured
-at its first step and replayed after that), held against their eager
-steps in phase 24.
+CPU at 256x128 at 8 and 10 bits; and angle deltas (presets 0-5): the
+kernel's delta form, the flat path with deltas at 1080p, preset 4 at
+1920x1088 and card against CPU at 256x128.  The partition scans run as
+CUDA graphs (``wavefront2.PartScan``: one graph a scan shape and step
+width, captured at its first step and replayed after that), held against
+their eager steps in phase 24.
 
     python3 chip_smoke.py
 
@@ -28,7 +30,8 @@ its last line):
      equal where the mode agrees, recon equal when every mode agrees), at
      the test shapes and at the 1080p shapes of the main path; every
      shape runs the kernel 3 times and requires identical outputs and a
-     clear error word each time; kernel and plain times and the kernel's
+     clear error word each time; kernel times (two blocks of 10 by CUDA
+     events), the plain version's from its one run, and the kernel's
      bound at 1080p;
   3. the main path: IntraEncoder(1920, 1080, qindex=100,
      part_search=False) on 12 synthetic frames, batch 4, device stage of
@@ -107,7 +110,8 @@ its last line):
      the P frame's luma area inter, a NEWMV and a non-NEWMV block, the P
      payload smaller than the key payload;
  11. the low-delay path at 256x128 (I, P, P) on the card and on the CPU,
-     with the defaults and with CDEF on: per frame the agreement of every
+     with the defaults (P frames with CDEF on: phase 28's preset 4, which
+     also searches angle deltas): per frame the agreement of every
      decision map, the ME fields (integer SADs: exact whenever the frame's
      reference agrees) and the final mvs; when every map of a frame agrees,
      byte-identical payloads and equal recons, else the first frame that
@@ -211,6 +215,32 @@ its last line):
      anchors fed to the CPU encoder): per coded unit the agreement of
      every decision map, and byte-identical payloads plus equal recons
      whenever every map agrees.
+ 25. (after 2c) the kernel's delta form (angle deltas, presets 0-5)
+     against its plain version: luma 1x1088x1920 (valid_h 1080) with
+     preset 0's 61 candidates and preset 4's 29, at 8 and 10 bits, and
+     the flat P frame's luma call with preset 0's deltas (61 intra
+     candidates and 2 lanes); phase 2's bar, 3 identical kernel runs a
+     shape, kernel ms by CUDA events, the plain version's from its one
+     run, the bound over every candidate; the blocks that pick a delta;
+ 26. (after 23) the delta form on the encoder's path at 1920x1080: the
+     flat path with preset 0's deltas (part_search off, filters off) on
+     I+P of ``moving_frames``, then one flat key frame each with preset
+     4's deltas at 8 bits and with preset 0's and 4's at 10 bits, the
+     launch counts set to 0 before and read after by form (every luma
+     launch a delta form); stage times, e2e fps, the blocks that pick a
+     delta; the streams go to phases 16 and 20;
+ 27. preset 4 low-delay I+P at 1920x1088 (presets 0-5 turn CDEF on, so
+     the height is whole superblocks) on ``moving_frames``, q100: stage
+     times, the scans' new graph shapes (29 luma candidates: step graphs,
+     nodes, capture and instantiate seconds, host RSS), each scan's first
+     call and a replay of it on the same inputs (equal outputs), inter
+     shares, e2e fps; the stream goes to phase 16;
+ 28. angle deltas at 256x128, q60, card against CPU: preset 4 I, P, P
+     (8 bits) and I, P (10 bits) on ``moving_stripes``, a preset-4
+     compound pyramid (gop 2, TF; the card's filtered anchors fed to the
+     CPU), the flat path with preset 0's deltas (I, P) and one preset-1
+     partition key frame: per coded unit the agreement of every map,
+     byte-identical payloads and equal recons whenever every map agrees.
 Then the script's total time, one JSON line of kernel results and, last,
 one JSON line naming the device.  To run only phases 10-11:
 ``python3 -c "import chip_smoke as cs; cs.CARD = cs.card();
@@ -230,8 +260,14 @@ cs.phase_decode(cs.DECODE10); cs.phase_10bit_card_vs_cpu()"``; the
 compound partition pyramid and the graphs alone (phases 24, 22, 23 and
 22's decode): ``python3 -c "import chip_smoke as cs; cs.CARD = cs.card();
 cs.phase_graph_vs_eager(); cs.phase_part_pyramid();
-cs.phase_part_pyramid_card_vs_cpu(); cs.phase_decode()"``.  Imports
-nothing of JAX or of the JAX package.
+cs.phase_part_pyramid_card_vs_cpu(); cs.phase_decode()"``; the angle-delta
+phases 25-28 alone: ``python3 -c "import chip_smoke as cs; cs.CARD =
+cs.card(); cs.phase_build(); cs.phase_compare_deltas();
+cs.phase_flat_deltas(); cs.phase_preset4(); cs.phase_deltas_card_vs_cpu();
+cs.phase_decode()"``; the encoder CLI at every preset 0-13 on the card
+(not part of the script's run): ``python3 -c "import chip_smoke as cs;
+cs.CARD = cs.card(); cs.cli_presets()"``.  Imports nothing of JAX or of
+the JAX package.
 """
 
 import gc
@@ -241,6 +277,7 @@ import sys
 import time
 import warnings
 from collections import Counter
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -251,9 +288,9 @@ from svtav1_tpu_torch.cuda import wavefront_kernel as wk
 from svtav1_tpu_torch.cuda.inputs import (SHAPES_1080P, banded_frames,
                                           card, edge_frames, edge_frames10,
                                           lane_arrays, moving_frames,
-                                          moving_frames10, plane_src,
-                                          plane_src10, synth_frames,
-                                          synth_frames10)
+                                          moving_frames10, moving_stripes,
+                                          plane_src, plane_src10, stripes,
+                                          synth_frames, synth_frames10)
 from svtav1_tpu_torch.ec import native
 from svtav1_tpu_torch.encoder import intra_encoder as ie
 from svtav1_tpu_torch.encoder import lr_search as lrs
@@ -343,23 +380,21 @@ def phase_compare():
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"{label}: run {rep + 2} differs "
                                      "from run 1")
-        ref = plain()
-        torch.cuda.synchronize()
+        # the plain version once a shape, timed by CUDA events (it
+        # repeats the kernel's arithmetic and is no yardstick of speed)
+        ref, p = timed_once(plain)
         frac, err = agree(ref, got, label)
         max_err = max(max_err, err)
         line = (f"compare {label}: modes agree {frac:.4f}, max_abs_err {err}"
                 ", 3 identical kernel runs, error word clear")
         if timed:
-            # plain, kernel, kernel, plain on one card
-            p1 = cuda_ms(plain, 1)
             k1 = cuda_ms(kern, 10)
             k2 = cuda_ms(kern, 10)
-            p2 = cuda_ms(plain, 1)
             wk.raise_on_error(DEV)
-            k, p = (k1 + k2) / 2, (p1 + p2) / 2
+            k = (k1 + k2) / 2
             b_ms, b_by = wk.bound_ms(bs, B, h, w, ie.CAND_MODES, chroma)
             line += (f"; kernel {k:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
-                     f"{p:.3f} ms ({p1:.3f}, {p2:.3f}), bound {b_ms:.3f} ms "
+                     f"{p:.3f} ms (one run), bound {b_ms:.3f} ms "
                      f"({b_by}), {100 * b_ms / k:.1f}% of it [{CARD}]")
             if timed == 2:
                 ms += k
@@ -981,15 +1016,16 @@ N_TOP, N_SUB = (len(expand_candidates(m)) for m in (ie.CAND_MODES,
 MODE_NAMES = {13: "NEARESTMV", 14: "NEARMV", 15: "GLOBALMV", 16: "NEWMV"}
 
 
-def inter_shares(m, h):
+def inter_shares(m, h, n_top=N_TOP):
     """(inter / coded blocks at the 64, 32 and 16 depths, the share of the
-    luma area above row h coded inter) of a P frame's host maps."""
+    luma area above row h coded inter) of a P frame's host maps; n_top
+    intra candidates at the 32 and 64 depths (more with angle deltas)."""
     sb_none = m["part_sb"] == 0
     split_sb = np.repeat(np.repeat(~sb_none, 2, 0), 2, 1)
     top = split_sb & (m["part"] == 0)
     leaf = (split_sb & (m["part"] == 1))[..., None].repeat(4, -1)
-    sb_in = sb_none & (m["y_mi_sb"] >= N_TOP)
-    top_in = top & (m["y_mi"] >= N_TOP)
+    sb_in = sb_none & (m["y_mi_sb"] >= n_top)
+    top_in = top & (m["y_mi"] >= n_top)
     leaf_in = leaf & (m["y_smi"] >= N_SUB)
     bh, bw = top.shape
     units = np.repeat(np.repeat(sb_in, 4, 0), 4, 1) | \
@@ -1115,10 +1151,10 @@ def p_maps(enc):
 
 def phase_video_card_vs_cpu():
     """The low-delay path at 256x128 (I, P, P) on the card and on the
-    CPU, with the defaults and with CDEF on."""
+    CPU, with the defaults (P frames with CDEF on: phase 28's preset 4)."""
     w, h = 256, 128
     frames = moving_frames(w, h, 3)
-    for label, kw in (("defaults", {}), ("CDEF on", dict(enable_cdef=True))):
+    for label, kw in (("defaults", {}),):
         out = {}
         for d in ("cuda", "cpu"):
             enc = ve.VideoEncoder(ie.EncoderConfig(w, h, qindex=100, **kw),
@@ -1175,14 +1211,15 @@ LANE_KERNELS = {"luma": "wavefront, flat P luma (13 intra + 2 inter lanes)",
                 "chroma": "wavefront, flat P chroma U+V (DC + 1 inter lane)"}
 
 
-def flat_p_calls(bd=8):
+def flat_p_calls(bd=8, angle_deltas=(0,)):
     """The flat P frame's two wavefront calls at 1080p, as the encoder
     makes them: frame 1 of moving_frames (moving_frames10 at bd=10)
     against frame 0 as its reference (ME, GM fit, filter pick and MC on
-    the card).  Returns {"luma" | "chroma": (args, kwargs)} of
-    encode_plane_wavefront_mixed."""
+    the card), the luma call with angle_deltas.  Returns {"luma" |
+    "chroma": (args, kwargs)} of encode_plane_wavefront_mixed."""
     f0, f1 = (moving_frames if bd == 8 else moving_frames10)(W, H, 2)
     enc = ve.VideoEncoder(ie.EncoderConfig(W, H, qindex=100, bit_depth=bd,
+                                           angle_deltas=angle_deltas,
                                            **FLAT),
                           keyint=64, device="cuda")
     enc._dpb = f0
@@ -1191,22 +1228,26 @@ def flat_p_calls(bd=8):
     return {k: clock.args[f"{k} wavefront"][0] for k in ("luma", "chroma")}
 
 
-def phase_compare_lanes(bd=8):
+def phase_compare_lanes(bd=8, angle_deltas=(0,), kinds=("luma", "chroma")):
     """The kernel with inter lanes against its plain version on the card,
     at the flat P frame's shapes (phase 2b; at bd=10 part of phase 2c,
-    with one plain run a shape, timed by CUDA events).  Returns {"luma" |
+    and with angle_deltas, the luma call only, part of phase 25), one
+    plain run a shape, timed by CUDA events.  Returns {"luma" |
     "chroma": (max_abs_err, kernel ms, plain ms, bound ms, bound basis)}."""
     out = {}
     tag = "" if bd == 8 else "10-bit "
-    for kind, (a, kw) in flat_p_calls(bd).items():
+    for kind, (a, kw) in flat_p_calls(bd, angle_deltas).items():
+        if kind not in kinds:
+            continue
         src, bs, tx, q, preds, rate, ok, iok, n_extra, modes = a[:10]
+        deltas = a[11] if len(a) > 11 else (0,)
         vh = kw["valid_h"]
         extra = (preds, rate, ok, iok)
-        n_intra = len(expand_candidates(modes))
-        rd = rd_params(q, bd, expand_candidates(modes), kf=False)
-        kern = lambda: wk.wavefront_cuda(src, rd, bs, tx, modes, bd,
+        n_intra = len(expand_candidates(modes, deltas))
+        rd = rd_params(q, bd, expand_candidates(modes, deltas), kf=False)
+        kern = lambda: wk.wavefront_cuda(src, rd, bs, tx, modes, bd, deltas,
                                          valid_h=vh, extra=extra)
-        plain = lambda: _wavefront_body(src, rd, bs, tx, modes, bd,
+        plain = lambda: _wavefront_body(src, rd, bs, tx, modes, bd, deltas,
                                         valid_h=vh, extra=extra)
         B, h, w = src.shape
         label = f"{tag}{kind} {B}x{h}x{w}, {n_intra} intra + {n_extra} lanes"
@@ -1217,20 +1258,13 @@ def phase_compare_lanes(bd=8):
             if not all(torch.equal(x, y) for x, y in zip(got, again)):
                 raise AssertionError(f"{label}: run {rep + 2} differs "
                                      "from run 1")
-        if bd == 8:
-            ref = plain()
-            torch.cuda.synchronize()
-        else:
-            ref, p1 = timed_once(plain)
+        ref, p = timed_once(plain)
         frac, err = agree(ref, got, label)
         inter = float((got[0] >= n_intra).float().mean())
-        if bd == 8:
-            p1 = cuda_ms(plain, 1)
         k1 = cuda_ms(kern, 10)
         k2 = cuda_ms(kern, 10)
-        p2 = cuda_ms(plain, 1) if bd == 8 else p1
         wk.raise_on_error(DEV)
-        k, p = (k1 + k2) / 2, (p1 + p2) / 2
+        k = (k1 + k2) / 2
         n = wk.LAUNCHES - n0
         if n != 23:
             raise AssertionError(f"{label}: {n} kernel launches counted for "
@@ -1239,13 +1273,12 @@ def phase_compare_lanes(bd=8):
         live = [float(iok.float().mean())] * n_intra + \
             ok.float().mean((0, 2, 3)).tolist()
         b_ms, b_by = wk.bound_ms(bs, B, h, w, modes, False, n_extra, live,
-                                 bd)
-        plain_txt = (f"plain {p:.3f} ms ({p1:.3f}, {p2:.3f})" if bd == 8
-                     else f"plain {p:.3f} ms (one run)")
+                                 bd, deltas)
         print(f"compare lanes {label}: modes agree {frac:.4f}, max_abs_err "
               f"{err}, inter share {inter:.4f}, 3 identical kernel runs, "
               f"error word clear, {n} launches counted; kernel {k:.3f} ms "
-              f"({k1:.3f}, {k2:.3f}), {plain_txt}, bound {b_ms:.3f} ms "
+              f"({k1:.3f}, {k2:.3f}), plain {p:.3f} ms (one run), bound "
+              f"{b_ms:.3f} ms "
               f"({b_by}), {100 * b_ms / k:.1f}% of it; "
               f"{wk.kernel_info(bs, n_intra + n_extra, bd)} [{CARD}]",
               flush=True)
@@ -1884,8 +1917,10 @@ def corrupt_card_vs_cpu(label, payloads, ccso):
 def phase_decode_card_vs_cpu():
     """The decoder's full syntax on the card and on the CPU: the JAX
     encoder's fixture streams (compound pyramid, two tile columns,
-    10-bit, angle deltas; outputs also equal the MD5s stored beside them)
-    and two port-encoded 256x128 streams (film grain on the flat
+    10-bit, angle deltas; and the angle-delta fixtures of
+    ``tests/data/torch_deltas`` too, V_PRED / H_PRED with a delta among
+    them; outputs also equal the MD5s stored beside them) and two
+    port-encoded 256x128 streams (film grain on the flat
     low-delay path; CDEF + CCSO + LR on the partition path).
     Then a stream cut inside its frame header raises DecodeError on the
     card; seeded byte flips in the fixtures' and the CCSO stream's tile
@@ -1904,6 +1939,15 @@ def phase_decode_card_vs_cpu():
     ccso = ie.IntraEncoder(ie.EncoderConfig(w, h, **FILTERS), device="cuda")
     streams = {name: (read_stream(os.path.join(fix, f"{name}.ivf")), False,
                       md5[name]["frames"]) for name in sorted(md5)}
+    # the angle-delta fixtures (presets 0-5; one codes V_PRED / H_PRED with
+    # a delta, which the port's decoder predicts as the spec does)
+    fix_d = os.path.join(os.path.dirname(fix), "torch_deltas")
+    with open(os.path.join(fix_d, "md5.json")) as f:
+        md5_d = json.load(f)
+    for name in sorted(md5_d):
+        streams[f"deltas {name}"] = (
+            read_stream(os.path.join(fix_d, f"{name}.ivf")), False,
+            md5_d[name]["frames"])
     streams["film grain 256x128 (port)"] = (
         fg.encode_frames(moving_frames(w, h, 3))[0], False, None)
     streams["CDEF + CCSO + LR 256x128 (port)"] = (
@@ -1995,6 +2039,34 @@ def frames_agree(label, card, cpu, modes_bar=False, tag="10-bit"):
         print(f"card vs CPU, {tag} {label}: {line}", flush=True)
 
 
+def low_delay_units(cfg, clip, device, flat, hook=None):
+    """A low-delay encode of clip on device: (units, seconds), a unit a
+    frame ([payload], [recon], maps): the key frame's maps from its
+    device_encode, a P frame's from last_p (flat or partition maps).
+    hook(enc, key_dev) runs after each frame."""
+    enc = ve.VideoEncoder(cfg, keyint=64, device=device)
+    key_dev = []
+    run = enc.intra.device_encode
+    enc.intra.device_encode = lambda fr: key_dev.append(run(fr)) or \
+        key_dev[-1]
+    t0 = time.perf_counter()
+    units = []
+    for f in clip:
+        p, r = enc.encode_frame(*f)
+        if units:
+            m = flat_maps(enc, None) if flat else p_maps(enc)
+        else:
+            m = flat_maps(enc, key_dev[-1]) if flat else \
+                part_maps(key_dev[-1])
+        units.append(([p], [r], m))
+        if hook is not None:
+            hook(enc, key_dev)
+    check_payloads([x[0][0] for x in units], clip, [x[1][0] for x in units],
+                   f"{cfg.width}x{cfg.height} low-delay on {device}",
+                   cfg.bit_depth)
+    return units, time.perf_counter() - t0
+
+
 def phase_10bit_card_vs_cpu():
     """Phase 21: the four 10-bit paths at 256x128 on the card and on the
     CPU: partition all-intra with CDEF + LR + CCSO (2 frames of the 10-bit
@@ -2030,31 +2102,10 @@ def phase_10bit_card_vs_cpu():
 
     # the low-delay paths, I, P, P
     clip = moving_frames10(w, h, 3)
-    for label, kw, maps_of in (
-            ("low-delay partition I,P,P", {}, p_maps),
-            ("flat low-delay I,P,P", FLAT, lambda e: flat_maps(e, None))):
-        runs = {}
-        for d in ("cuda", "cpu"):
-            enc = ve.VideoEncoder(cfg(**kw), keyint=64, device=d)
-            key_dev = []
-            run = enc.intra.device_encode
-            enc.intra.device_encode = lambda fr, run=run, keep=key_dev: \
-                keep.append(run(fr)) or keep[-1]
-            t0 = time.perf_counter()
-            res = []
-            for f in clip:
-                p, r = enc.encode_frame(*f)
-                if res:
-                    m = maps_of(enc)
-                elif kw:
-                    m = flat_maps(enc, key_dev[-1])
-                else:
-                    m = part_maps(key_dev[-1])
-                res.append(([p], [r], m))
-            check_payloads([x[0][0] for x in res], clip,
-                           [x[1][0] for x in res], f"10-bit {w}x{h} {label} "
-                           f"on {d}", bd)
-            runs[d] = (res, time.perf_counter() - t0)
+    for label, kw in (("low-delay partition I,P,P", {}),
+                      ("flat low-delay I,P,P", FLAT)):
+        runs = {d: low_delay_units(cfg(**kw), clip, d, bool(kw))
+                for d in ("cuda", "cpu")}
         types = [frame_type(x[0][0]) for x in runs["cuda"][0]]
         print(f"card vs CPU, 10-bit {label} {w}x{h} (card "
               f"{runs['cuda'][1]:.1f} s, CPU {runs['cpu'][1]:.1f} s): frame "
@@ -2131,8 +2182,12 @@ def print_captures(label, log):
     for c in log:
         shapes.setdefault(c["key"], []).append(c)
     for key, cs in shapes.items():
-        _, B, h, w, bs, chroma, bd, _, _, n_extra = key
+        _, B, h, w, bs, chroma, bd, _, _, n_extra, deltas = key
         form = "key-frame" if n_extra is None else f"{n_extra} lanes"
+        if deltas != (0,):
+            form += (f", angle deltas {deltas} ("
+                     f"{len(expand_candidates(ie.CAND_MODES, deltas))} "
+                     "luma candidates)")
         nodes = [c["nodes"] for c in cs]
         n_txt = "not read" if None in nodes else f"{sum(nodes)}"
         rss = cs[-1]["rss_bytes"]
@@ -2422,6 +2477,384 @@ def phase_graph_vs_eager():
     print_captures("graph vs eager", wf2.GRAPHS["log"][n_log:])
 
 
+# ---- angle deltas (presets 0-5) ----------------------------------------------
+
+P0_DELTAS = (-3, -2, -1, 0, 1, 2, 3)
+P4_DELTAS = (-2, 0, 2)
+H88 = 1088          # presets 0-5 turn CDEF on: a height that is whole SBs
+
+
+def delta_row(bd, deltas, n_extra=0):
+    """The kernels-line name of a delta form of the kernel."""
+    n = len(expand_candidates(ie.CAND_MODES, deltas))
+    tag = "wavefront" + ("" if bd == 8 else " 10-bit")
+    if n_extra:
+        return f"{tag} delta form, flat P luma ({n} intra + {n_extra} lanes)"
+    return f"{tag} delta form, luma ({n} candidates, deltas {deltas})"
+
+
+def phase_compare_deltas():
+    """Phase 25: the kernel's delta form against its plain version on the
+    card: a luma plane 1x1088x1920 (valid_h 1080) with preset 0's
+    candidates (61) and preset 4's (29), at 8 and 10 bits, and the flat P
+    frame's luma call with preset 0's deltas (61 intra candidates and 2
+    lanes).  The bar of phase 2, 3 identical kernel runs a shape with a
+    clear error word; kernel ms by CUDA events (two blocks of 10), the
+    plain version's from its one run; the bound counts every candidate.
+    Returns {row name: (max_abs_err, kernel ms, plain ms, bound ms,
+    basis)}."""
+    out = {}
+    for bd in (8, 10):
+        src_np = plane_src(3, 1, 1088, W) if bd == 8 else \
+            plane_src10(3, 1, 1088, W).astype(np.int16)
+        src = torch.from_numpy(src_np).to(DEV)
+        for deltas in (P0_DELTAS, P4_DELTAS):
+            cands = expand_candidates(ie.CAND_MODES, deltas)
+            rd = rd_params(100, bd, cands, kf=True)
+            pos = (32, TX_32X32, ie.CAND_MODES, bd, deltas)
+            kern = lambda: wk.wavefront_cuda(src, rd, *pos, valid_h=H)
+            plain = lambda: _wavefront_body(src, rd, *pos, valid_h=H)
+            label = f"{'' if bd == 8 else '10-bit '}luma 1x1088x{W} q100, " \
+                f"{len(cands)} candidates (deltas {deltas})"
+            got = run_checked(kern)
+            for rep in range(2):
+                again = run_checked(kern)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"{label}: run {rep + 2} differs "
+                                         "from run 1")
+            ref, p = timed_once(plain)
+            frac, err = agree(ref, got, label)
+            k1 = cuda_ms(kern, 10)
+            k2 = cuda_ms(kern, 10)
+            wk.raise_on_error(DEV)
+            k = (k1 + k2) / 2
+            b_ms, b_by = wk.bound_ms(32, 1, 1088, W, ie.CAND_MODES, bd=bd,
+                                     angle_deltas=deltas)
+            mi = got[0].cpu().numpy()
+            picked = int(np.array([d for _, d in cands])[mi].astype(bool)
+                         .sum())
+            print(f"compare deltas {label}: modes agree {frac:.4f}, "
+                  f"max_abs_err {err}, 3 identical kernel runs, error word "
+                  f"clear, {picked} of {mi.size} blocks pick a non-zero "
+                  f"delta; kernel {k:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
+                  f"{p:.3f} ms (one run), bound {b_ms:.3f} ms ({b_by}), "
+                  f"{100 * b_ms / k:.1f}% of it; "
+                  f"{wk.kernel_info(32, len(cands), bd)} [{CARD}]",
+                  flush=True)
+            out[delta_row(bd, deltas)] = (err, k, p, b_ms, b_by)
+    lanes = phase_compare_lanes(8, P0_DELTAS, kinds=("luma",))
+    out[delta_row(8, P0_DELTAS, 2)] = lanes["luma"]
+    return out
+
+
+def delta_blocks(cands, y_mi, part=None, part_sb=None, y_mi_sb=None):
+    """The coded luma blocks whose mode index picks a non-zero angle delta:
+    every 32x32 block of a flat map, or a partition map's 32x32 NONE
+    blocks and 64x64 blocks (one frame's host maps; a lane index past the
+    intra candidates picks none)."""
+    d = np.array([x for _, x in cands] + [0] * 8).astype(bool)
+    if part is None:
+        return int(d[np.asarray(y_mi)].sum())
+    sb_none = np.asarray(part_sb) == 0
+    top = np.repeat(np.repeat(~sb_none, 2, 0), 2, 1) & (np.asarray(part) ==
+                                                        0)
+    return int((d[np.asarray(y_mi)] & top).sum() +
+               (d[np.asarray(y_mi_sb)] & sb_none).sum())
+
+
+def key_deltas(dev, cands):
+    """delta_blocks of the first frame of a partition key frame's
+    device_encode tuple."""
+    return delta_blocks(cands, *(dev[i][0].cpu().numpy()
+                                 for i in (3, 2, 16, 17)))
+
+
+def p_deltas(m, cands):
+    """delta_blocks of a partition P frame's host maps (enc.last_p)."""
+    return delta_blocks(cands, *(m[k] for k in ("y_mi", "part", "part_sb",
+                                                "y_mi_sb")))
+
+
+def phase_flat_deltas():
+    """Phase 26: the delta form on the encoder's path, at 1920x1080: the
+    flat path with preset 0's deltas (``EncoderConfig(part_search=False,
+    angle_deltas=(-3..3))``, filters off) on I+P of ``moving_frames``
+    (stage times of the P frame as in phase 12, e2e fps), then one flat
+    key frame each with preset 4's deltas at 8 bits and with preset 0's
+    and preset 4's at 10 bits (``IntraEncoder``), with the kernel's
+    launch counts set to 0 before and read after, by form.  Checks: KEY
+    then INTER, one luma and one U+V launch a frame, every luma launch a
+    delta form, payloads parse, luma PSNR > 30 dB, some blocks pick a
+    non-zero delta; the streams go to phases 16 and 20.  Returns the
+    launches by kernels-line row."""
+    wk.LAUNCHES = 0
+    wk.FORMS.clear()
+    frames = moving_frames(W, H, 2)
+    cfg = ie.EncoderConfig(W, H, qindex=100, angle_deltas=P0_DELTAS, **FLAT)
+    enc = ve.VideoEncoder(cfg, keyint=64, device="cuda")
+    key_dev = []
+    run = enc.intra.device_encode
+    enc.intra.device_encode = lambda fr: key_dev.append(run(fr)) or \
+        key_dev[-1]
+    t0 = time.perf_counter()
+    p0, r0 = enc.encode_frame(*frames[0])
+    t1 = time.perf_counter()
+    with StageClock(StageClock.FLAT_P) as clock:
+        p1, r1 = enc.encode_frame(*frames[1])
+    t2 = time.perf_counter()
+    cands = expand_candidates(ie.CAND_MODES, P0_DELTAS)
+    d_key = delta_blocks(cands, key_dev[0]["y_mi"][0].cpu().numpy())
+    d_p = delta_blocks(cands, enc.last_p["y_mi"])
+    fmt = lambda ms: ", ".join(f"{k} {v:.1f} ms" for k, v in ms.items())
+    print(f"flat path, preset 0's deltas: {W}x{H} q100 keyint 64: key frame "
+          f"(q70) {1e3 * (t1 - t0):.1f} ms, {len(p0)} bytes, {d_key} blocks "
+          f"with a non-zero delta; P frame {1e3 * (t2 - t1):.1f} ms "
+          f"({fmt(clock.ms)}), {len(p1)} bytes, {d_p} intra blocks with a "
+          f"non-zero delta, luma blocks inter "
+          f"{100 * flat_inter_share(enc.last_p['y_mi'], H):.1f}%; e2e "
+          f"{2 / (t2 - t0):.4f} fps over the 2 frames [{CARD}]", flush=True)
+    ps_y = check_payloads([p0, p1], frames, [r0, r1], "flat deltas")
+    types = [frame_type(p) for p in (p0, p1)]
+    if types != [0, 1] or not d_key:
+        raise AssertionError(f"flat deltas: frame types {types}, {d_key} "
+                             "key-frame blocks with a delta")
+    DECODE["flat preset-0 deltas I+P (phase 26)"] = ([p0, p1], [r0, r1],
+                                                      False, None)
+    lines = []
+    for bd, deltas in ((8, P4_DELTAS), (10, P0_DELTAS), (10, P4_DELTAS)):
+        f = frames[:1] if bd == 8 else moving_frames10(W, H, 1)
+        ienc = ie.IntraEncoder(replace(cfg, angle_deltas=deltas,
+                                       bit_depth=bd), device="cuda")
+        t0 = time.perf_counter()
+        dev = ienc.device_encode(f)
+        payloads, recons = ienc.host_finish(dev)
+        dt = time.perf_counter() - t0
+        n = delta_blocks(expand_candidates(ie.CAND_MODES, deltas),
+                         dev["y_mi"][0].cpu().numpy())
+        ps = check_payloads(payloads, f, recons, f"flat key {bd} {deltas}",
+                            bd)
+        lines.append(f"{bd}-bit deltas {deltas}: {1e3 * dt:.1f} ms, "
+                     f"{len(payloads[0])} bytes, PSNR {ps[0]:.2f} dB, {n} "
+                     "blocks with a non-zero delta")
+        if bd == 10:
+            DECODE10[f"10-bit flat key frame, deltas {deltas} (phase 26)"] = \
+                (payloads, recons, False, None)
+    wk.raise_on_error(DEV)
+    print(f"flat path key frames: {'; '.join(lines)} [{CARD}]", flush=True)
+    forms = dict(wk.FORMS)
+    print(f"flat path with deltas: kernel launches {wk.LAUNCHES} by (bs, "
+          f"bd, intra candidates, lanes) {forms}", flush=True)
+    rows = {delta_row(8, P0_DELTAS): forms.get((32, 8, 61, 0), 0),
+            delta_row(8, P4_DELTAS): forms.get((32, 8, 29, 0), 0),
+            delta_row(10, P0_DELTAS): forms.get((32, 10, 61, 0), 0),
+            delta_row(10, P4_DELTAS): forms.get((32, 10, 29, 0), 0),
+            delta_row(8, P0_DELTAS, 2): forms.get((32, 8, 61, 2), 0)}
+    want = {(32, 8, 61, 0): 1, (32, 8, 29, 0): 1, (32, 10, 61, 0): 1,
+            (32, 10, 29, 0): 1, (32, 8, 61, 2): 1, (16, 8, 13, 0): 2,
+            (16, 10, 13, 0): 2, (16, 8, 1, 1): 1}
+    if forms != want:
+        raise AssertionError(f"kernel launches by form {forms}, not {want}")
+    return rows
+
+
+def phase_preset4():
+    """Phase 27: preset 4 (angle deltas -2, 0, 2 on the partition path,
+    CDEF, the tx-type search) low-delay I+P at 1920x1088 on
+    ``moving_frames``, q100.  Stage times of each frame after a
+    synchronize, the scans' graph captures (step graphs, nodes, capture
+    and instantiate seconds, host RSS after each new shape), each scan
+    shape's first call and a replay of it on the same inputs, the inter
+    shares and the blocks with a non-zero delta, e2e fps.  Checks: KEY
+    then INTER, payloads parse, luma PSNR > 30 dB, each replay equal to
+    its first call, the P frame's luma area more than half inter; the
+    stream goes to phase 16."""
+    h = H88
+    frames = moving_frames(W, h, 2)
+    cfg = presets.apply_preset(ie.EncoderConfig(W, h, qindex=100), 4)
+    presets.verify_settings(cfg)
+    enc = ve.VideoEncoder(cfg, keyint=64, device="cuda")
+    key_dev = []
+    run = enc.intra.device_encode
+    enc.intra.device_encode = lambda fr: key_dev.append(run(fr)) or \
+        key_dev[-1]
+    n_log = len(wf2.GRAPHS["log"])
+    g0 = graph_snapshot()
+    t0 = time.perf_counter()
+    with StageClock(StageClock.KEY + StageClock.FILTERS[:2]) as kclock:
+        p0, r0 = enc.encode_frame(*frames[0])
+    t1 = time.perf_counter()
+    key_graphs = graph_delta(g0)
+    g0 = graph_snapshot()
+    with StageClock(StageClock.P_FRAME) as pclock:
+        p1, r1 = enc.encode_frame(*frames[1])
+    t2 = time.perf_counter()
+    p_graphs = graph_delta(g0)
+    fmt = lambda ms: ", ".join(f"{k} {v:.1f} ms" for k, v in ms.items())
+    print(f"preset 4: {W}x{h} q100 keyint 64 (deltas {cfg.angle_deltas}, "
+          f"CDEF, tx search): key frame (q70) {1e3 * (t1 - t0):.1f} ms "
+          f"({fmt(kclock.ms)}; {key_graphs}); P frame "
+          f"{1e3 * (t2 - t1):.1f} ms ({fmt(pclock.ms)}; {p_graphs}); e2e "
+          f"{2 / (t2 - t0):.4f} fps over the 2 frames [{CARD}]", flush=True)
+    print_captures("preset 4", wf2.GRAPHS["log"][n_log:])
+    # each scan call again on its own inputs: a replay of its graphs
+    for frame, clock in (("key frame", kclock), ("P frame", pclock)):
+        for kind in ("luma wavefront", "chroma wavefront"):
+            a, kw = clock.args[kind][0]
+            first = next(ms for key, ms in clock.calls if key == kind)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            again = wf2.encode_plane_wavefront_part(*a, **kw)
+            torch.cuda.synchronize()
+            rep = time.perf_counter() - t
+            same = all(torch.equal(x, y) for x, y in
+                       zip(again, clock.out[kind][0]))
+            print(f"preset 4: {frame} {kind.split()[0]} scan "
+                  f"{tuple(a[0].shape)}: first call {first / 1e3:.2f} s, "
+                  f"replay {rep:.3f} s, outputs equal {same} [{CARD}]",
+                  flush=True)
+            if not same:
+                raise AssertionError(f"preset 4 {frame} {kind}: the replay "
+                                     "differs from the first call")
+    cands = expand_candidates(ie.CAND_MODES, cfg.angle_deltas)
+    m = enc.last_p
+    d_key, d_p = key_deltas(key_dev[0], cands), p_deltas(m, cands)
+    (sb_i, sb_n), (t_i, t_n), (l_i, l_n), area = inter_shares(m, h,
+                                                              len(cands))
+    print(f"preset 4: key frame {len(p0)} bytes, {d_key} coded 32x32 and "
+          f"64x64 blocks with a non-zero delta; P frame {len(p1)} bytes, "
+          f"{d_p} intra blocks with a non-zero delta, "
+          f"inter blocks 64x64 {sb_i} of {sb_n}, 32x32 {t_i} of {t_n}, "
+          f"16x16 {l_i} of {l_n}, luma area inter {100 * area:.1f}%; host "
+          f"RSS {wf2._host_rss() / 2 ** 30:.2f} GiB", flush=True)
+    ps_y = check_payloads([p0, p1], frames, [r0, r1], "preset 4")
+    types = [frame_type(p) for p in (p0, p1)]
+    print(f"preset 4: frame types {types}, luma PSNR "
+          f"{', '.join(f'{x:.2f}' for x in ps_y)} dB", flush=True)
+    if types != [0, 1] or area <= 0.5:
+        raise AssertionError(f"preset 4: types {types}, inter area {area}")
+    DECODE["preset-4 I+P 1920x1088 (phase 27)"] = ([p0, p1], [r0, r1],
+                                                    False, None)
+
+
+def phase_deltas_card_vs_cpu():
+    """Phase 28: angle deltas at 256x128, q60, on the card and on the CPU:
+    preset 4 low-delay I, P, P (``moving_stripes``) at 8 bits and I, P at
+    10 bits; a preset-4 compound pyramid, gop 2, TF (the card's filtered
+    anchors fed to the CPU encoder, as phase 23 does); the flat path with
+    preset 0's deltas, I, P; one preset-1 partition key frame.  Per coded
+    unit the agreement of every map (the flat path's modes by phase 2's
+    bar), and byte-identical payloads with equal recons whenever every
+    map agrees."""
+    w, h, q = 256, 128, 60        # q60: P frames pick intra deltas too
+    p4 = lambda bd=8: presets.apply_preset(
+        ie.EncoderConfig(w, h, qindex=q, bit_depth=bd), 4)
+    flat0 = ie.EncoderConfig(w, h, qindex=q, angle_deltas=P0_DELTAS, **FLAT)
+    for label, cfg, clip, flat in (
+            ("preset 4 I,P,P", p4(), moving_stripes(w, h, 3), False),
+            ("10-bit preset 4 I,P", p4(10), moving_stripes(w, h, 2, bd=10),
+             False),
+            ("flat preset-0 deltas I,P", flat0, moving_stripes(w, h, 2),
+             True)):
+        cands = expand_candidates(ie.CAND_MODES, cfg.angle_deltas)
+        picked = []
+
+        def count(enc, key_dev):
+            """The card's coded blocks with a non-zero delta, a frame."""
+            if len(picked) == 0:
+                picked.append(delta_blocks(cands, key_dev[0]["y_mi"][0].cpu()
+                                           .numpy()) if flat
+                              else key_deltas(key_dev[0], cands))
+            else:
+                picked.append(delta_blocks(cands, enc.last_p["y_mi"]) if flat
+                              else p_deltas(enc.last_p, cands))
+        runs = {"cuda": low_delay_units(cfg, clip, "cuda", flat, count),
+                "cpu": low_delay_units(cfg, clip, "cpu", flat)}
+        print(f"card vs CPU, {label} {w}x{h} (card {runs['cuda'][1]:.1f} s, "
+              f"CPU {runs['cpu'][1]:.1f} s): coded blocks with a non-zero "
+              f"delta a frame (card) {picked}", flush=True)
+        if not any(picked):
+            raise AssertionError(f"{label}: no block picked a delta")
+        frames_agree(label, runs["cuda"][0], runs["cpu"][0],
+                     modes_bar=flat, tag="deltas")
+
+    # the compound pyramid at preset 4, gop 2, TF
+    clip = moving_stripes(w, h, 3)
+    card_tf, diffs = [], []
+    card = run_part_pyramid(p4(), clip, "cuda", None,
+                            lambda x: card_tf.append(x) or x, 2)
+
+    def use_card(planes):
+        got = card_tf[len(diffs)]
+        diffs.append([int((a != b).sum()) for a, b in zip(got, planes)])
+        return got
+    cpu = run_part_pyramid(p4(), clip, "cpu", None, use_card, 2)
+    print(f"card vs CPU, preset-4 partition pyramid {w}x{h} gop 2 TF (card "
+          f"{card[3]:.1f} s, CPU {cpu[3]:.1f} s): {len(card_tf)} TF calls, "
+          f"pixels the card's TF planes differ by from the CPU's {diffs}; "
+          f"{len(card[1])} TUs", flush=True)
+    frames_agree("preset-4 partition pyramid", card[0], cpu[0],
+                 tag="deltas")
+    if all(all(np.array_equal(mc[n], mp[n]) for n in mc)
+           for (_, _, mc), (_, _, mp) in zip(card[0], cpu[0])):
+        same = card[1] == cpu[1] and all(
+            np.array_equal(a, b) for x, y in zip(card[2], cpu[2])
+            for a, b in zip(x, y))
+        print(f"card vs CPU, preset-4 partition pyramid: every map agrees; "
+              f"payloads and recons identical {same}", flush=True)
+        if not same:
+            raise AssertionError("preset-4 pyramid: maps agree but payloads "
+                                 "or recons differ")
+
+    # one preset-1 partition key frame (61 luma candidates)
+    cfg = presets.apply_preset(ie.EncoderConfig(w, h, qindex=q), 1)
+    f = [stripes(w, h, 51)]
+    runs = {}
+    for d in ("cuda", "cpu"):
+        enc = ie.IntraEncoder(cfg, device=d)
+        t0 = time.perf_counter()
+        dev = enc.device_encode(f)
+        payloads, recons = enc.host_finish(dev)
+        runs[d] = ([(payloads, recons, part_maps(dev))],
+                   time.perf_counter() - t0, dev)
+    n = key_deltas(runs["cuda"][2], expand_candidates(ie.CAND_MODES,
+                                                      cfg.angle_deltas))
+    print(f"card vs CPU, preset-1 key frame {w}x{h} (card "
+          f"{runs['cuda'][1]:.1f} s, CPU {runs['cpu'][1]:.1f} s): {n} coded "
+          "blocks with a non-zero delta", flush=True)
+    if not n:
+        raise AssertionError("preset-1 key frame: no block picked a delta")
+    frames_agree("preset-1 key frame", runs["cuda"][0], runs["cpu"][0],
+                 tag="deltas")
+
+
+def cli_presets():
+    """The encoder CLI at every preset 0-13 on the card (not part of
+    main()): a 256x128 Y4M of ``moving_stripes`` (2 frames, written under
+    the git-ignored ``svtav1_tpu_torch/build/``), I+P at the default
+    --keyint; each run exits 0 with two payloads."""
+    from svtav1_tpu_torch import app
+    from svtav1_tpu_torch.utils.ivf import read_ivf
+    from svtav1_tpu_torch.utils.y4m import Y4mInfo, Y4mWriter
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "svtav1_tpu_torch", "build", "cli_presets")
+    os.makedirs(d, exist_ok=True)
+    src, out = os.path.join(d, "in.y4m"), os.path.join(d, "out.ivf")
+    with open(src, "wb") as f:
+        wtr = Y4mWriter(f, Y4mInfo(256, 128, 30, 1))
+        for fr in moving_stripes(256, 128, 2):
+            wtr.write_frame(*fr)
+    for preset in range(14):
+        t0 = time.perf_counter()
+        rc = app.main(["-i", src, "-b", out, "--preset", str(preset)])
+        with open(out, "rb") as f:
+            n = len(list(read_ivf(f)[1]))
+        print(f"CLI --preset {preset}: exit {rc}, {n} payloads, "
+              f"{time.perf_counter() - t0:.1f} s [{CARD}]", flush=True)
+        if rc != 0 or n != 2:
+            raise AssertionError(f"CLI --preset {preset}: exit {rc}, {n} "
+                                 "payloads")
+
+
 CARD = ""
 
 
@@ -2441,8 +2874,11 @@ def phase_build():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
     C = len(expand_candidates(ie.CAND_MODES))
+    C0 = len(expand_candidates(ie.CAND_MODES, P0_DELTAS))
+    C4 = len(expand_candidates(ie.CAND_MODES, P4_DELTAS))
     for bd, pix in ((8, "uint8_t"), (10, "uint16_t")):
-        for bs, c in ((32, C), (16, C), (32, C + 2), (16, 2)):
+        for bs, c in ((32, C), (16, C), (32, C + 2), (16, 2), (32, C4),
+                      (32, C0), (32, C0 + 2)):
             info = wk.kernel_info(bs, c, bd)
             print(f"wf_plane_kernel<{bs}, {pix}>, {c} candidates: {info}",
                   flush=True)
@@ -2475,6 +2911,7 @@ def main():
     max_err, ms, plain_ms, bound, basis = phase(phase_compare)
     lanes = phase(phase_compare_lanes)
     main10, lanes10 = phase(phase_compare_10bit)
+    deltas = phase(phase_compare_deltas)
     launches, enc, batch = phase(phase_main_path)
     phase(phase_profile, enc, batch)
     phase(phase_partition)
@@ -2491,6 +2928,9 @@ def main():
     phase(phase_flat_pyramid_card_vs_cpu)
     phase(phase_part_pyramid)
     phase(phase_part_pyramid_card_vs_cpu)
+    delta_launches = phase(phase_flat_deltas)
+    phase(phase_preset4)
+    phase(phase_deltas_card_vs_cpu)
     phase(phase_decode)
     phase(phase_decode_card_vs_cpu)
     launches10 = phase(phase_main_path, 10)[0]
@@ -2518,6 +2958,10 @@ def main():
             "wavefront", "wavefront 10-bit"), **kernel,
             launches=p10_launches[kind], max_abs_err=err, ms=k, plain_ms=p,
             bound_ms=b, bound_by=by, library_ms=None))
+    for name, (err, k, p, b, by) in deltas.items():
+        rows.append(dict(name=name, **kernel, launches=delta_launches[name],
+                         max_abs_err=err, ms=k, plain_ms=p, bound_ms=b,
+                         bound_by=by, library_ms=None))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

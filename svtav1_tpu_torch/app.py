@@ -2,8 +2,9 @@
 
 Usage:
   python -m svtav1_tpu_torch.app -i in.y4m -b out.ivf [-q 100 | --crf N] \
-      [--keyint N] [--no-part-search | --preset 6..13] [--cdef] [--lr] \
-      [--ccso] [--pyramid [--tf]] [--rc cq|crf|cbr|vbr] [--tbr KBPS] \
+      [--keyint N] [--preset 0..13] [--no-part-search] [--cdef] [--lr] \
+      [--ccso] [--no-cdf-update] [--pyramid [--tf]] \
+      [--rc cq|crf|cbr|vbr] [--tbr KBPS] \
       [-n N] [--batch N] [--stat-report] [-o recon.y4m] \
       [--film-grain N] [--mastering-display MD] [--content-light CLL,FALL] \
       [--device cuda|cpu]
@@ -17,21 +18,24 @@ P frames that each reference the previous frame, encoded one frame at a
 time by ``VideoEncoder``.  --keyint 1 is all-intra: reading, the device
 stage of batch k+1 and the entropy coding of batch k overlap as in
 ``svtav1_tpu/app.py``.  With no preset and no --no-part-search it runs the
-partition path (the default of EncoderConfig).  Presets 6..8 are the
-partition path with CDEF, 9 the same without the tx-type search, 10
-without CDEF, and --no-part-search and presets 11..13 the flat path (32x32
-blocks; its P frames at --keyint > 1 too, preset 13 without CDF update).
---cdef, --lr and --ccso turn the in-loop filters on (partition path,
-heights a multiple of 64), over the preset as in ``svtav1_tpu/app.py``;
-CCSO streams are the fork's nonstandard AV1.  --rc (with --tbr for cbr and
+partition path (the default of EncoderConfig).  Presets 0..5 are the
+partition path with CDEF that also searches angle deltas on the luma
+whole-block and SB candidates (0..1: -3..3; 2: -3, -1, 0, 1, 3; 3..5: -2,
+0, 2), presets 6..8 the same without angle deltas, 9 without the tx-type
+search, 10 without CDEF, and --no-part-search and presets 11..13 the flat
+path (32x32 blocks; its P frames at --keyint > 1 too, preset 13 without
+CDF update).  --cdef, --lr, --ccso, --no-part-search and --no-cdf-update
+apply over the preset as in ``svtav1_tpu/app.py``, and the settings are
+then checked by ``verify_settings`` with its messages (exit status 2);
+the in-loop filters ride the partition path at heights a multiple of 64
+(presets 0..9 turn CDEF on, so they need such a height); CCSO streams are
+the fork's nonstandard AV1.  --rc (with --tbr for cbr and
 vbr) sets each frame's base qindex on the low-delay paths; --crf N is
 qindex 4N in crf mode.  --pyramid at --keyint > 1 codes hierarchical
 mini-GoPs (--tf filters their anchors), reading 16 frames at a time as
 ``svtav1_tpu/app.py`` does: on the partition path their interior frames
 are compound (LAST + ALTREF), on the flat path single-reference; its
-payloads include show_existing overlay TUs.  Presets 0..5 (which search
-angle deltas) exit with status 2: the JAX package's ``python -m
-svtav1_tpu.app`` has them.
+payloads include show_existing overlay TUs.
 --mastering-display and --content-light write HDR metadata OBUs into
 the first temporal unit, and --film-grain N (0..50) film grain
 parameters (8-bit only, as in the JAX package: a 10-bit stream carries
@@ -76,7 +80,8 @@ def main(argv=None) -> int:
     p.add_argument("--no-part-search", action="store_true",
                    help="flat 32x32 blocks instead of the partition search")
     p.add_argument("--preset", type=int, default=None, metavar="M",
-                   help="speed preset; the port supports 6..13")
+                   help="speed preset 0 (slow)..13 (fast); explicit flags "
+                        "override it")
     p.add_argument("--cdef", action="store_true",
                    help="enable the CDEF in-loop filter (search + signal)")
     p.add_argument("--lr", action="store_true",
@@ -90,6 +95,8 @@ def main(argv=None) -> int:
                         "(flat path)")
     p.add_argument("--tf", action="store_true",
                    help="temporal filtering of the pyramid's anchors")
+    p.add_argument("--no-cdf-update", action="store_true",
+                   help="code every symbol with the default CDFs")
     p.add_argument("--rc", choices=("cq", "crf", "cbr", "vbr"), default=None,
                    help="rate control (default: cq, or crf with --crf)")
     p.add_argument("--tbr", type=int, default=0, metavar="KBPS",
@@ -119,15 +126,11 @@ def main(argv=None) -> int:
         return _error(f"-q/--qp must be 0..255 (got {args.qp})")
     if args.keyint < 1:
         return _error(f"--keyint must be >= 1 (got {args.keyint})")
-    if args.preset is not None and not 6 <= args.preset <= 13:
-        return _error("the port supports presets 6..13 (presets 0..5 "
-                      "search angle deltas); python -m svtav1_tpu.app has "
-                      "the others")
     if args.batch < 1:
         return _error("--batch must be >= 1")
 
     from .encoder.intra_encoder import EncoderConfig, IntraEncoder
-    from .encoder.presets import apply_preset
+    from .encoder.presets import apply_preset, verify_settings
     from .encoder.rate_control import RateControl
     from .encoder.video_encoder import VideoEncoder
     from .utils.ivf import IvfWriter
@@ -141,6 +144,7 @@ def main(argv=None) -> int:
             return _error("4:2:0 input only")
         cfg = EncoderConfig(info.width, info.height, qindex=args.qp,
                             bit_depth=info.bit_depth,
+                            cdf_update=not args.no_cdf_update,
                             part_search=not args.no_part_search,
                             enable_cdef=args.cdef, enable_lr=args.lr,
                             enable_ccso=args.ccso,
@@ -152,7 +156,10 @@ def main(argv=None) -> int:
             except ValueError as e:
                 return _error(str(e))
         if args.preset is not None:
-            cfg = apply_preset(cfg, args.preset)
+            try:
+                cfg = apply_preset(cfg, args.preset)
+            except ValueError as e:
+                return _error(str(e))
             # explicit flags over the preset
             if args.no_part_search:
                 cfg = replace(cfg, part_search=False)
@@ -160,6 +167,12 @@ def main(argv=None) -> int:
                 cfg = replace(cfg, enable_cdef=True)
             if args.lr:
                 cfg = replace(cfg, enable_lr=True)
+            if args.no_cdf_update:
+                cfg = replace(cfg, cdf_update=False)
+        try:
+            verify_settings(cfg, keyint=args.keyint)
+        except ValueError as e:
+            return _error(str(e))
         # rate control as svtav1_tpu/app.py builds it (also at --keyint 1,
         # where the all-intra encoder ignores it)
         rc = None

@@ -70,6 +70,23 @@
 //     the CTA that ran the winner writes its boundary row and column,
 //     publishes the flag, then writes levels and recon from shared
 //     memory.  No global candidate scratch.
+//   * Angle deltas (presets 0-5; the flat path with deltas, which the JAX
+//     package runs on the XLA twin, not the Pallas kernel): up to 64
+//     candidates (preset 0's 61 luma candidates plus a flat P frame's 2
+//     inter lanes), still 16 warps a cluster, so warp w of CTA rank runs
+//     candidates w * 4 + rank + 16 k in ascending order.  Each warp keeps
+//     the first minimum of its own candidates (strict <, the pair's sum
+//     for a U/V pair) and that candidate's levels and recon: two slots a
+//     warp, the best so far and the one being computed, which swap roles
+//     when a candidate wins, so nothing is copied.  The cluster's first
+//     minimum over every candidate (ascending, strict <) is the first
+//     minimum of the warp that ran it too, so that warp's best slot holds
+//     its levels and recon for the write-out.  Not chosen: recomputing
+//     the winner's chain after the choice, which would add a whole chain
+//     to every block's latency, the quantity that bounds the plane.  With
+//     one candidate a warp (13-16 candidates) the layout is the earlier
+//     one slot a warp.  A CTA keeps one predictor map for each of its
+//     candidates (16 x 4 KB at 32x32 for 61-64 candidates).
 //   * Transforms in registers: a lane owns one column of 32 (16) values,
 //     runs the 1D network as straight-line code (csrc/txfm_nets.cuh,
 //     generated from spec.txfm.compiled_stages), goes through one
@@ -113,9 +130,9 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int MAXC = 16;      // candidates (one warp each)
+constexpr int MAXC = 64;      // candidates: preset 0's 61 + 2 inter lanes
 constexpr int CLUSTER = 4;    // CTAs sharing one block's candidates
-constexpr int MAXW = MAXC / CLUSTER;   // warps a CTA at most
+constexpr int MAXW = 4;       // warps a CTA at most (16 in a cluster)
 constexpr int MAXDEP = 8;     // neighbours one block waits on
 constexpr int BLKCOLS = 4 + MAXDEP;
 constexpr int SPIN_CAP = 1 << 22;
@@ -206,14 +223,31 @@ template <int BS> WF_HD int lev_elems() {
 template <int BS> WF_HD int rec_elems() { return halves<BS>() * BS * BS; }
 #undef WF_HD
 
-// Shared bytes of a CTA of `wpc` candidate warps.
+// Candidate warps a CTA runs for C candidates, level / recon slots a
+// warp keeps (2 once a warp runs more than one candidate: the best so far
+// and the one being computed) and predictor maps a CTA holds (one for
+// each of its candidates).
+__host__ __device__ inline int warps_for(int C) {
+  const int w = (C + CLUSTER - 1) / CLUSTER;
+  return w < MAXW ? w : MAXW;
+}
+__host__ __device__ inline int slots_for(int C, int wpc) {
+  return C > CLUSTER * wpc ? 2 : 1;
+}
+__host__ __device__ inline int maps_for(int C) {
+  return (C + CLUSTER - 1) / CLUSTER;
+}
+
+// Shared bytes of a CTA of `wpc` candidate warps for C candidates.
 template <int BS, typename Pix>
-size_t smem_bytes(int wpc) {
+size_t smem_bytes(int wpc, int C) {
   constexpr size_t rec_bytes = rec_elems<BS>() * sizeof(Pix);
-  return (size_t)wpc * (t_ints<BS>() * 4 + lev_elems<BS>() * 2 +
-                        rec_bytes) +
+  const size_t nslot = slots_for(C, wpc);
+  return (size_t)wpc * (t_ints<BS>() * 4 +
+                        nslot * (lev_elems<BS>() * 2 + rec_bytes)) +
          rec_bytes + halves<BS>() * n_edge<BS>() * 4 +
-         4 * MAXC * 4 + 8 + (size_t)wpc * BS * BS * 4 + BS * 4;
+         4 * MAXC * 4 + 8 + 2 * MAXW * 4 +
+         (size_t)maps_for(C) * BS * BS * 4 + BS * 4;
 }
 
 // One value of the edge array E = [corner, above(BS), above-right(BS),
@@ -282,22 +316,28 @@ wf_plane_kernel(const WfParams p) {
   constexpr int A = 1, L = 2 * BS + 1, TP = BS + 1, LSTR = lev_stride<BS>();
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, nthr = blockDim.x, wpc = nthr >> 5;
+  constexpr int K = CLUSTER;
+  const int W = K * wpc;                     // candidate warps a cluster
+  const int nslot = slots_for(p.C, wpc), nmap = maps_for(p.C);
   int* sT = reinterpret_cast<int*>(smem);                // [wpc][H][BS][TP]
+  // [wpc][nslot] levels and recons: slot sSlot[warp][half] holds the
+  // warp's best candidate so far, the other the one being computed
   int16_t* sLev = reinterpret_cast<int16_t*>(sT + wpc * t_ints<BS>());
   constexpr int RE = rec_elems<BS>();
-  Pix* sRec = reinterpret_cast<Pix*>(sLev + wpc * lev_elems<BS>());
-  Pix* sSrc = sRec + wpc * RE;                              // [H][BS][BS]
+  Pix* sRec = reinterpret_cast<Pix*>(sLev + wpc * nslot * lev_elems<BS>());
+  Pix* sSrc = sRec + wpc * nslot * RE;                      // [H][BS][BS]
   int* sE = reinterpret_cast<int*>(sSrc + RE);              // [H][NE]
   const Pix* src = static_cast<const Pix*>(p.src);
   float* sCost = reinterpret_cast<float*>(sE + H * NE);  // [2][C], own
   float* sAll = sCost + 2 * MAXC;                    // [2][C], gathered
   int* sMisc = reinterpret_cast<int*>(sAll + 2 * MAXC);  // ticket, pad
-  int* sDir = sMisc + 2;                 // [wpc][N] this CTA's pred maps
-  int* sSmw = sDir + wpc * N;            // [BS] smooth weights
+  int* sSlot = sMisc + 2;                // [MAXW][2] best slot a half
+  int* sDir = sSlot + 2 * MAXW;          // [nmap][N] this CTA's pred maps
+  int* sSmw = sDir + nmap * N;           // [BS] smooth weights
 
-  // the cluster's CTAs share each ticket: CTA `rank` runs candidates
-  // rank, rank + CLUSTER, ...; rank 0 takes the tickets
-  constexpr int K = CLUSTER;
+  // the cluster's CTAs share each ticket: warp w of CTA `rank` runs
+  // candidates w * K + rank, then + W, + 2W, ...; rank 0 takes the
+  // tickets
   cg::cluster_group cl = cg::this_cluster();
   const int rank = (int)cl.block_rank();
   const int warp = tid >> 5, lane = tid & 31;
@@ -310,7 +350,7 @@ wf_plane_kernel(const WfParams p) {
   // The predictor tables go to shared memory once: every acquire load of
   // a ready flag invalidates L1, so read from global they would come
   // from L2 for every block.
-  for (int e = tid; e < wpc * N; e += nthr) {
+  for (int e = tid; e < nmap * N; e += nthr) {
     const int cc = (e / N) * K + rank;
     sDir[e] = cc < p.C ? __ldg(p.dirmap + (size_t)cc * N + e % N) : 0;
   }
@@ -375,13 +415,18 @@ wf_plane_kernel(const WfParams p) {
                              e % NE);
     __syncthreads();
 
-    // ---- warp `warp`: candidate c of the block(s)
-    const int c = warp * K + rank;
-    // per-phase stamps of one warp (warp 1 of rank 0) in trace[4..10]
+    // ---- warp `warp`: candidates c = warp * K + rank + it * W of the
+    // block(s), in ascending order; each half keeps the first minimum of
+    // its costs (strict <) and its levels and recon in slot bslot
+    // per-phase stamps of one warp (warp 1 of rank 0, its last candidate)
+    // in trace[4..10]
     unsigned long long* ws = (tr && rank == 0 && warp == 1 && lane == 0)
                                  ? tr + 4 : nullptr;
     if (ws) ws[0] = gtime();
-    if (c < p.C) {
+    int bslot = 0;
+    float bcost = 0.f;
+    for (int c = warp * K + rank, it = 0; c < p.C; c += W, ++it) {
+      const int cur = it == 0 ? 0 : 1 - bslot;   // the slot c writes
       const int mode = p.cand_mode[c], kind = p.cand_kind[c];
       const int rk = kind & 1, ck = (kind >> 1) & 1;
       const int* E = sE + hf * NE;
@@ -409,7 +454,8 @@ wf_plane_kernel(const WfParams p) {
       // unrolled 32 times, the predictors, quantizer and reconstruction
       // would be code the instruction cache cannot hold.
       int* Tw = sT + warp * t_ints<BS>() + hf * BS * TP;
-      Pix* Rw = sRec + warp * RE + hf * N;
+      Pix* Rw = sRec + (warp * nslot + cur) * RE + hf * N;
+      __syncwarp();
       auto put = [&](int i, int pr) {
         Rw[i * BS + j] = (Pix)pr;
         Tw[i * TP + j] = rshift_signed((int)S[i * BS + j] - pr, p.fwd_s0);
@@ -422,7 +468,7 @@ wf_plane_kernel(const WfParams p) {
 #pragma unroll 8
         for (int i = 0; i < BS; ++i) put(i, dcv);
       } else if (mode <= 8) {                          // V, H, directional
-        const int* dm = sDir + warp * N + j;
+        const int* dm = sDir + (c / K) * N + j;
 #pragma unroll 8
         for (int i = 0; i < BS; ++i) {
           const int m = dm[i * BS];
@@ -477,7 +523,8 @@ wf_plane_kernel(const WfParams p) {
       if (ws) ws[2] = gtime();
       int nnz = 0;
       float lbits = 0.f;
-      int16_t* Lw = sLev + warp * lev_elems<BS>() + (hf * BS + j) * LSTR;
+      int16_t* Lw = sLev + (warp * nslot + cur) * lev_elems<BS>() +
+                    (hf * BS + j) * LSTR;
       int* Trow = Tw + j * TP;
 #pragma unroll 8
       for (int i = 0; i < BS; ++i) {
@@ -555,11 +602,22 @@ wf_plane_kernel(const WfParams p) {
         if (p.paired) cost = __fadd_rn(cost, cv);
       }
       if (j == 0) sCost[hf * MAXC + c] = cost;
+      // the pair's sum (half 0's) decides both halves of a pair
+      float cmp = cost;
+      if constexpr (H == 2) {
+        const float c0 = __shfl_sync(FULL, cost, 0);
+        if (p.paired) cmp = c0;
+      }
+      if (it == 0 || cmp < bcost) {
+        bcost = cmp;
+        bslot = cur;
+      }
       if (ws) ws[6] = gtime();
     }
+    if (j == 0 && warp * K + rank < p.C) sSlot[warp * 2 + hf] = bslot;
     cl.sync();
-    if (tid < H * p.C) {
-      const int hh = tid / p.C, cc = tid % p.C;
+    for (int e = tid; e < H * p.C; e += nthr) {
+      const int hh = e / p.C, cc = e % p.C;
       sAll[hh * MAXC + cc] =
           cl.map_shared_rank(sCost, cc % K)[hh * MAXC + cc];
     }
@@ -567,9 +625,10 @@ wf_plane_kernel(const WfParams p) {
     if (tr && lead) tr[2] = gtime();
 
     // ---- first minimum of each half (one for a pair); the CTA that ran
-    // a half's winner writes that half out: the boundary row and column,
-    // its share of the flag, then levels and recon, which no other block
-    // reads
+    // a half's winner writes that half out from the best slot of the warp
+    // that ran it (the winner is the first minimum of that warp's own
+    // candidates too): the boundary row and column, its share of the
+    // flag, then levels and recon, which no other block reads
     int best0 = 0, best1 = 0;
     float bv0 = sAll[0], bv1 = sAll[MAXC];
     for (int cc = 1; cc < p.C; ++cc) {
@@ -586,11 +645,16 @@ wf_plane_kernel(const WfParams p) {
     const bool mine0 = best0 % K == rank;
     const bool mine1 = real1 && best1 % K == rank;
     if (!mine0 && !mine1) continue;
+    // the slot (of wpc * nslot) holding half hh's winner, in this CTA
+    auto win_slot = [&](int hh) {
+      const int wl = ((hh ? best1 : best0) % W) / K;
+      return wl * nslot + sSlot[wl * 2 + hh];
+    };
     for (int e = tid; e < H * 2 * BS; e += nthr) {
       const int hh = e / (2 * BS), q = e % (2 * BS);
       if (!(hh ? mine1 : mine0)) continue;
       const int f = hh ? fr1 : u;
-      const Pix* R = sRec + ((hh ? best1 : best0) / K) * RE + hh * N;
+      const Pix* R = sRec + win_slot(hh) * RE + hh * N;
       if (q < BS)
         p.rowbuf[((size_t)f * p.bh + r) * p.w + x + q] = R[(BS - 1) * BS + q];
       else
@@ -612,10 +676,11 @@ wf_plane_kernel(const WfParams p) {
       const int bh_ = hh ? best1 : best0;
       const int f = hh ? fr1 : u;
       const size_t blk = ((size_t)f * p.bh + r) * p.bw + cb;
+      const int sl = win_slot(hh);
       p.levels[blk * N + q] =
-          sLev[(bh_ / K) * lev_elems<BS>() + (hh * BS + i) * LSTR + jj];
+          sLev[sl * lev_elems<BS>() + (hh * BS + i) * LSTR + jj];
       p.recon[((size_t)f * p.h + y + i) * p.w + x + jj] =
-          sRec[(bh_ / K) * RE + hh * N + q];
+          sRec[sl * RE + hh * N + q];
       if (q == 0) p.mode_idx[blk] = bh_;
     }
   }
@@ -626,8 +691,8 @@ wf_plane_kernel(const WfParams p) {
 // CTAs per SM and the clusters that fit on the card at once.
 template <int BS, typename Pix>
 int configure(int C, int* wpc, size_t* smem, int* per_sm, int* clusters) {
-  *wpc = (C + CLUSTER - 1) / CLUSTER;
-  *smem = smem_bytes<BS, Pix>(*wpc);
+  *wpc = warps_for(C);
+  *smem = smem_bytes<BS, Pix>(*wpc, C);
   cudaError_t e = cudaFuncSetAttribute(
       wf_plane_kernel<BS, Pix>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)*smem);

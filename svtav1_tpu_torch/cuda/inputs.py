@@ -239,6 +239,63 @@ def moving_frames10(width, height, n, seed=0):
     return frames
 
 
+def stripes(width, height, deg, seed=0, bd=8):
+    """One frame of luma stripes constant along the direction deg (degrees
+    from the x axis, y up), period 9 px, with +-3 of noise (scaled to the
+    bit depth bd, 8 or 10), and flat chroma: a directional mode with an
+    angle delta fits it better than the base angles when deg lies between
+    them.  uint8 planes at 8 bits, uint16 at 10."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:height, 0:width]
+    t = np.deg2rad(deg)
+    phase = (xx * np.sin(t) + yy * np.cos(t)) * 2 * np.pi / 9.0
+    k = 1 << (bd - 8)
+    dt = np.uint8 if bd == 8 else np.uint16
+    y = np.clip(k * (128 + 90 * np.sin(phase)) +
+                k * rng.randint(-3, 4, (height, width)), 0,
+                (1 << bd) - 1).astype(dt)
+    u = np.full((height // 2, width // 2), 120 * k, dt)
+    v = np.full((height // 2, width // 2), 136 * k, dt)
+    return y, u, v
+
+
+def moving_stripes(width, height, n, seed=0, bd=8):
+    """A clip for the inter paths with angle deltas: stripes at 51 degrees
+    (period 12 px, amplitude 60) panned 1 px a frame, and a patch near the
+    centre (a third of the smaller side, its corner on the 32x32 block
+    grid; ``stripes``' period 9 px, amplitude 90)
+    whose stripes turn to another angle every frame (80, 20, 129, 39
+    degrees, ...), so that P frames code it intra, with deltas; +-3 of
+    fresh noise a frame, flat chroma.  The decimated luma SAD between
+    frames (about 17) stays below the scene-cut threshold of 26; at 10
+    bits the same amplitudes sit about 512, since the encoders apply that
+    threshold to 10-bit values unscaled (uint8 planes at 8 bits, uint16
+    at 10)."""
+    rng = np.random.RandomState(seed)
+    off = (1 << (bd - 1)) - 128
+    dt = np.uint8 if bd == 8 else np.uint16
+    yy, xx = np.mgrid[0:height, 0:width]
+    ps = min(height, width) // 3
+    py, px = ((height - ps) // 2) // 32 * 32, ((width - ps) // 2) // 32 * 32
+    patch_degs = (80, 20, 129, 39, 141, 62)
+
+    def pattern(deg, dx, amp, period):
+        t = np.deg2rad(deg)
+        return 128 + amp * np.sin(((xx + dx) * np.sin(t) + yy * np.cos(t)) *
+                                  2 * np.pi / period)
+    frames = []
+    for t in range(n):
+        y = pattern(51, t, 60, 12.0)
+        y[py:py + ps, px:px + ps] = pattern(
+            patch_degs[t % len(patch_degs)], 0, 90,
+            9.0)[py:py + ps, px:px + ps]
+        y = np.clip(off + y + rng.randint(-3, 4, y.shape), 0,
+                    (1 << bd) - 1).astype(dt)
+        frames.append((y, np.full((height // 2, width // 2), off + 120, dt),
+                       np.full((height // 2, width // 2), off + 136, dt)))
+    return frames
+
+
 def lane_arrays(plane, n, rng):
     """n seeded inter lanes of a luma partition scan over `plane` [h, w]
     (h, w multiples of 64), as numpy in ``wavefront2.InterLanes``' order:

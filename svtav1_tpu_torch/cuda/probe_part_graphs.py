@@ -93,7 +93,8 @@ def main():
                 if not same:
                     raise AssertionError(line)
             print(f"{line} [{name}]", flush=True)
-        key = (str(src.device), B, h, w, bs, chroma, 8, not chroma, vh, n)
+        key = (str(src.device), B, h, w, bs, chroma, 8, not chroma, vh, n,
+               (0,))
         print(f"{label}: {shape_line(key)} [{name}]", flush=True)
 
 

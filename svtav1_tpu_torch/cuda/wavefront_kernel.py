@@ -5,11 +5,13 @@
 10-bit (int16; the kernel's uint16 form reads the same bits): the flat
 intra wavefront, and with ``extra`` its mixed form, whose inter lanes
 (precomputed predictions, a rate and a mask a block each, and a mask of
-the intra candidates) follow the intra candidates.  It checks what the
+the intra candidates) follow the intra candidates; either with angle
+deltas (presets 0-5: up to 61 intra candidates, 64 with the lanes).  It checks what the
 kernel takes and raises on anything else, allocates every output with
 ``torch.empty`` and the ticket counter and ready flags with one
 ``torch.zeros``, and makes one persistent launch on the current stream
-without synchronising.  ``LAUNCHES`` counts the kernel launches.
+without synchronising.  ``LAUNCHES`` counts the kernel launches, and
+``FORMS`` the same launches by (bs, bd, intra candidates, inter lanes).
 
 The kernel sets a sticky error word on the device when a wait for a
 neighbour's flag exceeds its cap; ``raise_on_error`` reads it (a host
@@ -26,6 +28,7 @@ counts the operations and bytes of one call for the kernel's bound.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from functools import lru_cache
 
 import numpy as np
@@ -40,8 +43,9 @@ from ..spec import tables as tbl
 from ..spec import txfm as T
 
 LAUNCHES = 0          # kernel launches so far
+FORMS = Counter()     # the same by (bs, bd, intra candidates, inter lanes)
 
-MAXC = 16             # must match csrc/wavefront.cu
+MAXC = 64             # must match csrc/wavefront.cu
 MAXDEP = 8
 _TX_OF_BS = {16: T.TX_16X16, 32: T.TX_32X32}
 LANE = (-1, 0)        # an inter lane's (mode, delta) in the kernel's list
@@ -262,14 +266,16 @@ _PRED_OPS = 6
 
 
 def work(bs: int, B: int, h: int, w: int, modes, uv_tx: bool = False,
-         n_extra: int = 0, live=None, bd: int = 8):
+         n_extra: int = 0, live=None, bd: int = 8, angle_deltas=(0,)):
     """(int32 operations, bytes) of one call: the chain of every candidate
-    (the intra ones, then n_extra inter lanes without the prediction) on
-    every pixel, the source, the lanes' predictions (1 byte a pixel at 8
-    bits, 2 at 10), rates and masks read once and the outputs written
-    once.  live: each candidate's share of the blocks whose masks let it
-    compete (what this call's data needs; None: every block)."""
-    types = _tx_types(expand_candidates(modes), _TX_OF_BS[bs], uv_tx)
+    (the intra ones, expand_candidates(modes, angle_deltas), then n_extra
+    inter lanes without the prediction) on every pixel, the source, the
+    lanes' predictions (1 byte a pixel at 8 bits, 2 at 10), rates and
+    masks read once and the outputs written once.  live: each candidate's
+    share of the blocks whose masks let it compete (what this call's data
+    needs; None: every block)."""
+    types = _tx_types(expand_candidates(modes, angle_deltas), _TX_OF_BS[bs],
+                      uv_tx)
     n_intra = len(types)
     types = types + [T.DCT_DCT] * n_extra
     live = [1.0] * len(types) if live is None else list(live)
@@ -288,9 +294,10 @@ def work(bs: int, B: int, h: int, w: int, modes, uv_tx: bool = False,
 
 
 def bound_ms(bs: int, B: int, h: int, w: int, modes, uv_tx=False,
-             n_extra: int = 0, live=None, bd: int = 8):
+             n_extra: int = 0, live=None, bd: int = 8, angle_deltas=(0,)):
     """(least time on the card in ms, "operations" or "bytes")."""
-    ops, nbytes = work(bs, B, h, w, modes, uv_tx, n_extra, live, bd)
+    ops, nbytes = work(bs, B, h, w, modes, uv_tx, n_extra, live, bd,
+                       angle_deltas)
     t_ops, t_bytes = ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), \
         "operations" if t_ops >= t_bytes else "bytes"
@@ -360,10 +367,10 @@ def launch(src, rd, bs: int, tx_size: int, modes, bd: int = 8,
     if src.device.type != "cuda":
         raise ValueError(f"wavefront_cuda needs a CUDA tensor, got "
                          f"{src.device}")
-    if bd not in (8, 10) or tuple(angle_deltas) != (0,):
-        raise NotImplementedError("the CUDA wavefront, with or without "
-                                  "inter lanes, covers bd 8 and 10 and "
-                                  "angle_deltas=(0,); svtav1_tpu has the rest")
+    if bd not in (8, 10):
+        raise NotImplementedError("the CUDA wavefront covers bd 8 and 10")
+    if any(not -3 <= d <= 3 for d in angle_deltas):
+        raise ValueError(f"angle deltas {tuple(angle_deltas)} outside -3..3")
     pix = pix_dtype(bd)     # the uint16_t form reads int16's bits
     if src.dtype != pix or src.dim() != 3 or not src.is_contiguous():
         raise ValueError(f"src must be a contiguous [B, h, w] {pix} tensor "
@@ -434,4 +441,5 @@ def launch(src, rd, bs: int, tx_size: int, modes, bd: int = 8,
     if err:
         raise RuntimeError(f"wf_plane launch failed: CUDA error {err}")
     LAUNCHES += 1
+    FORMS[(bs, bd, NI, nE)] += 1
     return mode_idx, levels, recon, tr

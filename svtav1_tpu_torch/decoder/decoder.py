@@ -7,7 +7,10 @@ LAST+ALTREF, 64/32/16 partitions with TX_LARGEST, angle deltas, uniform
 tile columns, 8- and 10-bit 4:2:0, deblocking, CDEF, the fork's CCSO, loop
 restoration, show_existing overlays and no-show frames, film grain on the
 output, metadata OBUs) to the same frames, and raises ``DecodeError`` for
-the same corrupt or unsupported streams with the same messages.
+the same corrupt or unsupported streams with the same messages.  One
+difference, on purpose: a V_PRED or H_PRED block with a non-zero angle
+delta is predicted at 90 or 180 degrees plus 3 x delta, as the spec and
+both encoders do (the JAX decoder predicts it as plain V or H).
 
 The reference reconstructs one block at a time, interleaved with the
 parse.  Here a frame goes through five stages:
@@ -188,8 +191,12 @@ class _Pack:
         return upload(flat, device)
 
 
-def _directional(mode: int) -> bool:
-    return 1 <= mode <= 8 and mode not in (intra.V_PRED, intra.H_PRED)
+def _directional(mode: int, delta: int) -> bool:
+    """Predicted by dr_pred at MODE_ANGLE[mode] + 3 * delta (spec
+    §7.11.2.4): the directional modes, V_PRED and H_PRED only with a
+    non-zero angle delta (with delta 0 they are the plain copies)."""
+    return 1 <= mode <= 8 and (delta != 0 or mode not in (intra.V_PRED,
+                                                          intra.H_PRED))
 
 
 class Decoder:
@@ -948,19 +955,19 @@ class Decoder:
                     (y0, x0) + tuple(mv) + tuple(mv1 or ()))
             else:
                 mode = y_mode if plane == 0 else uv_mode
+                adelta = angle_delta if plane == 0 else uv_angle_delta
                 idx = self._edge_index(
-                    plane, y0, x0, pbs, mode, br, bc, bs,
+                    plane, y0, x0, pbs, mode, adelta, br, bc, bs,
                     have_above, have_left, st.mi_cols_t * 4 // 32,
                     seq.height >> shift)
                 self._intra.append(
-                    (plane, y0, x0, pbs, mode,
-                     angle_delta if plane == 0 else uv_angle_delta,
-                     have_above, have_left, self._idx.add(idx)))
+                    (plane, y0, x0, pbs, mode, adelta, have_above,
+                     have_left, self._idx.add(idx)))
 
         st.skip_grid[mi_r:mi_r + bw4, mi_c:mi_c + bw4] = skip
 
-    def _edge_index(self, plane, y0, x0, bs, mode, br, bc, luma_bs, ha, hl,
-                    tile_bw, vh):
+    def _edge_index(self, plane, y0, x0, bs, mode, delta, br, bc, luma_bs,
+                    ha, hl, tile_bw, vh):
         """Flat indices into the plane's recon buffer of an intra block's
         edges, [above (bs), above-right (bs), left (bs), below-left (bs),
         corner]: the reference's _predict edge rules (left rows clamped at
@@ -991,7 +998,7 @@ class Decoder:
         else:
             corner = n + 2
         has_tr = has_bl = False
-        if _directional(mode):
+        if _directional(mode, delta):
             # extended-edge availability: z-order rule for full 32x32
             # blocks; 16x16 leaves only carry Z2-safe modes, for which the
             # extension is never read (replication is then normative)
@@ -1107,7 +1114,7 @@ class Decoder:
             corner = e[4 * bs:]
             if mode == intra.DC_PRED:
                 pred = intra.dc_pred(above, left, ha, hl, bd)[0]
-            elif _directional(mode):
+            elif _directional(mode, adelta):
                 pred = dr_pred(mode, adelta, e[None, :2 * bs],
                                e[None, 2 * bs:4 * bs], corner, bs, bd)[0]
             else:

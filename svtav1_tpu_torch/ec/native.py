@@ -1,6 +1,8 @@
 """ctypes bindings of the native host code: the tile entropy coder of the
 flat path (``native/tile_coder.c``; copy of ``svtav1_tpu/ec/native.py``
-with its own copy of the C source beside it) and the decoder's
+with its own copy of the C source beside it, which also writes each
+block's luma angle delta, where the JAX package falls back to its Python
+flat coder) and the decoder's
 coefficient reader (``native/coeff_reader.c``, the loop of
 ``ec/coeffs.py::read_coeffs_txb``).  gcc builds each source at first use
 into the git-ignored ``svtav1_tpu_torch/build/``, keyed by a hash of the
@@ -76,7 +78,7 @@ def _load():
         np.ctypeslib.ndpointer(np.int32), np.ctypeslib.ndpointer(np.int32),
         np.ctypeslib.ndpointer(np.int32), np.ctypeslib.ndpointer(np.int32),
         ctypes.POINTER(_Tables), ctypes.c_int,
-        np.ctypeslib.ndpointer(np.int32)]
+        np.ctypeslib.ndpointer(np.int32), np.ctypeslib.ndpointer(np.int32)]
     _lib = lib
     return lib
 
@@ -120,10 +122,13 @@ def read_coeffs(dec, h: int, w: int, eob: int, tx_class: int, scan,
 def encode_tile_intra(width: int, height: int, update_cdf: bool,
                       y_modes: np.ndarray, y_lev: np.ndarray,
                       u_lev: np.ndarray, v_lev: np.ndarray, cdf,
-                      true_h: int = 0, uv_modes: np.ndarray = None) -> bytes:
+                      true_h: int = 0, uv_modes: np.ndarray = None,
+                      y_deltas: np.ndarray = None) -> bytes:
     """cdf: spec.cdf.CdfContext (its tables are copied, not mutated).
     true_h: signaled frame height when `height` is the SB-padded plane
-    height (0 → equal); bottom-edge geometry per encoder/geometry.py."""
+    height (0 → equal); bottom-edge geometry per encoder/geometry.py.
+    uv_modes / y_deltas [bh, bw]: each block's uv_mode (None: DC) and
+    luma angle delta (None: 0; written for the directional modes)."""
     lib = _load()
     keep = []  # keep arrays alive
 
@@ -161,15 +166,21 @@ def encode_tile_intra(width: int, height: int, update_cdf: bool,
     )
     cap = width * height * 4 + (1 << 16)
     dst = ctypes.create_string_buffer(cap)
+    zeros = np.zeros(np.shape(y_modes), np.int32)
     if uv_modes is None:
-        uv_modes = np.zeros_like(np.ascontiguousarray(y_modes, np.int32))
+        uv_modes = zeros
+    if y_deltas is None:
+        y_deltas = zeros
+    if np.abs(y_deltas).max(initial=0) > 3:
+        raise ValueError("angle deltas lie in -3..3")
     n = lib.encode_tile_intra(
         dst, cap, width, height, int(update_cdf),
         np.ascontiguousarray(y_modes, np.int32),
         np.ascontiguousarray(y_lev, np.int32),
         np.ascontiguousarray(u_lev, np.int32),
         np.ascontiguousarray(v_lev, np.int32), ctypes.byref(t),
-        int(true_h), np.ascontiguousarray(uv_modes, np.int32))
+        int(true_h), np.ascontiguousarray(uv_modes, np.int32),
+        np.ascontiguousarray(y_deltas, np.int32))
     if n <= 0:
         raise RuntimeError("native tile coder failed")
     return dst.raw[:n]

@@ -3,21 +3,25 @@
 Counterpart of the flat (part_search=False) path of
 ``svtav1_tpu/encoder/intra_encoder.py``:
   1. device stage (``device_encode``): one luma wavefront (32x32 blocks,
-     TX_32X32, 13 candidate modes), one paired U+V wavefront (16x16
+     TX_32X32, 13 candidate modes, their directional ones expanded by the
+     config's angle deltas), one paired U+V wavefront (16x16
      blocks, TX_16X16, implied chroma tx types, one uv_mode per pair),
      uniform deblocking.  On a CUDA device the wavefronts run the
      hand-written kernel; nothing here synchronises, so the caller can
      entropy-code batch k while batch k+1 runs.
   2. host stage (``host_finish``): the native C tile coder
-     (``ec.native``) per frame in a thread pool, then the key frame OBUs.
+     (``ec.native``, each block's angle delta included) per frame in a
+     thread pool, then the key frame OBUs.
 The partition path (``_device_encode_part`` / ``_host_finish_part``, the
 default) adds the in-loop filters when they are enabled: per frame, on the
 recon's device, CDEF (search, apply), CCSO (search on the host, apply) and
 loop restoration (search, apply), in the JAX package's order, then the
-Python tile coder signals each tool.  Every path takes bit_depth 8 or 10
-(10-bit: uint16 source and recon planes, int16 pixel tensors on the
-device); angle deltas and tile columns raise NotImplementedError: the JAX
-package has them.
+Python tile coder signals each tool.  Angle deltas (presets 0-5) expand
+the luma candidates of the whole-block and SB depths (the partition path)
+or of the flat wavefront; the sub-blocks and chroma keep the base angles.
+Every path takes bit_depth 8 or 10 (10-bit: uint16 source and recon
+planes, int16 pixel tensors on the device); tile columns raise
+NotImplementedError: the JAX package has them.
 """
 
 from __future__ import annotations
@@ -85,8 +89,8 @@ class EncoderConfig:
 
 def _unsupported(what: str):
     return NotImplementedError(
-        f"{what} is not ported to svtav1_tpu_torch (8/10-bit, one tile "
-        "column, no angle deltas); the JAX package svtav1_tpu has it "
+        f"{what} is not ported to svtav1_tpu_torch (8/10-bit, presets "
+        "0-13, one tile column); the JAX package svtav1_tpu has it "
         "(python -m svtav1_tpu.app)")
 
 
@@ -108,8 +112,6 @@ class IntraEncoder:
             # as the JAX package's verify_settings
             raise ValueError(f"bit_depth must be 8 or 10, got "
                              f"{cfg.bit_depth}")
-        if tuple(cfg.angle_deltas) != (0,):
-            raise _unsupported(f"angle_deltas={tuple(cfg.angle_deltas)}")
         if cfg.tile_cols != 1:
             raise _unsupported(f"tile_cols={cfg.tile_cols}")
         filters = cfg.enable_cdef or cfg.enable_lr or cfg.enable_ccso
@@ -224,7 +226,7 @@ class IntraEncoder:
         vhc = None if vh is None else vh // 2
         y_mi, y_lev, y_rec = encode_plane_wavefront(
             self._upload(yb), BLK, TX_32X32, cfg.qindex, CAND_MODES, bd,
-            valid_h=vh)
+            tuple(cfg.angle_deltas), valid_h=vh)
         # U and V ride one wavefront on the batch axis; paired=True makes
         # each (u, v) pair agree on one uv_mode
         uv_mi, uv_lev, uv_rec = encode_plane_wavefront(
@@ -264,7 +266,7 @@ class IntraEncoder:
         (part, y_mi, y_lev, y_smi, y_slev, y_stx, y_rec,
          part_sb, y_mi_sb, y_lev_sb) = encode_plane_wavefront_part(
             y_src, BLK, cfg.qindex, fp, fsb, tx_search=cfg.tx_search,
-            valid_h=vh, bd=bd)
+            valid_h=vh, bd=bd, angle_deltas=tuple(cfg.angle_deltas))
         # U and V ride one paired wavefront: the partition tree is forced
         # by luma and each (u, v) pair picks one uv_mode
         two = lambda a: torch.cat([a, a])
@@ -360,7 +362,7 @@ class IntraEncoder:
         uv_top = uv_mode(CHROMA_TOP_MODES, uv_mi)
         uv_sub = uv_mode(CHROMA_SUB_MODES, uv_smi)
         uv_sb = uv_mode(CHROMA_SB_MODES, uv_mi_sb)
-        cands = expand_candidates(CAND_MODES)
+        cands = expand_candidates(CAND_MODES, tuple(cfg.angle_deltas))
         cands_sub = expand_candidates(SUB_MODES)
         ch, cch = cfg.height, cfg.height // 2
         payloads, recons = [], []
@@ -422,8 +424,10 @@ class IntraEncoder:
             raise_on_error(self.device)
         u_lev, v_lev = uv_lev[:n], uv_lev[n:]
         u_rec, v_rec = uv_rec[:n], uv_rec[n:]
-        cand_mode = np.array([m for m, _ in expand_candidates(CAND_MODES)],
-                             np.int32)
+        cands = expand_candidates(CAND_MODES, tuple(cfg.angle_deltas))
+        cand_mode, cand_delta = (np.array(a, np.int32) for a in zip(*cands))
+        uv_mode = np.array([m for m, _ in expand_candidates(CAND_MODES)],
+                           np.int32)
         # one default CDF set, loaded on this thread (not thread-safe); the
         # coder copies its tables
         cdf = CdfContext(cfg.qindex)
@@ -432,7 +436,7 @@ class IntraEncoder:
             return native.encode_tile_intra(
                 cfg.width, self.ph, cfg.cdf_update, cand_mode[y_mi[b]],
                 y_lev[b], u_lev[b], v_lev[b], cdf, true_h=cfg.height,
-                uv_modes=cand_mode[uv_mi[b]])
+                uv_modes=uv_mode[uv_mi[b]], y_deltas=cand_delta[y_mi[b]])
 
         # frames have independent CDF contexts: the native coder releases
         # the GIL, so frames code in parallel threads

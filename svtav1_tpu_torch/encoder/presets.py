@@ -1,7 +1,7 @@
 """Preset system: the reference's M0-M13 speed/quality axis.
 
-Copy of ``svtav1_tpu/encoder/presets.py`` (the preset table and
-``apply_preset``).  The axis gates search breadth knobs that trade encode
+Copy of ``svtav1_tpu/encoder/presets.py`` (the preset table,
+``apply_preset`` and ``verify_settings``).  The axis gates search breadth knobs that trade encode
 speed against BD-rate, monotonically:
 
   knob                         slow (M0)            fast (M13)
@@ -10,6 +10,10 @@ speed against BD-rate, monotonically:
   tx-type RD search            on                   off (DCT only)
   CDEF search                  on                   off
   per-symbol CDF update        on                   off (default CDFs)
+
+Validation mirrors svt_av1_verify_settings (EbEncSettings.c:1858): every
+externally-settable field is range-checked with the JAX package's message
+before any device work is queued.
 """
 
 from __future__ import annotations
@@ -48,3 +52,30 @@ def apply_preset(cfg, enc_mode: int):
     ad, part, tx, cdef, cdf, ifs = _PRESETS[enc_mode]
     return replace(cfg, angle_deltas=ad, part_search=part, tx_search=tx,
                    enable_cdef=cdef, cdf_update=cdf, filter_search=ifs)
+
+
+def verify_settings(cfg, keyint: int = 64) -> None:
+    """Range/consistency validation (EbEncSettings.c:1858 analogue).
+    Raises ValueError with the offending field named."""
+    if cfg.width <= 0 or cfg.height <= 0:
+        raise ValueError("width/height must be positive")
+    from .geometry import check_dims
+    check_dims(cfg.width, cfg.height, cfg.part_search,
+               inloop_extras=(cfg.enable_cdef or cfg.enable_lr or
+                              cfg.enable_ccso))
+    if cfg.width > 4096:
+        raise ValueError("width > 4096 requires mandatory tile columns")
+    if not 0 <= cfg.qindex <= 255:
+        raise ValueError(f"qindex must be 0..255, got {cfg.qindex}")
+    if cfg.bit_depth not in (8, 10):
+        raise ValueError(f"bit_depth must be 8 or 10, got {cfg.bit_depth}")
+    t = cfg.tile_cols
+    if t < 1 or (t & (t - 1)):
+        raise ValueError(f"tile_cols must be a power of two, got {t}")
+    if t > 1 and (cfg.width // t) % 64:
+        raise ValueError("tile columns must be SB-aligned equal widths")
+    for d in cfg.angle_deltas:
+        if not -3 <= d <= 3:
+            raise ValueError(f"angle delta out of range: {d}")
+    if keyint < 1:
+        raise ValueError(f"keyint must be >= 1, got {keyint}")

@@ -55,8 +55,11 @@ their chroma predictions are compound too; its RD lambda carries the
 layer's weight (``LAYER_LAM``), and the anchor's scans take the GoP's
 per-block TPL lambda map.  With ``tf=True`` the anchors' and key frames'
 sources are temporally filtered first (``ops/tf.py``).  Every path takes
-bit_depth 8 or 10 (the DPB then holds uint16 planes).  Tile columns raise
-NotImplementedError: the JAX package has them.
+bit_depth 8 or 10 (the DPB then holds uint16 planes), and the config's
+angle deltas (presets 0-5): they expand the luma intra candidates of the
+partition scan's whole-block and SB depths, or of the flat P frame's
+mixed wavefront; the sub-blocks and chroma keep the base angles.  Tile
+columns raise NotImplementedError: the JAX package has them.
 """
 
 from __future__ import annotations
@@ -681,6 +684,7 @@ class VideoEncoder:
         (the anchor's TPL map) scales it per 32x32 block."""
         cfg = self.cfg
         bd = cfg.bit_depth
+        deltas = tuple(cfg.angle_deltas)
         q = self._base_q() if qindex is None else qindex
         chain = cdf_init == "chain"
         cdf0 = self._cdf_state if chain else cdf_init
@@ -746,9 +750,10 @@ class VideoEncoder:
         (part, y_mi, y_lev, y_smi, y_slev, y_stx, y_rec,
          part_sb, y_mi_sb, y_lev_sb) = encode_plane_wavefront_part(
             ys, BLK, q, free, free_sb, tx_search=cfg.tx_search, valid_h=vh,
-            inter=lanes, bd=bd, lam_scale=lam_scale, lam_map=lmap)
+            inter=lanes, bd=bd, lam_scale=lam_scale, lam_map=lmap,
+            angle_deltas=deltas)
 
-        n_i_top = len(expand_candidates(CAND_MODES))
+        n_i_top = len(expand_candidates(CAND_MODES, deltas))
         n_i_sub = len(expand_candidates(SUB_MODES))
         lane_t, lane_s, lane_b = y_mi - n_i_top, y_smi - n_i_sub, \
             y_mi_sb - n_i_top
@@ -822,8 +827,8 @@ class VideoEncoder:
         tile, end_cdf = tc.encode(
             m["part"], m["y_mi"], m["y_lev"], m["u_lev"], m["v_lev"],
             m["y_smi"], m["y_slev"], m["u_slev"], m["v_slev"],
-            expand_candidates(CAND_MODES), expand_candidates(SUB_MODES),
-            m["y_stx"], m["part_sb"], m["y_mi_sb"], m["y_lev_sb"],
+            expand_candidates(CAND_MODES, deltas),
+            expand_candidates(SUB_MODES), m["y_stx"], m["part_sb"], m["y_mi_sb"], m["y_lev_sb"],
             m["u_lev_sb"], m["v_lev_sb"],
             uv_mode(CHROMA_TOP_MODES, m["uv_mi"]),
             uv_mode(CHROMA_SUB_MODES, m["uv_smi"]),
@@ -924,15 +929,17 @@ class VideoEncoder:
         filt = _pick_interp_filt(ys, ryp, y0, x0, mv8.reshape(1, N, 2), h,
                                  w, bd) if cfg.filter_search else 0
 
-        # luma: the 13 intra candidates and the two lanes, every one allowed
+        # luma: the 13 intra candidates (their directional ones expanded by
+        # the angle deltas) and the two lanes, every one allowed
         pred, rate = self._flat_luma_lanes(ryp, mv8, gmv, y0, x0, h, w, filt,
                                            bd)
         ones = lambda *shape: torch.ones(shape, dtype=torch.bool, device=dev)
         pix = pix_dtype(bd)             # the kernel's source dtype
+        deltas = tuple(cfg.angle_deltas)
         y_mi, y_lev, y_rec = encode_plane_wavefront_mixed(
             ys.to(pix), BLK, TX_32X32, q, pred, rate, ones(1, 2, bh, bw),
-            ones(1, bh, bw), 2, CAND_MODES, bd, valid_h=vh)
-        n_intra = len(expand_candidates(CAND_MODES))
+            ones(1, bh, bw), 2, CAND_MODES, bd, deltas, valid_h=vh)
+        n_intra = len(expand_candidates(CAND_MODES, deltas))
         is_inter = y_mi >= n_intra                       # [1, bh, bw]
         gm_t = upload(np.array(gmv, np.int32), dev)
         mv_final = torch.where((y_mi == n_intra)[..., None], mv8, gm_t)
@@ -984,7 +991,7 @@ class VideoEncoder:
                  ref_dist=ref_dist)
         self.last_p = m
 
-        cands = expand_candidates(CAND_MODES)
+        cands = expand_candidates(CAND_MODES, tuple(cfg.angle_deltas))
         tile, end_cdf = encode_inter_tile(
             w, hp, q, cfg.cdf_update, m["y_mi"], m["y_lev"], m["u_lev"],
             m["v_lev"], m["mv_t"], cands, len(cands), cdf_init=cdf0,

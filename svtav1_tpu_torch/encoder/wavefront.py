@@ -185,10 +185,11 @@ def encode_plane_wavefront(src, bs: int, tx_size: int, qindex: int,
 def encode_plane_wavefront_mixed(src, bs: int, tx_size: int, qindex: int,
                                  extra_preds, extra_rate, extra_ok, intra_ok,
                                  n_extra: int, modes: tuple = DEFAULT_MODES,
-                                 bd: int = 8, valid_h: int = None):
+                                 bd: int = 8, angle_deltas: tuple = (0,),
+                                 valid_h: int = None):
     """Mode decision with n_extra precomputed inter candidates after the
-    intra ones (the flat P frame), rates from the inter frame's y_mode
-    CDF.  src [B, h, w] uint8; extra_preds [B, nE, bh, bw, bs, bs] int32
+    intra ones (expand_candidates(modes, angle_deltas): the flat P frame),
+    rates from the inter frame's y_mode CDF.  src [B, h, w] uint8; extra_preds [B, nE, bh, bw, bs, bs] int32
     (or uint8) bit-final predictions; extra_rate [B, nE, bh, bw] float32
     bits; extra_ok [B, nE, bh, bw] and intra_ok [B, bh, bw] bool.  Frames
     are independent (U and V may ride one call).  Returns (cand_idx,
@@ -197,15 +198,15 @@ def encode_plane_wavefront_mixed(src, bs: int, tx_size: int, qindex: int,
     if extra_preds.shape[1] != n_extra:
         raise ValueError(f"extra_preds holds {extra_preds.shape[1]} lanes, "
                          f"not n_extra={n_extra}")
-    cands = expand_candidates(modes)
+    cands = expand_candidates(modes, angle_deltas)
     rd = rd_params(qindex, bd, cands, kf=False)
     extra = (extra_preds, extra_rate, extra_ok, intra_ok)
     if src.device.type == "cpu":
-        return _wavefront_body(src, rd, bs, tx_size, modes, bd,
+        return _wavefront_body(src, rd, bs, tx_size, modes, bd, angle_deltas,
                                valid_h=valid_h, extra=extra)
     from ..cuda.wavefront_kernel import wavefront_cuda
-    return wavefront_cuda(src, rd, bs, tx_size, modes, bd, valid_h=valid_h,
-                          extra=extra)
+    return wavefront_cuda(src, rd, bs, tx_size, modes, bd, angle_deltas,
+                          valid_h=valid_h, extra=extra)
 
 
 def _tx_types(cands, tx_size: int, uv_tx: bool):

@@ -175,12 +175,18 @@ def rd_params_part(qindex: int, bs: int, cands_top, cands_sub, cands_sbl,
                 mode_ids=np.array([m for m, _ in cands_sub], np.int64))
 
 
-def _mode_lists(chroma: bool):
+def _mode_lists(chroma: bool, angle_deltas=(0,)):
+    """The (top, sub, SB) candidate lists: the angle deltas expand the
+    luma whole-block and SB lists only; the luma sub-blocks and every
+    chroma list keep the base angles, as in the JAX package."""
     if chroma:
-        modes = (CHROMA_TOP_MODES, CHROMA_SUB_MODES, CHROMA_SB_MODES)
-    else:
-        modes = (DEFAULT_MODES, SUB_MODES, DEFAULT_MODES)
-    return tuple(expand_candidates(m) for m in modes)
+        if tuple(angle_deltas) != (0,):
+            raise ValueError("the chroma scan takes no angle deltas")
+        return tuple(expand_candidates(m) for m in (
+            CHROMA_TOP_MODES, CHROMA_SUB_MODES, CHROMA_SB_MODES))
+    return (expand_candidates(DEFAULT_MODES, angle_deltas),
+            expand_candidates(SUB_MODES),
+            expand_candidates(DEFAULT_MODES, angle_deltas))
 
 
 # the scan's CUDA graphs (cumulative): step graphs captured, step graphs
@@ -192,14 +198,17 @@ def _mode_lists(chroma: bool):
 GRAPHS = dict(captures=0, replays=0, calls=0, capture_s=0.0, replay_s=0.0,
               log=[])
 _SCANS = {}          # key -> PartScan of the card's shapes (for the process)
+_KEEP = ("cuda",)    # device types whose scans _SCANS keeps
 _OUTPUTS = ("part", "mi_top", "lev_top", "mi_sub", "lev_sub", "stx_sub",
             "recon", "part_sb", "mi_sb", "lev_sb")
 
 
 class PartScan:
     """One shape of the partition scan, keyed by (device, B, h, w, bs,
-    chroma, bd, tx_search, valid_h, n_extra) with n_extra None for the
-    key-frame form.  It holds static buffers on the device: the inputs,
+    chroma, bd, tx_search, valid_h, n_extra, angle_deltas) with n_extra
+    None for the key-frame form; angle_deltas sets the luma candidate
+    lists (``_mode_lists``), so scans of one shape with other deltas have
+    graphs of their own.  It holds static buffers on the device: the inputs,
     which ``fill`` writes (the prepare step: the host tables of the
     qindex, the lambda times lam_scale, the lambda map, the source, the
     force masks and the inter lanes), the scan's state and outputs, and
@@ -220,12 +229,12 @@ class PartScan:
 
     def __init__(self, device, B: int, h: int, w: int, bs: int,
                  chroma: bool, bd: int, tx_search: bool, valid_h,
-                 n_extra=None):
+                 n_extra=None, angle_deltas=(0,)):
         self.key = (str(device), B, h, w, bs, chroma, bd, tx_search,
-                    valid_h, n_extra)
+                    valid_h, n_extra, tuple(angle_deltas))
         dev = self.dev = torch.device(device)
         self.bs, self.chroma, self.bd = bs, chroma, bd
-        self.cands = _mode_lists(chroma)
+        self.cands = _mode_lists(chroma, angle_deltas)
         bh, bw, sh, sw, hs = h // bs, w // bs, h // (2 * bs), w // (2 * bs), \
             bs // 2
         bs2 = 2 * bs
@@ -396,7 +405,8 @@ def encode_plane_wavefront_part(src, bs: int, qindex: int, force_part,
                                 valid_h: int = None,
                                 inter: InterLanes = None, bd: int = 8,
                                 lam_scale: float = 1.0, lam_map=None,
-                                eager: bool = False):
+                                eager: bool = False,
+                                angle_deltas: tuple = (0,)):
     """src [B, h, w] pixel tensor (h, w multiples of 2*bs) ->
     (part [B, bh, bw] int32 (1 = SPLIT), mi_top [B, bh, bw],
     lev_top [B, bh, bw, bs, bs], mi_sub [B, bh, bw, 4],
@@ -410,7 +420,9 @@ def encode_plane_wavefront_part(src, bs: int, qindex: int, force_part,
     1 SPLIT.  chroma: src stacks [U..., V...] and each (u, v) pair picks
     one candidate from the chroma mode lists, with uv_mode rates and each
     candidate's implied tx type; otherwise luma with the 13 DEFAULT_MODES
-    at the 32x32 and SB depths and SUB_MODES below.  tx_search: RD-refine
+    at the 32x32 and SB depths, their directional modes expanded by
+    angle_deltas (presets 0-5; the chroma scan takes (0,)), and SUB_MODES
+    below.  tx_search: RD-refine
     the tx type of the sub-block winners over TX_SEARCH_TYPES.  valid_h:
     true (unpadded) frame height; left edge rows clamp at valid_h-1.
     inter: the P frame's lanes (the inter form; mode indices past the
@@ -424,11 +436,13 @@ def encode_plane_wavefront_part(src, bs: int, qindex: int, force_part,
     on the same buffers instead, to hold a replay against it."""
     B, h, w = src.shape
     key = (str(src.device), B, h, w, bs, chroma, bd, tx_search, valid_h,
-           None if inter is None else inter.top.shape[1])
-    scan = _SCANS.get(key) if src.device.type == "cuda" else None
+           None if inter is None else inter.top.shape[1],
+           tuple(angle_deltas))
+    keep = src.device.type in _KEEP
+    scan = _SCANS.get(key) if keep else None
     if scan is None:
         scan = PartScan(*key)
-        if src.device.type == "cuda":
+        if keep:
             _SCANS[key] = scan
     scan.fill(src, qindex, force_part, force_sb, inter, lam_scale, lam_map)
     return scan.run(eager)

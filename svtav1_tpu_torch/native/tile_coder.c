@@ -407,7 +407,9 @@ long encode_tile_intra(
     const int32_t *u_lev,    /* [ch][cw][16][16] */
     const int32_t *v_lev,
     Tables *t, int true_h,
-    const int32_t *uv_modes  /* [bh][bw] (NULL -> DC) */) {
+    const int32_t *uv_modes, /* [bh][bw] (NULL -> DC) */
+    const int32_t *y_deltas  /* [bh][bw] luma angle deltas -3..3 (NULL
+                              * -> 0) */) {
     g_update = update_cdf;
     if (true_h <= 0) true_h = height;
     int mi_cols = width / 4;
@@ -494,7 +496,8 @@ long encode_tile_intra(
                            t->kf_y + (INTRA_MODE_CONTEXT[a_mode] * 5 +
                                       INTRA_MODE_CONTEXT[l_mode]) * 14, 13);
                 if (y_mode >= 1 && y_mode <= 8)
-                    enc_symbol(&e, 3 /*delta 0*/,
+                    enc_symbol(&e, 3 + (y_deltas ? y_deltas[br * bw + bc]
+                                                 : 0),
                                t->angle_delta + (y_mode - 1) * 8, 7);
                 /* uv mode (searched; cfl-allowed 14-symbol CDF) */
                 int uv_mode = uv_modes ? uv_modes[br * bw + bc] : 0;

@@ -22,6 +22,7 @@ from svtav1_tpu.utils.ivf import read_ivf
 from svtav1_tpu.utils.y4m import Y4mInfo, Y4mWriter
 from svtav1_tpu_torch import app
 from svtav1_tpu_torch.encoder import intra_encoder as tie
+from svtav1_tpu_torch.encoder.presets import verify_settings
 from svtav1_tpu_torch.encoder import video_encoder as tve
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -127,6 +128,15 @@ def test_outside_the_slice_raises(change):
         with pytest.raises(ValueError, match="bit_depth must be 8 or 10"):
             tie.IntraEncoder(replace(cfg, bit_depth=12), device="cpu")
         return
+    if cfg.angle_deltas != (0,):
+        # ported: the flat path takes angle deltas
+        # (tests/test_torch_angle_deltas.py); out-of-range deltas fail
+        # verify_settings, as in the JAX package
+        assert tie.IntraEncoder(cfg, device="cpu").cfg.angle_deltas == \
+            (-2, 0, 2)
+        with pytest.raises(ValueError, match="angle delta out of range"):
+            verify_settings(replace(cfg, angle_deltas=(-4, 0)))
+        return
     # the in-loop filters ride the partition path, in the JAX package too
     filters = cfg.enable_cdef or cfg.enable_lr or cfg.enable_ccso
     match = "partition coding path" if filters else "svtav1_tpu has it"
@@ -187,7 +197,7 @@ def test_cli_flat_p_path_writes_the_encoders_payloads(tmp_path):
 
 @pytest.mark.parametrize("extra", [
     ["--keyint", "1", "--cdef", "--no-part-search"],
-    ["--keyint", "1", "--preset", "5"]])
+    ["--keyint", "1", "--preset", "5", "--no-part-search"]])
 def test_cli_rejects_other_modes(tmp_path, extra):
     src = tmp_path / "in.y4m"
     _write_y4m(src, 128, 64, 1)

@@ -43,6 +43,7 @@ from svtav1_tpu.utils.y4m import Y4mInfo, Y4mWriter
 from svtav1_tpu_torch import app
 from svtav1_tpu_torch.encoder import intra_encoder as tie
 from svtav1_tpu_torch.encoder import lr_search as tlrs
+from svtav1_tpu_torch.encoder.presets import apply_preset
 from svtav1_tpu_torch.utils.obu import OBU_FRAME, parse_obus
 from test_torch_part import one_thread, part_frames
 
@@ -330,9 +331,19 @@ def test_cli_rejects_filters_at_1080_rows(tmp_path, capsys):
 
 @pytest.mark.parametrize("preset", range(6))
 def test_cli_rejects_angle_delta_presets(tmp_path, preset):
-    src = tmp_path / "in.y4m"
-    _write_y4m(src, mixed_frames()[:1], W, H)
-    rc = app.main(["-i", str(src), "-b", str(tmp_path / "o.ivf"),
-                   "--keyint", "1", "--device", "cpu", "--preset",
-                   str(preset)])
-    assert rc == 2
+    """Presets 0-5 (angle deltas, CDEF, the tx-type search) exited 2 until
+    the port had angle deltas; the CLI now runs them and writes the
+    payload of the preset's configuration through the encoder API
+    (the JAX encoder's bytes at presets 1 and 4:
+    tests/test_torch_angle_deltas.py)."""
+    frames = mixed_frames()[:1]
+    src, out = tmp_path / "in.y4m", tmp_path / "o.ivf"
+    _write_y4m(src, frames, W, H)
+    with one_thread():
+        rc = app.main(["-i", str(src), "-b", str(out), "--keyint", "1",
+                       "--device", "cpu", "--preset", str(preset)])
+        enc = tie.IntraEncoder(apply_preset(tie.EncoderConfig(W, H), preset),
+                               device="cpu")
+        want, _ = enc.encode_frames(frames)
+    assert rc == 0
+    assert _read_payloads(out) == want

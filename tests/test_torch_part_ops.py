@@ -280,6 +280,12 @@ def test_partition_config_raises(change):
         # (tests/test_torch_10bit_intra.py holds it to JAX)
         assert tie.IntraEncoder(cfg, device="cpu").seq.bit_depth == 10
         return
+    if cfg.angle_deltas != (0,):
+        # ported: the partition path takes angle deltas
+        # (tests/test_torch_angle_deltas.py)
+        assert tie.IntraEncoder(cfg, device="cpu").cfg.angle_deltas == \
+            (-2, 0, 2)
+        return
     if cfg.enable_cdef or cfg.enable_lr:
         # the filters are ported; like the JAX package, they need a height
         # that is a multiple of 64
