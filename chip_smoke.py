@@ -241,6 +241,38 @@ its last line):
      CPU), the flat path with preset 0's deltas (I, P) and one preset-1
      partition key frame: per coded unit the agreement of every map,
      byte-identical payloads and equal recons whenever every map agrees.
+ 29. (after 28) tile columns at 1920x1080: the low-delay partition path
+     with two 960-px tile columns (``tile_cols=2``), I+P of
+     ``moving_frames``, q100: stage times, e2e fps, the four new scan
+     shapes (key and P, luma and U+V, the tiles on the batch axis) with
+     their first calls and replays (equal outputs), nodes and host RSS;
+     the stream goes to phase 16, which decodes it on the card;
+ 30. tile columns at 256x128, card against CPU: key frames at 2 and 4
+     tile columns, preset 4 with LR and CCSO I, P, P and 10-bit I, P at
+     2, a compound pyramid (gop 2, TF) at 2: per coded unit the agreement
+     of every map, byte-identical payloads and equal recons whenever
+     every map agrees;
+ 31. (after 21) ``parallel.mesh`` on every card (cuda:0 twice on a
+     one-card machine): GOP-parallel flat encodes on host threads and a
+     key frame's tile columns on the mesh's devices (a host thread each),
+     byte for byte against their serial encodes; the encode step (the
+     wavefront kernel on each device) and the pipeline step against
+     their one-call runs; ``torch.cuda.device_count()``;
+ 32. the CLI on the card: ``--keyint 1 --mbr`` on the flat path and the
+     default partition path with ``--stat-report`` (PSNR and SSIM) on a
+     256x128 Y4M: the capped payloads fit the cap.
+The CPU halves of the card-against-CPU phases (6, 9, 11, 13, 15, 21, 23,
+28, 30) run in spawned worker processes beside the card's half: those
+that need nothing from the card (``cpu_jobs``) are submitted after the
+build, those that take the card's filtered anchors when the card's half
+has made them, their checks at the end (``finish_deferred``).  The
+workers are stopped (SIGSTOP) through every timed phase (``QUIET``: the
+kernel comparisons, the 1080p encodes and decodes, the profiles), so
+those run with nothing beside them, and continue through the others; the
+1080p scan
+shapes that no later phase uses are dropped after phases 8, 22, 27 and
+29 (``wavefront2.drop_scans``), and each phase prints its time and the
+host RSS after it.
 Then the script's total time, one JSON line of kernel results and, last,
 one JSON line naming the device.  To run only phases 10-11:
 ``python3 -c "import chip_smoke as cs; cs.CARD = cs.card();
@@ -264,7 +296,11 @@ cs.phase_part_pyramid_card_vs_cpu(); cs.phase_decode()"``; the angle-delta
 phases 25-28 alone: ``python3 -c "import chip_smoke as cs; cs.CARD =
 cs.card(); cs.phase_build(); cs.phase_compare_deltas();
 cs.phase_flat_deltas(); cs.phase_preset4(); cs.phase_deltas_card_vs_cpu();
-cs.phase_decode()"``; the encoder CLI at every preset 0-13 on the card
+cs.phase_decode()"``; the tile-column, mesh and CLI phases 29-32 alone:
+``python3 -c "import chip_smoke as cs; cs.CARD = cs.card();
+cs.phase_build(); cs.phase_tiles(); cs.phase_tiles_card_vs_cpu();
+cs.phase_mesh(); cs.cli_flags(); cs.phase_decode();
+cs.finish_deferred()"``; the encoder CLI at every preset 0-13 on the card
 (not part of the script's run): ``python3 -c "import chip_smoke as cs;
 cs.CARD = cs.card(); cs.cli_presets()"``.  Imports nothing of JAX or of
 the JAX package.
@@ -273,6 +309,7 @@ the JAX package.
 import gc
 import json
 import os
+import signal
 import sys
 import time
 import warnings
@@ -650,11 +687,11 @@ class StageClock:
 
     def _wrap(self, name, fn):
         def timed(*a, **kw):
-            torch.cuda.synchronize()
+            sync()
             n0 = wk.LAUNCHES
             t0 = time.perf_counter()
             out = fn(*a, **kw)
-            torch.cuda.synchronize()
+            sync()
             key = self._key(name, a)
             ms = 1e3 * (time.perf_counter() - t0)
             self.ms[key] = self.ms.get(key, 0.0) + ms
@@ -676,6 +713,229 @@ class StageClock:
     def __exit__(self, *exc):
         for obj, name, fn in self.saved:
             setattr(obj, name, fn)
+
+
+def sync():
+    """Wait for the card, where this process uses it (a CPU worker never
+    initialises CUDA)."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+# ---- the CPU halves of the card-against-CPU phases ----------------------
+# Each runs in a spawned worker process beside the card's half: the halves
+# that need nothing from the card (CPU_JOBS) are submitted when main()
+# starts, so they are done when their phases come; those that take the
+# card's filtered anchors are submitted when the card's half has made them,
+# and their checks run at the end of the script (DEFERRED).
+
+CPU_WORKERS = 3
+_POOL = None
+_AHEAD = {}          # CPU_JOBS name -> future submitted ahead
+DEFERRED = []        # (label, check) run by finish_deferred()
+
+
+def _worker_init():
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""      # the card is the parent's
+    os.nice(10)        # the card's half, which is timed, keeps the cores
+    torch.set_num_threads(2)
+
+
+def cpu_submit(fn, *args):
+    """The future of fn("cpu", *args) in a worker process."""
+    global _POOL
+    if _POOL is None:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        _POOL = ProcessPoolExecutor(
+            CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_worker_init)
+    return _POOL.submit(fn, "cpu", *args)
+
+
+def cpu_half(name):
+    """(the future of CPU_JOBS[name]'s CPU half, the job's side function
+    and arguments): the future submitted ahead, or a new one."""
+    fn, args = cpu_jobs()[name]
+    fut = _AHEAD.pop(name, None) or cpu_submit(fn, *args)
+    return fut, fn, args
+
+
+def both_halves(name):
+    """{"cuda": the card's half, "cpu": the worker's} of CPU_JOBS[name]."""
+    fut, fn, args = cpu_half(name)
+    card = fn("cuda", *args)
+    return {"cuda": card, "cpu": fut.result()}
+
+
+def start_cpu_halves():
+    for name in cpu_jobs():
+        if name not in _AHEAD:
+            _AHEAD[name] = cpu_half(name)[0]
+
+
+def spawn_workers():
+    """Start the worker processes (each imports torch and the port as it
+    starts, which overlaps the build)."""
+    for _ in range(CPU_WORKERS):
+        cpu_submit(_no_job)
+
+
+def _no_job(device):
+    return device
+
+
+def pause_workers(stop: bool):
+    """Stop (SIGSTOP) or continue (SIGCONT) the worker processes.  A
+    stopped worker takes no CPU time; the parent waits for no result
+    while they are stopped (the timed phases use no worker)."""
+    if _POOL is None:
+        return
+    for p in list(getattr(_POOL, "_processes", {}).values()):
+        try:
+            os.kill(p.pid, signal.SIGSTOP if stop else signal.SIGCONT)
+        except ProcessLookupError:
+            pass
+
+
+def finish_deferred():
+    """The deferred checks, in order (each waits for its CPU half)."""
+    t0 = time.perf_counter()
+    while DEFERRED:
+        label, check = DEFERRED.pop(0)
+        check()
+    print(f"deferred card-against-CPU checks: {time.perf_counter() - t0:.1f}"
+          " s waiting", flush=True)
+
+
+def stop_workers():
+    """Cancel what the workers have not started and end them."""
+    global _POOL
+    if _POOL is not None:
+        pause_workers(False)        # a stopped process ignores SIGTERM
+        procs = list(getattr(_POOL, "_processes", {}).values())
+        _POOL.shutdown(wait=False, cancel_futures=True)
+        for p in procs:
+            p.terminate()
+        for p in procs:
+            p.join()
+        _POOL = None
+    _AHEAD.clear()
+
+
+class FeedTF:
+    """A TF hook for the CPU half of a pyramid: returns the card's filtered
+    planes in call order, recording per call and plane (pixels that
+    differ from the CPU's, the largest difference)."""
+
+    def __init__(self, card_tf):
+        self.card_tf = card_tf
+        self.diffs = []
+
+    def __call__(self, planes):
+        got = self.card_tf[len(self.diffs)]
+        d = [np.abs(a.astype(np.int32) - b.astype(np.int32))
+             for a, b in zip(got, planes)]
+        self.diffs.append([(int((x > 0).sum()), int(x.max())) for x in d])
+        return got
+
+
+def intra_side(device, cfg, frames):
+    """An all-intra batch on device: (maps, payloads, recons, seconds)."""
+    enc = ie.IntraEncoder(cfg, device=device)
+    t0 = time.perf_counter()
+    dev = enc.device_encode(frames)
+    payloads, recons = enc.host_finish(dev)
+    check_payloads(payloads, frames, recons, f"{cfg.width}x{cfg.height} "
+                   f"on {device}", cfg.bit_depth)
+    return part_maps(dev), payloads, recons, time.perf_counter() - t0
+
+
+def filters_side(device, cfg, frames, forced):
+    """The filtered partition path on device (Wiener units forced or as
+    chosen): (maps, payloads, recons, seconds, each search's results)."""
+    saved = lrs.SGR_BITS, lrs.WIENER_BITS
+    if forced:
+        lrs.SGR_BITS, lrs.WIENER_BITS = 1e12, 0.0
+    try:
+        enc = ie.IntraEncoder(cfg, device=device)
+        t0 = time.perf_counter()
+        with StageClock([(ie, k) for k in SEARCHES]) as clock:
+            dev = enc.device_encode(frames)
+            payloads, recons = enc.host_finish(dev)
+        secs = time.perf_counter() - t0
+    finally:
+        lrs.SGR_BITS, lrs.WIENER_BITS = saved
+    check_payloads(payloads, frames, recons, f"{cfg.width}x{cfg.height} "
+                   f"filtered on {device}", cfg.bit_depth)
+    return (part_maps(dev), payloads, recons, secs,
+            [clock.out[k] for k in SEARCHES])
+
+
+def pyramid_side(device, cfg, frames, rc_kbps, card_tf, gop, part):
+    """The flat (part False) or partition pyramid, TF on, on device with
+    the card's filtered planes (FeedTF), CBR at rc_kbps or none:
+    (run_pyramid's or run_part_pyramid's result, the TF differences)."""
+    from svtav1_tpu_torch.encoder.rate_control import RateControl
+    rc = None if rc_kbps is None else RateControl(
+        "cbr", qindex=100, target_kbps=rc_kbps, fps=30.0)
+    feed = FeedTF(card_tf)
+    if part:
+        return run_part_pyramid(cfg, frames, device, rc, feed, gop), \
+            feed.diffs
+    return run_pyramid(cfg, frames, device, rc, feed, gop), feed.diffs
+
+
+def cpu_jobs():
+    """name -> (side function, arguments) of each card-against-CPU half
+    that needs nothing from the card (phases 6, 9, 11, 13, 21, 28, 30)."""
+    w, h = 256, 128
+    ld = lambda cfg, clip, flat=False: (low_delay_units, (cfg, clip, flat))
+    p4 = lambda bd=8, q=60: presets.apply_preset(
+        ie.EncoderConfig(w, h, qindex=q, bit_depth=bd), 4)
+    cfg10 = lambda **kw: ie.EncoderConfig(w, h, qindex=100, bit_depth=10,
+                                          **kw)
+    p4t = replace(p4(q=100), tile_cols=2, enable_lr=True, enable_ccso=True)
+    jobs = {
+        "partition": (intra_side, (ie.EncoderConfig(w, h, qindex=100),
+                                   banded_frames(w, h, 2, seed=0))),
+        "low-delay I,P,P": ld(ie.EncoderConfig(w, h, qindex=100),
+                              moving_frames(w, h, 3)),
+        "flat --no-part-search": ld(ie.EncoderConfig(w, h, qindex=100,
+                                                     **FLAT),
+                                    moving_frames(w, h, 3), True),
+        "flat preset 13": ld(presets.apply_preset(
+            ie.EncoderConfig(w, h, qindex=100), 13), moving_frames(w, h, 3),
+            True),
+        "10-bit partition + filters": (filters_side, (
+            cfg10(**FILTERS), edge_frames10(w, h, 2), False)),
+        "10-bit low-delay partition I,P,P": ld(cfg10(),
+                                               moving_frames10(w, h, 3)),
+        "10-bit flat low-delay I,P,P": ld(cfg10(**FLAT),
+                                          moving_frames10(w, h, 3), True),
+        "deltas preset 4 I,P,P": ld(p4(), moving_stripes(w, h, 3)),
+        "deltas 10-bit preset 4 I,P": ld(p4(10),
+                                         moving_stripes(w, h, 2, bd=10)),
+        "deltas flat preset-0 I,P": ld(ie.EncoderConfig(
+            w, h, qindex=60, angle_deltas=P0_DELTAS, **FLAT),
+            moving_stripes(w, h, 2), True),
+        "deltas preset-1 key frame": (intra_side, (presets.apply_preset(
+            ie.EncoderConfig(w, h, qindex=60), 1), [stripes(w, h, 51)])),
+        "tiles key frames T=2": (intra_side, (replace(
+            ie.EncoderConfig(w, h, qindex=100), tile_cols=2),
+            banded_frames(w, h, 2))),
+        "tiles key frames T=4": (intra_side, (replace(
+            ie.EncoderConfig(w, h, qindex=100), tile_cols=4),
+            banded_frames(w, h, 2))),
+        "tiles preset 4 + LR + CCSO I,P,P": ld(p4t, moving_frames(w, h, 3)),
+        "tiles 10-bit I,P": ld(replace(cfg10(), tile_cols=2),
+                               moving_frames10(w, h, 2)),
+    }
+    for forced in (False, True):
+        jobs[f"filters {'Wiener forced' if forced else 'as chosen'}"] = (
+            filters_side, (ie.EncoderConfig(w, h, qindex=100, **FILTERS),
+                           filter_frames(w, h), forced))
+    return jobs
 
 
 def part_maps(dev):
@@ -724,15 +984,8 @@ def phase_partition():
 def phase_card_vs_cpu():
     """The partition path at 256x128 on the card and on the CPU."""
     w, h = 256, 128
-    frames = banded_frames(w, h, 2, seed=0)
-    out = {}
-    for d in ("cuda", "cpu"):
-        enc = ie.IntraEncoder(ie.EncoderConfig(w, h, qindex=100), device=d)
-        t0 = time.perf_counter()
-        dev = enc.device_encode(frames)
-        payloads, recons = enc.host_finish(dev)
-        out[d] = (part_maps(dev), payloads, time.perf_counter() - t0)
-        check_payloads(payloads, frames, recons, f"{w}x{h} on {d}")
+    both = both_halves("partition")
+    out = {d: (r[0], r[1], r[3]) for d, r in both.items()}
     fracs = {k: float((out["cuda"][0][k] == out["cpu"][0][k]).mean())
              for k in out["cuda"][0]}
     same = all(f == 1.0 for f in fracs.values())
@@ -907,7 +1160,7 @@ def phase_filters():
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            enc._filter_frame(frames[0], rec, args)
+            enc._filter_frame(frames[0], rec, [args])
         finally:
             torch.cuda.set_sync_debug_mode("default")
     syncs = sum("synchroniz" in str(c.message) for c in caught)
@@ -919,25 +1172,10 @@ def phase_filters_card_vs_cpu():
     """The filtered partition path at 256x128 on the card and on the
     CPU, as chosen and with Wiener units forced."""
     w, h = 256, 128
-    frames = filter_frames(w, h)
     for forced in (False, True):
-        out = {}
-        saved = lrs.SGR_BITS, lrs.WIENER_BITS
-        if forced:
-            lrs.SGR_BITS, lrs.WIENER_BITS = 1e12, 0.0
-        try:
-            for d in ("cuda", "cpu"):
-                enc = ie.IntraEncoder(ie.EncoderConfig(w, h, qindex=100,
-                                                       **FILTERS), device=d)
-                with StageClock([(ie, k) for k in SEARCHES]) as clock:
-                    dev = enc.device_encode(frames)
-                    payloads, recons = enc.host_finish(dev)
-                check_payloads(payloads, frames, recons, f"{w}x{h} on {d}")
-                out[d] = (part_maps(dev), payloads,
-                          [clock.out[k] for k in SEARCHES])
-        finally:
-            lrs.SGR_BITS, lrs.WIENER_BITS = saved
         label = "Wiener forced" if forced else "as chosen"
+        both = both_halves(f"filters {label}")
+        out = {d: (r[0], r[1], r[4]) for d, r in both.items()}
         fracs = {k: float((out["cuda"][0][k] == out["cpu"][0][k]).mean())
                  for k in out["cuda"][0]}
         maps_same = all(f == 1.0 for f in fracs.values())
@@ -956,7 +1194,8 @@ def phase_filters_card_vs_cpu():
                                         fracs.items()) +
               f"; CDEF params equal {cdef_same}; CCSO info equal "
               f"{ccso_same}; LR units agree {agree} of {total}; payloads "
-              f"byte-identical {equal}", flush=True)
+              f"byte-identical {equal} (card {both['cuda'][3]:.1f} s, CPU "
+              f"{both['cpu'][3]:.1f} s)", flush=True)
         lines, fired = describe_filters(c_cd, c_cc, c_lr)
         for line in lines:
             print(f"card vs CPU ({label}): card {line}", flush=True)
@@ -1153,55 +1392,40 @@ def phase_video_card_vs_cpu():
     """The low-delay path at 256x128 (I, P, P) on the card and on the
     CPU, with the defaults (P frames with CDEF on: phase 28's preset 4)."""
     w, h = 256, 128
-    frames = moving_frames(w, h, 3)
-    for label, kw in (("defaults", {}),):
-        out = {}
-        for d in ("cuda", "cpu"):
-            enc = ve.VideoEncoder(ie.EncoderConfig(w, h, qindex=100, **kw),
-                                  keyint=64, device=d)
-            key_dev = []
-            run = enc.intra.device_encode
-            enc.intra.device_encode = lambda fr, run=run, keep=key_dev: \
-                keep.append(run(fr)) or keep[-1]
-            t0 = time.perf_counter()
-            res = []
-            for f in frames:
-                p, r = enc.encode_frame(*f)
-                res.append((p, r, part_maps(key_dev[-1]) if len(res) == 0
-                            else p_maps(enc)))
-            out[d] = (res, time.perf_counter() - t0)
-            check_payloads([x[0] for x in res], frames, [x[1] for x in res],
-                           f"{w}x{h} on {d}")
-        lines, ref_same = [], True
-        for k, ((pc, rc, mc), (pp, rp, mp)) in enumerate(zip(out["cuda"][0],
-                                                             out["cpu"][0])):
-            if not ref_same:
-                lines.append(f"frame {k}: not compared (its reference "
-                             "differs)")
-                continue
-            fr = {n: float((mc[n] == mp[n]).mean()) for n in mc}
-            same = all(v == 1.0 for v in fr.values())
-            equal = pc == pp and all(np.array_equal(a, b)
-                                     for a, b in zip(rc, rp))
-            lines.append(f"frame {k}: " + ", ".join(
-                f"{n} {v:.4f}" for n, v in fr.items()) +
-                f"; payload and recon identical {equal}")
-            me_same = all(fr[n] == 1.0 for n in ("mv32", "mv16", "mv64")
-                          if n in fr)
-            if not me_same:
-                raise AssertionError(f"{label} frame {k}: ME fields differ "
-                                     "on the same reference")
-            if same and not equal:
-                raise AssertionError(f"{label} frame {k}: maps agree but the "
-                                     "payload or recon differs")
-            if not same:
-                lines[-1] += " (first frame that differs)"
-                ref_same = False
-        print(f"card vs CPU, low-delay path {w}x{h} I,P,P ({label}; card "
-              f"{out['cuda'][1]:.1f} s, CPU {out['cpu'][1]:.1f} s):",
-              flush=True)
-        for line in lines:
-            print(f"card vs CPU ({label}): {line}", flush=True)
+    label = "defaults"
+    runs = both_halves("low-delay I,P,P")
+    out = {d: ([(u[0][0], u[1][0], u[2]) for u in r[0]], r[1])
+           for d, r in runs.items()}
+    lines, ref_same = [], True
+    for k, ((pc, rc, mc), (pp, rp, mp)) in enumerate(zip(out["cuda"][0],
+                                                         out["cpu"][0])):
+        if not ref_same:
+            lines.append(f"frame {k}: not compared (its reference "
+                         "differs)")
+            continue
+        fr = {n: float((mc[n] == mp[n]).mean()) for n in mc}
+        same = all(v == 1.0 for v in fr.values())
+        equal = pc == pp and all(np.array_equal(a, b)
+                                 for a, b in zip(rc, rp))
+        lines.append(f"frame {k}: " + ", ".join(
+            f"{n} {v:.4f}" for n, v in fr.items()) +
+            f"; payload and recon identical {equal}")
+        me_same = all(fr[n] == 1.0 for n in ("mv32", "mv16", "mv64")
+                      if n in fr)
+        if not me_same:
+            raise AssertionError(f"{label} frame {k}: ME fields differ "
+                                 "on the same reference")
+        if same and not equal:
+            raise AssertionError(f"{label} frame {k}: maps agree but the "
+                                 "payload or recon differs")
+        if not same:
+            lines[-1] += " (first frame that differs)"
+            ref_same = False
+    print(f"card vs CPU, low-delay path {w}x{h} I,P,P ({label}; card "
+          f"{out['cuda'][1]:.1f} s, CPU {out['cpu'][1]:.1f} s):",
+          flush=True)
+    for line in lines:
+        print(f"card vs CPU ({label}): {line}", flush=True)
 
 
 # ---- the flat low-delay path ------------------------------------------------
@@ -1438,28 +1662,10 @@ def phase_flat_video_card_vs_cpu():
     """The flat low-delay path at 256x128 (I, P, P) on the card and on the
     CPU, with --no-part-search's defaults and with preset 13."""
     w, h = 256, 128
-    frames = moving_frames(w, h, 3)
-    configs = (("--no-part-search", ie.EncoderConfig(w, h, qindex=100,
-                                                     **FLAT)),
-               ("preset 13", presets.apply_preset(
-                   ie.EncoderConfig(w, h, qindex=100), 13)))
-    for label, cfg in configs:
-        out = {}
-        for d in ("cuda", "cpu"):
-            enc = ve.VideoEncoder(cfg, keyint=64, device=d)
-            key_dev = []
-            run = enc.intra.device_encode
-            enc.intra.device_encode = lambda fr, run=run, keep=key_dev: \
-                keep.append(run(fr)) or keep[-1]
-            t0 = time.perf_counter()
-            res = []
-            for f in frames:
-                p, r = enc.encode_frame(*f)
-                res.append((p, r, flat_maps(enc, key_dev[-1] if not res
-                                            else None)))
-            out[d] = (res, time.perf_counter() - t0)
-            check_payloads([x[0] for x in res], frames, [x[1] for x in res],
-                           f"{w}x{h} {label} on {d}")
+    for label in ("--no-part-search", "preset 13"):
+        runs = both_halves(f"flat {label}")
+        out = {d: ([(u[0][0], u[1][0], u[2]) for u in r[0]], r[1])
+               for d, r in runs.items()}
         lines = []
         for k, ((pc, rc, mc), (pp, rp, mp)) in enumerate(zip(out["cuda"][0],
                                                              out["cpu"][0])):
@@ -1661,7 +1867,8 @@ def phase_flat_pyramid_card_vs_cpu():
     scene cut inside a mini-GoP.  The card's filtered anchors are compared
     with the CPU's and then fed to the CPU encoder (a pixel can differ by
     one where exp rounds apart), so every map, mv, q, slot and byte must
-    be equal."""
+    be equal.  The CPU halves run in a worker, their checks at the end of
+    the script (DEFERRED)."""
     from svtav1_tpu_torch.encoder.rate_control import RateControl
     w, h = 256, 128
     cfg = ie.EncoderConfig(w, h, qindex=100, **FLAT)
@@ -1671,47 +1878,50 @@ def phase_flat_pyramid_card_vs_cpu():
     kbps = None
     for label, frames in (("CQ q100", clip), ("CBR", clip),
                           ("scene cut", cut)):
-        rc = (lambda: RateControl("cbr", qindex=100, target_kbps=kbps,
-                                  fps=30.0)) if label == "CBR" else \
-            (lambda: None)
+        rc_kbps = kbps if label == "CBR" else None
+        rc = None if rc_kbps is None else RateControl(
+            "cbr", qindex=100, target_kbps=rc_kbps, fps=30.0)
         card_tf = []
-        card = run_pyramid(cfg, frames, "cuda", rc(),
+        card = run_pyramid(cfg, frames, "cuda", rc,
                            lambda x: card_tf.append(x) or x)
-        diffs = []
+        fut = cpu_submit(pyramid_side, cfg, frames, rc_kbps, card_tf, 8,
+                         False)
 
-        def use_card(planes):
-            got = card_tf[len(diffs)]
-            diffs.append([np.abs(a.astype(np.int32) - b.astype(np.int32))
-                          for a, b in zip(got, planes)])
-            return got
-        cpu = run_pyramid(cfg, frames, "cpu", rc(), use_card)
-        n_diff = [int((d > 0).sum()) for f in diffs for d in f]
-        print(f"card vs CPU, flat pyramid {w}x{h} ({label}, {len(frames)} "
-              f"frames; card {card[3]:.1f} s, CPU {cpu[3]:.1f} s): "
-              f"{len(card_tf)} TF calls, pixels that differ (Y, U, V each) "
-              f"{n_diff}", flush=True)
-        if any(int(d.max()) > 1 for f in diffs for d in f):
-            raise AssertionError(f"{label}: a TF pixel differs by more than "
-                                 "one")
-        if len(card[2]) != len(cpu[2]):
-            raise AssertionError(f"{label}: coded frames differ")
-        for k, (mc, mp) in enumerate(zip(card[2], cpu[2])):
-            bad = [n for n in mc if not np.array_equal(mc[n], mp[n])]
-            if bad:
-                raise AssertionError(f"{label}: coded frame {k + 1}: {bad} "
-                                     "differ")
-        if card[0] != cpu[0] or not all(
-                np.array_equal(a, b) for x, y in zip(card[1], cpu[1])
-                for a, b in zip(x, y)):
-            raise AssertionError(f"{label}: payloads or recons differ")
+        def check(label=label, frames=frames, card=card, card_tf=card_tf,
+                  fut=fut):
+            cpu, diffs = fut.result()
+            n_diff = [n for f in diffs for n, _ in f]
+            print(f"card vs CPU, flat pyramid {w}x{h} ({label}, "
+                  f"{len(frames)} frames; card {card[3]:.1f} s, CPU "
+                  f"{cpu[3]:.1f} s): {len(card_tf)} TF calls, pixels that "
+                  f"differ (Y, U, V each) {n_diff}", flush=True)
+            if any(m > 1 for f in diffs for _, m in f):
+                raise AssertionError(f"{label}: a TF pixel differs by more "
+                                     "than one")
+            if len(card[2]) != len(cpu[2]):
+                raise AssertionError(f"{label}: coded frames differ")
+            for k, (mc, mp) in enumerate(zip(card[2], cpu[2])):
+                bad = [n for n in mc if not np.array_equal(mc[n], mp[n])]
+                if bad:
+                    raise AssertionError(f"{label}: coded frame {k + 1}: "
+                                         f"{bad} differ")
+            if card[0] != cpu[0] or not all(
+                    np.array_equal(a, b) for x, y in zip(card[1], cpu[1])
+                    for a, b in zip(x, y)):
+                raise AssertionError(f"{label}: payloads or recons differ")
+            print(f"card vs CPU ({label}): {len(card[2])} coded P frames, "
+                  f"maps, mvs, q, slots, {len(card[0])} payloads and "
+                  f"{len(card[1])} recons identical", flush=True)
+        DEFERRED.append((f"flat pyramid {label}", check))
         nbytes = sum(len(x) for x in card[0])
         qs = [int(m["q"]) for m in card[2]]
         kinds = [tu_kind(x) for x in card[0]]
-        print(f"card vs CPU ({label}): {len(card[2])} coded P frames, maps, "
-              f"mvs, q, slots, {len(card[0])} payloads and {len(card[1])} "
-              f"recons identical; key frames {kinds.count('key')}, overlays "
-              f"{kinds.count('overlay')}; q in decode order {qs}; "
-              f"{nbytes * 8 * 30 / len(frames) / 1000:.1f} kbps", flush=True)
+        print(f"card, flat pyramid {w}x{h} ({label}): {len(card[2])} coded "
+              f"P frames, {len(card[0])} payloads; key frames "
+              f"{kinds.count('key')}, overlays {kinds.count('overlay')}; q "
+              f"in decode order {qs}; "
+              f"{nbytes * 8 * 30 / len(frames) / 1000:.1f} kbps (the CPU "
+              f"half runs beside)", flush=True)
         if label == "CQ q100":
             kbps = max(1, int(nbytes * 8 * 30 / len(frames) / 1000 / 2))
         if label == "scene cut" and kinds.count("key") != 2:
@@ -2039,7 +2249,7 @@ def frames_agree(label, card, cpu, modes_bar=False, tag="10-bit"):
         print(f"card vs CPU, {tag} {label}: {line}", flush=True)
 
 
-def low_delay_units(cfg, clip, device, flat, hook=None):
+def low_delay_units(device, cfg, clip, flat, hook=None):
     """A low-delay encode of clip on device: (units, seconds), a unit a
     frame ([payload], [recon], maps): the key frame's maps from its
     device_encode, a P frame's from last_p (flat or partition maps).
@@ -2072,27 +2282,17 @@ def phase_10bit_card_vs_cpu():
     CPU: partition all-intra with CDEF + LR + CCSO (2 frames of the 10-bit
     edge clip, one batch), low-delay partition I, P, P and flat I, P, P
     (the 10-bit moving clip), and the flat pyramid (gop 4, TF on, 9
-    frames; the card's filtered anchors fed to the CPU encoder).  Per
-    coded unit the agreement of every decision map, and byte-identical
-    payloads plus equal recons whenever every map agrees."""
+    frames; the card's filtered anchors fed to the CPU encoder, its checks
+    at the end of the script).  Per coded unit the agreement of every
+    decision map, and byte-identical payloads plus equal recons whenever
+    every map agrees."""
     w, h = 256, 128
     bd = 10
     cfg = lambda **kw: ie.EncoderConfig(w, h, qindex=100, bit_depth=bd,
                                         **kw)
     # partition all-intra with the three filters
-    frames = edge_frames10(w, h, 2)
-    runs = {}
-    for d in ("cuda", "cpu"):
-        enc = ie.IntraEncoder(cfg(**FILTERS), device=d)
-        t0 = time.perf_counter()
-        with StageClock([(ie, k) for k in SEARCHES]) as clock:
-            dev = enc.device_encode(frames)
-            payloads, recons = enc.host_finish(dev)
-        check_payloads(payloads, frames, recons, f"10-bit {w}x{h} on {d}",
-                       bd)
-        runs[d] = ([(payloads, recons, part_maps(dev))],
-                   time.perf_counter() - t0,
-                   [clock.out[k] for k in SEARCHES])
+    runs = {d: ([(r[1], r[2], r[0])], r[3], r[4]) for d, r in
+            both_halves("10-bit partition + filters").items()}
     lines, _ = describe_filters(*runs["cuda"][2])
     print(f"card vs CPU, 10-bit partition all-intra {w}x{h} x2 with CDEF + "
           f"LR + CCSO (card {runs['cuda'][1]:.1f} s, CPU "
@@ -2101,11 +2301,9 @@ def phase_10bit_card_vs_cpu():
                  runs["cpu"][0])
 
     # the low-delay paths, I, P, P
-    clip = moving_frames10(w, h, 3)
-    for label, kw in (("low-delay partition I,P,P", {}),
-                      ("flat low-delay I,P,P", FLAT)):
-        runs = {d: low_delay_units(cfg(**kw), clip, d, bool(kw))
-                for d in ("cuda", "cpu")}
+    for label, flat in (("low-delay partition I,P,P", False),
+                        ("flat low-delay I,P,P", True)):
+        runs = both_halves(f"10-bit {label}")
         types = [frame_type(x[0][0]) for x in runs["cuda"][0]]
         print(f"card vs CPU, 10-bit {label} {w}x{h} (card "
               f"{runs['cuda'][1]:.1f} s, CPU {runs['cpu'][1]:.1f} s): frame "
@@ -2113,44 +2311,42 @@ def phase_10bit_card_vs_cpu():
         if types != [0, 1, 1]:
             raise AssertionError(f"10-bit {label}: frame types {types}")
         frames_agree(label, runs["cuda"][0], runs["cpu"][0],
-                     modes_bar=bool(kw))
+                     modes_bar=flat)
 
     # the flat pyramid, gop 4, TF on
     clip = moving_frames10(w, h, 9)
-    card_tf, runs = [], {}
-    runs["cuda"] = run_pyramid(cfg(**FLAT), clip, "cuda", None,
-                               lambda x: card_tf.append(x) or x, gop=4)
-    diffs = []
-
-    def use_card(planes):
-        got = card_tf[len(diffs)]
-        diffs.append([int((a != b).sum()) for a, b in zip(got, planes)])
-        return got
-    runs["cpu"] = run_pyramid(cfg(**FLAT), clip, "cpu", None, use_card,
-                              gop=4)
-    kinds = [tu_kind(x) for x in runs["cuda"][0]]
-    print(f"card vs CPU, 10-bit flat pyramid {w}x{h} gop 4 TF (9 frames; "
-          f"card {runs['cuda'][3]:.1f} s, CPU {runs['cpu'][3]:.1f} s): "
-          f"{len(card_tf)} TF calls, pixels the card's TF planes differ by "
-          f"from the CPU's {diffs}; {len(runs['cuda'][0])} TUs, overlays "
-          f"{kinds.count('overlay')}", flush=True)
-    if kinds.count("overlay") < 2 or len(runs["cuda"][1]) != 9:
+    card_tf = []
+    card = run_pyramid(cfg(**FLAT), clip, "cuda", None,
+                       lambda x: card_tf.append(x) or x, gop=4)
+    kinds = [tu_kind(x) for x in card[0]]
+    if kinds.count("overlay") < 2 or len(card[1]) != 9:
         raise AssertionError(f"10-bit pyramid: TUs {kinds}")
-    units = lambda r: [(None, [], m) for m in r[2]]
-    frames_agree("flat pyramid (coded P frames)", units(runs["cuda"]),
-                 units(runs["cpu"]), modes_bar=True)
-    if all(all(np.array_equal(mc[n], mp[n]) for n in mc)
-           for mc, mp in zip(runs["cuda"][2], runs["cpu"][2])):
-        same = runs["cuda"][0] == runs["cpu"][0] and all(
-            np.array_equal(a, b) for x, y in zip(runs["cuda"][1],
-                                                  runs["cpu"][1])
-            for a, b in zip(x, y))
-        print(f"card vs CPU, 10-bit flat pyramid: every map agrees; "
-              f"{len(runs['cuda'][0])} payloads and 9 recons identical "
-              f"{same}", flush=True)
-        if not same:
-            raise AssertionError("10-bit pyramid: maps agree but payloads "
-                                 "or recons differ")
+    fut = cpu_submit(pyramid_side, cfg(**FLAT), clip, None, card_tf, 4,
+                     False)
+
+    def check(fut=fut, card=card, card_tf=card_tf):
+        cpu, diffs = fut.result()
+        print(f"card vs CPU, 10-bit flat pyramid {w}x{h} gop 4 TF (9 "
+              f"frames; card {card[3]:.1f} s, CPU {cpu[3]:.1f} s): "
+              f"{len(card_tf)} TF calls, pixels the card's TF planes differ "
+              f"by from the CPU's {[[n for n, _ in f] for f in diffs]}; "
+              f"{len(card[0])} TUs, overlays {kinds.count('overlay')}",
+              flush=True)
+        units = lambda r: [(None, [], m) for m in r[2]]
+        frames_agree("flat pyramid (coded P frames)", units(card),
+                     units(cpu), modes_bar=True)
+        if all(all(np.array_equal(mc[n], mp[n]) for n in mc)
+               for mc, mp in zip(card[2], cpu[2])):
+            same = card[0] == cpu[0] and all(
+                np.array_equal(a, b) for x, y in zip(card[1], cpu[1])
+                for a, b in zip(x, y))
+            print(f"card vs CPU, 10-bit flat pyramid: every map agrees; "
+                  f"{len(card[0])} payloads and 9 recons identical {same}",
+                  flush=True)
+            if not same:
+                raise AssertionError("10-bit pyramid: maps agree but "
+                                     "payloads or recons differ")
+    DEFERRED.append(("10-bit flat pyramid", check))
 
 
 # ---- the compound partition pyramid and the scan's graphs -------------------
@@ -2376,9 +2572,10 @@ def phase_part_pyramid_card_vs_cpu():
     on the CPU, TF on: gop 4 at 8 bits (5 frames: layers 0-2, lambda
     weights 1.0 and 1.15) under CQ q100 and under CBR at half the bitrate
     CQ reached; gop 2 at 10 bits (3 frames of moving_frames10).  The
-    card's filtered anchors go to the CPU encoder; per coded frame the
-    agreement of every map, and when every map agrees, byte-identical
-    payloads and equal recons."""
+    card's filtered anchors go to the CPU encoder (in a worker; the checks
+    at the end of the script); per coded frame the agreement of every
+    map, and when every map agrees, byte-identical payloads and equal
+    recons."""
     from svtav1_tpu_torch.encoder.rate_control import RateControl
     w, h = 256, 128
     kbps = None
@@ -2388,43 +2585,47 @@ def phase_part_pyramid_card_vs_cpu():
             ("10-bit gop 2 CQ q100", 10, 2, moving_frames10(w, h, 3),
              None)):
         cfg = ie.EncoderConfig(w, h, qindex=100, bit_depth=bd)
-        rc = (lambda: RateControl("cbr", qindex=100, target_kbps=kbps,
-                                  fps=30.0)) if mode else (lambda: None)
-        card_tf, diffs = [], []
-        card = run_part_pyramid(cfg, frames, "cuda", rc(),
+        rc_kbps = kbps if mode else None
+        rc = None if rc_kbps is None else RateControl(
+            "cbr", qindex=100, target_kbps=rc_kbps, fps=30.0)
+        card_tf = []
+        card = run_part_pyramid(cfg, frames, "cuda", rc,
                                 lambda x: card_tf.append(x) or x, gop)
-
-        def use_card(planes):
-            got = card_tf[len(diffs)]
-            diffs.append([int((a != b).sum()) for a, b in zip(got, planes)])
-            return got
-        cpu = run_part_pyramid(cfg, frames, "cpu", rc(), use_card, gop)
         kinds = [tu_kind(x) for x in card[1]]
         qs = [int(u[2]["q"]) for u in card[0][1:]]
         lams = [float(u[2]["lam_scale"]) for u in card[0][1:]]
         nbytes = sum(len(x) for x in card[1])
-        print(f"card vs CPU, partition pyramid {w}x{h} {label} TF "
-              f"({len(frames)} frames; card {card[3]:.1f} s, CPU "
-              f"{cpu[3]:.1f} s): {len(card_tf)} TF calls, pixels the card's "
-              f"TF planes differ by from the CPU's {diffs}; {len(card[1])} "
-              f"TUs ({kinds.count('overlay')} overlays); P-frame q {qs}, "
-              f"lambda weights {lams}; "
+        print(f"card, partition pyramid {w}x{h} {label} TF ({len(frames)} "
+              f"frames, {card[3]:.1f} s): {len(card_tf)} TF calls; "
+              f"{len(card[1])} TUs ({kinds.count('overlay')} overlays); "
+              f"P-frame q {qs}, lambda weights {lams}; "
               f"{nbytes * 8 * 30 / len(frames) / 1000:.1f} kbps", flush=True)
         if kinds.count("overlay") != len(frames) - 1 or \
                 len(card[2]) != len(frames):
             raise AssertionError(f"partition pyramid {label}: TUs {kinds}")
-        frames_agree(label, card[0], cpu[0], tag="partition pyramid")
-        if all(all(np.array_equal(mc[n], mp[n]) for n in mc)
-               for (_, _, mc), (_, _, mp) in zip(card[0], cpu[0])):
-            same = card[1] == cpu[1] and all(
-                np.array_equal(a, b) for x, y in zip(card[2], cpu[2])
-                for a, b in zip(x, y))
-            print(f"card vs CPU, partition pyramid {label}: every map "
-                  f"agrees; {len(card[1])} payloads and {len(card[2])} "
-                  f"recons identical {same}", flush=True)
-            if not same:
-                raise AssertionError(f"partition pyramid {label}: maps "
-                                     "agree but payloads or recons differ")
+        fut = cpu_submit(pyramid_side, cfg, frames, rc_kbps, card_tf, gop,
+                         True)
+
+        def check(label=label, card=card, fut=fut):
+            cpu, diffs = fut.result()
+            print(f"card vs CPU, partition pyramid {label} (CPU "
+                  f"{cpu[3]:.1f} s): pixels the card's TF planes differ by "
+                  f"from the CPU's {[[n for n, _ in f] for f in diffs]}",
+                  flush=True)
+            frames_agree(label, card[0], cpu[0], tag="partition pyramid")
+            if all(all(np.array_equal(mc[n], mp[n]) for n in mc)
+                   for (_, _, mc), (_, _, mp) in zip(card[0], cpu[0])):
+                same = card[1] == cpu[1] and all(
+                    np.array_equal(a, b) for x, y in zip(card[2], cpu[2])
+                    for a, b in zip(x, y))
+                print(f"card vs CPU, partition pyramid {label}: every map "
+                      f"agrees; {len(card[1])} payloads and {len(card[2])} "
+                      f"recons identical {same}", flush=True)
+                if not same:
+                    raise AssertionError(f"partition pyramid {label}: maps "
+                                         "agree but payloads or recons "
+                                         "differ")
+        DEFERRED.append((f"partition pyramid {label}", check))
         if mode is None and bd == 8:
             kbps = max(1, int(nbytes * 8 * 30 / len(frames) / 1000 / 2))
 
@@ -2740,21 +2941,17 @@ def phase_deltas_card_vs_cpu():
     """Phase 28: angle deltas at 256x128, q60, on the card and on the CPU:
     preset 4 low-delay I, P, P (``moving_stripes``) at 8 bits and I, P at
     10 bits; a preset-4 compound pyramid, gop 2, TF (the card's filtered
-    anchors fed to the CPU encoder, as phase 23 does); the flat path with
-    preset 0's deltas, I, P; one preset-1 partition key frame.  Per coded
-    unit the agreement of every map (the flat path's modes by phase 2's
-    bar), and byte-identical payloads with equal recons whenever every
-    map agrees."""
+    anchors fed to the CPU encoder, as phase 23 does; its checks at the
+    end of the script); the flat path with preset 0's deltas, I, P; one
+    preset-1 partition key frame.  Per coded unit the agreement of every
+    map (the flat path's modes by phase 2's bar), and byte-identical
+    payloads with equal recons whenever every map agrees."""
     w, h, q = 256, 128, 60        # q60: P frames pick intra deltas too
     p4 = lambda bd=8: presets.apply_preset(
         ie.EncoderConfig(w, h, qindex=q, bit_depth=bd), 4)
-    flat0 = ie.EncoderConfig(w, h, qindex=q, angle_deltas=P0_DELTAS, **FLAT)
-    for label, cfg, clip, flat in (
-            ("preset 4 I,P,P", p4(), moving_stripes(w, h, 3), False),
-            ("10-bit preset 4 I,P", p4(10), moving_stripes(w, h, 2, bd=10),
-             False),
-            ("flat preset-0 deltas I,P", flat0, moving_stripes(w, h, 2),
-             True)):
+    for label in ("preset 4 I,P,P", "10-bit preset 4 I,P",
+                  "flat preset-0 I,P"):
+        fut, _, (cfg, clip, flat) = cpu_half(f"deltas {label}")
         cands = expand_candidates(ie.CAND_MODES, cfg.angle_deltas)
         picked = []
 
@@ -2767,8 +2964,8 @@ def phase_deltas_card_vs_cpu():
             else:
                 picked.append(delta_blocks(cands, enc.last_p["y_mi"]) if flat
                               else p_deltas(enc.last_p, cands))
-        runs = {"cuda": low_delay_units(cfg, clip, "cuda", flat, count),
-                "cpu": low_delay_units(cfg, clip, "cpu", flat)}
+        runs = {"cuda": low_delay_units("cuda", cfg, clip, flat, count),
+                "cpu": fut.result()}
         print(f"card vs CPU, {label} {w}x{h} (card {runs['cuda'][1]:.1f} s, "
               f"CPU {runs['cpu'][1]:.1f} s): coded blocks with a non-zero "
               f"delta a frame (card) {picked}", flush=True)
@@ -2779,52 +2976,280 @@ def phase_deltas_card_vs_cpu():
 
     # the compound pyramid at preset 4, gop 2, TF
     clip = moving_stripes(w, h, 3)
-    card_tf, diffs = [], []
+    card_tf = []
     card = run_part_pyramid(p4(), clip, "cuda", None,
                             lambda x: card_tf.append(x) or x, 2)
+    fut = cpu_submit(pyramid_side, p4(), clip, None, card_tf, 2, True)
 
-    def use_card(planes):
-        got = card_tf[len(diffs)]
-        diffs.append([int((a != b).sum()) for a, b in zip(got, planes)])
-        return got
-    cpu = run_part_pyramid(p4(), clip, "cpu", None, use_card, 2)
-    print(f"card vs CPU, preset-4 partition pyramid {w}x{h} gop 2 TF (card "
-          f"{card[3]:.1f} s, CPU {cpu[3]:.1f} s): {len(card_tf)} TF calls, "
-          f"pixels the card's TF planes differ by from the CPU's {diffs}; "
-          f"{len(card[1])} TUs", flush=True)
-    frames_agree("preset-4 partition pyramid", card[0], cpu[0],
-                 tag="deltas")
-    if all(all(np.array_equal(mc[n], mp[n]) for n in mc)
-           for (_, _, mc), (_, _, mp) in zip(card[0], cpu[0])):
-        same = card[1] == cpu[1] and all(
-            np.array_equal(a, b) for x, y in zip(card[2], cpu[2])
-            for a, b in zip(x, y))
-        print(f"card vs CPU, preset-4 partition pyramid: every map agrees; "
-              f"payloads and recons identical {same}", flush=True)
-        if not same:
-            raise AssertionError("preset-4 pyramid: maps agree but payloads "
-                                 "or recons differ")
+    def check(fut=fut, card=card, card_tf=card_tf):
+        cpu, diffs = fut.result()
+        print(f"card vs CPU, preset-4 partition pyramid {w}x{h} gop 2 TF "
+              f"(card {card[3]:.1f} s, CPU {cpu[3]:.1f} s): {len(card_tf)} "
+              f"TF calls, pixels the card's TF planes differ by from the "
+              f"CPU's {[[n for n, _ in f] for f in diffs]}; {len(card[1])} "
+              f"TUs", flush=True)
+        frames_agree("preset-4 partition pyramid", card[0], cpu[0],
+                     tag="deltas")
+        if all(all(np.array_equal(mc[n], mp[n]) for n in mc)
+               for (_, _, mc), (_, _, mp) in zip(card[0], cpu[0])):
+            same = card[1] == cpu[1] and all(
+                np.array_equal(a, b) for x, y in zip(card[2], cpu[2])
+                for a, b in zip(x, y))
+            print(f"card vs CPU, preset-4 partition pyramid: every map "
+                  f"agrees; payloads and recons identical {same}",
+                  flush=True)
+            if not same:
+                raise AssertionError("preset-4 pyramid: maps agree but "
+                                     "payloads or recons differ")
+    DEFERRED.append(("preset-4 partition pyramid", check))
 
     # one preset-1 partition key frame (61 luma candidates)
-    cfg = presets.apply_preset(ie.EncoderConfig(w, h, qindex=q), 1)
-    f = [stripes(w, h, 51)]
-    runs = {}
-    for d in ("cuda", "cpu"):
-        enc = ie.IntraEncoder(cfg, device=d)
-        t0 = time.perf_counter()
-        dev = enc.device_encode(f)
-        payloads, recons = enc.host_finish(dev)
-        runs[d] = ([(payloads, recons, part_maps(dev))],
-                   time.perf_counter() - t0, dev)
-    n = key_deltas(runs["cuda"][2], expand_candidates(ie.CAND_MODES,
-                                                      cfg.angle_deltas))
-    print(f"card vs CPU, preset-1 key frame {w}x{h} (card "
-          f"{runs['cuda'][1]:.1f} s, CPU {runs['cpu'][1]:.1f} s): {n} coded "
-          "blocks with a non-zero delta", flush=True)
+    fut, _, (cfg, f) = cpu_half("deltas preset-1 key frame")
+    enc = ie.IntraEncoder(cfg, device="cuda")
+    t0 = time.perf_counter()
+    dev = enc.device_encode(f)
+    payloads, recons = enc.host_finish(dev)
+    card = ([(payloads, recons, part_maps(dev))], time.perf_counter() - t0)
+    cpu = fut.result()
+    n = key_deltas(dev, expand_candidates(ie.CAND_MODES, cfg.angle_deltas))
+    print(f"card vs CPU, preset-1 key frame {w}x{h} (card {card[1]:.1f} s, "
+          f"CPU {cpu[3]:.1f} s): {n} coded blocks with a non-zero delta",
+          flush=True)
     if not n:
         raise AssertionError("preset-1 key frame: no block picked a delta")
-    frames_agree("preset-1 key frame", runs["cuda"][0], runs["cpu"][0],
+    frames_agree("preset-1 key frame", card[0], [(cpu[1], cpu[2], cpu[0])],
                  tag="deltas")
+
+
+# ---- tile columns, the multi-device module and the CLI's last flags ---------
+
+TILES = 2            # phase 29's tile columns: two 960-px tiles at 1080p
+
+
+def phase_tiles():
+    """Phase 29: tile columns at 1920x1080: VideoEncoder(qindex=100,
+    tile_cols=2, keyint=64) with the default partition config on I+P of
+    ``moving_frames``.  Stage times of each frame after a synchronize
+    (the tile coder's summed over the tiles), e2e fps, the scans' four new
+    shapes (key and P, luma and U+V, the tiles on the batch axis: step
+    graphs, nodes, capture and instantiate seconds, host RSS), each
+    shape's first call and a replay of it on the same inputs (equal
+    outputs), the inter shares.  Checks: KEY then INTER, payloads parse,
+    luma PSNR > 30 dB, each replay equal to its first call, the P frame's
+    luma area more than half inter; the stream goes to phase 16, which
+    decodes it on the card."""
+    frames = moving_frames(W, H, 2)
+    cfg = ie.EncoderConfig(W, H, qindex=100, tile_cols=TILES)
+    presets.verify_settings(cfg)
+    enc = ve.VideoEncoder(cfg, keyint=64, device="cuda")
+    n_log = len(wf2.GRAPHS["log"])
+    g0 = graph_snapshot()
+    t0 = time.perf_counter()
+    with StageClock(StageClock.KEY) as kclock:
+        p0, r0 = enc.encode_frame(*frames[0])
+    t1 = time.perf_counter()
+    key_graphs = graph_delta(g0)
+    g0 = graph_snapshot()
+    with StageClock(StageClock.P_FRAME) as pclock:
+        p1, r1 = enc.encode_frame(*frames[1])
+    t2 = time.perf_counter()
+    p_graphs = graph_delta(g0)
+    fmt = lambda ms: ", ".join(f"{k} {v:.1f} ms" for k, v in ms.items())
+    print(f"tiles: {W}x{H} q100 keyint 64, {TILES} tile columns of "
+          f"{W // TILES} px: key frame (q70) {1e3 * (t1 - t0):.1f} ms "
+          f"({fmt(kclock.ms)}; {key_graphs}); P frame {1e3 * (t2 - t1):.1f} "
+          f"ms ({fmt(pclock.ms)}; {p_graphs}); e2e {2 / (t2 - t0):.4f} fps "
+          f"over the 2 frames [{CARD}]", flush=True)
+    print_captures("tiles", wf2.GRAPHS["log"][n_log:])
+    for frame, clock in (("key frame", kclock), ("P frame", pclock)):
+        for kind in ("luma wavefront", "chroma wavefront"):
+            a, kw = clock.args[kind][0]
+            first = next(ms for key, ms in clock.calls if key == kind)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            again = wf2.encode_plane_wavefront_part(*a, **kw)
+            torch.cuda.synchronize()
+            rep = time.perf_counter() - t
+            same = all(torch.equal(x, y) for x, y in
+                       zip(again, clock.out[kind][0]))
+            print(f"tiles: {frame} {kind.split()[0]} scan "
+                  f"{tuple(a[0].shape)}: first call {first / 1e3:.2f} s, "
+                  f"replay {rep:.3f} s, outputs equal {same} [{CARD}]",
+                  flush=True)
+            if not same:
+                raise AssertionError(f"tiles {frame} {kind}: the replay "
+                                     "differs from the first call")
+    m = enc.last_p
+    (sb_i, sb_n), (t_i, t_n), (l_i, l_n), area = inter_shares(m, H)
+    ps_y = check_payloads([p0, p1], frames, [r0, r1], "tiles")
+    types = [frame_type(p) for p in (p0, p1)]
+    print(f"tiles: key frame {len(p0)} bytes, P frame {len(p1)} bytes "
+          f"(inter blocks 64x64 {sb_i} of {sb_n}, 32x32 {t_i} of {t_n}, "
+          f"16x16 {l_i} of {l_n}, luma area inter {100 * area:.1f}%); "
+          f"frame types {types}, luma PSNR "
+          f"{', '.join(f'{x:.2f}' for x in ps_y)} dB; host RSS "
+          f"{wf2._host_rss() / 2 ** 30:.2f} GiB", flush=True)
+    if types != [0, 1] or area <= 0.5:
+        raise AssertionError(f"tiles: types {types}, inter area {area}")
+    DECODE[f"{TILES} tile columns I+P (phase 29)"] = ([p0, p1], [r0, r1],
+                                                      False, None)
+
+
+def phase_tiles_card_vs_cpu():
+    """Phase 30: tile columns at 256x128 on the card and on the CPU: key
+    frames at 2 and 4 tile columns; preset 4 with LR and CCSO, I, P, P at
+    2 (``moving_frames``); 10-bit I, P at 2; a compound pyramid (gop 2, TF;
+    the card's filtered anchors fed to the CPU encoder, its checks at the
+    end of the script) at 2.  Per coded unit the agreement of every map,
+    and byte-identical payloads with equal recons whenever every map
+    agrees."""
+    w, h = 256, 128
+    for T in (2, 4):
+        runs = {d: ([(r[1], r[2], r[0])], r[3]) for d, r in
+                both_halves(f"tiles key frames T={T}").items()}
+        print(f"card vs CPU, key frames {w}x{h} x2 at {T} tile columns "
+              f"(card {runs['cuda'][1]:.1f} s, CPU {runs['cpu'][1]:.1f} s)",
+              flush=True)
+        frames_agree(f"key frames, {T} tiles", runs["cuda"][0],
+                     runs["cpu"][0], tag="tiles")
+    for label in ("preset 4 + LR + CCSO I,P,P", "10-bit I,P"):
+        runs = both_halves(f"tiles {label}")
+        n = len(runs["cuda"][0])
+        types = [frame_type(x[0][0]) for x in runs["cuda"][0]]
+        print(f"card vs CPU, {label} {w}x{h} at 2 tile columns (card "
+              f"{runs['cuda'][1]:.1f} s, CPU {runs['cpu'][1]:.1f} s): frame "
+              f"types {types}", flush=True)
+        if types != [0] + [1] * (n - 1):
+            raise AssertionError(f"tiles {label}: frame types {types}")
+        frames_agree(label, runs["cuda"][0], runs["cpu"][0], tag="tiles")
+    cfg = ie.EncoderConfig(w, h, qindex=100, tile_cols=2)
+    clip = moving_frames(w, h, 3)
+    card_tf = []
+    card = run_part_pyramid(cfg, clip, "cuda", None,
+                            lambda x: card_tf.append(x) or x, 2)
+    fut = cpu_submit(pyramid_side, cfg, clip, None, card_tf, 2, True)
+
+    def check(fut=fut, card=card, card_tf=card_tf):
+        cpu, diffs = fut.result()
+        print(f"card vs CPU, compound pyramid {w}x{h} gop 2 TF at 2 tile "
+              f"columns (card {card[3]:.1f} s, CPU {cpu[3]:.1f} s): "
+              f"{len(card_tf)} TF calls, pixels the card's TF planes differ "
+              f"by from the CPU's {[[n for n, _ in f] for f in diffs]}; "
+              f"{len(card[1])} TUs", flush=True)
+        frames_agree("compound pyramid", card[0], cpu[0], tag="tiles")
+        if all(all(np.array_equal(mc[n], mp[n]) for n in mc)
+               for (_, _, mc), (_, _, mp) in zip(card[0], cpu[0])):
+            same = card[1] == cpu[1] and all(
+                np.array_equal(a, b) for x, y in zip(card[2], cpu[2])
+                for a, b in zip(x, y))
+            print(f"card vs CPU, tiled compound pyramid: every map agrees; "
+                  f"payloads and recons identical {same}", flush=True)
+            if not same:
+                raise AssertionError("tiled pyramid: maps agree but "
+                                     "payloads or recons differ")
+    DEFERRED.append(("tiled compound pyramid", check))
+
+
+def phase_mesh():
+    """Phase 31: ``parallel.mesh`` on every card (two entries on cuda:0
+    when the machine has one): GOP-parallel flat encodes on host threads
+    (their key frames run the wavefront kernel) and a key frame's tile
+    columns scanned on the mesh's devices (a host thread each, sharing
+    one scan shape's graphs on one card), each against its serial encode
+    byte for byte; the encode step (the kernel on each device) and the
+    pipeline step against their one-call runs.  The partition path's
+    GOP-parallel encode is held on the CPU (``tests/test_torch_tiles.py``)."""
+    from svtav1_tpu_torch.parallel import mesh
+    n = torch.cuda.device_count()
+    devs = [f"cuda:{i}" for i in range(n)] if n > 1 else ["cuda:0"] * 2
+    print(f"mesh: torch.cuda.device_count() {n}, mesh {devs}", flush=True)
+    t0 = time.perf_counter()
+    got = mesh.sharded_video_encode_bytes(devs)
+    t1 = time.perf_counter()
+    want = mesh.sharded_video_encode_bytes(devs, shard=False)
+    t2 = time.perf_counter()
+    print(f"mesh: GOP-parallel flat encode (2 GOPs of 3 frames, 64x64): "
+          f"{len(got)} bytes, equal to the serial encode {got == want} "
+          f"(sharded {t1 - t0:.2f} s, serial {t2 - t1:.2f} s) [{CARD}]",
+          flush=True)
+    if got != want:
+        raise AssertionError("mesh: GOP-parallel bytes differ")
+    for n_tiles in sorted({len(devs), 4}):
+        t0 = time.perf_counter()
+        got = mesh.sharded_tile_encode_bytes(devs, n_tiles=n_tiles)
+        t1 = time.perf_counter()
+        want = mesh.sharded_tile_encode_bytes(devs, n_tiles=n_tiles,
+                                              shard=False)
+        print(f"mesh: key frame of {n_tiles} tile columns over {len(devs)} "
+              f"devices (a host thread each): {len(got)} bytes, equal to "
+              f"the one-device encode {got == want} (sharded {t1 - t0:.2f} "
+              f"s, one device {time.perf_counter() - t1:.2f} s)", flush=True)
+        if got != want:
+            raise AssertionError("mesh: tile-parallel bytes differ")
+    n0 = wk.LAUNCHES
+    rec, total = mesh.sharded_encode_step(devs)
+    launched = wk.LAUNCHES - n0
+    rec1, total1 = mesh.sharded_encode_step(devs, shard=False)
+    rec_p, bits = mesh.sharded_pipeline_step(devs)
+    rec_p1, bits1 = mesh.sharded_pipeline_step(devs, shard=False)
+    same = torch.equal(rec, rec1) and torch.equal(rec_p, rec_p1) and \
+        bits == bits1 and abs(total - total1) <= 1e-5 * abs(total1)
+    print(f"mesh: encode step recon {tuple(rec.shape)} ({launched} kernel "
+          f"launches), analysis total {total:.1f} (one call {total1:.1f}); "
+          f"pipeline step recon {tuple(rec_p.shape)}, bits {bits} (one "
+          f"call {bits1}); equal {same}", flush=True)
+    if not same or launched != len(devs):
+        raise AssertionError("mesh: the steps differ from their one-call "
+                             f"runs ({launched} launches)")
+
+
+def cli_flags():
+    """Phase 32: the CLI on the card, inside main(): ``--keyint 1 --mbr``
+    on the flat path (``--preset 12``) and the default partition path,
+    and ``--stat-report``, on a 256x128 Y4M of ``moving_frames`` (2
+    frames, written under the git-ignored ``svtav1_tpu_torch/build/``).
+    Each run exits 0 with two payloads; the capped runs' payloads fit the
+    cap and are smaller than the uncapped ones; --stat-report prints the
+    PSNR and SSIM lines."""
+    import contextlib
+    import io
+    from svtav1_tpu_torch import app
+    from svtav1_tpu_torch.utils.ivf import read_ivf
+    from svtav1_tpu_torch.utils.y4m import Y4mInfo, Y4mWriter
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "svtav1_tpu_torch", "build", "cli_flags")
+    os.makedirs(d, exist_ok=True)
+    src, out = os.path.join(d, "in.y4m"), os.path.join(d, "out.ivf")
+    with open(src, "wb") as f:
+        wtr = Y4mWriter(f, Y4mInfo(256, 128, 30, 1))
+        for fr in moving_frames(256, 128, 2):
+            wtr.write_frame(*fr)
+
+    def run(args):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = app.main(["-i", src, "-b", out, "--keyint", "1"] + args)
+        with open(out, "rb") as f:
+            sizes = [len(p) for p, _ in read_ivf(f)[1]]
+        print(f"CLI --keyint 1 {' '.join(args)}: exit {rc}, payload bytes "
+              f"{sizes}, {time.perf_counter() - t0:.1f} s; "
+              f"{' | '.join(buf.getvalue().splitlines())} [{CARD}]",
+              flush=True)
+        if rc != 0 or len(sizes) != 2:
+            raise AssertionError(f"CLI {args}: exit {rc}, {sizes}")
+        return sizes, buf.getvalue()
+
+    for preset in (["--preset", "12"], []):
+        plain, _ = run(preset)
+        mbr = int(0.7 * max(plain) * 8 * 30 / 1000)
+        capped, text = run(preset + ["--mbr", str(mbr), "--stat-report"])
+        cap = mbr * 1000 // 30
+        if any(8 * s > cap for s in capped) or capped == plain:
+            raise AssertionError(f"CLI --mbr {mbr}: payload bytes {capped} "
+                                 f"(cap {cap} bits, uncapped {plain})")
+        if "PSNR Y" not in text or "SSIM Y" not in text:
+            raise AssertionError("CLI --stat-report: no PSNR or SSIM line")
 
 
 def cli_presets():
@@ -2898,45 +3323,86 @@ def main():
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
           flush=True)
     t0 = time.perf_counter()
+    spawn_workers()
     phase_build()
+    # the CPU halves that need nothing from the card, queued for the
+    # workers, which run them through the untimed phases
+    start_cpu_halves()
     clock = [time.perf_counter()]
+    # the timed phases: the workers are stopped through them
+    quiet = {phase_compare, phase_compare_lanes, phase_compare_10bit,
+             phase_compare_deltas, phase_main_path, phase_profile,
+             phase_partition, phase_part_launches, phase_filters,
+             phase_video, phase_flat_video, phase_flat_pyramid,
+             phase_part_pyramid, phase_flat_deltas, phase_preset4,
+             phase_tiles, phase_decode}
 
     def phase(fn, *args):
+        pause_workers(fn in quiet)
+        clock.append(time.perf_counter())
         out = fn(*args)
         clock.append(time.perf_counter())
-        print(f"phase {fn.__name__}: {clock[-1] - clock[-2]:.1f} s",
-              flush=True)
+        print(f"phase {fn.__name__}: {clock[-1] - clock[-2]:.1f} s"
+              f"{' (CPU workers stopped)' if fn in quiet else ''}, host RSS "
+              f"{wf2._host_rss() / 2 ** 30:.2f} GiB", flush=True)
         return out
 
-    max_err, ms, plain_ms, bound, basis = phase(phase_compare)
-    lanes = phase(phase_compare_lanes)
-    main10, lanes10 = phase(phase_compare_10bit)
-    deltas = phase(phase_compare_deltas)
-    launches, enc, batch = phase(phase_main_path)
-    phase(phase_profile, enc, batch)
-    phase(phase_partition)
-    phase(phase_card_vs_cpu)
-    phase(phase_part_launches)
-    phase(phase_graph_vs_eager)
-    phase(phase_filters)
-    phase(phase_filters_card_vs_cpu)
-    phase(phase_video)
-    phase(phase_video_card_vs_cpu)
-    p_launches = phase(phase_flat_video)
-    phase(phase_flat_video_card_vs_cpu)
-    pyr_launches = phase(phase_flat_pyramid)
-    phase(phase_flat_pyramid_card_vs_cpu)
-    phase(phase_part_pyramid)
-    phase(phase_part_pyramid_card_vs_cpu)
-    delta_launches = phase(phase_flat_deltas)
-    phase(phase_preset4)
-    phase(phase_deltas_card_vs_cpu)
-    phase(phase_decode)
-    phase(phase_decode_card_vs_cpu)
-    launches10 = phase(phase_main_path, 10)[0]
-    p10_launches = phase(phase_flat_video, 10)
-    phase(phase_decode, DECODE10)
-    phase(phase_10bit_card_vs_cpu)
+    def drop(label, pred):
+        """Forget the 1080p scan shapes that no later phase uses."""
+        n = wf2.drop_scans(pred)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"after {label}: dropped {n} scan shapes, host RSS "
+              f"{wf2._host_rss() / 2 ** 30:.2f} GiB", flush=True)
+
+    # scan keys: (device, B, h, w, bs, chroma, bd, tx_search, valid_h,
+    # n_extra, angle deltas); the 1080p shapes have h >= 544
+    big = lambda k: k[2] >= 544
+    try:
+        max_err, ms, plain_ms, bound, basis = phase(phase_compare)
+        lanes = phase(phase_compare_lanes)
+        main10, lanes10 = phase(phase_compare_10bit)
+        deltas = phase(phase_compare_deltas)
+        launches, enc, batch = phase(phase_main_path)
+        phase(phase_profile, enc, batch)
+        phase(phase_partition)
+        phase(phase_card_vs_cpu)
+        phase(phase_part_launches)
+        phase(phase_graph_vs_eager)
+        phase(phase_filters)
+        # phase 8's key-frame luma shape (1088 rows, no deltas): phase 27
+        # keeps only its U+V shape
+        drop("phase 8", lambda k: big(k) and not k[5] and k[8] is None and
+             k[9] is None)
+        phase(phase_filters_card_vs_cpu)
+        phase(phase_video)
+        phase(phase_video_card_vs_cpu)
+        p_launches = phase(phase_flat_video)
+        phase(phase_flat_video_card_vs_cpu)
+        pyr_launches = phase(phase_flat_pyramid)
+        phase(phase_flat_pyramid_card_vs_cpu)
+        phase(phase_part_pyramid)
+        # the 1080-row shapes of phases 5, 10 and 22
+        drop("phase 22", lambda k: big(k) and k[8] is not None)
+        phase(phase_part_pyramid_card_vs_cpu)
+        delta_launches = phase(phase_flat_deltas)
+        phase(phase_preset4)
+        drop("phase 27", big)
+        phase(phase_deltas_card_vs_cpu)
+        phase(phase_tiles)
+        drop("phase 29", big)
+        phase(phase_tiles_card_vs_cpu)
+        phase(phase_decode)
+        phase(phase_decode_card_vs_cpu)
+        launches10 = phase(phase_main_path, 10)[0]
+        p10_launches = phase(phase_flat_video, 10)
+        phase(phase_decode, DECODE10)
+        phase(phase_10bit_card_vs_cpu)
+        phase(phase_mesh)
+        phase(cli_flags)
+        phase(finish_deferred)
+    finally:
+        stop_workers()
     print(f"chip_smoke: total {time.perf_counter() - t0:.1f} s", flush=True)
     kernel = dict(route="cuda", source="svtav1_tpu_torch/csrc/wavefront.cu",
                   replaces="svtav1_tpu/pallas/wavefront_kernel.py:550")

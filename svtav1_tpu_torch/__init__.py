@@ -10,7 +10,8 @@ temporal filtering), and both intra paths: the partition path (64x64 /
 DLF level search, the in-loop filters CDEF, CCSO and loop restoration when
 enabled, the Python tile coder) and the flat path of presets M11-M13
 (32x32 luma / 16x16 chroma blocks, uniform deblocking, the native tile
-coder).  The decode (``Decoder``, ``dec_app``): every
+coder); tile columns on every partition path.  The decode (``Decoder``,
+``dec_app``): every
 stream the JAX package's decoder reads (key and inter frames, compound
 LAST+ALTREF, tile columns, 8- and 10-bit, the in-loop filters,
 show_existing overlays, film grain on the output, metadata OBUs), parsed
@@ -34,6 +35,8 @@ on the host and reconstructed and filtered on the card:
                 readers, the native C tile coder and coefficient reader
                 (built by gcc at first use into ``build/``), OBU,
                 metadata and container writers and readers.
+- ``parallel``— ``mesh``: GOPs and tile columns spread over a list of
+                devices, the counterpart of the JAX package's mesh.
 - ``app``     — the Y4M -> IVF command line; ``dec_app`` IVF -> Y4M.
 
 The JAX package ``svtav1_tpu`` stays the reference: the tests feed the

@@ -4,7 +4,7 @@ Usage:
   python -m svtav1_tpu_torch.app -i in.y4m -b out.ivf [-q 100 | --crf N] \
       [--keyint N] [--preset 0..13] [--no-part-search] [--cdef] [--lr] \
       [--ccso] [--no-cdf-update] [--pyramid [--tf]] \
-      [--rc cq|crf|cbr|vbr] [--tbr KBPS] \
+      [--rc cq|crf|cbr|vbr] [--tbr KBPS] [--mbr KBPS] \
       [-n N] [--batch N] [--stat-report] [-o recon.y4m] \
       [--film-grain N] [--mastering-display MD] [--content-light CLL,FALL] \
       [--device cuda|cpu]
@@ -35,13 +35,18 @@ qindex 4N in crf mode.  --pyramid at --keyint > 1 codes hierarchical
 mini-GoPs (--tf filters their anchors), reading 16 frames at a time as
 ``svtav1_tpu/app.py`` does: on the partition path their interior frames
 are compound (LAST + ALTREF), on the flat path single-reference; its
-payloads include show_existing overlay TUs.
+payloads include show_existing overlay TUs.  --mbr KBPS caps each frame
+of the all-intra path (--keyint 1 only, as in ``svtav1_tpu/app.py``) at
+KBPS over the input's frame rate: a frame over the cap is coded again at
+qindex + 24, + 48, + 88 until it fits (capped CRF).
 --mastering-display and --content-light write HDR metadata OBUs into
 the first temporal unit, and --film-grain N (0..50) film grain
 parameters (8-bit only, as in the JAX package: a 10-bit stream carries
-none), as ``svtav1_tpu/app.py`` does.  --stat-report prints PSNR only,
-at the peak (1 << bit depth) - 1; -o writes the reconstruction as a Y4M
-of the input's bit depth.
+none), as ``svtav1_tpu/app.py`` does.  --stat-report prints the mean
+PSNR and SSIM (``ops.metrics.ssim_plane``) of each plane, at the peak
+(1 << bit depth) - 1; -o writes the reconstruction as a Y4M of the
+input's bit depth.  The settings are logged on stderr at SVT_LOG's level
+(``utils.log``), as the JAX CLI logs them.
 """
 
 from __future__ import annotations
@@ -54,6 +59,9 @@ from contextlib import nullcontext
 from dataclasses import replace
 
 import numpy as np
+
+from .ops.metrics import ssim_plane
+from .utils import log
 
 
 def psnr(a: np.ndarray, b: np.ndarray, peak: int = 255) -> float:
@@ -101,12 +109,17 @@ def main(argv=None) -> int:
                    help="rate control (default: cq, or crf with --crf)")
     p.add_argument("--tbr", type=int, default=0, metavar="KBPS",
                    help="target bitrate of --rc cbr/vbr")
+    p.add_argument("--mbr", type=int, default=0, metavar="KBPS",
+                   help="max bitrate cap for capped CRF/CQ (all-intra "
+                        "--keyint 1): over-cap frames re-encode at "
+                        "higher q (EbRateControlProcess.c capped_crf)")
     p.add_argument("-n", "--frames", type=int, default=0,
                    help="max frames (0 = all)")
     p.add_argument("--batch", type=int, default=4,
                    help="frames per device batch (all-intra)")
     p.add_argument("--stat-report", action="store_true",
-                   help="print the mean PSNR of the reconstruction")
+                   help="print the mean PSNR and SSIM of the "
+                        "reconstruction")
     p.add_argument("-o", "--recon", default=None,
                    help="write the reconstruction (display order) as .y4m")
     p.add_argument("--film-grain", type=int, default=0, metavar="N",
@@ -173,6 +186,9 @@ def main(argv=None) -> int:
             verify_settings(cfg, keyint=args.keyint)
         except ValueError as e:
             return _error(str(e))
+        log.info("app", "%dx%d bd=%d q=%d keyint=%d preset=%s",
+                 info.width, info.height, info.bit_depth, cfg.qindex,
+                 args.keyint, args.preset)
         # rate control as svtav1_tpu/app.py builds it (also at --keyint 1,
         # where the all-intra encoder ignores it)
         rc = None
@@ -184,9 +200,15 @@ def main(argv=None) -> int:
                                  fps=info.fps_num / max(info.fps_den, 1))
             except ValueError as e:
                 return _error(str(e))
+        if args.mbr and args.keyint != 1:
+            return _error("--mbr (capped CRF) is supported for the "
+                          "all-intra path (--keyint 1)")
         try:
             if args.keyint == 1:
                 enc = IntraEncoder(cfg, device=args.device)
+                if args.mbr:
+                    enc.cap_bits = int(args.mbr * 1000 * info.fps_den /
+                                       max(info.fps_num, 1))
             elif args.pyramid:
                 # hierarchical mini-GoPs: compound interior frames on the
                 # partition path, single-reference ones on the flat path
@@ -205,7 +227,7 @@ def main(argv=None) -> int:
 
         t0 = time.perf_counter()
         n = n_tu = total_bytes = 0
-        psnrs = []
+        psnrs, ssims = [], []
         peak = (1 << info.bit_depth) - 1
         frame_iter = itertools.islice(rdr.frames(), args.frames or None)
         with open(args.output, "wb") as fout, \
@@ -231,6 +253,8 @@ def main(argv=None) -> int:
                                            for r in rec))
                     if args.stat_report:
                         psnrs.append([psnr(a, r, peak)
+                                      for a, r in zip(src, rec)])
+                        ssims.append([ssim_plane(a, r, peak)
                                       for a, r in zip(src, rec)])
 
             pending = None          # device outputs of the batch in flight
@@ -261,6 +285,8 @@ def main(argv=None) -> int:
     if psnrs:
         m = np.mean(psnrs, axis=0)
         print(f"PSNR Y {m[0]:.2f} U {m[1]:.2f} V {m[2]:.2f}")
+        s = np.mean(ssims, axis=0)
+        print(f"SSIM Y {s[0]:.4f} U {s[1]:.4f} V {s[2]:.4f}")
     return 0
 
 

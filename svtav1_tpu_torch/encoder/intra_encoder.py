@@ -20,13 +20,22 @@ Python tile coder signals each tool.  Angle deltas (presets 0-5) expand
 the luma candidates of the whole-block and SB depths (the partition path)
 or of the flat wavefront; the sub-blocks and chroma keep the base angles.
 Every path takes bit_depth 8 or 10 (10-bit: uint16 source and recon
-planes, int16 pixel tensors on the device); tile columns raise
-NotImplementedError: the JAX package has them.
+planes, int16 pixel tensors on the device).  The partition path takes
+uniform tile columns (``tile_cols``, a power of two dividing the width's
+superblocks), as the JAX package does: the tiles ride the scans' batch
+axis tile-major (batch index t * n + b), so each codes with its own edges;
+the recon planes and partition maps are put back together before the DLF
+search and the deblock, which cross tile edges; one tile coder per tile
+writes the frame's tile group.  With ``tile_devices`` (a list of devices,
+set by ``parallel.mesh``) tile t's scans run on ``tile_devices[t % n]``,
+each device's on a host thread of its own, and their outputs are gathered
+on the encoder's device before the deblock.
 """
 
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -87,11 +96,32 @@ class EncoderConfig:
     gm_search: bool = True
 
 
-def _unsupported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to svtav1_tpu_torch (8/10-bit, presets "
-        "0-13, one tile column); the JAX package svtav1_tpu has it "
-        "(python -m svtav1_tpu.app)")
+SB = 64
+
+
+def tile_stack(a, T: int, axis: int = -1):
+    """The T tile columns of a batch of planes or maps (numpy or tensor)
+    on the batch axis, tile-major (index t * n + b): [n, ..., w, ...] ->
+    [T * n, ..., w / T, ...], w at axis."""
+    if T == 1:
+        return a
+    n = a.shape[axis] // T
+    sl = [slice(None)] * a.ndim
+    parts = []
+    for t in range(T):
+        sl[axis] = slice(t * n, (t + 1) * n)
+        parts.append(a[tuple(sl)])
+    return (torch.cat(parts) if torch.is_tensor(a)
+            else np.concatenate(parts))
+
+
+def tile_unstack(a, T: int, axis: int = 2):
+    """tile_stack's inverse (a tensor) along axis (the width axis of a
+    [T * n, h, w] plane or a [T * n, bh, bw, ...] map)."""
+    if T == 1:
+        return a
+    n = a.shape[0] // T
+    return torch.cat([a[t * n:(t + 1) * n] for t in range(T)], axis)
 
 
 def _lambda(qindex: int) -> float:
@@ -112,11 +142,16 @@ class IntraEncoder:
             # as the JAX package's verify_settings
             raise ValueError(f"bit_depth must be 8 or 10, got "
                              f"{cfg.bit_depth}")
-        if cfg.tile_cols != 1:
-            raise _unsupported(f"tile_cols={cfg.tile_cols}")
         filters = cfg.enable_cdef or cfg.enable_lr or cfg.enable_ccso
         check_dims(cfg.width, cfg.height, cfg.part_search,
                    inloop_extras=filters)
+        t = cfg.tile_cols
+        if t < 1 or (t & (t - 1)):
+            raise ValueError("tile_cols must be a power of two")
+        if t > 1 and ((cfg.width // SB) % t or not cfg.part_search):
+            raise NotImplementedError(
+                "tile columns need SB-aligned equal widths and the "
+                "partition (general) coding path")
         if filters and not cfg.part_search:
             raise NotImplementedError(
                 "CDEF/LR/CCSO ride the partition coding path "
@@ -136,6 +171,8 @@ class IntraEncoder:
         self._fg_params = None       # estimated on the first source frame
         self._fg_n = 0               # per-frame grain_seed counter
         self._ec_pool = None
+        # the devices of the tile columns' scans (None: the encoder's)
+        self.tile_devices = None
         if not cfg.part_search:
             # host_finish codes frames in threads, but the native coder's
             # library and the scan tables it reads load lazily and not
@@ -187,6 +224,7 @@ class IntraEncoder:
                                    device=self.device)
                 sub._first = first0 and b == 0
                 sub._fg_params = self._fg_params
+                sub.tile_devices = self.tile_devices
                 ps, rs = sub.host_finish(sub.device_encode([frames[b]]))
                 if len(ps[0]) * 8 <= self.cap_bits or q2 >= 255:
                     break
@@ -201,13 +239,15 @@ class IntraEncoder:
     def encode_frames(self, frames):
         return self.host_finish(self.device_encode(frames))
 
-    def _upload(self, planes: np.ndarray) -> torch.Tensor:
-        """Source planes to the device as pixel tensors (uint8 / int16)."""
+    def _upload(self, planes: np.ndarray, device=None) -> torch.Tensor:
+        """Source planes to the device (default the encoder's) as pixel
+        tensors (uint8 / int16)."""
+        device = self.device if device is None else device
         dt = np.uint8 if self.cfg.bit_depth == 8 else np.int16
         t = torch.from_numpy(np.ascontiguousarray(planes, dt))
-        if self.device.type == "cuda":
+        if device.type == "cuda":
             t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
+        return t.to(device, non_blocking=True)
 
     def device_encode(self, frames):
         """The device stage of a batch of (y, u, v) frames (uint8, or
@@ -244,40 +284,86 @@ class IntraEncoder:
                 "y_rec": y_rec.to(pix), "uv_rec": uv_rec.to(pix),
                 "frames": frames}
 
-    def _device_encode_part(self, frames):
-        """Partition-path device stage.  Returns the JAX package's "part"
-        tuple, with tensors on the encoder's device and the recon planes
-        as pixel tensors (uint8, or int16 at 10 bits)."""
+    def _part_scans(self, yt, ut, vt, device):
+        """The luma partition scan of yt [N, h, w] and the paired U+V scan
+        of (ut, vt) [N, h/2, w/2] on device (numpy planes in, tensors
+        out): the luma scan's ten outputs, then U's and V's (lev, slev,
+        lev_sb, rec) and (uv_mi, uv_smi, uv_mi_sb), each [N, ...]."""
         cfg = self.cfg
         bd = cfg.bit_depth
-        B = len(frames)
-        yb = pad_plane_bottom(np.stack([f[0] for f in frames]), self.ph)
-        uvb = pad_plane_bottom(np.concatenate(
-            [np.stack([f[1] for f in frames]),
-             np.stack([f[2] for f in frames])]), self.ph // 2)
-        h, w = yb.shape[1:]
-        bh, bw, sh, sw = h // BLK, w // BLK, h // 64, w // 64
+        N, h, w = yt.shape
         vh = None if self.ph == cfg.height else cfg.height
         vhc = None if vh is None else vh // 2
         fp, fsb = (upload(np.ascontiguousarray(np.broadcast_to(
-            a, (B,) + a.shape)), self.device) for a in bottom_force_masks(
-                bh, bw, sh, sw, cfg.height // 4))
-        y_src = self._upload(yb)
-        (part, y_mi, y_lev, y_smi, y_slev, y_stx, y_rec,
-         part_sb, y_mi_sb, y_lev_sb) = encode_plane_wavefront_part(
-            y_src, BLK, cfg.qindex, fp, fsb, tx_search=cfg.tx_search,
-            valid_h=vh, bd=bd, angle_deltas=tuple(cfg.angle_deltas))
+            a, (N,) + a.shape)), device) for a in bottom_force_masks(
+                h // BLK, w // BLK, h // 64, w // 64, cfg.height // 4))
+        luma = encode_plane_wavefront_part(
+            self._upload(yt, device), BLK, cfg.qindex, fp, fsb,
+            tx_search=cfg.tx_search, valid_h=vh, bd=bd,
+            angle_deltas=tuple(cfg.angle_deltas))
+        part, part_sb = luma[0], luma[7]
         # U and V ride one paired wavefront: the partition tree is forced
         # by luma and each (u, v) pair picks one uv_mode
         two = lambda a: torch.cat([a, a])
         (_, uv_mi, uv_lev, uv_smi, uv_slev, _, uv_rec,
          _, uv_mi_sb, uv_lev_sb) = encode_plane_wavefront_part(
-            self._upload(uvb), CBLK, cfg.qindex, two(part), two(part_sb),
-            chroma=True, valid_h=vhc, bd=bd)
-        u_lev, v_lev = uv_lev[:B], uv_lev[B:]
-        u_slev, v_slev = uv_slev[:B], uv_slev[B:]
-        u_lev_sb, v_lev_sb = uv_lev_sb[:B], uv_lev_sb[B:]
-        u_rec, v_rec = uv_rec[:B], uv_rec[B:]
+            self._upload(np.concatenate([ut, vt]), device), CBLK,
+            cfg.qindex, two(part), two(part_sb), chroma=True, valid_h=vhc,
+            bd=bd)
+        return luma + tuple(a[k * N:(k + 1) * N] for k in (0, 1) for a in (
+            uv_lev, uv_slev, uv_lev_sb, uv_rec)) + (
+                uv_mi[:N], uv_smi[:N], uv_mi_sb[:N])
+
+    def _tile_scans(self, yt, ut, vt, B):
+        """_part_scans of the tile-stacked planes ([T * B, ...]), on the
+        encoder's device or, with tile_devices (n of them), tile t's on
+        tile_devices[t % n]: each device's tiles in one call on a host
+        thread of its own, the outputs gathered on the encoder's device in
+        tile order."""
+        T = self.cfg.tile_cols
+        devs = [resolve_device(d)
+                for d in (self.tile_devices or [self.device])][:T]
+        n = len(devs)
+
+        def group(k):
+            idx = slice(None) if n == 1 else np.concatenate(
+                [np.arange(t * B, (t + 1) * B) for t in range(k, T, n)])
+            with (torch.cuda.device(devs[k]) if devs[k].type == "cuda"
+                  else nullcontext()):
+                return self._part_scans(yt[idx], ut[idx], vt[idx], devs[k])
+
+        if n == 1:
+            return [a.to(self.device) for a in group(0)]
+        with ThreadPoolExecutor(max_workers=n) as ex:
+            outs = list(ex.map(group, range(n)))
+        # tile t is the (t // n)-th of group t % n
+        return [torch.cat([outs[t % n][i][t // n * B:(t // n + 1) * B].to(
+            self.device) for t in range(T)]) for i in range(len(outs[0]))]
+
+    def _device_encode_part(self, frames):
+        """Partition-path device stage.  Returns the JAX package's "part"
+        tuple, with tensors on the encoder's device and the recon planes
+        as pixel tensors (uint8, or int16 at 10 bits): the maps and levels
+        with the tile columns on the batch axis (tile-major, T * n), the
+        recon planes whole ([n, h, w])."""
+        cfg = self.cfg
+        bd = cfg.bit_depth
+        B = len(frames)
+        T = cfg.tile_cols
+        yb = pad_plane_bottom(np.stack([f[0] for f in frames]), self.ph)
+        ub, vb = (pad_plane_bottom(np.stack([f[k] for f in frames]),
+                                   self.ph // 2) for k in (1, 2))
+        vh = None if self.ph == cfg.height else cfg.height
+        vhc = None if vh is None else vh // 2
+        yt, ut, vt = (tile_stack(a, T) for a in (yb, ub, vb))
+        outs = self._tile_scans(yt, ut, vt, B)
+        (part, y_mi, y_lev, y_smi, y_slev, y_stx, y_rec, part_sb, y_mi_sb,
+         y_lev_sb, u_lev, u_slev, u_lev_sb, u_rec, v_lev, v_slev, v_lev_sb,
+         v_rec, uv_mi, uv_smi, uv_mi_sb) = outs
+        # the loop filter crosses tile edges: whole planes and maps
+        y_rec, u_rec, v_rec, part_f, part_sb_f = (
+            tile_unstack(a, T) for a in (y_rec, u_rec, v_rec, part,
+                                         part_sb))
         lf = self.lf_levels()
         if cfg.lf_level < 0:
             # frame-level DLF level search: luma levels around the
@@ -287,30 +373,32 @@ class IntraEncoder:
             cand = [0, max(1, base // 2), max(1, base * 3 // 4),
                     max(1, base), base * 5 // 4 + 1, base * 3 // 2 + 1]
             cand = [min(63, c) for c in cand]
-            sse = dlf_sse_part(y_rec, y_src, part, cand, BLK, 14, bd=bd,
-                               part_sb=part_sb, valid_h=vh).cpu().numpy()
+            sse = dlf_sse_part(y_rec, self._upload(yb), part_f, cand, BLK,
+                               14, bd=bd, part_sb=part_sb_f,
+                               valid_h=vh).cpu().numpy()
             l = int(cand[int(np.argmin(sse))])
             lc = max(0, l * 3 // 4)
             lf = (l, l, lc, lc)
         if lf[0] or lf[1]:
-            y_rec = deblock_plane_part(y_rec, part, BLK, 14, lf[0], lf[1],
-                                       bd=bd, part_sb=part_sb, valid_h=vh)
-            u_rec = deblock_plane_part(u_rec, part, CBLK, 6, lf[2], lf[2],
-                                       bd=bd, part_sb=part_sb, valid_h=vhc)
-            v_rec = deblock_plane_part(v_rec, part, CBLK, 6, lf[3], lf[3],
-                                       bd=bd, part_sb=part_sb, valid_h=vhc)
+            y_rec = deblock_plane_part(y_rec, part_f, BLK, 14, lf[0], lf[1],
+                                       bd=bd, part_sb=part_sb_f, valid_h=vh)
+            u_rec = deblock_plane_part(u_rec, part_f, CBLK, 6, lf[2], lf[2],
+                                       bd=bd, part_sb=part_sb_f, valid_h=vhc)
+            v_rec = deblock_plane_part(v_rec, part_f, CBLK, 6, lf[3], lf[3],
+                                       bd=bd, part_sb=part_sb_f, valid_h=vhc)
         pix = lambda a: a.to(pix_dtype(bd))
         return ("part", B, part, y_mi, y_lev, y_smi, y_slev, u_lev, u_slev,
                 v_lev, v_slev, y_stx, pix(y_rec), pix(u_rec), pix(v_rec),
                 frames, part_sb, y_mi_sb, y_lev_sb, u_lev_sb, v_lev_sb,
-                uv_mi[:B], uv_smi[:B], uv_mi_sb[:B], lf)
+                uv_mi, uv_smi, uv_mi_sb, lf)
 
     def _filter_frame(self, frame, rec, skip8_args, qindex: int = None):
         """The in-loop filters of one frame (those enabled), in the JAX
         package's order, on the recon's device.  rec: the deblocked
-        (y, u, v) tensors; skip8_args: build_skip8's arrays (numpy);
-        qindex: the frame's (default the config's).  Returns (filtered
-        planes, CDEF params, CCSO info, LR frame types, LR units)."""
+        (y, u, v) tensors; skip8_args: build_skip8's arrays (numpy) of
+        each tile column, left to right; qindex: the frame's (default the
+        config's).  Returns (filtered planes, CDEF params, CCSO info, LR
+        frame types, LR units)."""
         cfg = self.cfg
         q = cfg.qindex if qindex is None else qindex
         cdef_params = ccso_info = lr_infos = None
@@ -320,7 +408,8 @@ class IntraEncoder:
         lam = _lambda(q)
         src = tuple(upload(p, self.device) for p in frame)
         if cfg.enable_cdef:
-            skip8 = build_skip8(*skip8_args)
+            skip8 = np.concatenate([build_skip8(*a) for a in skip8_args],
+                                   axis=1)
             cdef_params = cdef_search_frame(src, rec, skip8, q, lam,
                                             cfg.bit_depth)
             db = rec
@@ -349,7 +438,7 @@ class IntraEncoder:
 
     def _host_finish_part(self, dev):
         """Partition-path host stage: the in-loop filters (when enabled)
-        and the Python tile coder, per frame."""
+        and the Python tile coder of each tile column, per frame."""
         first0 = self._first
         cfg = self.cfg
         n, frames, lfv = dev[1], dev[15], dev[24]
@@ -365,38 +454,54 @@ class IntraEncoder:
         cands = expand_candidates(CAND_MODES, tuple(cfg.angle_deltas))
         cands_sub = expand_candidates(SUB_MODES)
         ch, cch = cfg.height, cfg.height // 2
+        T = cfg.tile_cols
+        tw = cfg.width // T
+        sbw_t = tw // SB
         payloads, recons = [], []
         for b in range(n):
+            tiles_b = [t * n + b for t in range(T)]     # tile-major batch
             rec, cdef_params, ccso_info, lr_types, lr_infos = \
                 self._filter_frame(frames[b], tuple(
-                    dev[k][b] for k in (12, 13, 14)), (
-                    part[b], y_lev[b], u_lev[b], v_lev[b], y_slev[b],
-                    u_slev[b], v_slev[b], part_sb[b], y_lev_sb[b],
-                    u_lev_sb[b], v_lev_sb[b]))
-            tc = TileCoder(cfg.width, self.ph, cfg.qindex, cfg.cdf_update,
-                           true_h=cfg.height,
-                           cdef_bits=(cdef_params["bits"] if cdef_params
-                                      else 0),
-                           cdef_idx=(cdef_params["idx_map"] if cdef_params
-                                     else None))
-            tc.ccso_info = ccso_info
-            if any(lr_types):
-                tc.set_lr(lr_types, lr_infos)
-            tile, _ = tc.encode(
-                part[b], y_mi[b], y_lev[b], u_lev[b], v_lev[b], y_smi[b],
-                y_slev[b], u_slev[b], v_slev[b], cands, cands_sub, y_stx[b],
-                part_sb[b], y_mi_sb[b], y_lev_sb[b], u_lev_sb[b],
-                v_lev_sb[b], uv_top[b], uv_sub[b], uv_sb[b])
+                    dev[k][b] for k in (12, 13, 14)), [(
+                        part[i], y_lev[i], u_lev[i], v_lev[i], y_slev[i],
+                        u_slev[i], v_slev[i], part_sb[i], y_lev_sb[i],
+                        u_lev_sb[i], v_lev_sb[i]) for i in tiles_b])
+            tiles = []
+            for t, i in enumerate(tiles_b):
+                sl = slice(t * sbw_t, (t + 1) * sbw_t)
+                tc = TileCoder(tw, self.ph, cfg.qindex, cfg.cdf_update,
+                               true_h=cfg.height,
+                               cdef_bits=(cdef_params["bits"] if cdef_params
+                                          else 0),
+                               cdef_idx=(cdef_params["idx_map"][:, sl]
+                                         if cdef_params else None),
+                               mi_col_off=t * tw // 4,
+                               frame_mi_cols=cfg.width // 4)
+                tc.ccso_info = ccso_info
+                if any(lr_types):
+                    tc.set_lr(lr_types, [
+                        None if u is None else {k: a[:, sl]
+                                                for k, a in u.items()}
+                        for u in lr_infos])
+                tile, _ = tc.encode(
+                    part[i], y_mi[i], y_lev[i], u_lev[i], v_lev[i],
+                    y_smi[i], y_slev[i], u_slev[i], v_slev[i], cands,
+                    cands_sub, y_stx[i], part_sb[i], y_mi_sb[i],
+                    y_lev_sb[i], u_lev_sb[i], v_lev_sb[i], uv_top[i],
+                    uv_sub[i], uv_sb[i])
+                tiles.append(tile)
             fr = FrameConfig(base_q_idx=cfg.qindex,
                              disable_cdf_update=not cfg.cdf_update,
                              filter_level=(lfv[0], lfv[1]),
                              filter_level_u=lfv[2], filter_level_v=lfv[3],
+                             tile_cols_log2=T.bit_length() - 1,
                              lr_frame_types=lr_types, ccso=ccso_info,
                              film_grain=self.film_grain_for(frames[b]),
                              **(cdef_frame_config_fields(cdef_params)
                                 if cdef_params else {}))
             payloads.append(assemble_key_frame(
-                self.seq, fr, tile, first=self._first,
+                self.seq, fr, tiles if T > 1 else tiles[0],
+                first=self._first,
                 metadata=cfg.metadata if self._first else b""))
             self._first = False
             y, u, v = (host_pixels(p, cfg.bit_depth) for p in rec)

@@ -3,9 +3,12 @@ compound inter frames, 64x64 NONE or SPLIT into 32x32 blocks, each NONE or
 SPLIT into 16x16 leaves (chroma 32/16/8).
 
 Counterpart of ``svtav1_tpu/encoder/tile_codec.py`` (with
-``tile_inter.choose_inter_mode``), cut to a single tile and no 16x8 bottom
-strip (``geometry.check_dims`` and the bottom force masks exclude it on
-this path).  In inter frames (kf=False) each block codes is_inter; an
+``tile_inter.choose_inter_mode``), cut to no 16x8 bottom strip
+(``geometry.check_dims`` and the bottom force masks exclude it on this
+path).  One coder codes one tile column (the whole frame with one tile):
+its maps are the tile's, its contexts and MV stacks stop at the tile's
+edges, and ``mi_col_off`` / ``frame_mi_cols`` place it in the frame for
+the frame-relative parts (the MV stack clamp, the CCSO units).  In inter frames (kf=False) each block codes is_inter; an
 inter block codes the LAST reference, its mode against the block's MV
 stack (NEARESTMV / NEARMV / GLOBALMV when its mv equals that predictor,
 NEWMV otherwise, with the DRL index and the mv residual) and its
@@ -58,11 +61,12 @@ def choose_inter_mode(mv, res, gm=(0, 0)):
 
 
 class TileCoder:
-    """One frame's tile (the whole frame)."""
+    """One tile of a frame (the whole frame with one tile column)."""
 
     def __init__(self, width, height, qindex, cdf_update, true_h=None,
                  cdef_bits: int = 0, cdef_idx=None, kf: bool = True,
-                 cdf_init=None, gm_mv=(0, 0), comp: bool = False):
+                 cdf_init=None, gm_mv=(0, 0), comp: bool = False,
+                 mi_col_off: int = 0, frame_mi_cols: int = None):
         """width/height are the padded (SB-aligned) plane dims the block
         maps were produced at; true_h (<= height, multiple of 8) is the
         signalled frame height: blocks whose top-left falls outside it are
@@ -75,8 +79,13 @@ class TileCoder:
         is the frame's translation global mv of LAST (1/8 pel, identity
         (0, 0)), which GLOBALMV blocks take.  comp=True codes a compound
         frame: lanes 3 and 4 are LAST+ALTREF blocks and the mv maps carry
-        four components (the ALTREF mv last)."""
+        four components (the ALTREF mv last).  A tile column: width is
+        the tile's, mi_col_off its first 4x4 column in the frame and
+        frame_mi_cols the frame's 4x4 columns; cdef_idx and the LR units
+        are the tile's slices, the CCSO info the frame's."""
         self.w, self.h = width, height
+        self.mi_col_off = mi_col_off
+        self.frame_mi_cols = frame_mi_cols or width // 4
         self.kf = kf
         self.true_h = true_h if true_h is not None else height
         self.mi_cols, self.mi_rows = width // 4, self.true_h // 4
@@ -264,8 +273,9 @@ class TileCoder:
 
         # CCSO unit flags: at the first block of each 256x256-luma-aligned
         # unit, one CDF2 symbol per enabled plane, regardless of skip
-        if self.ccso_info is not None and mi_r % 64 == 0 and mi_c % 64 == 0:
-            ur, uc = mi_r // 64, mi_c // 64
+        fc = mi_c + self.mi_col_off
+        if self.ccso_info is not None and mi_r % 64 == 0 and fc % 64 == 0:
+            ur, uc = mi_r // 64, fc // 64
             for p in range(3):
                 pi = self.ccso_info["planes"][p]
                 if pi is not None:
@@ -338,7 +348,10 @@ class TileCoder:
                 return
         IM.write_ref_frame_last(enc, cdf, counts)
         mvv = (int(mv[0]), int(mv[1]))
-        res = find_mv_stack(grid, mi_r, mi_c, bw4, bw4, gm_mv=self.gm_mv)
+        res = find_mv_stack(grid, mi_r, mi_c, bw4, bw4,
+                            mi_col_off=self.mi_col_off,
+                            frame_mi_cols=self.frame_mi_cols,
+                            gm_mv=self.gm_mv)
         mode, ref_mv = choose_inter_mode(mvv, res, gm=self.gm_mv)
         IM.write_inter_mode(enc, cdf, mode, res.mode_context)
         if mode in (MV.NEWMV, MV.NEARMV):
@@ -358,7 +371,9 @@ class TileCoder:
         IM.write_comp_refs_last_altref(enc, cdf, a_i, l_i, counts)
         mvp = tuple(int(v) for v in mv[:4])
         res = find_mv_stack(grid, mi_r, mi_c, bw4, bw4,
-                            ref_frame=(MV.LAST_FRAME, MV.ALTREF_FRAME))
+                            ref_frame=(MV.LAST_FRAME, MV.ALTREF_FRAME),
+                            mi_col_off=self.mi_col_off,
+                            frame_mi_cols=self.frame_mi_cols)
         s0 = res.ref_list[0]
         p0 = (MV.lower_mv_precision(s0[0], s0[1]) +
               MV.lower_mv_precision(s0[2], s0[3]))

@@ -58,13 +58,21 @@ sources are temporally filtered first (``ops/tf.py``).  Every path takes
 bit_depth 8 or 10 (the DPB then holds uint16 planes), and the config's
 angle deltas (presets 0-5): they expand the luma intra candidates of the
 partition scan's whole-block and SB depths, or of the flat P frame's
-mixed wavefront; the sub-blocks and chroma keep the base angles.  Tile
-columns raise NotImplementedError: the JAX package has them.
+mixed wavefront; the sub-blocks and chroma keep the base angles.  On the
+partition path every frame takes the config's tile columns, as the JAX
+package's does: motion estimation, the mv predictors and motion
+compensation run over the whole frame (the predictors are not cut at tile
+edges, as in the JAX package), then the scans' inputs ride the batch axis
+tile-major, their outputs are put back together for the mvs, the chroma
+prediction, the DLF search and the deblock, and one tile coder per tile
+writes the frame (the frame's end CDFs are tile 0's, context_update_tile_id
+0).
 """
 
 from __future__ import annotations
 
 import os
+from collections import Counter
 from dataclasses import replace
 from functools import lru_cache
 
@@ -81,7 +89,8 @@ from ..spec.txfm import TX_16X16, TX_32X32
 from .cdef_search import cdef_frame_config_fields
 from .geometry import bottom_force_masks, pad_plane_bottom
 from .headers import FrameConfig, assemble_frame, assemble_show_existing
-from .intra_encoder import CAND_MODES, EncoderConfig, IntraEncoder
+from .intra_encoder import (CAND_MODES, EncoderConfig, IntraEncoder,
+                            tile_stack, tile_unstack)
 from .me import _blocks, motion_estimate
 from .tile_codec import TileCoder
 from .tile_inter import encode_inter_tile
@@ -104,6 +113,10 @@ R_NEW, R_NEW_MV, R_ZERO = 14.0, 2.5, 6.0
 # |mv| of a 32x32 ME field, in 1/8 pel, stays below (2 (2 * 16 + 2) + 2) *
 # 8 + 6 = 566 (motion_estimate's ranges)
 LOG2_N = 1024
+# the P frame's host maps on the superblock grid (the others are on the
+# 32x32 grid)
+_SB_MAPS = ("part_sb", "y_mi_sb", "y_lev_sb", "u_lev_sb", "v_lev_sb",
+            "uv_mi_sb", "mv_sb", "mv64")
 
 
 def _pick_interp_filt(src, refp, y0, x0, mv8f, h, w, bd=8):
@@ -207,6 +220,11 @@ class VideoEncoder:
         self._buf_sad = []            # decimated SAD vs previous source
         self._sad_hist = []           # recent non-cut SADs
         self.last_p = None            # host maps of the last P frame
+
+    def mark_continuation(self):
+        """A GOP chunk after the first (``parallel.mesh``): its key frame
+        writes no sequence header, which the first chunk writes once."""
+        self.intra._first = False
 
     def encode_frames(self, frames):
         """Encode (y, u, v) frames, uint8 (uint16 at 10 bits): (payloads
@@ -747,11 +765,19 @@ class VideoEncoder:
                   (mvp32b, z4(mvp32b), mvp64b)) if comp else None)
         lmap = None if lam_map is None else upload(
             np.asarray(lam_map, np.float32)[None], dev)
+        # tile columns ride the scans' batch axis, tile-major; the
+        # lanes' predictions and rates are the whole frame's, sliced
+        T = cfg.tile_cols
+        ts = lambda a, axis=2: tile_stack(a, T, axis)
+        lmap_t = None if lmap is None else ts(lmap)
+        scan = encode_plane_wavefront_part(
+            ts(ys), BLK, q, ts(free), ts(free_sb), tx_search=cfg.tx_search,
+            valid_h=vh, inter=InterLanes(*(ts(a, 3 if k < 9 else 2)
+                                           for k, a in enumerate(lanes))),
+            bd=bd, lam_scale=lam_scale, lam_map=lmap_t, angle_deltas=deltas)
+        part_t, part_sb_t = scan[0], scan[7]
         (part, y_mi, y_lev, y_smi, y_slev, y_stx, y_rec,
-         part_sb, y_mi_sb, y_lev_sb) = encode_plane_wavefront_part(
-            ys, BLK, q, free, free_sb, tx_search=cfg.tx_search, valid_h=vh,
-            inter=lanes, bd=bd, lam_scale=lam_scale, lam_map=lmap,
-            angle_deltas=deltas)
+         part_sb, y_mi_sb, y_lev_sb) = (tile_unstack(a, T) for a in scan)
 
         n_i_top = len(expand_candidates(CAND_MODES, deltas))
         n_i_sub = len(expand_candidates(SUB_MODES))
@@ -778,11 +804,20 @@ class VideoEncoder:
             rup, rvp, (mv_top, mv_sub, mv_sb), origins, h, w, filt,
             (lane_t, lane_s, lane_b), bd, comp=(r2up, r2vp) if comp else None)
         two = lambda a: torch.cat([a, a])
+        # [U, V] -> [U's tiles, V's tiles]
+        uv_ts = lambda a, axis=2: torch.cat([ts(a[:1], axis),
+                                             ts(a[1:], axis)])
+        uv_scan = encode_plane_wavefront_part(
+            uv_ts(torch.cat([us, vs])), CBLK, q, two(part_t),
+            two(part_sb_t), chroma=True, valid_h=vhc,
+            inter=InterLanes(*(uv_ts(a, 3 if k < 9 else 2)
+                               for k, a in enumerate(c_lanes))), bd=bd,
+            lam_scale=lam_scale,
+            lam_map=None if lmap_t is None else two(lmap_t))
         (_, uv_mi, uv_lev, uv_smi, uv_slev, _, uv_rec,
-         _, uv_mi_sb, uv_lev_sb) = encode_plane_wavefront_part(
-            torch.cat([us, vs]), CBLK, q, two(part), two(part_sb),
-            chroma=True, valid_h=vhc, inter=c_lanes, bd=bd,
-            lam_scale=lam_scale, lam_map=None if lmap is None else two(lmap))
+         _, uv_mi_sb, uv_lev_sb) = (torch.cat([
+             tile_unstack(a[:T], T), tile_unstack(a[T:], T)])
+             for a in uv_scan)
 
         lf = self._dlf_levels(q, y_rec, part, part_sb, ys, bd, valid_h=vh)
         u_rec, v_rec = uv_rec[:1], uv_rec[1:]
@@ -807,35 +842,62 @@ class VideoEncoder:
                  lam_map=lam_map, ref_dist=ref_dist)
         self.last_p = m
 
+        bw_t, sw_t = bw // T, sw // T
+
+        def tile(k, t):
+            """Tile t's columns of the host map k (on the 32x32 grid, or
+            the SB grid for _SB_MAPS)."""
+            n = sw_t if k in _SB_MAPS else bw_t
+            return m[k][:, t * n:(t + 1) * n]
+
         rec, cdef_params, ccso_info, lr_types, lr_infos = \
             self.intra._filter_frame((y, u, v), (
-                pix(y_rec[0]), pix(u_rec[0]), pix(v_rec[0])), tuple(
-                m[k] for k in ("part", "y_lev", "u_lev", "v_lev", "y_slev",
-                               "u_slev", "v_slev", "part_sb", "y_lev_sb",
-                               "u_lev_sb", "v_lev_sb")), qindex=q)
+                pix(y_rec[0]), pix(u_rec[0]), pix(v_rec[0])), [tuple(
+                    tile(k, t) for k in (
+                        "part", "y_lev", "u_lev", "v_lev", "y_slev",
+                        "u_slev", "v_slev", "part_sb", "y_lev_sb",
+                        "u_lev_sb", "v_lev_sb")) for t in range(T)],
+            qindex=q)
         uv_mode = lambda modes, mi: np.array(
             [c for c, _ in expand_candidates(modes)], np.int32)[
                 np.clip(mi, 0, len(modes) - 1)]
-        tc = TileCoder(w, hp, q, cfg.cdf_update, true_h=h,
-                       cdef_bits=cdef_params["bits"] if cdef_params else 0,
-                       cdef_idx=(cdef_params["idx_map"] if cdef_params
-                                 else None),
-                       kf=False, cdf_init=cdf0, gm_mv=gmv, comp=comp)
-        tc.ccso_info = ccso_info
-        if any(lr_types):
-            tc.set_lr(lr_types, lr_infos)
-        tile, end_cdf = tc.encode(
-            m["part"], m["y_mi"], m["y_lev"], m["u_lev"], m["v_lev"],
-            m["y_smi"], m["y_slev"], m["u_slev"], m["v_slev"],
-            expand_candidates(CAND_MODES, deltas),
-            expand_candidates(SUB_MODES), m["y_stx"], m["part_sb"], m["y_mi_sb"], m["y_lev_sb"],
-            m["u_lev_sb"], m["v_lev_sb"],
-            uv_mode(CHROMA_TOP_MODES, m["uv_mi"]),
-            uv_mode(CHROMA_SUB_MODES, m["uv_smi"]),
-            uv_mode(CHROMA_SB_MODES, m["uv_mi_sb"]),
-            mv_top=m["mv_t"], mv_sub=m["mv_s"], mv_sb=m["mv_sb"])
-        m["mode_counts"] = dict(tc.mode_counts)
-        m["n_intra"] = tc.n_intra
+        tiles = []
+        m["mode_counts"], m["n_intra"] = Counter(), 0
+        for t in range(T):
+            sl = slice(t * sw_t, (t + 1) * sw_t)
+            tc = TileCoder(w // T, hp, q, cfg.cdf_update, true_h=h,
+                           cdef_bits=cdef_params["bits"] if cdef_params
+                           else 0,
+                           cdef_idx=(cdef_params["idx_map"][:, sl]
+                                     if cdef_params else None),
+                           kf=False, cdf_init=cdf0, gm_mv=gmv, comp=comp,
+                           mi_col_off=t * w // T // 4, frame_mi_cols=w // 4)
+            tc.ccso_info = ccso_info
+            if any(lr_types):
+                tc.set_lr(lr_types, [
+                    None if un is None else {k: a[:, sl]
+                                             for k, a in un.items()}
+                    for un in lr_infos])
+            data, tcdf = tc.encode(
+                *(tile(k, t) for k in ("part", "y_mi", "y_lev", "u_lev",
+                                       "v_lev", "y_smi", "y_slev", "u_slev",
+                                       "v_slev")),
+                expand_candidates(CAND_MODES, deltas),
+                expand_candidates(SUB_MODES),
+                *(tile(k, t) for k in ("y_stx", "part_sb", "y_mi_sb",
+                                       "y_lev_sb", "u_lev_sb", "v_lev_sb")),
+                uv_mode(CHROMA_TOP_MODES, tile("uv_mi", t)),
+                uv_mode(CHROMA_SUB_MODES, tile("uv_smi", t)),
+                uv_mode(CHROMA_SB_MODES, tile("uv_mi_sb", t)),
+                mv_top=tile("mv_t", t), mv_sub=tile("mv_s", t),
+                mv_sb=tile("mv_sb", t))
+            tiles.append(data)
+            if t == 0:
+                # the frame's end CDFs: tile 0's (context_update_tile_id 0)
+                end_cdf = tcdf
+            m["mode_counts"].update(tc.mode_counts)
+            m["n_intra"] += tc.n_intra
+        m["mode_counts"] = dict(m["mode_counts"])
 
         hdr = dict(hdr_extra or {})
         hdr.setdefault("film_grain", self._fg_inter(hdr))
@@ -851,6 +913,7 @@ class VideoEncoder:
                          filter_level=(lf[0], lf[1]),
                          filter_level_u=lf[2], filter_level_v=lf[3],
                          interpolation_filter=filt,
+                         tile_cols_log2=T.bit_length() - 1,
                          lr_frame_types=lr_types, ccso=ccso_info,
                          gm_mv=gm_dict or None,
                          gm_prev=self._gm_prev_for(primary_ref, ref_idx),
@@ -861,7 +924,8 @@ class VideoEncoder:
         if chain and cfg.cdf_update:
             self._cdf_state = snap
         m.update(ref_slot=ref_idx[0], refresh=refresh)
-        payload = assemble_frame(self.seq, fr, tile, first=False)
+        payload = assemble_frame(self.seq, fr, tiles if T > 1 else tiles[0],
+                                 first=False)
         y_n, u_n, v_n = (host_pixels(p, bd) for p in rec)
         return payload, (y_n[:h], u_n[:h // 2], v_n[:h // 2]), snap
 

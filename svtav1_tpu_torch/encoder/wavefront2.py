@@ -38,7 +38,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import ctypes
+import threading
 import time
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -199,6 +201,11 @@ GRAPHS = dict(captures=0, replays=0, calls=0, capture_s=0.0, replay_s=0.0,
               log=[])
 _SCANS = {}          # key -> PartScan of the card's shapes (for the process)
 _KEEP = ("cuda",)    # device types whose scans _SCANS keeps
+# guards _SCANS; each kept scan has its own lock, held from its fill to
+# its outputs' copies, so that threads (parallel.mesh) with one shape on
+# one card take turns on its static buffers
+_SCANS_LOCK = threading.Lock()
+_GRAPHS_LOCK = threading.Lock()     # guards GRAPHS (threads' scans add up)
 _OUTPUTS = ("part", "mi_top", "lev_top", "mi_sub", "lev_sub", "stx_sub",
             "recon", "part_sb", "mi_sb", "lev_sb")
 
@@ -289,6 +296,7 @@ class PartScan:
         self.graphs = {}             # D -> (CUDAGraph, its step buffer)
         self.pool = None
         self.warm = False
+        self.lock = threading.Lock()
 
     def fill(self, src, qindex: int, force_part, force_sb, inter=None,
              lam_scale: float = 1.0, lam_map=None):
@@ -322,22 +330,23 @@ class PartScan:
             self.warm = True
         for t in self.state.values():
             t.zero_()
-        t0, cap = time.perf_counter(), GRAPHS["capture_s"]
+        t0, cap, replays = time.perf_counter(), 0.0, 0
         for k, D in enumerate(self.widths):
             sk = self.sched[k, :, :, :D]
             if not graphs:
                 self.step(sk)
                 continue
             if D not in self.graphs:
-                self._capture(D, sk)
+                cap += self._capture(D, sk)
             g, buf = self.graphs[D]
             buf.copy_(sk)
             g.replay()
-            GRAPHS["replays"] += 1
+            replays += 1
         if graphs:
-            GRAPHS["calls"] += 1
-            GRAPHS["replay_s"] += time.perf_counter() - t0 - \
-                (GRAPHS["capture_s"] - cap)
+            with _GRAPHS_LOCK:
+                GRAPHS["replays"] += replays
+                GRAPHS["calls"] += 1
+                GRAPHS["replay_s"] += time.perf_counter() - t0 - cap
         st = self.state
         B, h, w = self.src.shape
         out = {k: st[k].clone() for k in _OUTPUTS if k != "recon"}
@@ -345,13 +354,16 @@ class PartScan:
             B, h, w).clone()
         return tuple(out[k] for k in _OUTPUTS)
 
-    def _capture(self, D: int, sk):
+    def _capture(self, D: int, sk) -> float:
         """Capture the step of width D on a step buffer of its own (in the
-        shape's pool)."""
+        shape's pool); returns its seconds."""
         buf = sk.clone()
         g = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        with torch.cuda.graph(g, pool=self.pool):
+        # thread-local capture: other threads' work on the card (another
+        # scan shape, motion search, copies) neither fails nor joins it
+        with torch.cuda.graph(g, pool=self.pool,
+                              capture_error_mode="thread_local"):
             self.step(buf)
             nodes = _captured_nodes()
             t1 = time.perf_counter()
@@ -359,13 +371,30 @@ class PartScan:
         if self.pool is None:
             self.pool = g.pool()
         self.graphs[D] = (g, buf)
-        GRAPHS["captures"] += 1
-        GRAPHS["capture_s"] += t2 - t0
-        GRAPHS["log"].append(dict(
-            key=self.key, D=D, nodes=nodes, capture_s=t1 - t0,
-            instantiate_s=t2 - t1,
-            reserved_bytes=torch.cuda.memory_reserved(self.dev),
-            rss_bytes=_host_rss()))
+        entry = dict(key=self.key, D=D, nodes=nodes, capture_s=t1 - t0,
+                     instantiate_s=t2 - t1,
+                     reserved_bytes=torch.cuda.memory_reserved(self.dev),
+                     rss_bytes=_host_rss())
+        with _GRAPHS_LOCK:
+            GRAPHS["captures"] += 1
+            GRAPHS["capture_s"] += t2 - t0
+            GRAPHS["log"].append(entry)
+        return t2 - t0
+
+
+def drop_scans(drop) -> int:
+    """Forget the kept scans whose key satisfies drop(key), with their
+    graphs, pool and static buffers (a long-lived process that is done
+    with a shape); returns how many went."""
+    with _SCANS_LOCK:
+        keys = [k for k in _SCANS if drop(k)]
+        for k in keys:
+            scan = _SCANS.pop(k)
+            with scan.lock:
+                for g, _ in scan.graphs.values():
+                    g.reset()
+                scan.graphs.clear()
+    return len(keys)
 
 
 def _captured_nodes():
@@ -439,13 +468,18 @@ def encode_plane_wavefront_part(src, bs: int, qindex: int, force_part,
            None if inter is None else inter.top.shape[1],
            tuple(angle_deltas))
     keep = src.device.type in _KEEP
-    scan = _SCANS.get(key) if keep else None
-    if scan is None:
-        scan = PartScan(*key)
-        if keep:
-            _SCANS[key] = scan
-    scan.fill(src, qindex, force_part, force_sb, inter, lam_scale, lam_map)
-    return scan.run(eager)
+    cuda = src.device.type == "cuda"
+    with torch.cuda.device(src.device) if cuda else nullcontext():
+        with _SCANS_LOCK:
+            scan = _SCANS.get(key) if keep else None
+            if scan is None:
+                scan = PartScan(*key)
+                if keep:
+                    _SCANS[key] = scan
+        with scan.lock:
+            scan.fill(src, qindex, force_part, force_sb, inter, lam_scale,
+                      lam_map)
+            return scan.run(eager)
 
 
 def _intra_pred(mode, delta, above, left, corner, ha, hl, n, bd,

@@ -15,6 +15,8 @@ from pathlib import Path
 
 import numpy as np
 
+from .tables import read_npz
+
 _DATA = Path(__file__).parent / "data" / "default_cdfs.npz"
 
 
@@ -40,7 +42,7 @@ _NSYMBS2SPEED = [0, 0, 1, 1, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2]
 
 @lru_cache(maxsize=None)
 def _npz():
-    return np.load(_DATA)
+    return read_npz(_DATA)
 
 
 class CdfContext:
@@ -52,7 +54,7 @@ class CdfContext:
         qc = q_ctx(base_qindex)
         self.update_enabled = update
         self._t = {}
-        for k in d.files:
+        for k in d:
             if k.startswith("raw_"):
                 continue
             arr = d[k].astype(np.uint16)

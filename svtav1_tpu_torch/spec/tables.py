@@ -47,9 +47,16 @@ def tx_scale_shift(tx_size: int) -> int:
     return (pels > 256) + (pels > 1024)
 
 
+def read_npz(path) -> dict:
+    """Every array of an npz file, read at once (an open npz file is not
+    safe to read from several threads)."""
+    with np.load(path) as d:
+        return {k: d[k] for k in d.files}
+
+
 @lru_cache(maxsize=None)
 def _scan_npz():
-    return np.load(_DATA / "scan_tables.npz")
+    return read_npz(_DATA / "scan_tables.npz")
 
 
 @lru_cache(maxsize=None)
@@ -60,7 +67,7 @@ def scan(tx_size: int, tx_type: int) -> np.ndarray:
 
 @lru_cache(maxsize=None)
 def _quant_npz():
-    return np.load(_DATA / "quant_tables.npz")
+    return read_npz(_DATA / "quant_tables.npz")
 
 
 @lru_cache(maxsize=None)

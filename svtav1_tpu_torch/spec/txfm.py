@@ -90,7 +90,7 @@ NEW_SQRT2_BITS = 12
 
 @lru_cache(maxsize=None)
 def _trig():
-    return np.load(_DATA / "trig_tables.npz")
+    return _tbl.read_npz(_DATA / "trig_tables.npz")
 
 
 def cospi_arr(cos_bit: int) -> np.ndarray:

@@ -1,45 +1,53 @@
 """The port's 10-bit partition all-intra path with CDEF, loop restoration
 and CCSO against the JAX package at 128x64, q100, on the CPU.
 
-One module fixture runs the JAX IntraEncoder once on one frame of the
-10-bit edge clip (``cuda/inputs.edge_frames10``: all three filters fire;
-most of the file's time is the JAX scan's XLA compile at bd=10) and the
-port on the same frame.  Every field of the device tuple, the DLF level,
-the payload and the uint16 recon must be equal; the port's Decoder
-decodes the port's stream to its recon.  The CLI at its defaults (the
-low-delay path, here its key frame: one frame of the clip, so the JAX
-CLI's scan is a jit cache hit of the fixture's) writes the JAX CLI's IVF
-bytes and a 10-bit recon Y4M.
+One module fixture runs the port on one frame of the 10-bit edge clip
+(``cuda/inputs.edge_frames10``: all three filters fire) and reads the JAX
+IntraEncoder's results on the same frame from
+``tests/data/torch_10bit/intra.npz`` (written by its
+``make_fixtures.py``, which runs the JAX package; no JAX scan is
+compiled here).  Every field of the device tuple, the DLF level, the
+payload and the uint16 recon must be equal; the port's Decoder decodes
+the port's stream to its recon.  The CLI at its defaults (the low-delay
+path, here its key frame: one frame of the clip) writes the JAX CLI's
+IVF bytes (the fixture's ``cli_*``) and a 10-bit recon Y4M.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
 
-from svtav1_tpu import app as japp
-from svtav1_tpu.encoder import intra_encoder as jie
-from svtav1_tpu.utils.ivf import read_ivf
 from svtav1_tpu_torch import app
 from svtav1_tpu_torch.cuda.inputs import edge_frames10
 from svtav1_tpu_torch.decoder.decoder import Decoder
 from svtav1_tpu_torch.encoder import intra_encoder as tie
+from svtav1_tpu_torch.utils.ivf import read_ivf
 from svtav1_tpu_torch.utils.obu import OBU_FRAME, parse_obus
 from svtav1_tpu_torch.utils.y4m import Y4mInfo, Y4mReader, Y4mWriter
 from test_torch_part import FIELDS, one_thread
 
 W, H, Q, BD = 128, 64, 100, 10
 FILTERS = dict(enable_cdef=True, enable_lr=True, enable_ccso=True)
+FIX = Path(__file__).resolve().parent / "data" / "torch_10bit" / "intra.npz"
+
+
+def _payloads_of(fix, prefix):
+    n = sum(k.startswith(prefix) for k in fix)
+    return [fix[f"{prefix}{i}"].tobytes() for i in range(n)]
 
 
 @pytest.fixture(scope="module")
 def both():
     frames = edge_frames10(W, H, 1)
+    with np.load(FIX) as d:
+        fix = {k: d[k] for k in d.files}
+    jdev = {k: fix[f"dev_{k}"] for k in FIELDS.values()}
+    jdev[24] = tuple(int(x) for x in fix["lf"])
+    jpay = _payloads_of(fix, "pay_")
+    jrec = [tuple(fix[f"rec_{i}_{p}"] for p in range(3))
+            for i in range(len(jpay))]
     with one_thread():
-        jenc = jie.IntraEncoder(jie.EncoderConfig(W, H, qindex=Q,
-                                                  bit_depth=BD, **FILTERS))
-        jdev = jenc.device_encode(frames)
-        jnp_dev = tuple(np.asarray(a) if hasattr(a, "shape") else a
-                        for a in jdev)
-        jpay, jrec = jenc.host_finish(jdev)
         tenc = tie.IntraEncoder(tie.EncoderConfig(W, H, qindex=Q,
                                                   bit_depth=BD, **FILTERS),
                                 device="cpu")
@@ -49,8 +57,9 @@ def both():
             run(*a, **k)) or decisions[-1]
         tdev = tenc.device_encode(frames)
         tpay, trec = tenc.host_finish(tdev)
-    return dict(frames=frames, jdev=jnp_dev, jpay=jpay, jrec=jrec, tdev=tdev,
-                tpay=tpay, trec=trec, decisions=decisions)
+    return dict(frames=frames, jdev=jdev, jpay=jpay, jrec=jrec, tdev=tdev,
+                tpay=tpay, trec=trec, decisions=decisions,
+                jcli=_payloads_of(fix, "cli_"))
 
 
 @pytest.mark.parametrize("field", list(FIELDS))
@@ -112,13 +121,12 @@ def test_cli_defaults_10bit(both, tmp_path):
     with open(src, "wb") as f:
         wtr = Y4mWriter(f, Y4mInfo(W, H, 30, 1, bit_depth=BD))
         wtr.write_frame(*both["frames"][0])
-    out, jout, rec = (tmp_path / n for n in ("t.ivf", "j.ivf", "r.y4m"))
+    out, rec = tmp_path / "t.ivf", tmp_path / "r.y4m"
     with one_thread():
         assert app.main(["-i", str(src), "-b", str(out), "-o", str(rec),
                          "--device", "cpu", "--stat-report"]) == 0
-        assert japp.main(["-i", str(src), "-b", str(jout)]) == 0
-    got, want = (_payloads(p) for p in (out, jout))
-    assert got == want
+    got = _payloads(out)
+    assert got == both["jcli"]
     with open(rec, "rb") as f:
         rdr = Y4mReader(f)
         assert rdr.info.bit_depth == BD

@@ -3,41 +3,50 @@
 10-bit moving clip (``cuda/inputs.moving_frames10``).
 
 One module fixture encodes the three frames with the port's
-VideoEncoder, then sets the JAX VideoEncoder's state to what it holds
-after that key frame (its DPB is the port's uint16 key-frame recon; the
-port's 10-bit key frames are held to JAX by ``test_torch_10bit_intra.py``)
-and encodes the two P frames with it, so the JAX side compiles only the P
-path at bd=10 (most of the file's time).  JAX's decision maps come from
-its ``SVT_DUMP_DIR`` dump.  On both P frames every decision map and mv
-field, the DLF level, the uint16 recon and the payload must be equal; the
-port's Decoder decodes the port's stream to its recons; the CLI at its
-defaults on the clip writes the port encoder's payloads.
+VideoEncoder and reads the JAX VideoEncoder's two P frames from
+``tests/data/torch_10bit/video.npz`` (written by its ``make_fixtures.py``:
+the JAX encoder's state set to what the port holds after its key frame,
+whose payload's MD5 the file keeps; the port's 10-bit key frames are held
+to JAX by ``test_torch_10bit_intra.py``; no JAX scan is compiled here).
+JAX's decision maps are those of its ``SVT_DUMP_DIR`` dump.  On both P
+frames every decision map and mv field, the DLF level, the uint16 recon
+and the payload must be equal; the port's Decoder decodes the port's
+stream to its recons; the CLI at its defaults on the clip writes the port
+encoder's payloads.
 """
 
-import os
-import pickle
+import hashlib
+from pathlib import Path
 
 import numpy as np
 import pytest
 
-from svtav1_tpu.encoder import intra_encoder as jie
-from svtav1_tpu.encoder import video_encoder as jve
-from svtav1_tpu.utils.ivf import read_ivf
 from svtav1_tpu_torch import app
 from svtav1_tpu_torch.cuda.inputs import moving_frames10
 from svtav1_tpu_torch.decoder.decoder import Decoder
 from svtav1_tpu_torch.encoder import intra_encoder as tie
 from svtav1_tpu_torch.encoder import video_encoder as tve
+from svtav1_tpu_torch.utils.ivf import read_ivf
 from svtav1_tpu_torch.utils.obu import OBU_FRAME, parse_obus
 from svtav1_tpu_torch.utils.y4m import Y4mInfo, Y4mWriter
 from test_torch_part import one_thread
 from test_torch_video import MAPS
 
 W, H, Q, BD = 128, 64, 100, 10
+FIX = Path(__file__).resolve().parent / "data" / "torch_10bit" / "video.npz"
+
+
+def payload_md5(payloads):
+    """The fixture's MD5 of a list of payloads (lengths and bytes)."""
+    m = hashlib.md5()
+    for p in payloads:
+        m.update(len(p).to_bytes(4, "little"))
+        m.update(p)
+    return m.hexdigest()
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def runs():
     frames = moving_frames10(W, H, 3)
     with one_thread():
         enc = tve.VideoEncoder(tie.EncoderConfig(W, H, qindex=Q,
@@ -47,25 +56,17 @@ def runs(tmp_path_factory):
         for f in frames:
             port.append(enc.encode_frame(*f))
             maps.append(enc.last_p)
-        jenc = jve.VideoEncoder(jie.EncoderConfig(W, H, qindex=Q,
-                                                  bit_depth=BD), keyint=64)
-        jenc._dpb = tuple(np.asarray(p, np.int32) for p in port[0][1])
-        jenc._idx, jenc._kf_at = 1, 64
-        jenc._tail_src = np.asarray(frames[0][0], np.int32)[::4, ::4]
-        dump = tmp_path_factory.mktemp("pframes10")
-        saved = os.environ.get("SVT_DUMP_DIR")
-        os.environ["SVT_DUMP_DIR"] = str(dump)
-        try:
-            jax_out = [None] + [jenc.encode_frame(*f) for f in frames[1:]]
-        finally:
-            if saved is None:
-                del os.environ["SVT_DUMP_DIR"]
-            else:
-                os.environ["SVT_DUMP_DIR"] = saved
-    dumps = [None]
-    for k in range(2):
-        with open(dump / f"pframe_{k:03d}.pkl", "rb") as f:
-            dumps.append(pickle.load(f))
+    with np.load(FIX) as d:
+        fix = {k: d[k] for k in d.files}
+    # the JAX P frames started from this key frame
+    assert payload_md5([port[0][0]]) == str(fix["state_md5"]), \
+        "the port's key frame changed: rewrite the fixture"
+    jax_out, dumps = [None], [None]
+    for k in (1, 2):
+        jax_out.append((fix[f"pay_{k}"].tobytes(),
+                        tuple(fix[f"rec_{k}_{p}"] for p in range(3))))
+        dumps.append(dict({m: fix[f"map_{k}_{m}"] for m in MAPS},
+                          lf=tuple(int(x) for x in fix[f"lf_{k}"])))
     return dict(frames=frames, port=port, maps=maps, jax=jax_out,
                 dumps=dumps)
 
@@ -73,7 +74,7 @@ def runs(tmp_path_factory):
 @pytest.mark.parametrize("k", [1, 2])
 @pytest.mark.parametrize("name", MAPS)
 def test_p_frame_map_10bit(runs, k, name):
-    got, want = runs["maps"][k][name], runs["dumps"][k][name][0]
+    got, want = runs["maps"][k][name], runs["dumps"][k][name]
     assert got.shape == want.shape, name
     np.testing.assert_array_equal(got, want, err_msg=name)
 

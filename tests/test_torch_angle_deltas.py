@@ -479,4 +479,7 @@ def test_cli_preset0_flat_exits_with_jax_message(tmp_path, capsys):
     assert app.main(["-i", str(src), "-b", str(tmp_path / "o.ivf"),
                      "--preset", "0", "--no-part-search", "--device",
                      "cpu"]) == 2
-    assert capsys.readouterr().err == f"error: {e.value}\n"
+    # the settings' log line (as the JAX CLI logs it), then the error
+    err = capsys.readouterr().err.splitlines()
+    assert len(err) == 2 and err[0].startswith("Svt[info]")
+    assert err[1] == f"error: {e.value}"

@@ -137,10 +137,22 @@ def test_outside_the_slice_raises(change):
         with pytest.raises(ValueError, match="angle delta out of range"):
             verify_settings(replace(cfg, angle_deltas=(-4, 0)))
         return
+    if cfg.tile_cols > 1:
+        # ported: tile columns on the partition path
+        # (tests/test_torch_tiles.py); the flat path with tiles raises the
+        # JAX encoder's error and message
+        if cfg.part_search:
+            assert tie.IntraEncoder(cfg, device="cpu").cfg.tile_cols == 2
+            cfg = replace(cfg, part_search=False)
+        with pytest.raises(NotImplementedError) as want:
+            jie.IntraEncoder(jie.EncoderConfig(128, 64, part_search=False,
+                                               tile_cols=2))
+        with pytest.raises(NotImplementedError) as got:
+            tie.IntraEncoder(cfg, device="cpu")
+        assert str(got.value) == str(want.value)
+        return
     # the in-loop filters ride the partition path, in the JAX package too
-    filters = cfg.enable_cdef or cfg.enable_lr or cfg.enable_ccso
-    match = "partition coding path" if filters else "svtav1_tpu has it"
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match="partition coding path"):
         tie.IntraEncoder(cfg, device="cpu")
 
 

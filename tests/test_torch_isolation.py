@@ -5,8 +5,10 @@ path, with the in-loop filters on, on the low-delay inter path (a key
 frame and a P frame, partition and flat) and on the flat pyramid with
 temporal filtering and rate control (a key frame and a mini-GoP of 4).
 It also decodes with all three blocked: a flat pyramid stream it encodes
-and the JAX encoder's compound pyramid fixture; and at 10 bits it encodes
-a flat key frame and a partition I+P and decodes both streams.
+and the JAX encoder's compound pyramid fixture; at 10 bits it encodes a
+flat key frame and a partition I+P and decodes both streams; and it
+encodes with tile columns (decoded too) and runs ``parallel.mesh``'s
+sharded encodes, SSIM and the log.
 """
 
 import ast
@@ -175,5 +177,46 @@ def test_port_encodes_10bit_with_the_reference_blocked():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=300,
                        env=_ONE_THREAD)
+    assert r.returncode == 0, r.stderr
+    assert "ISOLATED_OK" in r.stdout
+
+
+_TILES_BLOCKED = textwrap.dedent("""
+    import sys
+    for name in {blocked!r}:
+        sys.modules[name] = None          # any import of it raises
+    import numpy as np
+    from svtav1_tpu_torch import Decoder
+    from svtav1_tpu_torch.cuda.inputs import moving_frames
+    from svtav1_tpu_torch.encoder.intra_encoder import EncoderConfig
+    from svtav1_tpu_torch.encoder.video_encoder import VideoEncoder
+    from svtav1_tpu_torch.ops.metrics import ssim_plane
+    from svtav1_tpu_torch.parallel import mesh
+    from svtav1_tpu_torch.utils import log
+    enc = VideoEncoder(EncoderConfig(256, 64, tile_cols=2), keyint=64,
+                       device="cpu")
+    payloads, recons = enc.encode_frames(moving_frames(256, 64, 2))
+    dec = Decoder(device="cpu")
+    outs = [dec.decode_frame_obus(p) for p in payloads]
+    for o, rec in zip(outs, recons):
+        assert all(np.array_equal(a, b) for a, b in zip(o, rec))
+    assert 0.5 < ssim_plane(recons[1][0], moving_frames(256, 64, 2)[1][0])
+    cpu2 = ["cpu", "cpu"]
+    assert mesh.sharded_video_encode_bytes(cpu2) == \\
+        mesh.sharded_video_encode_bytes(cpu2, shard=False)
+    assert mesh.sharded_tile_encode_bytes(cpu2) == \\
+        mesh.sharded_tile_encode_bytes(cpu2, shard=False)
+    assert log.get_level() == log.INFO
+    print("ISOLATED_OK")
+""")
+
+
+def test_port_tiles_and_mesh_with_the_reference_blocked():
+    """Tile columns (a low-delay I+P at two, decoded), SSIM, the log and
+    parallel.mesh's sharded encodes, with the reference blocked."""
+    code = _TILES_BLOCKED.format(blocked=BLOCKED)
+    env = {k: v for k, v in _ONE_THREAD.items() if k != "SVT_LOG"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300, env=env)
     assert r.returncode == 0, r.stderr
     assert "ISOLATED_OK" in r.stdout

@@ -292,8 +292,10 @@ def test_partition_config_raises(change):
         with pytest.raises(ValueError, match="non-SB-aligned heights"):
             tie.IntraEncoder(replace(cfg, height=56), device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="svtav1_tpu has it"):
-        tie.IntraEncoder(cfg, device="cpu")
+    # ported: the partition path takes tile columns
+    # (tests/test_torch_tiles.py holds them to JAX)
+    enc = tie.IntraEncoder(cfg, device="cpu")
+    assert enc.cfg.tile_cols == 2 and enc.tile_devices is None
 
 
 # ---- CDF adaptation, range encoder, coefficient writer -------------------

@@ -3,19 +3,22 @@ partition search) against the JAX package at 128x64, q100, on
 ``cuda/inputs.moving_frames``, on the CPU.
 
 One module fixture encodes each case with the port's VideoEncoder
-(``pyramid=True``, the partition defaults), then sets a JAX VideoEncoder's
-pyramid state to what the port holds after its key frame (slot 0 the
-port's key-frame recon, no CDF snapshot, display index 0, anchor slot 0,
-the scene-cut state; the port's key frames are held to JAX by
-``test_torch_part.py``) and feeds it the remaining frames, so the JAX side
-compiles only the anchor and compound paths.  JAX's decisions come from
-its ``SVT_DUMP_DIR`` dump and from the arguments of its ``_encode_p``
-(lambda weight and map).  With --tf, JAX's ``_tf_filter`` returns the
-port's filtered planes (``test_torch_pyramid.py`` holds the filter to
-JAX's), so the encode is held byte for byte.  On every anchor and
-compound frame every decision map, the 4-component mv fields, q, the DLF
-level, the lambda weight and map, the recon and the payload must equal
-JAX's, and so must every overlay.
+(``pyramid=True``, the partition defaults) and reads the JAX side from
+``tests/data/torch_part_pyramid/runs.npz`` (written by its
+``make_fixtures.py``, which runs the JAX package; no JAX scan is compiled
+here).  There a JAX VideoEncoder's pyramid state was set to what the port
+holds after its key frame (slot 0 the port's key-frame recon, no CDF
+snapshot, display index 0, anchor slot 0, the scene-cut state; the port's
+key frames are held to JAX by ``test_torch_part.py``) and fed the
+remaining frames; with --tf its ``_tf_filter`` returned the port's
+filtered planes (``test_torch_pyramid.py`` holds the filter to JAX's).
+The file keeps the MD5 of that key frame and of those planes, so a port
+that no longer writes them says so before it compares.  JAX's decisions
+are those of its ``SVT_DUMP_DIR`` dump and of the arguments of its
+``_encode_p`` (lambda weight and map).  On every anchor and compound
+frame every decision map, the 4-component mv fields, q, the DLF level,
+the lambda weight and map, the recon and the payload must equal JAX's,
+and so must every overlay.
 
 Cases: gop 2 (key, anchor, one compound frame); gop 2 with TF over two
 GoPs (the second anchor on the first's CDF snapshot); gop 4 with TF (an
@@ -23,25 +26,19 @@ anchor and compound frames at layers 1 and 2, lambda weights 1.0 and
 1.15); gop 4 under CBR.  Also: the port's stream decodes in the JAX
 Decoder and in the port's to the port's recons; the CLI's --pyramid and
 --pyramid --tf on the default partition preset write the API's payloads;
-and, at the fixture's shapes (JAX's jit entries of the anchor and
-compound scans, whose qindex, lambda and map are traced), the inter scans
-with lambda weights and random lambda maps against JAX's.
+and the inter scans of the anchor and of the compound frame with lambda
+weights and random lambda maps (seeded inputs, ``_scan_inputs``) against
+the outputs of JAX's scan on the same inputs (``scans.npz``).
 """
 
-import os
-import pickle
+import hashlib
+from pathlib import Path
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from svtav1_tpu.decoder.decoder import Decoder as JaxDecoder
-from svtav1_tpu.encoder import intra_encoder as jie
-from svtav1_tpu.encoder import rate_control as jrc
-from svtav1_tpu.encoder import video_encoder as jve
-from svtav1_tpu.encoder import wavefront2 as jw2
-from svtav1_tpu.spec import txfm as jT
 from svtav1_tpu.utils.ivf import read_ivf
 from svtav1_tpu.utils.y4m import Y4mInfo, Y4mWriter
 from svtav1_tpu_torch import app
@@ -57,6 +54,7 @@ from svtav1_tpu_torch.utils.obu import OBU_FRAME, parse_obus
 from test_torch_part import one_thread
 from test_torch_video import _lanes
 
+FIX = Path(__file__).resolve().parent / "data" / "torch_part_pyramid"
 W, H, Q = 128, 64, 100
 TBR = 150            # kbps: q moves between the GoPs
 
@@ -112,63 +110,51 @@ def _port_run(frames, gop, tf, mode, bit_depth=8):
                 filtered=filtered, key=(p0[0], r0[0]))
 
 
-def _jax_after_key(frames, gop, tf, mode, port, dump, bit_depth=8):
-    """The JAX VideoEncoder's pyramid after the port's key frame: its
-    state set to what _drain leaves after a key frame, its controller
-    having counted the key frame's bytes; TF returns the port's planes of
-    the anchors.  Returns its payloads, recons and coded-frame records
-    (the dump, plus lam_scale and lam_map)."""
-    rc = _rc(jrc, mode)
-    cfg = jie.EncoderConfig(W, H, qindex=Q, bit_depth=bit_depth)
-    jenc = jve.VideoEncoder(cfg, keyint=64, pyramid=True, gop=gop, tf=tf,
-                            rc=rc)
-    key_payload, key_rec = port["key"]
-    # int32 planes, as JAX's P frames leave its slots (one ME signature)
-    jenc._slots = {0: tuple(np.asarray(p, np.int32) for p in key_rec)}
-    jenc._slot_cdf, jenc._slot_t, jenc._slot_gm = {}, {0: 0}, {}
-    jenc._anchor_slot, jenc._idx, jenc._kf_at = 0, 1, 64
-    jenc._tail_src = np.asarray(frames[0][0], np.int32)[::4, ::4]
-    jenc._sad_hist = [0.0]
-    if rc is not None:
-        rc.update(len(key_payload), 1)
-    args = []
-    code = jenc._encode_p
+def state_md5(key_payload, filtered):
+    """The MD5 of the state a case's JAX side started from: the key
+    frame's payload and the filtered planes of the anchors after it."""
+    m = hashlib.md5(key_payload)
+    for planes in filtered:
+        for p in planes:
+            m.update(np.ascontiguousarray(p, np.int32).tobytes())
+    return m.hexdigest()
 
-    def spy_code(*a, lam_scale=1.0, lam_map=None, **kw):
-        args.append(dict(lam_scale=lam_scale, lam_map=lam_map))
-        return code(*a, lam_scale=lam_scale, lam_map=lam_map, **kw)
 
-    anchors = iter(port["filtered"][1:])
-    jenc._encode_p = spy_code
-    jenc._tf_filter = lambda *a: next(anchors)
-    saved = os.environ.get("SVT_DUMP_DIR")
-    os.environ["SVT_DUMP_DIR"] = str(dump)
-    try:
-        p1, r1 = jenc.encode_frames(frames[1:])
-        p2, r2 = jenc.flush()
-    finally:
-        if saved is None:
-            del os.environ["SVT_DUMP_DIR"]
-        else:
-            os.environ["SVT_DUMP_DIR"] = saved
+def _load(path):
+    with np.load(path) as d:
+        return {k: d[k] for k in d.files}
+
+
+def _jax_after_key(fix, c, port):
+    """Case c's JAX side from the fixture: its payloads and recons (the
+    port's key frame first) and coded-frame records (the dump, plus
+    lam_scale and lam_map; a frame coded without a map has none)."""
+    assert str(fix[f"{c}_state_md5"]) == state_md5(
+        port["key"][0], port["filtered"][1:]), \
+        "the port's key frame or TF planes changed: rewrite the fixture"
+    n_pay, n_rec, n_coded = (int(x) for x in fix[f"{c}_counts"])
+    payloads = [fix[f"{c}_pay_{i}"].tobytes() for i in range(n_pay)]
+    recons = [tuple(fix[f"{c}_rec_{i}_{p}"] for p in range(3))
+              for i in range(n_rec)]
     coded = []
-    for k, a in enumerate(args):
-        with open(dump / f"pframe_{k:03d}.pkl", "rb") as f:
-            d = pickle.load(f)
-        coded.append(dict({m: d[m][0] for m in MAPS}, q=d["q"], lf=d["lf"],
-                          comp=d["comp"], **a))
-    return dict(payloads=[key_payload] + p1 + p2,
-                recons=[key_rec] + r1 + r2, coded=coded)
+    for k in range(n_coded):
+        rec = {f: fix[f"{c}_coded_{k}_{f}"] for f in FIELDS
+               if f"{c}_coded_{k}_{f}" in fix}
+        rec.setdefault("lam_map", None)
+        coded.append(rec)
+    return dict(payloads=[port["key"][0]] + payloads,
+                recons=[port["key"][1]] + recons, coded=coded)
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def runs():
+    fix = _load(FIX / "runs.npz")
     out = {}
-    for label, (n, gop, tf, mode) in CASES.items():
+    for c, (label, (n, gop, tf, mode)) in enumerate(CASES.items()):
         frames = moving_frames(W, H, n)
         port = _port_run(frames, gop, tf, mode)
-        out[label] = dict(frames=frames, port=port, jax=_jax_after_key(
-            frames, gop, tf, mode, port, tmp_path_factory.mktemp("pframes")))
+        out[label] = dict(frames=frames, port=port,
+                          jax=_jax_after_key(fix, c, port))
     return out
 
 
@@ -291,12 +277,13 @@ def test_cli_pyramid_writes_the_encoders_payloads(runs, tmp_path, case):
 
 # ---- the scans with a lambda weight and map, at the fixture's shapes -------
 
-@pytest.mark.parametrize("form,n,scale", [
-    ("luma", 3, 1.0), ("luma", 5, 1.15), ("luma", 5, 1.3), ("chroma", 1, 1.15)])
-def test_scan_with_lambda_weight_and_map(runs, form, n, scale):
-    """The inter scans of the anchor (3 lanes) and of the compound frame (5
-    lanes; paired U+V with 1) with a lambda weight and a random per-block
-    map, against JAX's jit entries of the fixture: every output equal."""
+SCAN_CASES = [("luma", 3, 1.0), ("luma", 5, 1.15), ("luma", 5, 1.3),
+              ("chroma", 1, 1.15)]
+
+
+def _scan_inputs(form, n, scale):
+    """The seeded inputs of a scan case: (src [B, h, w] int32, bs, the 12
+    lane arrays, force_part, force_sb, lambda map)."""
     rng = np.random.RandomState(n * 10 + int(scale * 100))
     chroma = form == "chroma"
     B, h, w, bs = (2, H // 2, W // 2, 16) if chroma else (1, H, W, 32)
@@ -318,31 +305,26 @@ def test_scan_with_lambda_weight_and_map(runs, form, n, scale):
         fp, fsb = (a[None] for a in tgeo.bottom_force_masks(
             bh, bw, sh, sw, h // 4))
         lmap = rng.uniform(0.68, 1.18, (1, bh, bw)).astype(np.float32)
-    (top, r_t, ok_t, sub, r_s, ok_s, sb, r_b, ok_b, i_t, i_s, i_b) = \
-        (jnp.asarray(a) for a in lanes)
-    if chroma:
-        want = jw2.encode_plane_wavefront_part(
-            jnp.asarray(src), 16, jT.TX_16X16, jT.TX_8X8, Q, top, r_t, sub,
-            r_s, ok_t, ok_s, i_t, i_s, jnp.asarray(fp), 1,
-            jw2.CHROMA_TOP_MODES, jw2.CHROMA_SUB_MODES, 8, (0,), False,
-            False, scale, sb_search=True, tx_sb=jT.TX_32X32, extra_sb=sb,
-            extra_rate_sb=r_b, extra_ok_sb=ok_b, intra_ok_sb=i_b,
-            force_sb=jnp.asarray(fsb), valid_h=None, paired=True,
-            uv_rates=True, modes_sbl=jw2.CHROMA_SB_MODES, uv_tx=True,
-            lam_map=jnp.asarray(lmap))
-    else:
-        want = jw2.encode_plane_wavefront_part(
-            jnp.asarray(src), 32, jT.TX_32X32, jT.TX_16X16, Q, top, r_t, sub,
-            r_s, ok_t, ok_s, i_t, i_s, jnp.asarray(fp), n, jie.CAND_MODES,
-            jw2.SUB_MODES, 8, (0,), False, True, scale, sb_search=True,
-            tx_sb=jT.TX_64X64, extra_sb=sb, extra_rate_sb=r_b,
-            extra_ok_sb=ok_b, intra_ok_sb=i_b, force_sb=jnp.asarray(fsb),
-            valid_h=None, lam_map=jnp.asarray(lmap))
+    return src, bs, lanes, fp, fsb, lmap
+
+
+@pytest.mark.parametrize("form,n,scale", SCAN_CASES)
+def test_scan_with_lambda_weight_and_map(form, n, scale):
+    """The inter scans of the anchor (3 lanes) and of the compound frame (5
+    lanes; paired U+V with 1) with a lambda weight and a random per-block
+    map, against JAX's scan on the same inputs (``scans.npz``, its
+    partition scan at the fixture's shapes): every output equal."""
+    src, bs, lanes, fp, fsb, lmap = _scan_inputs(form, n, scale)
+    chroma = form == "chroma"
+    fix = _load(FIX / "scans.npz")
+    c = SCAN_CASES.index((form, n, scale))
+    want = [fix[f"{c}_{k}"] for k in range(int(fix[f"{c}_n"]))]
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
     got = tw2.encode_plane_wavefront_part(
         t(src), bs, Q, t(fp), t(fsb), chroma=chroma, tx_search=not chroma,
         inter=tw2.InterLanes(*(t(a) for a in lanes)), lam_scale=scale,
         lam_map=t(lmap))
+    assert len(got) == len(want) == 10
     for k, (g, w_) in enumerate(zip(got, want)):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w_),
                                       err_msg=f"output {k}")
