@@ -24,7 +24,9 @@ its last line):
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
   1. build the kernels from svtav1_tpu_torch/csrc (and the native tile
      coder); registers, spills, CTAs per SM and clusters that fit of the
-     wavefront kernel's 8-bit (uint8_t) and 10-bit (uint16_t) forms;
+     wavefront kernel's 8-bit (uint8_t) and 10-bit (uint16_t) forms, and
+     each form's cluster width and warps a CTA (4-CTA clusters up to 16
+     candidates, 8 for 29, 16 for 61-63), which must hold;
   2. the kernel against its plain PyTorch version on the card, under the
      agreement bar of the wavefront tests (>= 99% equal modes, levels
      equal where the mode agrees, recon equal when every mode agrees), at
@@ -3286,8 +3288,9 @@ CARD = ""
 def phase_build():
     """Phase 1: build the kernels from the sources (one nvcc for the CUDA
     file, gcc for the native coders); ptxas' registers and spills, and
-    wf_info of each form (8-bit uint8_t, 10-bit uint16_t): registers, CTAs
-    an SM, shared bytes and clusters that fit at once."""
+    wf_info of each form (8-bit uint8_t, 10-bit uint16_t): registers,
+    spills, CTAs an SM, shared bytes, clusters that fit at once, and the
+    cluster width and warps a CTA, which must be each form's."""
     t0 = time.perf_counter()
     so, log = build.build()
     native._load()
@@ -3301,15 +3304,26 @@ def phase_build():
     C = len(expand_candidates(ie.CAND_MODES))
     C0 = len(expand_candidates(ie.CAND_MODES, P0_DELTAS))
     C4 = len(expand_candidates(ie.CAND_MODES, P4_DELTAS))
+    # (CTAs a cluster, warps a CTA) of each form: the 13-16-candidate
+    # forms keep 4-CTA clusters; the delta forms run one candidate a warp
+    # on clusters of 8 (29 candidates) or 16 (61-63)
+    forms = {(32, C): (4, 4), (16, C): (4, 4), (32, C + 2): (4, 4),
+             (16, 2): (4, 1), (32, C4): (8, 4), (32, C0): (16, 4),
+             (32, C0 + 2): (16, 4)}
     for bd, pix in ((8, "uint8_t"), (10, "uint16_t")):
-        for bs, c in ((32, C), (16, C), (32, C + 2), (16, 2), (32, C4),
-                      (32, C0), (32, C0 + 2)):
+        for (bs, c), want in forms.items():
             info = wk.kernel_info(bs, c, bd)
             print(f"wf_plane_kernel<{bs}, {pix}>, {c} candidates: {info}",
                   flush=True)
             if info["ctas_per_sm"] < 1 or info["clusters"] < 1:
                 raise AssertionError(f"wf_plane_kernel<{bs}, {pix}>: no "
                                      "CTA or cluster fits")
+            if (info["cluster"], info["warps_per_cta"]) != want or \
+                    info["local_bytes"]:
+                raise AssertionError(f"wf_plane_kernel<{bs}, {pix}>, {c} "
+                                     f"candidates: {info}, not clusters of "
+                                     f"{want[0]} CTAs of {want[1]} warps "
+                                     "without spills")
 
 
 def main():

@@ -59,34 +59,40 @@
 //     a stale L1 line).  A wait longer than SPIN_CAP polls sets the sticky
 //     error word; the launch then runs to its end without waiting and the
 //     host raises.
-//   * All candidates of a block in one thread block cluster of
-//     CLUSTER = 4 CTAs, select fused: warp w of CTA rank runs candidate
-//     w * 4 + rank, so a block's 13 candidate chains run on four SMs at
-//     once (4 measured faster than clusters of 1 or 2 at every 1080p
-//     shape, PERF.md); for 16x16 chroma lanes 0-15 hold the U block and lanes
-//     16-31 the V block of a pair, so the paired cost is one shuffle.
-//     Costs meet through distributed shared memory after one cluster
-//     barrier; every CTA takes the first minimum in candidate order, and
-//     the CTA that ran the winner writes its boundary row and column,
-//     publishes the flag, then writes levels and recon from shared
-//     memory.  No global candidate scratch.
+//   * All candidates of a block at once, one candidate a warp, on one
+//     thread block cluster, select fused.  The host decides the geometry
+//     (launch_geometry and warp_map in cuda/wavefront_kernel.py) and
+//     passes it in WfParams: clusters of K CTAs of wpc warps, the
+//     candidate warp w of CTA rank runs (cand, w * K + rank) and the
+//     rank and warp that ran each candidate (home).  K is 4 up to 16
+//     candidates (13 intra, 13 + 2 inter lanes, a P frame's 2 chroma
+//     candidates on 1 warp a CTA; 4 measured faster than clusters of 1
+//     or 2 at every 1080p shape, PERF.md), 8 up to 32 and 16 up to 64
+//     (a non-portable cluster size); for 16x16 chroma lanes 0-15 hold the
+//     U block and lanes 16-31 the V block of a pair, so the paired cost is
+//     one shuffle.  Costs meet through distributed shared memory after
+//     one cluster barrier; every CTA takes the first minimum in candidate
+//     order (strict <; half 0's cost, the pair's sum, for a U/V pair),
+//     and the CTA that ran the winner writes its boundary row and column
+//     from the slot of the warp that ran it, publishes the flag, then
+//     writes levels and recon from shared memory.  No global candidate
+//     scratch.
 //   * Angle deltas (presets 0-5; the flat path with deltas, which the JAX
-//     package runs on the XLA twin, not the Pallas kernel): up to 64
-//     candidates (preset 0's 61 luma candidates plus a flat P frame's 2
-//     inter lanes), still 16 warps a cluster, so warp w of CTA rank runs
-//     candidates w * 4 + rank + 16 k in ascending order.  Each warp keeps
-//     the first minimum of its own candidates (strict <, the pair's sum
-//     for a U/V pair) and that candidate's levels and recon: two slots a
-//     warp, the best so far and the one being computed, which swap roles
-//     when a candidate wins, so nothing is copied.  The cluster's first
-//     minimum over every candidate (ascending, strict <) is the first
-//     minimum of the warp that ran it too, so that warp's best slot holds
-//     its levels and recon for the write-out.  Not chosen: recomputing
-//     the winner's chain after the choice, which would add a whole chain
-//     to every block's latency, the quantity that bounds the plane.  With
-//     one candidate a warp (13-16 candidates) the layout is the earlier
-//     one slot a warp.  A CTA keeps one predictor map for each of its
-//     candidates (16 x 4 KB at 32x32 for 61-64 candidates).
+//     package runs on the XLA twin, not the Pallas kernel): 29 candidates
+//     (preset 4) on 8 CTAs of 4 warps, 61-64 (preset 0, with a flat P
+//     frame's 2 inter lanes) on 16.  A block's latency is then one
+//     candidate chain and two cluster barriers, as with 13 candidates.
+//     Measured at 1x1088x1920 (probe_wavefront --deltas, PERF.md): 61
+//     candidates 4.44 ms on 16x4 against 4.92 ms on 8 CTAs of 8 warps
+//     (with MAXW = 8, a 256-thread launch bound: two busy warps a
+//     scheduler slow the chain by 10%) and 12.4 ms for
+//     the earlier layout, which looped each of 16 warps over up to 4
+//     candidates with a best-so-far slot; 29 candidates 3.90 ms on 8x4,
+//     3.85 on 8x8 (within noise, twice the shared memory and half the
+//     resident clusters), 4.22 on 16x2 and 4.52 on 4x8.  The 16-wide
+//     barriers cost ~1.0 us (the ticket) and ~2.5 us (the cost exchange,
+//     the slowest warp included) of a ~23 us link; 4 CTAs of 16 warps
+//     would cap every form at 128 registers and was not tried.
 //   * Transforms in registers: a lane owns one column of 32 (16) values,
 //     runs the 1D network as straight-line code (csrc/txfm_nets.cuh,
 //     generated from spec.txfm.compiled_stages), goes through one
@@ -105,13 +111,14 @@
 //     not be bit-exact); TMA (a block's source is 1 KB; it is loaded
 //     before the flag wait instead, with plain loads, and a cp.async
 //     prefetch of the next ticket's source was not tried).
-//   * Resources (wf_info and -Xptxas -v, printed by chip_smoke.py; H100,
-//     8-bit form with the inter lanes): 127 registers a thread at 32x32,
-//     130 at 16x16, no spills; 4 warps a CTA for 13-16 candidates (4 CTAs
-//     an SM at 32x32, 3 at 16x16), 1 warp for the P frame's 2 chroma
-//     candidates (12 CTAs an SM); 48.0 KB of shared memory a CTA for
-//     luma, 20.8 KB for 13 chroma candidates, 6.2 KB for 2.  The 10-bit
-//     form doubles the pixel tiles (51.9 KB a luma CTA).
+//   * Resources (wf_info and -Xptxas -v, printed by chip_smoke.py; H100):
+//     128 registers a thread at 32x32, 142 (8-bit) and 158 (10-bit) at
+//     16x16, no spills; 4 warps a CTA (1 for the P frame's 2 chroma
+//     candidates), one level / recon slot, transpose tile and predictor
+//     map a warp: 47.6 KB of shared memory a luma CTA at 8 bits, 52.6 KB
+//     at 10 (4 CTAs an SM whatever the candidate count), 21.1 KB for 13
+//     chroma candidates (3 an SM).  Clusters resident at once: 124 of 4
+//     luma CTAs, 62 of 8, 28 of 16 (a diagonal holds 10-17 ready blocks).
 //
 // Predictors are integer arithmetic: DC, SMOOTH* and PAETH directly, V, H
 // and the six directional modes through per-(candidate, pixel) tables of
@@ -131,8 +138,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int MAXC = 64;      // candidates: preset 0's 61 + 2 inter lanes
-constexpr int CLUSTER = 4;    // CTAs sharing one block's candidates
-constexpr int MAXW = 4;       // warps a CTA at most (16 in a cluster)
+constexpr int MAXK = 16;      // CTAs a cluster at most (non-portable > 8)
+constexpr int MAXW = 4;       // warps a CTA at most
 constexpr int MAXDEP = 8;     // neighbours one block waits on
 constexpr int BLKCOLS = 4 + MAXDEP;
 constexpr int SPIN_CAP = 1 << 22;
@@ -175,6 +182,9 @@ struct WfParams {
   int col_lo, col_hi;      // column (pass 1) network clamp
   int res_lo, res_hi;      // residual clamp
   float lam;
+  int K, wpc;              // launch: clusters of K CTAs of wpc warps
+  int cand[MAXK * MAXW];   // [rank][warp] the candidate it runs, or -1
+  int home[MAXC];          // candidate c's rank | warp << 8
   int cand_mode[MAXC];     // intra mode, or -1 for an inter lane
   int cand_kind[MAXC];     // row kind | col kind << 1 (0 DCT, 1 ADST)
   float rate[MAXC];
@@ -223,31 +233,15 @@ template <int BS> WF_HD int lev_elems() {
 template <int BS> WF_HD int rec_elems() { return halves<BS>() * BS * BS; }
 #undef WF_HD
 
-// Candidate warps a CTA runs for C candidates, level / recon slots a
-// warp keeps (2 once a warp runs more than one candidate: the best so far
-// and the one being computed) and predictor maps a CTA holds (one for
-// each of its candidates).
-__host__ __device__ inline int warps_for(int C) {
-  const int w = (C + CLUSTER - 1) / CLUSTER;
-  return w < MAXW ? w : MAXW;
-}
-__host__ __device__ inline int slots_for(int C, int wpc) {
-  return C > CLUSTER * wpc ? 2 : 1;
-}
-__host__ __device__ inline int maps_for(int C) {
-  return (C + CLUSTER - 1) / CLUSTER;
-}
-
-// Shared bytes of a CTA of `wpc` candidate warps for C candidates.
+// Shared bytes of a CTA of `wpc` candidate warps: one transpose tile,
+// level and recon slot and predictor map a warp.
 template <int BS, typename Pix>
-size_t smem_bytes(int wpc, int C) {
+size_t smem_bytes(int wpc) {
   constexpr size_t rec_bytes = rec_elems<BS>() * sizeof(Pix);
-  const size_t nslot = slots_for(C, wpc);
-  return (size_t)wpc * (t_ints<BS>() * 4 +
-                        nslot * (lev_elems<BS>() * 2 + rec_bytes)) +
-         rec_bytes + halves<BS>() * n_edge<BS>() * 4 +
-         4 * MAXC * 4 + 8 + 2 * MAXW * 4 +
-         (size_t)maps_for(C) * BS * BS * 4 + BS * 4;
+  return (size_t)wpc * (t_ints<BS>() * 4 + lev_elems<BS>() * 2 + rec_bytes +
+                        BS * BS * 4) +
+         rec_bytes + halves<BS>() * n_edge<BS>() * 4 + 4 * MAXC * 4 + 8 +
+         BS * 4;
 }
 
 // One value of the edge array E = [corner, above(BS), above-right(BS),
@@ -316,31 +310,27 @@ wf_plane_kernel(const WfParams p) {
   constexpr int A = 1, L = 2 * BS + 1, TP = BS + 1, LSTR = lev_stride<BS>();
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, nthr = blockDim.x, wpc = nthr >> 5;
-  constexpr int K = CLUSTER;
-  const int W = K * wpc;                     // candidate warps a cluster
-  const int nslot = slots_for(p.C, wpc), nmap = maps_for(p.C);
   int* sT = reinterpret_cast<int*>(smem);                // [wpc][H][BS][TP]
-  // [wpc][nslot] levels and recons: slot sSlot[warp][half] holds the
-  // warp's best candidate so far, the other the one being computed
+  // [wpc] levels and recons, one slot a warp
   int16_t* sLev = reinterpret_cast<int16_t*>(sT + wpc * t_ints<BS>());
   constexpr int RE = rec_elems<BS>();
-  Pix* sRec = reinterpret_cast<Pix*>(sLev + wpc * nslot * lev_elems<BS>());
-  Pix* sSrc = sRec + wpc * nslot * RE;                      // [H][BS][BS]
+  Pix* sRec = reinterpret_cast<Pix*>(sLev + wpc * lev_elems<BS>());
+  Pix* sSrc = sRec + wpc * RE;                              // [H][BS][BS]
   int* sE = reinterpret_cast<int*>(sSrc + RE);              // [H][NE]
   const Pix* src = static_cast<const Pix*>(p.src);
   float* sCost = reinterpret_cast<float*>(sE + H * NE);  // [2][C], own
   float* sAll = sCost + 2 * MAXC;                    // [2][C], gathered
   int* sMisc = reinterpret_cast<int*>(sAll + 2 * MAXC);  // ticket, pad
-  int* sSlot = sMisc + 2;                // [MAXW][2] best slot a half
-  int* sDir = sSlot + 2 * MAXW;          // [nmap][N] this CTA's pred maps
-  int* sSmw = sDir + nmap * N;           // [BS] smooth weights
+  int* sDir = sMisc + 2;                 // [wpc][N] the warps' pred maps
+  int* sSmw = sDir + wpc * N;            // [BS] smooth weights
 
-  // the cluster's CTAs share each ticket: warp w of CTA `rank` runs
-  // candidates w * K + rank, then + W, + 2W, ...; rank 0 takes the
-  // tickets
+  // the cluster's CTAs share each ticket: warp `warp` of CTA `rank` runs
+  // candidate p.cand[rank][warp] (or none), so every candidate of a block
+  // runs at once; rank 0 takes the tickets
   cg::cluster_group cl = cg::this_cluster();
   const int rank = (int)cl.block_rank();
   const int warp = tid >> 5, lane = tid & 31;
+  const int c = p.cand[rank * MAXW + warp];  // this warp's candidate, or -1
   const int hf = lane / BS, j = lane % BS;   // this lane's block and column
   const int ntick = p.NU * p.nblk;
   volatile int* verr = p.err;
@@ -350,15 +340,17 @@ wf_plane_kernel(const WfParams p) {
   // The predictor tables go to shared memory once: every acquire load of
   // a ready flag invalidates L1, so read from global they would come
   // from L2 for every block.
-  for (int e = tid; e < nmap * N; e += nthr) {
-    const int cc = (e / N) * K + rank;
-    sDir[e] = cc < p.C ? __ldg(p.dirmap + (size_t)cc * N + e % N) : 0;
+  for (int e = tid; e < wpc * N; e += nthr) {
+    const int cc = p.cand[rank * MAXW + e / N];
+    sDir[e] = cc >= 0 ? __ldg(p.dirmap + (size_t)cc * N + e % N) : 0;
   }
   for (int e = tid; e < BS; e += nthr) sSmw[e] = __ldg(p.smw + e);
   __syncthreads();
 
+  const bool lead = tid == 0 && rank == 0;
   for (;;) {
-    if (tid == 0 && rank == 0) {
+    const unsigned long long top = p.trace && lead ? gtime() : 0;
+    if (lead) {
       const int t = atomicAdd(counter, 1);
       sMisc[0] = *verr ? ntick : t;
     }
@@ -367,8 +359,10 @@ wf_plane_kernel(const WfParams p) {
     if (t >= ntick) break;
     unsigned long long* tr =
         p.trace ? p.trace + (size_t)t * TRACE_COLS : nullptr;
-    const bool lead = tid == 0 && rank == 0;
-    if (tr && lead) tr[0] = gtime();
+    if (tr && lead) {
+      tr[0] = gtime();
+      tr[12] = top;
+    }
     const int k = t / p.NU, u = t % p.NU;
     const int* bl = p.blocks + k * BLKCOLS;
     const int r = bl[0], cb = bl[1], has_tr = bl[2], has_bl = bl[3];
@@ -415,18 +409,13 @@ wf_plane_kernel(const WfParams p) {
                              e % NE);
     __syncthreads();
 
-    // ---- warp `warp`: candidates c = warp * K + rank + it * W of the
-    // block(s), in ascending order; each half keeps the first minimum of
-    // its costs (strict <) and its levels and recon in slot bslot
-    // per-phase stamps of one warp (warp 1 of rank 0, its last candidate)
+    // ---- warp `warp`: candidate c of the block(s), its levels and recon
+    // in the warp's slot; per-phase stamps of one warp (warp 1 of rank 0)
     // in trace[4..10]
     unsigned long long* ws = (tr && rank == 0 && warp == 1 && lane == 0)
                                  ? tr + 4 : nullptr;
     if (ws) ws[0] = gtime();
-    int bslot = 0;
-    float bcost = 0.f;
-    for (int c = warp * K + rank, it = 0; c < p.C; c += W, ++it) {
-      const int cur = it == 0 ? 0 : 1 - bslot;   // the slot c writes
+    if (c >= 0) {
       const int mode = p.cand_mode[c], kind = p.cand_kind[c];
       const int rk = kind & 1, ck = (kind >> 1) & 1;
       const int* E = sE + hf * NE;
@@ -454,7 +443,7 @@ wf_plane_kernel(const WfParams p) {
       // unrolled 32 times, the predictors, quantizer and reconstruction
       // would be code the instruction cache cannot hold.
       int* Tw = sT + warp * t_ints<BS>() + hf * BS * TP;
-      Pix* Rw = sRec + (warp * nslot + cur) * RE + hf * N;
+      Pix* Rw = sRec + warp * RE + hf * N;
       __syncwarp();
       auto put = [&](int i, int pr) {
         Rw[i * BS + j] = (Pix)pr;
@@ -468,7 +457,7 @@ wf_plane_kernel(const WfParams p) {
 #pragma unroll 8
         for (int i = 0; i < BS; ++i) put(i, dcv);
       } else if (mode <= 8) {                          // V, H, directional
-        const int* dm = sDir + (c / K) * N + j;
+        const int* dm = sDir + warp * N + j;
 #pragma unroll 8
         for (int i = 0; i < BS; ++i) {
           const int m = dm[i * BS];
@@ -523,8 +512,7 @@ wf_plane_kernel(const WfParams p) {
       if (ws) ws[2] = gtime();
       int nnz = 0;
       float lbits = 0.f;
-      int16_t* Lw = sLev + (warp * nslot + cur) * lev_elems<BS>() +
-                    (hf * BS + j) * LSTR;
+      int16_t* Lw = sLev + warp * lev_elems<BS>() + (hf * BS + j) * LSTR;
       int* Trow = Tw + j * TP;
 #pragma unroll 8
       for (int i = 0; i < BS; ++i) {
@@ -602,33 +590,23 @@ wf_plane_kernel(const WfParams p) {
         if (p.paired) cost = __fadd_rn(cost, cv);
       }
       if (j == 0) sCost[hf * MAXC + c] = cost;
-      // the pair's sum (half 0's) decides both halves of a pair
-      float cmp = cost;
-      if constexpr (H == 2) {
-        const float c0 = __shfl_sync(FULL, cost, 0);
-        if (p.paired) cmp = c0;
-      }
-      if (it == 0 || cmp < bcost) {
-        bcost = cmp;
-        bslot = cur;
-      }
       if (ws) ws[6] = gtime();
     }
-    if (j == 0 && warp * K + rank < p.C) sSlot[warp * 2 + hf] = bslot;
+    if (tr && lead) tr[11] = gtime();
     cl.sync();
     for (int e = tid; e < H * p.C; e += nthr) {
       const int hh = e / p.C, cc = e % p.C;
       sAll[hh * MAXC + cc] =
-          cl.map_shared_rank(sCost, cc % K)[hh * MAXC + cc];
+          cl.map_shared_rank(sCost, p.home[cc] & 0xFF)[hh * MAXC + cc];
     }
     __syncthreads();
     if (tr && lead) tr[2] = gtime();
 
-    // ---- first minimum of each half (one for a pair); the CTA that ran
-    // a half's winner writes that half out from the best slot of the warp
-    // that ran it (the winner is the first minimum of that warp's own
-    // candidates too): the boundary row and column, its share of the
-    // flag, then levels and recon, which no other block reads
+    // ---- first minimum of each half (one for a pair: half 0's cost is
+    // the pair's sum); the CTA that ran a half's winner writes that half
+    // out from the slot of the warp that ran it: the boundary row and
+    // column, its share of the flag, then levels and recon, which no other
+    // block reads
     int best0 = 0, best1 = 0;
     float bv0 = sAll[0], bv1 = sAll[MAXC];
     for (int cc = 1; cc < p.C; ++cc) {
@@ -642,14 +620,12 @@ wf_plane_kernel(const WfParams p) {
       }
     }
     if (H == 1 || p.paired) best1 = best0;
-    const bool mine0 = best0 % K == rank;
-    const bool mine1 = real1 && best1 % K == rank;
+    const int home0 = p.home[best0], home1 = p.home[best1];
+    const bool mine0 = (home0 & 0xFF) == rank;
+    const bool mine1 = real1 && (home1 & 0xFF) == rank;
     if (!mine0 && !mine1) continue;
-    // the slot (of wpc * nslot) holding half hh's winner, in this CTA
-    auto win_slot = [&](int hh) {
-      const int wl = ((hh ? best1 : best0) % W) / K;
-      return wl * nslot + sSlot[wl * 2 + hh];
-    };
+    // the slot of half hh's winner: the warp of this CTA that ran it
+    auto win_slot = [&](int hh) { return (hh ? home1 : home0) >> 8; };
     for (int e = tid; e < H * 2 * BS; e += nthr) {
       const int hh = e / (2 * BS), q = e % (2 * BS);
       if (!(hh ? mine1 : mine0)) continue;
@@ -687,27 +663,32 @@ wf_plane_kernel(const WfParams p) {
   cl.sync();   // no CTA leaves while another may read its shared memory
 }
 
-// Launch geometry for C candidates: warps per CTA, shared bytes per CTA,
-// CTAs per SM and the clusters that fit on the card at once.
+// Launch geometry: clusters of K CTAs of wpc warps.  Sets the kernel's
+// shared bytes and (K > 8 is a non-portable cluster size) allows K, then
+// gives the shared bytes per CTA, CTAs per SM and the clusters that fit on
+// the card at once; an error if not one cluster fits.
 template <int BS, typename Pix>
-int configure(int C, int* wpc, size_t* smem, int* per_sm, int* clusters) {
-  *wpc = warps_for(C);
-  *smem = smem_bytes<BS, Pix>(*wpc, C);
+int configure(int K, int wpc, size_t* smem, int* per_sm, int* clusters) {
+  *smem = smem_bytes<BS, Pix>(wpc);
   cudaError_t e = cudaFuncSetAttribute(
       wf_plane_kernel<BS, Pix>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)*smem);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, wf_plane_kernel<BS, Pix>, 32 * *wpc, *smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(wf_plane_kernel<BS, Pix>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             K > 8);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, wf_plane_kernel<BS, Pix>, 32 * wpc, *smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.x = K;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(CLUSTER);
-  cfg.blockDim = dim3(32 * *wpc);
+  cfg.gridDim = dim3(K);
+  cfg.blockDim = dim3(32 * wpc);
   cfg.dynamicSmemBytes = *smem;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
@@ -726,19 +707,19 @@ int sm_count() {
 
 template <int BS, typename Pix>
 int launch(const WfParams* p, cudaStream_t st) {
-  int wpc, per_sm, clusters;
+  int per_sm, clusters;
   size_t smem;
-  int e = configure<BS, Pix>(p->C, &wpc, &smem, &per_sm, &clusters);
+  int e = configure<BS, Pix>(p->K, p->wpc, &smem, &per_sm, &clusters);
   if (e) return e;
   const int ntick = p->NU * p->nblk;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.x = p->K;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(CLUSTER * std::min(ntick, clusters));
-  cfg.blockDim = dim3(32 * wpc);
+  cfg.gridDim = dim3(p->K * std::min(ntick, clusters));
+  cfg.blockDim = dim3(32 * p->wpc);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cfg.attrs = attr;
@@ -748,13 +729,13 @@ int launch(const WfParams* p, cudaStream_t st) {
 }
 
 template <int BS, typename Pix>
-int info(int C, int* out) {
+int info(int K, int wpc, int* out) {
   cudaFuncAttributes a;
   cudaError_t e = cudaFuncGetAttributes(&a, wf_plane_kernel<BS, Pix>);
   if (e != cudaSuccess) return (int)e;
-  int wpc, per_sm, clusters;
+  int per_sm, clusters;
   size_t smem;
-  const int r = configure<BS, Pix>(C, &wpc, &smem, &per_sm, &clusters);
+  const int r = configure<BS, Pix>(K, wpc, &smem, &per_sm, &clusters);
   if (r) return r;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
@@ -763,7 +744,23 @@ int info(int C, int* out) {
   out[4] = sm_count();
   out[5] = clusters;
   out[6] = wpc;
+  out[7] = K;
   return 0;
+}
+
+bool geometry_ok(int K, int wpc) {
+  return K >= 1 && K <= MAXK && wpc >= 1 && wpc <= MAXW;
+}
+
+// Every candidate runs on one warp of the launch, and that warp runs it.
+bool map_ok(const WfParams* p) {
+  if (!geometry_ok(p->K, p->wpc)) return false;
+  for (int c = 0; c < p->C; ++c) {
+    const int rank = p->home[c] & 0xFF, warp = p->home[c] >> 8;
+    if (rank >= p->K || warp >= p->wpc || p->cand[rank * MAXW + warp] != c)
+      return false;
+  }
+  return true;
 }
 
 }  // namespace
@@ -775,7 +772,8 @@ int wf_params_size() { return (int)sizeof(WfParams); }
 // One plane call: the persistent kernel of bs x bs blocks and bd-bit
 // pixels (8: uint8, 10: uint16) on the caller's stream.
 int wf_plane(const WfParams* p, int bs, int bd, void* stream) {
-  if (p->C < 1 || p->C > MAXC) return (int)cudaErrorInvalidValue;
+  if (p->C < 1 || p->C > MAXC || !map_ok(p))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (bd == 8 && bs == 32) return launch<32, uint8_t>(p, st);
   if (bd == 8 && bs == 16) return launch<16, uint8_t>(p, st);
@@ -785,14 +783,15 @@ int wf_plane(const WfParams* p, int bs, int bd, void* stream) {
 }
 
 // Registers per thread, local (spill) bytes per thread, CTAs per SM,
-// shared bytes per CTA, the SM count, clusters resident at once and warps
-// per CTA, of the bs, bd form for C candidates.
-int wf_info(int bs, int bd, int C, int* out) {
-  if (C < 1 || C > MAXC) return (int)cudaErrorInvalidValue;
-  if (bd == 8 && bs == 32) return info<32, uint8_t>(C, out);
-  if (bd == 8 && bs == 16) return info<16, uint8_t>(C, out);
-  if (bd == 10 && bs == 32) return info<32, uint16_t>(C, out);
-  if (bd == 10 && bs == 16) return info<16, uint16_t>(C, out);
+// shared bytes per CTA, the SM count, clusters resident at once, warps per
+// CTA and CTAs per cluster, of the bs, bd form in clusters of K CTAs of
+// wpc warps.
+int wf_info(int bs, int bd, int K, int wpc, int* out) {
+  if (!geometry_ok(K, wpc)) return (int)cudaErrorInvalidValue;
+  if (bd == 8 && bs == 32) return info<32, uint8_t>(K, wpc, out);
+  if (bd == 8 && bs == 16) return info<16, uint8_t>(K, wpc, out);
+  if (bd == 10 && bs == 32) return info<32, uint16_t>(K, wpc, out);
+  if (bd == 10 && bs == 16) return info<16, uint16_t>(K, wpc, out);
   return (int)cudaErrorInvalidValue;
 }
 

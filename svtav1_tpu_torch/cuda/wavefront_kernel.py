@@ -6,11 +6,11 @@
 intra wavefront, and with ``extra`` its mixed form, whose inter lanes
 (precomputed predictions, a rate and a mask a block each, and a mask of
 the intra candidates) follow the intra candidates; either with angle
-deltas (presets 0-5: up to 61 intra candidates, 64 with the lanes).  It checks what the
-kernel takes and raises on anything else, allocates every output with
-``torch.empty`` and the ticket counter and ready flags with one
-``torch.zeros``, and makes one persistent launch on the current stream
-without synchronising.  ``LAUNCHES`` counts the kernel launches, and
+deltas (presets 0-5: up to 61 intra candidates, 64 with the lanes).  It
+checks what the kernel takes and raises on anything else, allocates every
+output with ``torch.empty`` and the ticket counter and ready flags with
+one ``torch.zeros``, and makes one persistent launch on the current
+stream without synchronising.  ``LAUNCHES`` counts the kernel launches, and
 ``FORMS`` the same launches by (bs, bd, intra candidates, inter lanes).
 
 The kernel sets a sticky error word on the device when a wait for a
@@ -21,7 +21,10 @@ Host-side tables, built once per (shape, candidate list): the block list
 in ticket order with each block's dependencies (``schedule``), the
 predictor maps (``linear_pred_maps``), the deadzone reciprocals
 (``reciprocal``) and the transform shifts and bd's clamps
-(``tx_params``).  ``work``
+(``tx_params``).  The launch's geometry is decided here too, and the
+kernel only follows it: ``launch_geometry`` picks the cluster width and
+the warps a CTA for C candidates, ``warp_map`` which warp of which CTA
+runs each candidate and where the write-out finds a winner.  ``work``
 counts the operations and bytes of one call for the kernel's bound.
 """
 
@@ -45,7 +48,9 @@ from ..spec import txfm as T
 LAUNCHES = 0          # kernel launches so far
 FORMS = Counter()     # the same by (bs, bd, intra candidates, inter lanes)
 
-MAXC = 64             # must match csrc/wavefront.cu
+MAXC = 64             # these four must match csrc/wavefront.cu
+MAXK = 16             # CTAs a cluster at most
+MAXW = 4              # warps a CTA at most
 MAXDEP = 8
 _TX_OF_BS = {16: T.TX_16X16, 32: T.TX_32X32}
 LANE = (-1, 0)        # an inter lane's (mode, delta) in the kernel's list
@@ -70,7 +75,9 @@ class _Params(ctypes.Structure):
             "fwd_s1", "fwd_s2", "inv_s0", "inv_s1", "base", "pix_max",
             "dq_lo", "dq_hi", "row_lo", "row_hi", "mid_lo", "mid_hi",
             "col_lo", "col_hi", "res_lo", "res_hi")] +
-        [("lam", ctypes.c_float),
+        [("lam", ctypes.c_float), ("K", ctypes.c_int), ("wpc", ctypes.c_int),
+         ("cand", ctypes.c_int * (MAXK * MAXW)),
+         ("home", ctypes.c_int * MAXC),
          ("cand_mode", ctypes.c_int * MAXC),
          ("cand_kind", ctypes.c_int * MAXC),
          ("rate", ctypes.c_float * MAXC)])
@@ -89,21 +96,52 @@ def _lib():
     lib.wf_plane.argtypes = [ctypes.POINTER(_Params), ctypes.c_int,
                              ctypes.c_int, ctypes.c_void_p]
     lib.wf_info.restype = ctypes.c_int
-    lib.wf_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                            ctypes.POINTER(ctypes.c_int)]
+    lib.wf_info.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
-def kernel_info(bs: int, C: int, bd: int = 8) -> dict:
+def launch_geometry(C: int) -> tuple:
+    """(K, wpc) of the launch for C candidates: clusters of K CTAs of wpc
+    warps, one candidate a warp, so that every candidate of a block runs
+    at once: 4 CTAs up to 16 candidates, 8 up to 32, 16 up to 64."""
+    if not 1 <= C <= MAXC:
+        raise ValueError(f"{C} candidates outside 1..{MAXC}")
+    K = 4 if C <= 16 else 8 if C <= 32 else 16
+    return K, -(-C // K)
+
+
+def warp_map(C: int, K: int, wpc: int) -> tuple:
+    """(cand, home) of C candidates on clusters of K CTAs of wpc warps:
+    warp w of CTA rank runs candidate cand[rank * MAXW + w] = w * K + rank
+    (-1: none), and home[c] = rank | w << 8 is where the write-out finds
+    the winner c."""
+    if not (1 <= K <= MAXK and 1 <= wpc <= MAXW and K * wpc >= C):
+        raise ValueError(f"{C} candidates do not fit clusters of {K} CTAs "
+                         f"of {wpc} warps")
+    cand = [-1] * (MAXK * MAXW)
+    home = [0] * MAXC
+    for c in range(C):
+        rank, w = c % K, c // K
+        cand[rank * MAXW + w] = c
+        home[c] = rank | w << 8
+    return cand, home
+
+
+def kernel_info(bs: int, C: int, bd: int = 8, geometry=None) -> dict:
     """Registers and local (spill) bytes per thread, CTAs per SM, dynamic
-    shared bytes per CTA, the SM count, clusters resident at once and
-    warps per CTA of the kernel's bs, bd form for C candidates."""
-    out = (ctypes.c_int * 7)()
-    err = _lib().wf_info(bs, bd, C, out)
+    shared bytes per CTA, the SM count, clusters resident at once, warps
+    per CTA and CTAs per cluster of the kernel's bs, bd form for C
+    candidates (geometry: (K, wpc), else launch_geometry(C))."""
+    K, wpc = geometry or launch_geometry(C)
+    warp_map(C, K, wpc)
+    out = (ctypes.c_int * 8)()
+    err = _lib().wf_info(bs, bd, K, wpc, out)
     if err:
-        raise RuntimeError(f"wf_info failed: CUDA error {err}")
+        raise RuntimeError(f"wf_info failed: CUDA error {err} (clusters of "
+                           f"{K} CTAs of {wpc} warps)")
     return dict(zip(("regs", "local_bytes", "ctas_per_sm", "smem_bytes",
-                     "sms", "clusters", "warps_per_cta"), out))
+                     "sms", "clusters", "warps_per_cta", "cluster"), out))
 
 
 @lru_cache(maxsize=None)
@@ -355,14 +393,18 @@ def _lane_tensors(extra, B: int, bh: int, bw: int, bs: int, dev, bd: int):
 
 def launch(src, rd, bs: int, tx_size: int, modes, bd: int = 8,
            angle_deltas=(0,), valid_h: int = None, paired: bool = False,
-           uv_tx: bool = False, trace: bool = False, extra=None):
+           uv_tx: bool = False, trace: bool = False, extra=None,
+           geometry=None):
     """wavefront_cuda plus the kernel's per-ticket timestamps when trace
-    is set.  Returns (mode_idx,
-    levels, recon, trace): trace is [NU * nblk, 16] int64 %globaltimer ns
-    in ticket order, or None; columns 0-3 ticket taken, neighbours ready,
+    is set, on clusters of K CTAs of wpc warps when geometry = (K, wpc)
+    is given (launch_geometry(C) otherwise).  Returns (mode_idx, levels,
+    recon, trace): trace is [NU * nblk, 16] int64 %globaltimer ns in
+    ticket order, or None; columns 0-3 ticket taken, neighbours ready,
     costs chosen, flag published; 4-10 one warp's phases (start,
     prediction, forward transform, quantizer, inverse transform,
-    reconstruction, cost)."""
+    reconstruction, cost); 11 the lead warp's cost computed (before the
+    cluster barrier of the cost exchange); 12 the lead's ticket asked
+    for (before the ticket's cluster barrier)."""
     global LAUNCHES
     if src.device.type != "cuda":
         raise ValueError(f"wavefront_cuda needs a CUDA tensor, got "
@@ -404,6 +446,8 @@ def launch(src, rd, bs: int, tx_size: int, modes, bd: int = 8,
     C = len(cands)
     if C > MAXC:
         raise ValueError(f"{C} candidates > {MAXC}")
+    K, wpc = geometry or launch_geometry(C)
+    cand, home = warp_map(C, K, wpc)
     tabs = _tables(bs, cands, bool(uv_tx), h, w, vh, str(dev))
     # 16x16: two frames a unit (u and u + NU, or a U/V pair)
     NU = (B + 1) // 2 if bs == 16 else B
@@ -430,7 +474,10 @@ def launch(src, rd, bs: int, tx_size: int, modes, bd: int = 8,
         mdc=mdc, mac=mac, sdc=sdc, sac=sac,
         B=B, NU=NU, h=h, w=w, bh=bh, bw=bw, vh=vh, C=C,
         paired=int(bool(paired)), nblk=tabs["nblk"], NI=NI, nE=nE,
-        dqdc=dqdc, dqac=dqac, lam=float(lam), **tx_params(bs, bd))
+        dqdc=dqdc, dqac=dqac, lam=float(lam), K=K, wpc=wpc,
+        **tx_params(bs, bd))
+    p.cand[:] = cand
+    p.home[:] = home
     p.cand_mode[:C] = [m for m, _ in cands]
     p.cand_kind[:C] = tabs["kind"]
     p.rate[:NI] = [float(v) for v in np.asarray(mode_rate, np.float32)]
@@ -439,7 +486,9 @@ def launch(src, rd, bs: int, tx_size: int, modes, bd: int = 8,
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().wf_plane(ctypes.byref(p), bs, bd, stream)
     if err:
-        raise RuntimeError(f"wf_plane launch failed: CUDA error {err}")
+        raise RuntimeError(f"wf_plane launch failed: CUDA error {err} "
+                           f"({C} candidates on clusters of {K} CTAs of "
+                           f"{wpc} warps)")
     LAUNCHES += 1
     FORMS[(bs, bd, NI, nE)] += 1
     return mode_idx, levels, recon, tr

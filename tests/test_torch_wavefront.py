@@ -292,3 +292,85 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     src = torch.zeros((1, 64, 64), dtype=torch.uint8)
     with pytest.raises(ValueError, match="CUDA"):
         wk.wavefront_cuda(src, rd, 32, T.TX_32X32, CAND_MODES)
+
+
+# ---- the kernel's launch geometry ------------------------------------------
+
+@pytest.mark.parametrize("C", range(1, wk.MAXC + 1))
+def test_launch_geometry_runs_each_candidate_on_one_warp(C):
+    """One candidate a warp on a cluster as wide as the list needs: 4 CTAs
+    up to 16 candidates (the geometry of the 13-16-candidate forms,
+    ceil(C / 4) warps a CTA), 8 up to 32, 16 up to 64, never more than 4
+    warps a CTA nor a row of idle warps; every candidate on exactly one
+    warp of one rank, and the write-out's lookup of a winner gives the
+    warp that ran it."""
+    K, wpc = wk.launch_geometry(C)
+    assert K == (4 if C <= 16 else 8 if C <= 32 else 16)
+    if C <= 16:
+        assert wpc == min(-(-C // 4), 4)
+    assert wpc <= 4 and (wpc - 1) * K < C <= K * wpc
+    cand, home = wk.warp_map(C, K, wpc)
+    runs = {}
+    for rank in range(wk.MAXK):
+        for w in range(wk.MAXW):
+            c = cand[rank * wk.MAXW + w]
+            if rank >= K or w >= wpc or c < 0:
+                assert c == -1, (rank, w, c)
+                continue
+            assert c not in runs, (c, runs[c], (rank, w))
+            runs[c] = (rank, w)
+    assert sorted(runs) == list(range(C))
+    for c, (rank, w) in runs.items():
+        assert (home[c] & 0xFF, home[c] >> 8) == (rank, w)
+
+
+def test_warp_map_rejects_a_launch_too_small():
+    with pytest.raises(ValueError, match="do not fit"):
+        wk.warp_map(61, 8, 4)
+    with pytest.raises(ValueError, match="do not fit"):
+        wk.warp_map(13, 4, wk.MAXW + 1)
+    for C in (0, wk.MAXC + 1):
+        with pytest.raises(ValueError, match="outside"):
+            wk.launch_geometry(C)
+
+
+def test_params_arrays_match_the_cuda_struct():
+    """The kernel's limits and the lengths of WfParams' tables (the warp
+    map among them) are the ctypes mirror's."""
+    from pathlib import Path
+    import re
+    src = (Path(wk.__file__).parent.parent / "csrc" /
+           "wavefront.cu").read_text()
+    const = {n: int(v) for n, v in
+             re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    for n in ("MAXC", "MAXK", "MAXW", "MAXDEP"):
+        assert const[n] == getattr(wk, n), n
+    body = re.search(r"struct WfParams \{(.*?)\n\};", src, re.S).group(1)
+    arrays = {n: eval(e, {}, const) for n, e in
+              re.findall(r"(\w+)\[([A-Z *]+)\];", body)}
+    mirror = {n: t._length_ for n, t in wk._Params._fields_
+              if hasattr(t, "_length_")}
+    assert arrays == mirror
+
+
+def test_ctypes_signatures_match_the_c_functions(monkeypatch):
+    """The wrapper declares each extern "C" function of the kernel with
+    the argument count of its definition (ctypes would pass a short call
+    on to the library unchecked only on the card)."""
+    from pathlib import Path
+    import re
+    import types
+    from svtav1_tpu_torch.cuda import build
+    src = (Path(wk.__file__).parent.parent / "csrc" /
+           "wavefront.cu").read_text()
+    body = src[src.index('extern "C" {'):]
+    defs = {n: len([a for a in args.split(",") if a.strip()])
+            for n, args in re.findall(r"^int (\w+)\(([^)]*)\)", body, re.M)}
+    fake = types.SimpleNamespace(**{n: types.SimpleNamespace()
+                                    for n in defs})
+    fake.wf_params_size = lambda: ctypes.sizeof(wk._Params)
+    monkeypatch.setattr(build, "load_library", lambda: fake)
+    lib = wk._lib.__wrapped__()
+    assert defs.keys() == {"wf_params_size", "wf_plane", "wf_info"}
+    for n, count in defs.items():
+        assert len(getattr(lib, n).argtypes) == count, n
