@@ -46,7 +46,11 @@ none), as ``svtav1_tpu/app.py`` does.  --stat-report prints the mean
 PSNR and SSIM (``ops.metrics.ssim_plane``) of each plane, at the peak
 (1 << bit depth) - 1; -o writes the reconstruction as a Y4M of the
 input's bit depth.  The settings are logged on stderr at SVT_LOG's level
-(``utils.log``), as the JAX CLI logs them.
+(``utils.log``), as the JAX CLI logs them.  At ``SVT_LOG=debug`` the run
+is also traced (``utils.trace``): at the end, one debug line a span (its
+count and mean ms: the flat stage's ``enc.*`` and ``fin.*`` parts, the
+coder's frames, the builds) and one of the counters (D2H bytes, coded
+symbols, compilations).
 """
 
 from __future__ import annotations
@@ -61,7 +65,7 @@ from dataclasses import replace
 import numpy as np
 
 from .ops.metrics import ssim_plane
-from .utils import log
+from .utils import log, trace
 
 
 def psnr(a: np.ndarray, b: np.ndarray, peak: int = 255) -> float:
@@ -225,6 +229,9 @@ def main(argv=None) -> int:
         except (NotImplementedError, ValueError) as e:
             return _error(str(e))
 
+        traced = log.get_level() <= log.DEBUG
+        if traced:
+            trace.enable()
         t0 = time.perf_counter()
         n = n_tu = total_bytes = 0
         psnrs, ssims = [], []
@@ -287,6 +294,14 @@ def main(argv=None) -> int:
         print(f"PSNR Y {m[0]:.2f} U {m[1]:.2f} V {m[2]:.2f}")
         s = np.mean(ssims, axis=0)
         print(f"SSIM Y {s[0]:.4f} U {s[1]:.4f} V {s[2]:.4f}")
+    if traced:
+        trace.enable(False)
+        for name, (count, mean_ms) in sorted(trace.summary().items()):
+            log.debug("trace", "%s: %d spans, mean %.3f ms", name, count,
+                      mean_ms)
+        log.debug("trace", "counters: %s; %d records dropped", ", ".join(
+            f"{k} {v}" for k, v in sorted(trace.counters().items())),
+            trace.dropped())
     return 0
 
 

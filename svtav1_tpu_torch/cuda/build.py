@@ -21,6 +21,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from ..utils import trace
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -65,6 +67,7 @@ def build() -> tuple[Path, str]:
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
     r = subprocess.run(cmd, capture_output=True, text=True)
+    trace.count("build.nvcc")
     if r.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
@@ -73,6 +76,9 @@ def build() -> tuple[Path, str]:
 
 
 def load_library() -> ctypes.CDLL:
-    """Build if needed, then load the kernels' shared library."""
-    so, _ = build()
-    return ctypes.CDLL(str(so))
+    """Build if needed, then load the kernels' shared library (the
+    ``setup.build`` span of ``utils.trace``, recorded whatever its flag
+    says)."""
+    with trace.span("setup.build", always=True):
+        so, _ = build()
+        return ctypes.CDLL(str(so))

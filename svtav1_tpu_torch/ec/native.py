@@ -21,6 +21,7 @@ from pathlib import Path
 import numpy as np
 
 from ..spec import tables as tbl
+from ..utils import trace
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "native" / "tile_coder.c"
@@ -53,17 +54,19 @@ def library_path(src: Path = _SRC, stem: str = "libtilecoder") -> Path:
 
 
 def _build(src: Path, stem: str) -> ctypes.CDLL:
-    so = library_path(src, stem)
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        r = subprocess.run(["gcc", *_CFLAGS, "-o", str(tmp), str(src)],
-                           capture_output=True, text=True)
-        if r.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"native build failed: {r.stderr[:500]}")
-        os.replace(tmp, so)
-    return ctypes.CDLL(str(so))
+    with trace.span("setup.build", always=True):
+        so = library_path(src, stem)
+        if not so.exists():
+            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            r = subprocess.run(["gcc", *_CFLAGS, "-o", str(tmp), str(src)],
+                               capture_output=True, text=True)
+            trace.count("build.gcc")
+            if r.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"native build failed: {r.stderr[:500]}")
+            os.replace(tmp, so)
+        return ctypes.CDLL(str(so))
 
 
 def _load():
@@ -78,7 +81,8 @@ def _load():
         np.ctypeslib.ndpointer(np.int32), np.ctypeslib.ndpointer(np.int32),
         np.ctypeslib.ndpointer(np.int32), np.ctypeslib.ndpointer(np.int32),
         ctypes.POINTER(_Tables), ctypes.c_int,
-        np.ctypeslib.ndpointer(np.int32), np.ctypeslib.ndpointer(np.int32)]
+        np.ctypeslib.ndpointer(np.int32), np.ctypeslib.ndpointer(np.int32),
+        ctypes.POINTER(ctypes.c_long)]
     _lib = lib
     return lib
 
@@ -128,7 +132,8 @@ def encode_tile_intra(width: int, height: int, update_cdf: bool,
     true_h: signaled frame height when `height` is the SB-padded plane
     height (0 → equal); bottom-edge geometry per encoder/geometry.py.
     uv_modes / y_deltas [bh, bw]: each block's uv_mode (None: DC) and
-    luma angle delta (None: 0; written for the directional modes)."""
+    luma angle delta (None: 0; written for the directional modes).  The
+    symbols coded go to the ``coder.symbols`` counter (``utils.trace``)."""
     lib = _load()
     keep = []  # keep arrays alive
 
@@ -173,6 +178,7 @@ def encode_tile_intra(width: int, height: int, update_cdf: bool,
         y_deltas = zeros
     if np.abs(y_deltas).max(initial=0) > 3:
         raise ValueError("angle deltas lie in -3..3")
+    nsym = ctypes.c_long(0)
     n = lib.encode_tile_intra(
         dst, cap, width, height, int(update_cdf),
         np.ascontiguousarray(y_modes, np.int32),
@@ -180,7 +186,8 @@ def encode_tile_intra(width: int, height: int, update_cdf: bool,
         np.ascontiguousarray(u_lev, np.int32),
         np.ascontiguousarray(v_lev, np.int32), ctypes.byref(t),
         int(true_h), np.ascontiguousarray(uv_modes, np.int32),
-        np.ascontiguousarray(y_deltas, np.int32))
+        np.ascontiguousarray(y_deltas, np.int32), ctypes.byref(nsym))
     if n <= 0:
         raise RuntimeError("native tile coder failed")
+    trace.count("coder.symbols", nsym.value)
     return dst.raw[:n]

@@ -52,6 +52,7 @@ from ..ops.lr_frame import lr_apply_frame
 from ..spec import tables as tbl
 from ..spec.cdf import CdfContext
 from ..spec.txfm import DCT_DCT, TX_16X16, TX_32X32
+from ..utils import trace
 from .ccso_search import ccso_search_frame
 from .cdef_search import (build_skip8, cdef_frame_config_fields,
                           cdef_search_frame)
@@ -72,6 +73,9 @@ CAND_MODES = (intra.DC_PRED, intra.V_PRED, intra.H_PRED,
               intra.D157_PRED, intra.D203_PRED, intra.D67_PRED,
               intra.SMOOTH_PRED, intra.SMOOTH_V_PRED, intra.SMOOTH_H_PRED,
               intra.PAETH_PRED)
+
+# the flat device outputs host_finish copies to the host
+_D2H = ("y_mi", "uv_mi", "y_lev", "uv_lev", "y_rec", "uv_rec")
 
 
 @dataclass
@@ -257,32 +261,47 @@ class IntraEncoder:
         cfg = self.cfg
         if cfg.part_search:
             return self._device_encode_part(frames)
-        yb = pad_plane_bottom(np.stack([f[0] for f in frames]), self.ph)
-        uvb = pad_plane_bottom(np.concatenate(
-            [np.stack([f[1] for f in frames]),
-             np.stack([f[2] for f in frames])]), self.ph // 2)
+        # the spans (utils.trace) tile the call: staging, each plane's
+        # upload and launch, the deblock's enqueue
+        with trace.span("enc.stage"):
+            yb = pad_plane_bottom(np.stack([f[0] for f in frames]), self.ph)
+            uvb = pad_plane_bottom(np.concatenate(
+                [np.stack([f[1] for f in frames]),
+                 np.stack([f[2] for f in frames])]), self.ph // 2)
         bd = cfg.bit_depth
         vh = None if self.ph == cfg.height else cfg.height
         vhc = None if vh is None else vh // 2
-        y_mi, y_lev, y_rec = encode_plane_wavefront(
-            self._upload(yb), BLK, TX_32X32, cfg.qindex, CAND_MODES, bd,
-            tuple(cfg.angle_deltas), valid_h=vh)
+        with trace.span("enc.upload"):
+            yt = self._upload(yb)
+        with trace.span("enc.launch"):
+            y_mi, y_lev, y_rec = encode_plane_wavefront(
+                yt, BLK, TX_32X32, cfg.qindex, CAND_MODES, bd,
+                tuple(cfg.angle_deltas), valid_h=vh)
+        del yt      # each upload is freed once its launch is queued
         # U and V ride one wavefront on the batch axis; paired=True makes
         # each (u, v) pair agree on one uv_mode
-        uv_mi, uv_lev, uv_rec = encode_plane_wavefront(
-            self._upload(uvb), CBLK, TX_16X16, cfg.qindex, CAND_MODES, bd,
-            valid_h=vhc, paired=True, kf="uv", uv_tx=True)
+        with trace.span("enc.upload"):
+            uvt = self._upload(uvb)
+        with trace.span("enc.launch"):
+            uv_mi, uv_lev, uv_rec = encode_plane_wavefront(
+                uvt, CBLK, TX_16X16, cfg.qindex, CAND_MODES, bd,
+                valid_h=vhc, paired=True, kf="uv", uv_tx=True)
+        del uvt
         lf = self.lf_levels()
-        if lf[0] or lf[1]:
-            y_rec = deblock_plane_uniform(y_rec, BLK, 14, lf[0], lf[1],
-                                          bd=bd, valid_h=vh)
-            uv_rec = deblock_plane_uniform(uv_rec, CBLK, 6, lf[2], lf[2],
-                                           bd=bd, valid_h=vhc)
         pix = pix_dtype(bd)
+        with trace.span("enc.deblock"), \
+                trace.device_span("dev.deblock", self.device) as done:
+            if lf[0] or lf[1]:
+                y_rec = deblock_plane_uniform(y_rec, BLK, 14, lf[0], lf[1],
+                                              bd=bd, valid_h=vh)
+                uv_rec = deblock_plane_uniform(uv_rec, CBLK, 6, lf[2], lf[2],
+                                               bd=bd, valid_h=vhc)
+            y_rec, uv_rec = y_rec.to(pix), uv_rec.to(pix)
+        # done.end: the batch's last device work, an event only while
+        # recording (host_finish's fin.wait synchronises on it)
         return {"n": len(frames), "y_mi": y_mi, "uv_mi": uv_mi,
-                "y_lev": y_lev, "uv_lev": uv_lev,
-                "y_rec": y_rec.to(pix), "uv_rec": uv_rec.to(pix),
-                "frames": frames}
+                "y_lev": y_lev, "uv_lev": uv_lev, "y_rec": y_rec,
+                "uv_rec": uv_rec, "frames": frames, "done": done.end}
 
     def _part_scans(self, yt, ut, vt, device):
         """The luma partition scan of yt [N, h, w] and the paired U+V scan
@@ -517,53 +536,66 @@ class IntraEncoder:
         cfg = self.cfg
         first0 = self._first
         n, frames = dev["n"], dev["frames"]
-        y_mi = dev["y_mi"].cpu().numpy()
-        uv_mi = dev["uv_mi"].cpu().numpy()[:n]     # halves agree (paired)
-        y_lev = dev["y_lev"].cpu().numpy()
-        uv_lev = dev["uv_lev"].cpu().numpy()
-        y_rec = host_pixels(dev["y_rec"], cfg.bit_depth)
-        uv_rec = host_pixels(dev["uv_rec"], cfg.bit_depth)
-        if self.device.type == "cuda":
-            # the kernel's error word; the copies above already waited
-            from ..cuda.wavefront_kernel import raise_on_error
-            raise_on_error(self.device)
+        # the spans (utils.trace) tile the call: the wait for the device
+        # (apart only while recording), the copies, the coder, the OBUs
+        with trace.span("fin.wait"):
+            if dev.get("done") is not None:
+                dev["done"].synchronize()
+        with trace.span("fin.d2h"):
+            y_mi = dev["y_mi"].cpu().numpy()
+            uv_mi = dev["uv_mi"].cpu().numpy()[:n]  # halves agree (paired)
+            y_lev = dev["y_lev"].cpu().numpy()
+            uv_lev = dev["uv_lev"].cpu().numpy()
+            y_rec = host_pixels(dev["y_rec"], cfg.bit_depth)
+            uv_rec = host_pixels(dev["uv_rec"], cfg.bit_depth)
+            if self.device.type == "cuda":
+                # the kernel's error word; the copies above already waited
+                from ..cuda.wavefront_kernel import raise_on_error
+                raise_on_error(self.device)
+            trace.count("d2h.bytes", sum(dev[k].nbytes for k in _D2H))
         u_lev, v_lev = uv_lev[:n], uv_lev[n:]
         u_rec, v_rec = uv_rec[:n], uv_rec[n:]
-        cands = expand_candidates(CAND_MODES, tuple(cfg.angle_deltas))
-        cand_mode, cand_delta = (np.array(a, np.int32) for a in zip(*cands))
-        uv_mode = np.array([m for m, _ in expand_candidates(CAND_MODES)],
-                           np.int32)
-        # one default CDF set, loaded on this thread (not thread-safe); the
-        # coder copies its tables
-        cdf = CdfContext(cfg.qindex)
+        with trace.span("fin.coder"):
+            cands = expand_candidates(CAND_MODES, tuple(cfg.angle_deltas))
+            cand_mode, cand_delta = (np.array(a, np.int32)
+                                     for a in zip(*cands))
+            uv_mode = np.array([m for m, _ in expand_candidates(CAND_MODES)],
+                               np.int32)
+            # one default CDF set, loaded on this thread (not thread-safe);
+            # the coder copies its tables
+            cdf = CdfContext(cfg.qindex)
 
-        def code_one(b):
-            return native.encode_tile_intra(
-                cfg.width, self.ph, cfg.cdf_update, cand_mode[y_mi[b]],
-                y_lev[b], u_lev[b], v_lev[b], cdf, true_h=cfg.height,
-                uv_modes=uv_mode[uv_mi[b]], y_deltas=cand_delta[y_mi[b]])
+            def code_one(b):
+                with trace.span("coder.frame"):
+                    return native.encode_tile_intra(
+                        cfg.width, self.ph, cfg.cdf_update,
+                        cand_mode[y_mi[b]], y_lev[b], u_lev[b], v_lev[b],
+                        cdf, true_h=cfg.height, uv_modes=uv_mode[uv_mi[b]],
+                        y_deltas=cand_delta[y_mi[b]])
 
-        # frames have independent CDF contexts: the native coder releases
-        # the GIL, so frames code in parallel threads
-        if n > 1:
-            if self._ec_pool is None:
-                self._ec_pool = ThreadPoolExecutor(max_workers=4)
-            tiles = list(self._ec_pool.map(code_one, range(n)))
-        else:
-            tiles = [code_one(0)]
+            # frames have independent CDF contexts: the native coder
+            # releases the GIL, so frames code in parallel threads
+            if n > 1:
+                if self._ec_pool is None:
+                    self._ec_pool = ThreadPoolExecutor(max_workers=4)
+                tiles = list(self._ec_pool.map(code_one, range(n)))
+            else:
+                tiles = [code_one(0)]
 
-        lfv = self.lf_levels()
-        ch, cch = cfg.height, cfg.height // 2
-        payloads, recons = [], []
-        for b in range(n):
-            fr = FrameConfig(base_q_idx=cfg.qindex,
-                             disable_cdf_update=not cfg.cdf_update,
-                             filter_level=(lfv[0], lfv[1]),
-                             filter_level_u=lfv[2], filter_level_v=lfv[3],
-                             film_grain=self.film_grain_for(frames[b]))
-            payloads.append(assemble_key_frame(
-                self.seq, fr, tiles[b], first=self._first,
-                metadata=cfg.metadata if self._first else b""))
-            self._first = False
-            recons.append((y_rec[b][:ch], u_rec[b][:cch], v_rec[b][:cch]))
-        return self._capped_recode(frames, payloads, recons, first0)
+        with trace.span("fin.obu"):
+            lfv = self.lf_levels()
+            ch, cch = cfg.height, cfg.height // 2
+            payloads, recons = [], []
+            for b in range(n):
+                fr = FrameConfig(base_q_idx=cfg.qindex,
+                                 disable_cdf_update=not cfg.cdf_update,
+                                 filter_level=(lfv[0], lfv[1]),
+                                 filter_level_u=lfv[2], filter_level_v=lfv[3],
+                                 film_grain=self.film_grain_for(frames[b]))
+                payloads.append(assemble_key_frame(
+                    self.seq, fr, tiles[b], first=self._first,
+                    metadata=cfg.metadata if self._first else b""))
+                self._first = False
+                recons.append((y_rec[b][:ch], u_rec[b][:cch],
+                               v_rec[b][:cch]))
+            return self._capped_recode(frames, payloads, recons, first0)

@@ -30,6 +30,7 @@ typedef struct {
     size_t n, cap;
     uint8_t *out;
     size_t out_n;
+    long nsym;       /* symbols coded: each enc_q15 and enc_bool */
 } RangeEnc;
 
 static void enc_init(RangeEnc *e, size_t cap) {
@@ -41,6 +42,7 @@ static void enc_init(RangeEnc *e, size_t cap) {
     e->precarry = malloc(cap * sizeof(uint16_t));
     e->out = NULL;
     e->out_n = 0;
+    e->nsym = 0;
 }
 
 static void enc_push(RangeEnc *e, uint16_t v) {
@@ -78,6 +80,7 @@ static void enc_normalize(RangeEnc *e, uint32_t low, uint32_t rng) {
 }
 
 static void enc_q15(RangeEnc *e, unsigned fl, unsigned fh, int s, int nsyms) {
+    e->nsym++;
     uint32_t l = e->low;
     uint32_t r = e->rng;
     const int n = nsyms - 1;
@@ -96,6 +99,7 @@ static void enc_q15(RangeEnc *e, unsigned fl, unsigned fh, int s, int nsyms) {
 }
 
 static void enc_bool(RangeEnc *e, int val, unsigned f) {
+    e->nsym++;
     uint32_t l = e->low;
     uint32_t r = e->rng;
     unsigned v = ((r >> 8) * (f >> EC_PROB_SHIFT) >> (7 - EC_PROB_SHIFT))
@@ -399,7 +403,9 @@ static void enc_partition_edge_split(RangeEnc *e, const uint16_t *icdf,
 
 /* Returns tile size, writes into dst.
  * true_h: signaled frame height (<= height, the SB-padded plane height);
- * bottom-row geometry follows encoder/geometry.py FLAT_OK_M. */
+ * bottom-row geometry follows encoder/geometry.py FLAT_OK_M.
+ * n_symbols (NULL: not asked): the symbols coded, literal and Golomb bits
+ * included. */
 long encode_tile_intra(
     uint8_t *dst, long dst_cap, int width, int height, int update_cdf,
     const int32_t *y_modes,  /* [bh][bw] */
@@ -408,8 +414,9 @@ long encode_tile_intra(
     const int32_t *v_lev,
     Tables *t, int true_h,
     const int32_t *uv_modes, /* [bh][bw] (NULL -> DC) */
-    const int32_t *y_deltas  /* [bh][bw] luma angle deltas -3..3 (NULL
-                              * -> 0) */) {
+    const int32_t *y_deltas, /* [bh][bw] luma angle deltas -3..3 (NULL
+                              * -> 0) */
+    long *n_symbols) {
     g_update = update_cdf;
     if (true_h <= 0) true_h = height;
     int mi_cols = width / 4;
@@ -594,6 +601,7 @@ long encode_tile_intra(
     }
 
     long nb = (long)enc_done(&e, dst, dst_cap);
+    if (n_symbols) *n_symbols = e.nsym;
     free(above_part);
     free(skip_grid);
     free(mode_grid);
