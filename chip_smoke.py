@@ -313,9 +313,11 @@ import json
 import os
 import signal
 import sys
+import threading
 import time
 import warnings
 from collections import Counter
+from concurrent import futures
 from dataclasses import replace
 
 import numpy as np
@@ -331,6 +333,7 @@ from svtav1_tpu_torch.cuda.inputs import (SHAPES_1080P, banded_frames,
                                           plane_src, plane_src10, stripes,
                                           synth_frames, synth_frames10)
 from svtav1_tpu_torch.ec import native
+from svtav1_tpu_torch.encoder import coder_pool
 from svtav1_tpu_torch.encoder import intra_encoder as ie
 from svtav1_tpu_torch.encoder import lr_search as lrs
 from svtav1_tpu_torch.encoder import presets
@@ -460,6 +463,14 @@ def psnr(a, b, bd=8):
     return 99.0 if mse == 0 else 10 * np.log10(peak ** 2 / mse)
 
 
+def hold_copies() -> threading.Event:
+    """Hold the flat path's copy thread (``coder_pool``), and the
+    batches' D2H copies queued behind it, until the event is set."""
+    hold = threading.Event()
+    coder_pool.copier().submit(hold.wait)
+    return hold
+
+
 def phase_main_path(bd=8):
     """The flat all-intra main path (phase 3; at bd=10 phase 18: 8 frames
     of the 10-bit clip through the kernel's 10-bit form)."""
@@ -469,21 +480,28 @@ def phase_main_path(bd=8):
     name = "main path" if bd == 8 else "10-bit main path"
     enc = ie.IntraEncoder(cfg, device="cuda")
 
-    def queue(batch):
+    def queue(batch, pending):
         # device_encode must not synchronise: host coding of the previous
-        # batch overlaps it (set_sync_debug_mode raises on a sync)
+        # batch overlaps it (set_sync_debug_mode raises on a sync).  The
+        # mode is the process's, and the copy thread's D2H copies sync:
+        # the previous batch's copies end first, and the copy thread
+        # waits until the mode is off again
+        if pending is not None:
+            pending["job"].result()
+        hold = hold_copies()
         torch.cuda.set_sync_debug_mode("error")
         try:
             return enc.device_encode(batch)
         finally:
             torch.cuda.set_sync_debug_mode("default")
+            hold.set()
 
     wk.LAUNCHES = 0
     payloads, recons, first_dev = [], [], None
     marks = [time.perf_counter()]
     pending = None
     for i in range(0, len(frames), BATCH):
-        dev = queue(frames[i:i + BATCH])
+        dev = queue(frames[i:i + BATCH], pending)
         if first_dev is None:
             first_dev = dev
         if pending is not None:
@@ -540,15 +558,24 @@ def phase_main_path(bd=8):
         print(f"{name}: first batch payloads byte-identical to the plain "
               "version's", flush=True)
 
+    # device_encode alone: the copy thread, which each call feeds, is
+    # held until the timing ends; then the queued batches code
+    queued = []
+
     def device_only():
-        d = enc.device_encode(frames[:BATCH])
+        queued.append(enc.device_encode(frames[:BATCH]))
         torch.cuda.synchronize()
-        return d
-    device_only()
-    t0 = time.perf_counter()
-    for _ in range(3):
+    hold = hold_copies()
+    try:
         device_only()
-    dev_fps = 3 * BATCH / (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            device_only()
+        dev_fps = 3 * BATCH / (time.perf_counter() - t0)
+    finally:
+        hold.set()
+    for d in queued:
+        futures.wait(d["job"].result()[1])
     wk.raise_on_error(DEV)
     nb = len(frames) // BATCH
     print(f"{name}: e2e {e2e_fps:.3f} fps steady (batches 2-{nb} of "
@@ -590,13 +617,18 @@ def phase_profile(enc, batch):
     """One device_encode batch under torch.profiler: host enqueue time,
     device time by kernel and the device's busy share of the window."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        enc.device_encode(batch)
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
+    hold = hold_copies()     # the batch's copies stay out of the window
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            dev = enc.device_encode(batch)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+    finally:
+        hold.set()
+    futures.wait(dev["job"].result()[1])
     wk.raise_on_error(DEV)
     events = device_events(prof)
     if not events:

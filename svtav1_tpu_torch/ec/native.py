@@ -76,8 +76,8 @@ def _load():
     lib = _build(_SRC, "libtilecoder")
     lib.encode_tile_intra.restype = ctypes.c_long
     lib.encode_tile_intra.argtypes = [
-        ctypes.c_char_p, ctypes.c_long, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int,
+        np.ctypeslib.ndpointer(np.uint8), ctypes.c_long, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int,
         np.ctypeslib.ndpointer(np.int32), np.ctypeslib.ndpointer(np.int32),
         np.ctypeslib.ndpointer(np.int32), np.ctypeslib.ndpointer(np.int32),
         ctypes.POINTER(_Tables), ctypes.c_int,
@@ -169,8 +169,12 @@ def encode_tile_intra(width: int, height: int, update_cdf: bool,
         scan32=i16(tbl.scan(3, 0)),
         scan16=i16(tbl.scan(2, 0)),
     )
+    # not zeroed: the coder writes every byte it returns; zeroing the
+    # buffer, or copying all of it back, holds the GIL for milliseconds a
+    # 1080p frame, which the coder threads share with the thread that
+    # queues the device work
     cap = width * height * 4 + (1 << 16)
-    dst = ctypes.create_string_buffer(cap)
+    dst = np.empty(cap, np.uint8)
     zeros = np.zeros(np.shape(y_modes), np.int32)
     if uv_modes is None:
         uv_modes = zeros
@@ -190,4 +194,4 @@ def encode_tile_intra(width: int, height: int, update_cdf: bool,
     if n <= 0:
         raise RuntimeError("native tile coder failed")
     trace.count("coder.symbols", nsym.value)
-    return dst.raw[:n]
+    return dst[:n].tobytes()

@@ -7,11 +7,14 @@ Counterpart of the flat (part_search=False) path of
      config's angle deltas), one paired U+V wavefront (16x16
      blocks, TX_16X16, implied chroma tx types, one uv_mode per pair),
      uniform deblocking.  On a CUDA device the wavefronts run the
-     hand-written kernel; nothing here synchronises, so the caller can
-     entropy-code batch k while batch k+1 runs.
-  2. host stage (``host_finish``): the native C tile coder
-     (``ec.native``, each block's angle delta included) per frame in a
-     thread pool, then the key frame OBUs.
+     hand-written kernel; nothing here synchronises.  Its last step
+     queues the batch's host work (``coder_pool``): the copy thread waits
+     for the batch's device work, copies its outputs to the host and
+     hands each frame to the process's coder pool, where the native C
+     tile coder (``ec.native``, each block's angle delta included) codes
+     it, while the caller queues the next batch.
+  2. host stage (``host_finish``): waits for the batch's frames, then
+     writes the key frame OBUs, in call order.
 The partition path (``_device_encode_part`` / ``_host_finish_part``, the
 default) adds the in-loop filters when they are enabled: per frame, on the
 recon's device, CDEF (search, apply), CCSO (search on the host, apply) and
@@ -34,9 +37,11 @@ on the encoder's device before the deblock.
 
 from __future__ import annotations
 
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
 from dataclasses import dataclass, replace
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -53,6 +58,7 @@ from ..spec import tables as tbl
 from ..spec.cdf import CdfContext
 from ..spec.txfm import DCT_DCT, TX_16X16, TX_32X32
 from ..utils import trace
+from . import coder_pool
 from .ccso_search import ccso_search_frame
 from .cdef_search import (build_skip8, cdef_frame_config_fields,
                           cdef_search_frame)
@@ -76,6 +82,23 @@ CAND_MODES = (intra.DC_PRED, intra.V_PRED, intra.H_PRED,
 
 # the flat device outputs host_finish copies to the host
 _D2H = ("y_mi", "uv_mi", "y_lev", "uv_lev", "y_rec", "uv_rec")
+
+
+@lru_cache(maxsize=None)
+def _side_stream(device: torch.device):
+    return torch.cuda.Stream(device)
+
+
+def _d2h_stream(dev: dict):
+    """The stream (one a card) on which the copy thread copies a flat
+    batch's outputs: made to wait for that batch's device work alone, not
+    for the kernels queued after it on the main thread's stream, and
+    recorded on the tensors it reads."""
+    stream = _side_stream(dev["y_rec"].device)
+    stream.wait_event(dev["done"])
+    for k in _D2H:
+        dev[k].record_stream(stream)
+    return stream
 
 
 @dataclass
@@ -174,11 +197,10 @@ class IntraEncoder:
         self._first = True
         self._fg_params = None       # estimated on the first source frame
         self._fg_n = 0               # per-frame grain_seed counter
-        self._ec_pool = None
         # the devices of the tile columns' scans (None: the encoder's)
         self.tile_devices = None
         if not cfg.part_search:
-            # host_finish codes frames in threads, but the native coder's
+            # the coder pool codes frames in threads, but the native coder's
             # library and the scan tables it reads load lazily and not
             # thread-safely (a first build with gcc, npz reads): load them
             # here, on the constructing thread; a failure raises
@@ -290,18 +312,77 @@ class IntraEncoder:
         lf = self.lf_levels()
         pix = pix_dtype(bd)
         with trace.span("enc.deblock"), \
-                trace.device_span("dev.deblock", self.device) as done:
+                trace.device_span("dev.deblock", self.device):
             if lf[0] or lf[1]:
                 y_rec = deblock_plane_uniform(y_rec, BLK, 14, lf[0], lf[1],
                                               bd=bd, valid_h=vh)
                 uv_rec = deblock_plane_uniform(uv_rec, CBLK, 6, lf[2], lf[2],
                                                bd=bd, valid_h=vhc)
             y_rec, uv_rec = y_rec.to(pix), uv_rec.to(pix)
-        # done.end: the batch's last device work, an event only while
-        # recording (host_finish's fin.wait synchronises on it)
-        return {"n": len(frames), "y_mi": y_mi, "uv_mi": uv_mi,
-                "y_lev": y_lev, "uv_lev": uv_lev, "y_rec": y_rec,
-                "uv_rec": uv_rec, "frames": frames, "done": done.end}
+        done = None
+        if self.device.type == "cuda":
+            # the end of the batch's device work, which its copy job waits on
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+        dev = {"n": len(frames), "y_mi": y_mi, "uv_mi": uv_mi,
+               "y_lev": y_lev, "uv_lev": uv_lev, "y_rec": y_rec,
+               "uv_rec": uv_rec, "frames": frames, "done": done}
+        self._queue(dev, threading.Event())
+        return dev
+
+    def _queue(self, dev, entered: threading.Event) -> None:
+        """Queue a flat batch's host work on the copy thread (_fetch) and
+        add its future to dev ("job"), with the event host_finish sets on
+        entry ("entered"): a frame whose coder call begins before it is
+        set counts one to coder.ahead."""
+        cfg, ph = self.cfg, self.ph
+        # built on this thread: CdfContext's first load is not
+        # thread-safe; the coder copies its tables, so frames share one
+        cands = expand_candidates(CAND_MODES, tuple(cfg.angle_deltas))
+        cand_mode, cand_delta = (np.array(a, np.int32) for a in zip(*cands))
+        uv_mode = np.array([m for m, _ in expand_candidates(CAND_MODES)],
+                           np.int32)
+        cdf = CdfContext(cfg.qindex)
+
+        def code_one(y_mi, y_lev, u_lev, v_lev, uv_mi):
+            trace.count("coder.ahead", int(not entered.is_set()))
+            with trace.span("coder.frame"):
+                # through the module attribute, which a caller may wrap
+                return native.encode_tile_intra(
+                    cfg.width, ph, cfg.cdf_update, cand_mode[y_mi], y_lev,
+                    u_lev, v_lev, cdf, true_h=cfg.height,
+                    uv_modes=uv_mode[uv_mi], y_deltas=cand_delta[y_mi])
+
+        dev["entered"] = entered
+        dev["job"] = coder_pool.copier().submit(self._fetch, dev, code_one)
+
+    def _fetch(self, dev, code_one):
+        """A flat batch's copy job, on the copy thread: wait for the
+        batch's device work, copy its outputs to the host, read the
+        kernel's error word, then submit each frame's code_one to the
+        coder pool.  Returns the host recons (luma, U+V) and the frames'
+        futures."""
+        n, bd, done = dev["n"], self.cfg.bit_depth, dev["done"]
+        with trace.span("fin.wait"):
+            if done is not None:
+                done.synchronize()
+        with trace.span("fin.d2h"), (
+                nullcontext() if done is None
+                else torch.cuda.stream(_d2h_stream(dev))):
+            y_mi = dev["y_mi"].cpu().numpy()
+            uv_mi = dev["uv_mi"].cpu().numpy()[:n]  # halves agree (paired)
+            y_lev = dev["y_lev"].cpu().numpy()
+            uv_lev = dev["uv_lev"].cpu().numpy()
+            y_rec = host_pixels(dev["y_rec"], bd)
+            uv_rec = host_pixels(dev["uv_rec"], bd)
+            if done is not None:
+                # the kernel's error word; the copies above already waited
+                from ..cuda.wavefront_kernel import raise_on_error
+                raise_on_error(dev["y_rec"].device)
+        pool = coder_pool.coders()
+        return (y_rec, uv_rec), [
+            pool.submit(code_one, y_mi[b], y_lev[b], uv_lev[b],
+                        uv_lev[n + b], uv_mi[b]) for b in range(n)]
 
     def _part_scans(self, yt, ut, vt, device):
         """The luma partition scan of yt [N, h, w] and the paired U+V scan
@@ -528,59 +609,29 @@ class IntraEncoder:
         return self._capped_recode(frames, payloads, recons, first0)
 
     def host_finish(self, dev):
-        """Entropy-code a device batch (waits for its device work).
-        Returns (payloads, recons) with recons as numpy planes, uint8 (or
-        uint16 at 10 bits)."""
+        """Entropy-code a device batch: wait for its host work, which
+        device_encode queued (queue it again if a call before collected
+        it), then write its OBUs.  Returns (payloads, recons) with recons
+        as numpy planes, uint8 (or uint16 at 10 bits); an error of the
+        batch's copies or coder calls is raised here."""
         if isinstance(dev, tuple) and dev and dev[0] == "part":
             return self._host_finish_part(dev)
         cfg = self.cfg
         first0 = self._first
         n, frames = dev["n"], dev["frames"]
-        # the spans (utils.trace) tile the call: the wait for the device
-        # (apart only while recording), the copies, the coder, the OBUs
-        with trace.span("fin.wait"):
-            if dev.get("done") is not None:
-                dev["done"].synchronize()
-        with trace.span("fin.d2h"):
-            y_mi = dev["y_mi"].cpu().numpy()
-            uv_mi = dev["uv_mi"].cpu().numpy()[:n]  # halves agree (paired)
-            y_lev = dev["y_lev"].cpu().numpy()
-            uv_lev = dev["uv_lev"].cpu().numpy()
-            y_rec = host_pixels(dev["y_rec"], cfg.bit_depth)
-            uv_rec = host_pixels(dev["uv_rec"], cfg.bit_depth)
-            if self.device.type == "cuda":
-                # the kernel's error word; the copies above already waited
-                from ..cuda.wavefront_kernel import raise_on_error
-                raise_on_error(self.device)
-            trace.count("d2h.bytes", sum(dev[k].nbytes for k in _D2H))
-        u_lev, v_lev = uv_lev[:n], uv_lev[n:]
-        u_rec, v_rec = uv_rec[:n], uv_rec[n:]
+        if "job" not in dev:
+            entered = threading.Event()
+            entered.set()
+            self._queue(dev, entered)
+        dev["entered"].set()
+        job = dev.pop("job")
+        # the spans (utils.trace): the wait for the batch's copies and
+        # frames (fin.wait and fin.d2h are the copy job's), the OBUs
         with trace.span("fin.coder"):
-            cands = expand_candidates(CAND_MODES, tuple(cfg.angle_deltas))
-            cand_mode, cand_delta = (np.array(a, np.int32)
-                                     for a in zip(*cands))
-            uv_mode = np.array([m for m, _ in expand_candidates(CAND_MODES)],
-                               np.int32)
-            # one default CDF set, loaded on this thread (not thread-safe);
-            # the coder copies its tables
-            cdf = CdfContext(cfg.qindex)
-
-            def code_one(b):
-                with trace.span("coder.frame"):
-                    return native.encode_tile_intra(
-                        cfg.width, self.ph, cfg.cdf_update,
-                        cand_mode[y_mi[b]], y_lev[b], u_lev[b], v_lev[b],
-                        cdf, true_h=cfg.height, uv_modes=uv_mode[uv_mi[b]],
-                        y_deltas=cand_delta[y_mi[b]])
-
-            # frames have independent CDF contexts: the native coder
-            # releases the GIL, so frames code in parallel threads
-            if n > 1:
-                if self._ec_pool is None:
-                    self._ec_pool = ThreadPoolExecutor(max_workers=4)
-                tiles = list(self._ec_pool.map(code_one, range(n)))
-            else:
-                tiles = [code_one(0)]
+            (y_rec, uv_rec), coded = job.result()
+            tiles = [f.result() for f in coded]
+        trace.count("d2h.bytes", sum(dev[k].nbytes for k in _D2H))
+        u_rec, v_rec = uv_rec[:n], uv_rec[n:]
 
         with trace.span("fin.obu"):
             lfv = self.lf_levels()

@@ -31,6 +31,8 @@ typedef struct {
     uint8_t *out;
     size_t out_n;
     long nsym;       /* symbols coded: each enc_q15 and enc_bool */
+    int update;      /* CDF adaptation enabled (per call: threads code
+                      * frames of different settings at once) */
 } RangeEnc;
 
 static void enc_init(RangeEnc *e, size_t cap) {
@@ -135,11 +137,9 @@ static void update_cdf(uint16_t *cdf, int val, int nsyms) {
     if (count < 32) cdf[nsyms] = count + 1;
 }
 
-static int g_update;   /* CDF adaptation enabled */
-
 static void enc_symbol(RangeEnc *e, int s, uint16_t *icdf, int nsyms) {
     enc_q15(e, s > 0 ? icdf[s - 1] : CDF_PROB_TOP, icdf[s], s, nsyms);
-    if (g_update) update_cdf(icdf, s, nsyms);
+    if (e->update) update_cdf(icdf, s, nsyms);
 }
 
 static void enc_symbol_noupd(RangeEnc *e, int s, const uint16_t *icdf,
@@ -417,7 +417,6 @@ long encode_tile_intra(
     const int32_t *y_deltas, /* [bh][bw] luma angle deltas -3..3 (NULL
                               * -> 0) */
     long *n_symbols) {
-    g_update = update_cdf;
     if (true_h <= 0) true_h = height;
     int mi_cols = width / 4;
     int mi_rows = true_h / 4;
@@ -427,6 +426,7 @@ long encode_tile_intra(
 
     RangeEnc e;
     enc_init(&e, 1 << 16);
+    e.update = update_cdf;
 
     uint8_t *above_part = calloc(mi_cols, 1);
     uint8_t *skip_grid = calloc(mi_rows * mi_cols, 1);

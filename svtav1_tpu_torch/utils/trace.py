@@ -57,12 +57,14 @@ class Record(NamedTuple):
     """kind: "host" or "device" span, or "count" (a counter sample:
     start_ns == end_ns, n the amount added).  For a device span, n > 0
     where the n-th MARK kernel since recording started ran on the stream
-    just before it."""
+    just before it.  thread: the host span's thread
+    (``threading.get_ident()``; 0 for the other kinds)."""
     kind: str
     name: str
     start_ns: int
     end_ns: int
     n: int = 0
+    thread: int = 0
 
 
 def _clock_offset() -> int:
@@ -108,7 +110,8 @@ class _Span:
         t1 = time.perf_counter_ns()
         if self.mirror is not None:
             self.mirror.__exit__(*exc)
-        self.rec.add(Record("host", self.name, self.t0, t1))
+        self.rec.add(Record("host", self.name, self.t0, t1, 0,
+                            threading.get_ident()))
         return False
 
 

@@ -2,9 +2,12 @@
 the flat all-intra encode, on the CPU.
 
 A flat batch under a CPU ``torch.profiler`` records each ``enc.*`` span of
-``device_encode`` and each ``fin.*`` span of ``host_finish`` once, inside
-the call and without overlap; mapped onto the profiler's clock they lie
-on their ``svt.<name>`` mirrors.  Off, nothing is recorded and no profiler
+``device_encode`` and the ``fin.coder`` and ``fin.obu`` spans of
+``host_finish`` once, inside the call, on the calling thread and without
+overlap, and the ``fin.wait`` and ``fin.d2h`` spans of the batch's copy
+job once, on the copy thread, between the two; mapped onto the profiler's
+clock the spans lie on their ``svt.<name>`` mirrors where the profiler
+made one.  Off, nothing is recorded and no profiler
 annotation is made.  Tracing changes no byte.  The counters hold the D2H
 bytes and the coder's symbols; the tile coder's ctypes declaration has
 the C definition's arguments.
@@ -12,6 +15,7 @@ the C definition's arguments.
 
 import ctypes
 import re
+import threading
 import time
 from pathlib import Path
 
@@ -31,7 +35,9 @@ ENC = ("enc.stage", "enc.upload", "enc.launch", "enc.deblock")
 # device_encode's spans in order: upload and launch once a plane
 ENC_CALL = ("enc.stage", "enc.upload", "enc.launch", "enc.upload",
             "enc.launch", "enc.deblock")
-FIN = ("fin.wait", "fin.d2h", "fin.coder", "fin.obu")
+# the copy job's spans (on the copy thread), then host_finish's
+COPY = ("fin.wait", "fin.d2h")
+FIN = ("fin.coder", "fin.obu")
 
 
 @pytest.fixture(autouse=True)
@@ -84,33 +90,52 @@ def profiled():
 
 
 def test_each_stage_span_once_a_call_inside_it(profiled):
-    """Each enc.* and fin.* span once a call (upload and launch once a
-    plane), in order, inside its call and without overlap."""
+    """Each enc.* span once a device_encode call (upload and launch once
+    a plane) and fin.coder and fin.obu once a host_finish call, in order,
+    inside the call, on the calling thread and without overlap; fin.wait
+    and fin.d2h once a batch, in order, on the copy thread and without
+    overlap, after the enqueue and before host_finish's wait ends; each
+    frame's coder.frame on a coder thread, after the copies and before
+    that wait ends."""
     t0, t1, t2 = profiled["bounds"]
     host = [r for r in profiled["recs"] if r.kind == "host"]
-    for names, (a, b) in ((ENC_CALL, (t0, t1)), (FIN, (t1, t2))):
+    main = threading.get_ident()
+    by = {}
+    for names, (a, b) in ((ENC_CALL, (t0, t1)), (COPY, (t0, t2)),
+                          (FIN, (t1, t2))):
         spans = sorted((r for r in host if r.name in names),
                        key=lambda r: r.start_ns)
         assert [r.name for r in spans] == list(names)
         assert all(a <= r.start_ns <= r.end_ns <= b for r in spans)
         assert all(p.end_ns <= q.start_ns for p, q in zip(spans, spans[1:]))
+        assert len({r.thread for r in spans}) == 1
+        by.update((r.name, r) for r in spans)
+    assert by["enc.stage"].thread == by["fin.coder"].thread == main
+    copy = by["fin.wait"].thread
+    assert copy != main
+    assert by["enc.deblock"].end_ns <= by["fin.wait"].start_ns
+    assert by["fin.d2h"].end_ns <= by["fin.coder"].end_ns
     coder = [r for r in host if r.name == "coder.frame"]
     assert len(coder) == 2
-    fin = next(r for r in host if r.name == "fin.coder")
-    assert all(fin.start_ns <= r.start_ns and r.end_ns <= fin.end_ns
-               for r in coder)
+    assert all(r.thread not in (main, copy) for r in coder)
+    assert all(by["fin.d2h"].end_ns <= r.start_ns and
+               r.end_ns <= by["fin.coder"].end_ns for r in coder)
 
 
 def test_spans_lie_on_their_profiler_mirrors(profiled):
     """Mapped with to_profiler_ns, each stage span agrees with its
-    svt.<name> event within 0.5 ms at both ends."""
+    svt.<name> event within 0.5 ms at both ends: every span of the
+    calling thread, and the copy job's where the profiler, which records
+    the threads it started from, mirrored them."""
     by_name = {}
     for name, s, e in sorted(profiled["events"], key=lambda ev: ev[1]):
         by_name.setdefault(name[4:], []).append((s, e))
-    recs = sorted((r for r in profiled["recs"] if r.name in ENC + FIN),
+    names = ENC + FIN + tuple(n for n in COPY if n in by_name)
+    recs = sorted((r for r in profiled["recs"] if r.name in names),
                   key=lambda r: r.start_ns)
-    for name in ENC + FIN:
-        assert len(by_name[name]) == ENC_CALL.count(name) + FIN.count(name)
+    for name in names:
+        assert len(by_name[name]) == ENC_CALL.count(name) + \
+            (COPY + FIN).count(name)
     seen = {}
     for r in recs:
         k = seen[r.name] = seen.get(r.name, -1) + 1
@@ -269,7 +294,7 @@ def test_cli_debug_prints_the_trace(tmp_path, capsys):
         log.set_level(old)
     assert not trace.recording()
     debug = [ln for ln in err[log.DEBUG] if ln.startswith("Svt[debug]")]
-    for name in ENC + FIN + ("coder.frame",):
+    for name in ENC + COPY + FIN + ("coder.frame",):
         assert any(re.search(rf"trace: {re.escape(name)}: \d+ spans, mean "
                              r"[0-9.]+ ms$", ln) for ln in debug), name
     counters = [ln for ln in debug if "trace: counters:" in ln]
