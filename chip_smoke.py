@@ -263,6 +263,14 @@ its last line):
  32. the CLI on the card: ``--keyint 1 --mbr`` on the flat path and the
      default partition path with ``--stat-report`` (PSNR and SSIM) on a
      256x128 Y4M: the capped payloads fit the cap.
+ 33. the flat path at 3840x2160 (m = 12: the edge strip's chain kernel,
+     ``csrc/wf_edge.cu``) at 8 and 10 bits: a batch of 4 queued without a
+     host sync, 2 chain launches read from that run, its first two frames
+     decoded on the card to the recon; the chain kernel on the run's own
+     plane outputs against the plain chain on the CPU: 0 differing
+     elements; kernel, plain and bound ms;
+ 34. the CLI at ``--preset 12 --keyint 1`` on a 3840x2160 Y4M at 8 and 10
+     bits: the first two payloads decode on the card to the recon Y4M.
 The CPU halves of the card-against-CPU phases (6, 9, 11, 13, 15, 21, 23,
 28, 30) run in spawned worker processes beside the card's half: those
 that need nothing from the card (``cpu_jobs``) are submitted after the
@@ -302,7 +310,9 @@ cs.phase_decode()"``; the tile-column, mesh and CLI phases 29-32 alone:
 ``python3 -c "import chip_smoke as cs; cs.CARD = cs.card();
 cs.phase_build(); cs.phase_tiles(); cs.phase_tiles_card_vs_cpu();
 cs.phase_mesh(); cs.cli_flags(); cs.phase_decode();
-cs.finish_deferred()"``; the encoder CLI at every preset 0-13 on the card
+cs.finish_deferred()"``; the 4K phases 33-34 alone: ``python3 -c "import
+chip_smoke as cs; cs.CARD = cs.card(); cs.phase_build(); cs.phase_edge();
+cs.cli_edge()"``; the encoder CLI at every preset 0-13 on the card
 (not part of the script's run): ``python3 -c "import chip_smoke as cs;
 cs.CARD = cs.card(); cs.cli_presets()"``.  Imports nothing of JAX or of
 the JAX package.
@@ -3314,6 +3324,183 @@ def cli_presets():
                                  "payloads")
 
 
+W4, H4 = 3840, 2160     # the CTC's 4K class: m = 12, the edge strip
+
+
+def edge_frames4k(bd, n=BATCH, seed=0):
+    return (synth_frames(W4, H4, n, seed=seed) if bd == 8
+            else synth_frames10(W4, H4, n, seed=seed))
+
+
+def decode_to_recons(label, payloads, recons):
+    """The port's Decoder on the card: each payload decodes to its recon,
+    every pixel."""
+    from svtav1_tpu_torch.decoder.decoder import Decoder
+    dec = Decoder(device="cuda")
+    t0 = time.perf_counter()
+    for k, (pay, rec) in enumerate(zip(payloads, recons)):
+        if not same_planes(dec.decode_frame_obus(pay), rec):
+            raise AssertionError(f"{label}: frame {k} decodes to other "
+                                 "pixels than its recon")
+    print(f"{label}: {len(payloads)} frames decode on the card to the "
+          f"recon, every pixel, {time.perf_counter() - t0:.1f} s [{CARD}]",
+          flush=True)
+
+
+def phase_edge():
+    """Phase 33: the flat path at an m = 12 height, 3840x2160 (the edge
+    strip, ``encoder/edge.py``), at 8 and 10 bits: a batch of 4 through
+    ``device_encode`` queued without a host sync, with the chain kernel's
+    launch count set to 0 before and read after (2: luma, U+V), its
+    payloads equal to the warm-up batch's and its first two frames
+    decoded on the card to the recon; then the chain kernel on that run's
+    own plane outputs (the plane kernel's, before the chain) against the
+    plain chain ``_edge_body`` on the CPU: 0 differing elements in the
+    plane outputs and the strip's, and the strip's modes and levels equal
+    to those of the main path's run.  Kernel ms by CUDA events (three
+    runs, the least), the plain chain's from its one run, the bound from
+    ``edge_work``.  Returns {name: (err, ms, plain ms, bound ms,
+    launches)}."""
+    from svtav1_tpu_torch.cuda import edge_kernel as ek
+    from svtav1_tpu_torch.encoder.edge import _edge_body
+    rows = {}
+    for bd in (8, 10):
+        frames = edge_frames4k(bd)
+        cfg = presets.apply_preset(ie.EncoderConfig(W4, H4, qindex=110,
+                                                    bit_depth=bd), 12)
+        enc = ie.IntraEncoder(cfg, device="cuda")
+        name = "edge strip" if bd == 8 else "edge strip 10-bit"
+        # warm-up: tables, the first payload's sequence header
+        first, _ = enc.host_finish(enc.device_encode(frames))
+        ek.LAUNCHES = 0
+        hold = hold_copies()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dev = enc.device_encode(frames)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            hold.set()
+        launches = ek.LAUNCHES
+        strip = {k: dev[k].clone() for k in ie._D2H_EDGE}
+        plane = {k: dev[k].clone() for k in ("y_mi", "y_lev", "uv_mi",
+                                             "uv_lev")}
+        payloads, recons = enc.host_finish(dev)
+        wk.raise_on_error(DEV)
+        print(f"{name} {W4}x{H4}: device_encode queued without a host sync, "
+              f"chain launches {launches} (expected 2), payload bytes "
+              f"{[len(x) for x in payloads]}", flush=True)
+        if launches != 2:
+            raise AssertionError(f"{name}: chain launches {launches} != 2")
+        if payloads[1:] != first[1:]:
+            raise AssertionError(f"{name}: the batch's payloads differ from "
+                                 "the warm-up's (the same frames)")
+        decode_to_recons(f"{name} {W4}x{H4}", first[:2], recons[:2])
+
+        cands = expand_candidates(ie.CAND_MODES)
+        k_ms, p_ms, b_ms = 0.0, 0.0, 0.0
+        for big, paired, keys in ((32, False, ("y_mi", "y_lev", "y_emi",
+                                               "y_elev")),
+                                  (16, True, ("uv_mi", "uv_lev", "uv_emi",
+                                              "uv_elev"))):
+            if paired:
+                planes = np.concatenate([np.stack([f[k] for f in frames])
+                                         for k in (1, 2)])
+                vh, h = H4 // 2, enc.ph // 2
+            else:
+                planes = np.stack([f[0] for f in frames])
+                vh, h = H4, enc.ph
+            src = enc._upload(ie.pad_plane_bottom(planes, h))
+            tx = TX_32X32 if big == 32 else TX_16X16
+            # the plane kernel's outputs, the SB rows above the strip's
+            base = ie.encode_plane_wavefront(
+                src, big, tx, cfg.qindex, ie.CAND_MODES, bd, valid_h=vh,
+                paired=paired, kf="uv" if paired else True, uv_tx=paired)
+            rd = rd_params(cfg.qindex, bd, cands,
+                           kf="uv" if paired else True)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            ms = []
+            for _ in range(3):
+                got = [t.clone() for t in base]
+                start.record()
+                e_mi, e_lev = ek.edge_cuda(src, rd, *got, big, cands, bd, vh,
+                                           paired, paired)
+                end.record()
+                torch.cuda.synchronize()
+                ms.append(start.elapsed_time(end))
+            wk.raise_on_error(DEV)
+            want = [t.cpu() for t in base]
+            t0 = time.perf_counter()
+            we_mi, we_lev = _edge_body(src.cpu(), rd, *want, big, cands, bd,
+                                       vh, paired, paired)
+            plain = 1e3 * (time.perf_counter() - t0)
+            diff = [int((a.cpu() != b).sum()) for a, b in
+                    zip(got + [e_mi, e_lev], want + [we_mi, we_lev])]
+            main = [int((a != b).sum()) for a, b in zip(
+                (got[0], got[1], e_mi, e_lev),
+                (plane[keys[0]], plane[keys[1]], strip[keys[2]],
+                 strip[keys[3]]))]
+            bound = ek.bound_ms(big, src.shape[0], src.shape[2],
+                                ie.CAND_MODES, paired, bd)
+            label = "luma" if big == 32 else "U+V"
+            print(f"{name} {label} chain on the run's plane outputs: kernel "
+                  f"{min(ms):.3f} ms ({', '.join(f'{m:.3f}' for m in ms)}), "
+                  f"plain {plain:.1f} ms (CPU, one run), bound {bound:.4f} "
+                  f"ms ({100 * bound / min(ms):.2f}% of it); differing "
+                  f"elements against the plain chain (modes, levels, recon, "
+                  f"strip modes, strip levels) {diff}, against the main "
+                  f"path's run (modes, levels, strip modes, strip levels) "
+                  f"{main} [{CARD}]", flush=True)
+            if any(diff) or any(main):
+                raise AssertionError(f"{name} {label}: the chain kernel "
+                                     "differs from the plain chain or from "
+                                     "the main path's run")
+            k_ms, p_ms, b_ms = k_ms + min(ms), p_ms + plain, b_ms + bound
+        rows[name] = (0, k_ms, p_ms, b_ms, launches)
+    return rows
+
+
+def cli_edge():
+    """Phase 34: the CLI at ``--preset 12 --keyint 1`` on a 3840x2160 Y4M
+    of 4 frames (written under the git-ignored ``svtav1_tpu_torch/build/``)
+    at 8 and 10 bits: exit 0, four payloads, and the first two decoded on
+    the card by the port's Decoder equal the recon Y4M (``-o``)."""
+    import contextlib
+    import io
+    from svtav1_tpu_torch import app
+    from svtav1_tpu_torch.utils.ivf import read_ivf
+    from svtav1_tpu_torch.utils.y4m import Y4mInfo, Y4mReader, Y4mWriter
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "svtav1_tpu_torch", "build", "cli_edge")
+    os.makedirs(d, exist_ok=True)
+    src, out, rec = (os.path.join(d, f) for f in ("in.y4m", "out.ivf",
+                                                   "rec.y4m"))
+    for bd in (8, 10):
+        with open(src, "wb") as f:
+            wtr = Y4mWriter(f, Y4mInfo(W4, H4, 30, 1, bit_depth=bd))
+            for fr in edge_frames4k(bd, seed=7):
+                wtr.write_frame(*fr)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = app.main(["-i", src, "-b", out, "-o", rec, "-q", "110",
+                           "--preset", "12", "--keyint", "1"])
+        dt = time.perf_counter() - t0
+        with open(out, "rb") as f:
+            payloads = [x for x, _ in read_ivf(f)[1]]
+        with open(rec, "rb") as f:
+            recons = list(Y4mReader(f).frames())
+        print(f"CLI {W4}x{H4} {bd}-bit --preset 12 --keyint 1: exit {rc}, "
+              f"{len(payloads)} payloads, {sum(map(len, payloads))} bytes, "
+              f"{len(recons)} recon frames, {dt:.1f} s [{CARD}]", flush=True)
+        if rc != 0 or len(payloads) != 4 or len(recons) != 4:
+            raise AssertionError(f"CLI {W4}x{H4} {bd}-bit: exit {rc}, "
+                                 f"{len(payloads)} payloads, {len(recons)} "
+                                 "recon frames")
+        decode_to_recons(f"CLI {W4}x{H4} {bd}-bit", payloads[:2],
+                         recons[:2])
+
+
 CARD = ""
 
 
@@ -3356,6 +3543,12 @@ def phase_build():
                                      f"candidates: {info}, not clusters of "
                                      f"{want[0]} CTAs of {want[1]} warps "
                                      "without spills")
+    from svtav1_tpu_torch.cuda import edge_kernel as ek
+    for bd, pix in ((8, "uint8_t"), (10, "uint16_t")):
+        info = ek.kernel_info(bd)
+        print(f"wf_edge_kernel<{pix}>: {info}", flush=True)
+        if info["local_bytes"]:
+            raise AssertionError(f"wf_edge_kernel<{pix}> spills: {info}")
 
 
 def main():
@@ -3381,7 +3574,7 @@ def main():
              phase_partition, phase_part_launches, phase_filters,
              phase_video, phase_flat_video, phase_flat_pyramid,
              phase_part_pyramid, phase_flat_deltas, phase_preset4,
-             phase_tiles, phase_decode}
+             phase_tiles, phase_decode, phase_edge}
 
     def phase(fn, *args):
         pause_workers(fn in quiet)
@@ -3446,6 +3639,8 @@ def main():
         phase(phase_10bit_card_vs_cpu)
         phase(phase_mesh)
         phase(cli_flags)
+        edge_rows = phase(phase_edge)
+        phase(cli_edge)
         phase(finish_deferred)
     finally:
         stop_workers()
@@ -3474,6 +3669,12 @@ def main():
         rows.append(dict(name=name, **kernel, launches=delta_launches[name],
                          max_abs_err=err, ms=k, plain_ms=p, bound_ms=b,
                          bound_by=by, library_ms=None))
+    edge_kernel = dict(route="cuda", source="svtav1_tpu_torch/csrc/wf_edge.cu",
+                       replaces=None)
+    for name, (err, k, p, b, n) in edge_rows.items():
+        rows.append(dict(name=name, **edge_kernel, launches=n,
+                         max_abs_err=err, ms=k, plain_ms=p, bound_ms=b,
+                         bound_by="operations", library_ms=None))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -93,11 +93,12 @@
 //     barriers cost ~1.0 us (the ticket) and ~2.5 us (the cost exchange,
 //     the slowest warp included) of a ~23 us link; 4 CTAs of 16 warps
 //     would cap every form at 128 registers and was not tried.
-//   * Transforms in registers: a lane owns one column of 32 (16) values,
-//     runs the 1D network as straight-line code (csrc/txfm_nets.cuh,
-//     generated from spec.txfm.compiled_stages), goes through one
-//     transpose in padded shared memory ([n][n+1] ints, __syncwarp only,
-//     conflict-free) and then owns one row.  The per-pixel phases
+//   * Transforms in registers (the per-warp chain of csrc/wf_chain.cuh,
+//     which the edge strip's kernel shares): a lane owns one column of 32
+//     (16) values, runs the 1D network as straight-line code
+//     (csrc/txfm_nets.cuh, generated from spec.txfm.compiled_stages), goes
+//     through one transpose in padded shared memory ([n][n+1] ints,
+//     __syncwarp only, conflict-free) and then owns one row.  The per-pixel phases
 //     (prediction, quantizer, reconstruction) are loops, and each network
 //     is inlined once for both passes: fully unrolled, the code did not
 //     fit the instruction cache (10.3k SASS instructions, a warp at ~5
@@ -131,7 +132,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "txfm_nets.cuh"
+#include "wf_chain.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -145,7 +146,6 @@ constexpr int BLKCOLS = 4 + MAXDEP;
 constexpr int SPIN_CAP = 1 << 22;
 constexpr int ERR_SPIN = 1;
 constexpr int TRACE_COLS = 16;
-constexpr unsigned FULL = 0xffffffffu;
 
 }  // namespace
 
@@ -199,26 +199,9 @@ __device__ __forceinline__ int ld_acquire(const int* p) {
   return v;
 }
 
-__device__ __forceinline__ unsigned long long gtime() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
 __device__ __forceinline__ void add_release(int* p, int v) {
   asm volatile("red.release.gpu.global.add.s32 [%0], %1;"
                :: "l"(p), "r"(v) : "memory");
-}
-
-// Round2 for s > 0, multiply by 2^-s for s < 0 (round_shift_array).
-__device__ __forceinline__ int rshift_signed(int x, int s) {
-  if (s > 0) return (x + (1 << (s - 1))) >> s;
-  if (s < 0) return x * (1 << (-s));
-  return x;
-}
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return min(max(v, lo), hi);
 }
 
 #define WF_HD __host__ __device__ constexpr
@@ -245,69 +228,31 @@ size_t smem_bytes(int wpc) {
 }
 
 // One value of the edge array E = [corner, above(BS), above-right(BS),
-// left(BS), below-left(BS)] of frame f's block (r, cb) (§7.11.2).
+// left(BS), below-left(BS)] of frame f's block (r, cb) (§7.11.2), from
+// the boundary buffers.
 template <int BS>
 __device__ int edge_value(const WfParams& p, int f, int r, int cb,
                           int has_tr, int has_bl, int q) {
-  constexpr int A = 1, L = 2 * BS + 1;
   const int* rb = p.rowbuf + (size_t)f * p.bh * p.w;
   const int* cbf = p.colbuf + (size_t)f * p.h * p.bw;
-  const bool ha = r > 0, hl = cb > 0;
   const int rm1 = max(r - 1, 0), cm1 = max(cb - 1, 0);
   const int y = r * BS, x = cb * BS;
-  const int base = p.base;
-  auto above_real = [&](int j) { return __ldcg(rb + rm1 * p.w + x + j); };
-  auto left_real = [&](int j) {
-    return __ldcg(cbf + min(y + j, p.vh - 1) * p.bw + cm1);
+  auto above = [&](int k) {
+    return __ldcg(rb + rm1 * p.w +
+                  (k < BS ? max(x + k, 0) : min(x + BS, p.w - BS) + k - BS));
   };
-  auto above_at = [&](int j) {
-    return ha ? above_real(j) : (hl ? left_real(0) : base - 1);
+  auto left = [&](int k) {
+    return __ldcg(cbf + min(k < BS ? y + k : min(y + BS, p.h - BS) + k - BS,
+                            p.vh - 1) * p.bw + cm1);
   };
-  auto left_at = [&](int j) {
-    return hl ? left_real(j) : (ha ? above_real(0) : base + 1);
-  };
-  if (q == 0)
-    return (ha && hl) ? __ldcg(rb + rm1 * p.w + max(x - 1, 0))
-                      : (ha ? above_real(0) : (hl ? left_real(0) : base));
-  if (q < L) {
-    const int k = q - A;
-    if (k < BS) return above_at(k);
-    return has_tr ? __ldcg(rb + rm1 * p.w + min(x + BS, p.w - BS) + (k - BS))
-                  : above_at(BS - 1);
-  }
-  const int k = q - L;
-  if (k < BS) return left_at(k);
-  return has_bl ? __ldcg(cbf + min(min(y + BS, p.h - BS) + (k - BS),
-                                   p.vh - 1) * p.bw + cm1)
-                : left_at(BS - 1);
-}
-
-// Forward network of pass 0 (columns) or 1 (rows); 32x32 has one, its
-// column and row cos bits being equal.
-template <int BS>
-__device__ __forceinline__ void fwd_net(int* v, int pass, int kind) {
-  if constexpr (BS == 32) net_fwd_dct32(v);
-  else if (pass) {
-    if (kind) net_fwd_row_adst16(v);
-    else net_fwd_row_dct16(v);
-  } else {
-    if (kind) net_fwd_col_adst16(v);
-    else net_fwd_col_dct16(v);
-  }
-}
-
-template <int BS>
-__device__ __forceinline__ void inv_net(int* v, int kind, int lo, int hi) {
-  if constexpr (BS == 32) net_inv_dct32(v, lo, hi);
-  else if (kind) net_inv_adst16(v, lo, hi);
-  else net_inv_dct16(v, lo, hi);
+  return edge_of<BS>(q, r > 0, cb > 0, has_tr, has_bl, p.base, above, left);
 }
 
 template <int BS, typename Pix>
 __global__ void __launch_bounds__(32 * MAXW, 1)
 wf_plane_kernel(const WfParams p) {
   constexpr int H = halves<BS>(), NE = n_edge<BS>(), N = BS * BS;
-  constexpr int A = 1, L = 2 * BS + 1, TP = BS + 1, LSTR = lev_stride<BS>();
+  constexpr int LSTR = lev_stride<BS>();
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, nthr = blockDim.x, wpc = nthr >> 5;
   int* sT = reinterpret_cast<int*>(smem);                // [wpc][H][BS][TP]
@@ -417,173 +362,24 @@ wf_plane_kernel(const WfParams p) {
     if (ws) ws[0] = gtime();
     if (c >= 0) {
       const int mode = p.cand_mode[c], kind = p.cand_kind[c];
-      const int rk = kind & 1, ck = (kind >> 1) & 1;
-      const int* E = sE + hf * NE;
-      const Pix* S = sSrc + hf * N;
       const int fr = hf ? fr1 : u;                     // this lane's frame
       const size_t bix = ((size_t)fr * p.bh + r) * p.bw + cb;
       const size_t xix = (((size_t)fr * p.nE + (c - p.NI)) * p.bh + r) *
                          p.bw + cb;                    // inter lanes only
-      const bool ha = r > 0, hl = cb > 0;
-      int dcv = p.base;
-      if (mode == 0) {                                 // DC: one tree
-        int sa = E[A + j], sl = E[L + j];
-#pragma unroll
-        for (int o = BS / 2; o > 0; o >>= 1) {
-          sa += __shfl_xor_sync(FULL, sa, o);
-          sl += __shfl_xor_sync(FULL, sl, o);
-        }
-        dcv = (ha && hl) ? (sa + sl + BS) / (2 * BS)
-                         : ha ? (sa + BS / 2) / BS
-                              : hl ? (sl + BS / 2) / BS : p.base;
-      }
-      // Column j of the prediction (kept in Rw until the reconstruction)
-      // and of the residual (in Tw), one loop per predictor family so
-      // each is a straight loop.  The per-pixel loops stay loops:
-      // unrolled 32 times, the predictors, quantizer and reconstruction
-      // would be code the instruction cache cannot hold.
-      int* Tw = sT + warp * t_ints<BS>() + hf * BS * TP;
-      Pix* Rw = sRec + warp * RE + hf * N;
-      __syncwarp();
-      auto put = [&](int i, int pr) {
-        Rw[i * BS + j] = (Pix)pr;
-        Tw[i * TP + j] = rshift_signed((int)S[i * BS + j] - pr, p.fwd_s0);
-      };
-      if (mode < 0) {                                  // inter lane
-        const Pix* X = static_cast<const Pix*>(p.xpred) + xix * N + j;
-#pragma unroll 8
-        for (int i = 0; i < BS; ++i) put(i, __ldg(X + i * BS));
-      } else if (mode == 0) {                          // DC
-#pragma unroll 8
-        for (int i = 0; i < BS; ++i) put(i, dcv);
-      } else if (mode <= 8) {                          // V, H, directional
-        const int* dm = sDir + warp * N + j;
-#pragma unroll 8
-        for (int i = 0; i < BS; ++i) {
-          const int m = dm[i * BS];
-          const int i0 = m & 0xFF, i1 = (m >> 8) & 0xFF;
-          const int sh = (m >> 16) & 0x3F;
-          put(i, clampi((E[i0] * (32 - sh) + E[i1] * sh + 16) >> 5, 0,
-                        p.pix_max));
-        }
-      } else if (mode == 12) {                         // PAETH
-        const int top = E[A + j], tl = E[0];
-#pragma unroll 8
-        for (int i = 0; i < BS; ++i) {
-          const int left = E[L + i];
-          const int pb = top + left - tl;
-          const int p_t = abs(pb - top), p_l = abs(pb - left);
-          const int p_tl = abs(pb - tl);
-          put(i, (p_l <= p_t && p_l <= p_tl) ? left
-                                             : (p_t <= p_tl ? top : tl));
-        }
-      } else {                                         // SMOOTH, _V, _H
-        const int wj = sSmw[j], top = E[A + j];
-        const int below = E[L + BS - 1], right = E[A + BS - 1];
-#pragma unroll 8
-        for (int i = 0; i < BS; ++i) {
-          const int wi = sSmw[i], left = E[L + i];
-          const int v = (wi * top + (256 - wi) * below + 128) >> 8;
-          const int hz = (wj * left + (256 - wj) * right + 128) >> 8;
-          put(i, mode == 9 ? (wi * top + (256 - wi) * below + wj * left +
-                              (256 - wj) * right + 256) >> 9
-                           : mode == 10 ? v : hz);
-        }
-      }
-
-      if (ws) ws[1] = gtime();
-      // forward transform in place in Tw: pass 0 column j, pass 1 row j,
-      // each network in registers
-      int v[BS];
-#pragma unroll 1
-      for (int pass = 0; pass < 2; ++pass) {
-        const int base = pass ? j * TP : j, step = pass ? 1 : TP;
-        const int s = pass ? p.fwd_s2 : p.fwd_s1;
-        __syncwarp();
-#pragma unroll
-        for (int i = 0; i < BS; ++i) v[i] = Tw[base + i * step];
-        fwd_net<BS>(v, pass, pass ? rk : ck);
-#pragma unroll
-        for (int i = 0; i < BS; ++i) Tw[base + i * step] = rshift_signed(v[i],
-                                                                         s);
-      }
-
-      // deadzone quantizer and normative dequantizer of row j, in place
-      if (ws) ws[2] = gtime();
-      int nnz = 0;
-      float lbits = 0.f;
-      int16_t* Lw = sLev + warp * lev_elems<BS>() + (hf * BS + j) * LSTR;
-      int* Trow = Tw + j * TP;
-#pragma unroll 8
-      for (int i = 0; i < BS; ++i) {
-        const int co = Trow[i];
-        const bool dc = (j == 0 && i == 0);
-        const int dqv = dc ? p.dqdc : p.dqac;
-        const unsigned n = ((unsigned)abs(co) << p.qshift) +
-                           (unsigned)((dqv * 48) >> 7);
-        const int lv = min((int)(((unsigned long long)n * (dc ? p.mdc : p.mac))
-                                 >> (dc ? p.sdc : p.sac)), (1 << 15) - 1);
-        Lw[i] = (int16_t)(co < 0 ? -lv : lv);
-        int dq = ((lv * dqv) & 0xFFFFFF) >> p.qshift;
-        dq = co < 0 ? -dq : dq;
-        Trow[i] = clampi(dq, p.dq_lo, p.dq_hi);             // ±2^(bd+7)
-        nnz += lv != 0;
-        lbits = __fadd_rn(lbits, log2f(1.0f + (float)lv));
-      }
-
-      if (ws) ws[3] = gtime();
-      // inverse transform in place: pass 0 row j (row network clamp, then
-      // the row output clamp), pass 1 column j (column network clamp, then
-      // the residual clamp); reconstruction
-#pragma unroll 1
-      for (int pass = 0; pass < 2; ++pass) {
-        const int base = pass ? j : j * TP, step = pass ? TP : 1;
-        const int s = pass ? p.inv_s1 : p.inv_s0;
-        const int lo = pass ? p.res_lo : p.mid_lo;
-        const int hi = pass ? p.res_hi : p.mid_hi;
-        __syncwarp();
-#pragma unroll
-        for (int i = 0; i < BS; ++i) v[i] = Tw[base + i * step];
-        inv_net<BS>(v, pass ? ck : rk, pass ? p.col_lo : p.row_lo,
-                    pass ? p.col_hi : p.row_hi);
-#pragma unroll
-        for (int i = 0; i < BS; ++i)
-          Tw[base + i * step] = clampi(rshift_signed(v[i], s), lo, hi);
-      }
-      if (ws) ws[4] = gtime();
-      int sse = 0;
-#pragma unroll 4
-      for (int i = 0; i < BS; ++i) {
-        const int rec = clampi((int)Rw[i * BS + j] + Tw[i * TP + j], 0,
-                               p.pix_max);
-        Rw[i * BS + j] = (Pix)rec;
-        const int d = (int)S[i * BS + j] - rec;
-        sse += d * d;
-      }
-
-      if (ws) ws[5] = gtime();
+      const Pix* X =
+          mode < 0 ? static_cast<const Pix*>(p.xpred) + xix * N : nullptr;
+      const ChainOut o = warp_chain<BS, Pix>(
+          p, ChainShifts{p.qshift, p.fwd_s0, p.fwd_s1, p.fwd_s2, p.inv_s0,
+                         p.inv_s1},
+          mode, kind & 1, (kind >> 1) & 1, r > 0, cb > 0, sSrc, sE,
+          sT + warp * t_ints<BS>(), sLev + warp * lev_elems<BS>(),
+          sRec + warp * RE, sDir + warp * N, sSmw, X, ws);
       // RD cost of each block, paired sum, first minimum below
-#pragma unroll
-      for (int o = BS / 2; o > 0; o >>= 1) {
-        sse += __shfl_xor_sync(FULL, sse, o);
-        nnz += __shfl_xor_sync(FULL, nnz, o);
-        lbits = __fadd_rn(lbits, __shfl_xor_sync(FULL, lbits, o));
-      }
-      const float fn = (float)nnz;
-      float est;
-      if (BS >= 32)
-        est = __fadd_rn(__fadd_rn(25.7f, __fmul_rn(2.43f, fn)),
-                        __fmul_rn(1.83f, lbits));
-      else
-        est = __fadd_rn(__fadd_rn(16.2f, __fmul_rn(2.47f, fn)),
-                        __fmul_rn(1.58f, lbits));
-      const float rbits = nnz > 0 ? est : 1.0f;
       const bool xl = c >= p.NI;
       const float rate = xl ? __ldg(p.xrate + xix) : p.rate[c];
       const bool ok = xl ? __ldg(p.xok + xix) != 0
                          : (p.iok == nullptr || __ldg(p.iok + bix) != 0);
-      float cost = __fadd_rn((float)sse,
-                             __fmul_rn(p.lam, __fadd_rn(rate, rbits)));
+      float cost = rd_cost(o, p.lam, rate);
       if (!ok) cost = 3e38f;
       if constexpr (H == 2) {
         const float cv = __shfl_sync(FULL, cost, BS);

@@ -26,7 +26,7 @@ HEADER = Path(__file__).resolve().parent.parent / "csrc" / "txfm_nets.cuh"
 # (function name, kind, n, direction, cos bit): the forward column and row
 # networks of the square sizes (one for 32x32, whose column and row cos
 # bits are equal), and the inverse networks (one cos bit)
-_W16, _W32 = 2, 3            # log2(n) - 2, the FWD_COS_BIT_* index
+_W8, _W16, _W32 = 1, 2, 3    # log2(n) - 2, the FWD_COS_BIT_* index
 if T.FWD_COS_BIT_COL[_W32][_W32] != T.FWD_COS_BIT_ROW[_W32][_W32]:
     raise AssertionError("32x32 column and row cos bits differ")
 NETS = (
@@ -40,6 +40,13 @@ NETS = (
     ("net_fwd_row_adst16", "adst", 16, "fwd",
      T.FWD_COS_BIT_ROW[_W16][_W16]),
     ("net_inv_adst16", "adst", 16, "inv", T.INV_COS_BIT),
+    # the 8x8 chroma of the edge strip (csrc/wf_edge.cu)
+    ("net_fwd_col_dct8", "dct", 8, "fwd", T.FWD_COS_BIT_COL[_W8][_W8]),
+    ("net_fwd_row_dct8", "dct", 8, "fwd", T.FWD_COS_BIT_ROW[_W8][_W8]),
+    ("net_inv_dct8", "dct", 8, "inv", T.INV_COS_BIT),
+    ("net_fwd_col_adst8", "adst", 8, "fwd", T.FWD_COS_BIT_COL[_W8][_W8]),
+    ("net_fwd_row_adst8", "adst", 8, "fwd", T.FWD_COS_BIT_ROW[_W8][_W8]),
+    ("net_inv_adst8", "adst", 8, "inv", T.INV_COS_BIT),
 )
 
 _PRELUDE = """\

@@ -262,7 +262,7 @@ def tx_params(bs: int, bd: int = 8) -> dict:
     bits = lambda n: (-(1 << (n - 1)), (1 << (n - 1)) - 1)
     (dq_lo, dq_hi), (row_lo, row_hi), (mid_lo, mid_hi), (col_lo, col_hi) = (
         bits(r[k]) for k in ("inp", "row", "mid", "col"))
-    return dict(qshift=tbl.tx_scale_shift(_TX_OF_BS[bs]),
+    return dict(qshift=tbl.tx_scale_shift({8: T.TX_8X8, **_TX_OF_BS}[bs]),
                 fwd_s0=-fwd[0], fwd_s1=-fwd[1], fwd_s2=-fwd[2],
                 inv_s0=-inv[0], inv_s1=-inv[1],
                 base=1 << (bd - 1), pix_max=(1 << bd) - 1,
@@ -343,14 +343,17 @@ def bound_ms(bs: int, B: int, h: int, w: int, modes, uv_tx=False,
 
 @lru_cache(maxsize=None)
 def _tables(bs: int, cands: tuple, uv_tx: bool, h: int, w: int, vh: int,
-            device: str):
-    """Device tables of one (shape, candidate list), uploaded once."""
+            device: str, rows: int = None):
+    """Device tables of one (shape, candidate list), uploaded once; rows:
+    the block rows scheduled (None: all), a prefix of whole SB rows, whose
+    blocks read nothing below it."""
     kinds = [_kinds_of(tt) for tt in _tx_types(cands, _TX_OF_BS[bs], uv_tx)]
     if bs == 32 and any(T.ADST_1D in k for k in kinds):
         raise NotImplementedError("32-point ADST does not exist in AV1")
     dev = torch.device(device)
     up = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
-    blocks = schedule(bs, h, w, vh)
+    blocks = (schedule(bs, h, w, vh) if rows is None else
+              schedule(bs, rows * bs, w, rows * bs))
     return {"blocks": up(blocks), "dirmap": up(linear_pred_maps(bs, cands)),
             "smw": up(np.asarray(SM_WEIGHTS[bs:2 * bs], np.int32)),
             "kind": [rk | (ck << 1) for rk, ck in kinds],
@@ -366,8 +369,11 @@ def wavefront_cuda(src, rd, bs: int, tx_size: int, modes, bd: int = 8,
     (extra_preds [B, nE, bh, bw, bs, bs] int32 or the pixel dtype, in [0,
     2^bd - 1], extra_rate [B, nE, bh, bw] float32, extra_ok [B, nE, bh,
     bw] bool, intra_ok [B, bh, bw] bool), on src's device; mode_idx >= the
-    intra count then selects a lane.  Asynchronous on the current
-    stream."""
+    intra count then selects a lane.  Where valid_h leaves m = 12 (valid_h
+    = h - bs / 2: the flat path's edge strip, encoder/edge.py), the kernel
+    codes the SB rows above the bottom one alone, and leaves that row's
+    outputs as torch.empty made them for encode_edge.  Asynchronous on the
+    current stream."""
     return launch(src, rd, bs, tx_size, modes, bd, angle_deltas, valid_h,
                   paired, uv_tx, extra=extra)[:3]
 
@@ -448,15 +454,21 @@ def launch(src, rd, bs: int, tx_size: int, modes, bd: int = 8,
         raise ValueError(f"{C} candidates > {MAXC}")
     K, wpc = geometry or launch_geometry(C)
     cand, home = warp_map(C, K, wpc)
-    tabs = _tables(bs, cands, bool(uv_tx), h, w, vh, str(dev))
+    # m = 12: the bottom SB row is the edge strip's
+    rows = h // bs - 2 if vh == h - bs // 2 else None
+    empty = lambda *shape: torch.empty(shape, dtype=torch.int32, device=dev)
+    if rows == 0:
+        # nothing above the frame's one SB row: no launch
+        return empty(B, bh, bw), empty(B, bh, bw, bs, bs), empty(B, h, w), \
+            None
+    tabs = _tables(bs, cands, bool(uv_tx), h, w, vh, str(dev), rows)
     # 16x16: two frames a unit (u and u + NU, or a U/V pair)
     NU = (B + 1) // 2 if bs == 16 else B
     sync = torch.zeros(1 + NU * tabs["nblk"], dtype=torch.int32, device=dev)
     rowbuf = torch.empty((B, bh, w), dtype=torch.int32, device=dev)
     colbuf = torch.empty((B, h, bw), dtype=torch.int32, device=dev)
-    mode_idx = torch.empty((B, bh, bw), dtype=torch.int32, device=dev)
-    levels = torch.empty((B, bh, bw, bs, bs), dtype=torch.int32, device=dev)
-    recon = torch.empty((B, h, w), dtype=torch.int32, device=dev)
+    mode_idx, levels, recon = (empty(B, bh, bw), empty(B, bh, bw, bs, bs),
+                               empty(B, h, w))
     (mdc, sdc), (mac, sac) = reciprocal(dqdc), reciprocal(dqac)
     tr = torch.zeros((NU * tabs["nblk"], 16), dtype=torch.int64,
                      device=dev) if trace else None

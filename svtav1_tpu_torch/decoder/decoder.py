@@ -191,6 +191,26 @@ class _Pack:
         return upload(flat, device)
 
 
+def _leaf16_edges(sr: int, sc: int, qr: int, qc: int, right_sb: bool,
+                  bl_in_frame: bool) -> tuple:
+    """(has_tr, has_bl) of the 16x16 leaf (sr, sc) of the split 32x32
+    quad (qr, qc) of a SB, or of its 8x8 chroma (spec §7.11.2, the
+    BlockDecoded flags of clear_block_decoded_flags and z-order): the
+    above-right is coded where it lies in the 32-row above the leaf's
+    32x32 row or earlier in the same 32x32; the below-left where it lies
+    in the left SB or the quad to the left, inside the SB and the frame.
+    right_sb: an SB to the right in the tile (for a top-row leaf at the
+    SB's right edge); bl_in_frame: the below-left's first row is in the
+    frame."""
+    if sr == 0:
+        has_tr = sc == 0 or qc == 0 or (qr == 0 and right_sb)
+    else:
+        has_tr = sc == 0
+    has_bl = (sc == 0 and (qc == 0 or sr == 0) and
+              qr * 8 + sr * 4 + 4 < 16 and bl_in_frame)
+    return has_tr, has_bl
+
+
 def _directional(mode: int, delta: int) -> bool:
     """Predicted by dr_pred at MODE_ANGLE[mode] + 3 * delta (spec
     §7.11.2.4): the directional modes, V_PRED and H_PRED only with a
@@ -1000,9 +1020,14 @@ class Decoder:
         has_tr = has_bl = False
         if _directional(mode, delta):
             # extended-edge availability: z-order rule for full 32x32
-            # blocks; 16x16 leaves only carry Z2-safe modes, for which the
-            # extension is never read (replication is then normative)
-            if luma_bs == 64 and bs == 64:
+            # blocks and for the 16x16 leaves of a split 32x32 (the
+            # partition path's carry Z2-safe modes only, which never read
+            # the extension; the flat path's edge strip carries every mode)
+            if luma_bs == 16:
+                has_tr, has_bl = _leaf16_edges(
+                    (y0 // bs) % 2, (x0 // bs) % 2, br % 2, bc % 2,
+                    bc + 1 < tile_bw, y0 + bs < vh)
+            elif luma_bs == 64 and bs == 64:
                 # full-SB block: above-right SB is decoded (raster SB
                 # order), below-left never is; br/bc and tile_bw are in
                 # 32-block units, compared at SB granularity

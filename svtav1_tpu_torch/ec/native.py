@@ -42,6 +42,19 @@ class _Tables(ctypes.Structure):
                  "angle_delta")] + [("scan32", _i16p), ("scan16", _i16p)]
 
 
+class _TxType(ctypes.Structure):
+    _fields_ = [("cdf", _u16p), ("nsyms", ctypes.c_int),
+                ("dct_sym", ctypes.c_int)]
+
+
+class _Strip(ctypes.Structure):
+    """Mirror of struct Strip in native/tile_coder.c: the edge strip of
+    an m = 12 frame."""
+    _fields_ = [(n, ctypes.POINTER(ctypes.c_int32)) for n in
+                ("y_modes", "y_deltas", "y_lev", "u_lev", "v_lev",
+                 "uv_modes")] + [("scan8", _i16p), ("tx16", _TxType)]
+
+
 _lib = None
 _reader = None
 
@@ -82,7 +95,7 @@ def _load():
         np.ctypeslib.ndpointer(np.int32), np.ctypeslib.ndpointer(np.int32),
         ctypes.POINTER(_Tables), ctypes.c_int,
         np.ctypeslib.ndpointer(np.int32), np.ctypeslib.ndpointer(np.int32),
-        ctypes.POINTER(ctypes.c_long)]
+        ctypes.POINTER(ctypes.c_long), ctypes.POINTER(_Strip)]
     _lib = lib
     return lib
 
@@ -127,12 +140,15 @@ def encode_tile_intra(width: int, height: int, update_cdf: bool,
                       y_modes: np.ndarray, y_lev: np.ndarray,
                       u_lev: np.ndarray, v_lev: np.ndarray, cdf,
                       true_h: int = 0, uv_modes: np.ndarray = None,
-                      y_deltas: np.ndarray = None) -> bytes:
+                      y_deltas: np.ndarray = None, edge=None) -> bytes:
     """cdf: spec.cdf.CdfContext (its tables are copied, not mutated).
     true_h: signaled frame height when `height` is the SB-padded plane
     height (0 → equal); bottom-edge geometry per encoder/geometry.py.
     uv_modes / y_deltas [bh, bw]: each block's uv_mode (None: DC) and
-    luma angle delta (None: 0; written for the directional modes).  The
+    luma angle delta (None: 0; written for the directional modes).  edge:
+    the edge strip of a frame with m = 12 (encoder/edge.py), as (y modes
+    [n], luma levels [n, 16, 16], U and V levels [n, 8, 8], uv modes [n],
+    luma angle deltas [n]), strip block 2 * (32-block column) + j.  The
     symbols coded go to the ``coder.symbols`` counter (``utils.trace``)."""
     lib = _load()
     keep = []  # keep arrays alive
@@ -190,8 +206,34 @@ def encode_tile_intra(width: int, height: int, update_cdf: bool,
         np.ascontiguousarray(u_lev, np.int32),
         np.ascontiguousarray(v_lev, np.int32), ctypes.byref(t),
         int(true_h), np.ascontiguousarray(uv_modes, np.int32),
-        np.ascontiguousarray(y_deltas, np.int32), ctypes.byref(nsym))
+        np.ascontiguousarray(y_deltas, np.int32), ctypes.byref(nsym),
+        None if edge is None else ctypes.byref(
+            _strip(edge, cdf, u16, i16, keep)))
     if n <= 0:
         raise RuntimeError("native tile coder failed")
     trace.count("coder.symbols", nsym.value)
     return dst[:n].tobytes()
+
+
+def _strip(edge, cdf, u16, i16, keep) -> _Strip:
+    """The C Strip of an edge tuple (encode_tile_intra's), its arrays kept
+    alive in keep."""
+    from ..spec.txfm import DCT_DCT, TX_8X8, TX_16X16
+    from .coeffs import EXT_TX_IND, tx_set_params
+    y_modes, y_lev, u_lev, v_lev, uv_modes, y_deltas = edge
+    if np.abs(y_deltas).max(initial=0) > 3:
+        raise ValueError("angle deltas lie in -3..3")
+
+    def i32(arr):
+        a = np.ascontiguousarray(arr, np.int32)
+        keep.append(a)
+        return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+    # the frame header's reduced_tx_set (headers.FrameConfig's default)
+    nsyms, eset, styp = tx_set_params(TX_16X16, False, True)
+    tt = _TxType(cdf=u16(cdf.intra_ext_tx_cdf[eset][tbl.txsize_sqr(
+        TX_16X16)]), nsyms=nsyms, dct_sym=EXT_TX_IND[styp][DCT_DCT])
+    return _Strip(y_modes=i32(y_modes), y_deltas=i32(y_deltas),
+                  y_lev=i32(y_lev), u_lev=i32(u_lev), v_lev=i32(v_lev),
+                  uv_modes=i32(uv_modes), scan8=i16(tbl.scan(TX_8X8, 0)),
+                  tx16=tt)

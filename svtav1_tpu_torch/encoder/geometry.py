@@ -14,8 +14,12 @@ where the spec's partition rules still let their partition symbol be coded
   m=6  : force SB SPLIT and the +0mi quad to NONE.
   m=4  : force SB SPLIT and the +0mi quad to SPLIT.
   m in {2, 10} (height % 64 in {8, 40}) needs 16x8 edge blocks: not
-  implemented.  The flat path (32x32 NONE blocks only) codes m in
-  {6, 8, 14, 16}.
+  implemented.  The flat path (32x32 NONE blocks) codes m in
+  {6, 8, 12, 14, 16}.  At m=12 its bottom 32-row is coded as SPLIT
+  (split_or_horz) into 16x16 NONE blocks (TX_16X16 luma, TX_8X8 chroma),
+  the edge strip; the +12mi children start outside the frame and are not
+  coded.  m=4 would need the same rule one level up (its +0mi quad split
+  into 16x16 blocks) and is not implemented on the flat path.
 """
 
 from __future__ import annotations
@@ -26,7 +30,9 @@ SB = 64
 
 # m values codable without 16x8 strip blocks, per path
 PART_OK_M = (4, 6, 8, 12, 14, 16)
-FLAT_OK_M = (6, 8, 14, 16)      # flat path: 32x32 NONE blocks only
+FLAT_OK_M = (6, 8, 12, 14, 16)  # flat path: 32x32 NONE blocks, and the
+                                # 16x16 edge strip at m=12
+EDGE_M = 12                     # the flat path's m with an edge strip
 
 
 def pad64(v: int) -> int:

@@ -21,12 +21,30 @@ from ..utils.obu import (OBU_FRAME, OBU_FRAME_HEADER, OBU_SEQUENCE_HEADER,
 CCSO_OFFSETS = (0, 1, -1, 3, -3, 7, -7, -10)
 
 
+# AV1 Annex A.3: (seq_level_idx, MaxPicSize, MaxHSize, MaxVSize) of the
+# first level of each size class from 4.0 up; every level of a class
+# (4.0-4.1, 5.0-5.3, 6.0-6.3) has the same three limits
+_LEVEL_SIZES = ((8, 2228224, 4096, 2304), (12, 8912896, 8192, 4352),
+                (16, 35651584, 16384, 8704))
+_LEVEL_MAX = 31                     # no level's limits
+
+
+def level_idx(width: int, height: int) -> int:
+    """seq_level_idx of the smallest level from 4.0 up whose MaxPicSize,
+    MaxHSize and MaxVSize hold a width x height frame: 8 (4.0) up to
+    2,228,224 samples, 12 (5.0) for 3840x2160; 31 past every level."""
+    for idx, pic, hs, vs in _LEVEL_SIZES:
+        if width * height <= pic and width <= hs and height <= vs:
+            return idx
+    return _LEVEL_MAX
+
+
 @dataclass
 class SequenceConfig:
     width: int
     height: int
     bit_depth: int = 8
-    seq_level_idx: int = 8          # 4.0
+    seq_level_idx: int = None       # None: level_idx(width, height)
     seq_profile: int = 0
     use_128x128_sb: bool = False
     enable_filter_intra: bool = False
@@ -39,6 +57,10 @@ class SequenceConfig:
     monochrome: bool = False
     film_grain_params_present: bool = False
     ccso_fork_mode: bool = False    # fork-compat nonstandard bit (§2.6 SURVEY)
+
+    def __post_init__(self):
+        if self.seq_level_idx is None:
+            self.seq_level_idx = level_idx(self.width, self.height)
 
     @property
     def frame_width_bits(self) -> int:

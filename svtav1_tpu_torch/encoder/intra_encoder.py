@@ -62,8 +62,9 @@ from . import coder_pool
 from .ccso_search import ccso_search_frame
 from .cdef_search import (build_skip8, cdef_frame_config_fields,
                           cdef_search_frame)
-from .geometry import (bottom_force_masks, check_dims, pad64,
-                       pad_plane_bottom)
+from .edge import encode_edge, strip_count
+from .geometry import (EDGE_M, bottom_force_masks, check_dims, height_m,
+                       pad64, pad_plane_bottom)
 from .headers import FrameConfig, SequenceConfig, assemble_key_frame
 from .lr_search import lr_search_frame
 from .tile_codec import TileCoder
@@ -80,8 +81,14 @@ CAND_MODES = (intra.DC_PRED, intra.V_PRED, intra.H_PRED,
               intra.SMOOTH_PRED, intra.SMOOTH_V_PRED, intra.SMOOTH_H_PRED,
               intra.PAETH_PRED)
 
-# the flat device outputs host_finish copies to the host
+# the flat device outputs host_finish copies to the host, and those of
+# the edge strip (m = 12 heights: the strip's modes and levels)
 _D2H = ("y_mi", "uv_mi", "y_lev", "uv_lev", "y_rec", "uv_rec")
+_D2H_EDGE = ("y_emi", "uv_emi", "y_elev", "uv_elev")
+
+
+def _d2h_keys(dev: dict) -> tuple:
+    return _D2H + (_D2H_EDGE if "y_emi" in dev else ())
 
 
 @lru_cache(maxsize=None)
@@ -96,7 +103,7 @@ def _d2h_stream(dev: dict):
     recorded on the tensors it reads."""
     stream = _side_stream(dev["y_rec"].device)
     stream.wait_event(dev["done"])
-    for k in _D2H:
+    for k in _d2h_keys(dev):
         dev[k].record_stream(stream)
     return stream
 
@@ -188,6 +195,9 @@ class IntraEncoder:
         # the source is padded to SB multiples; the bitstream signals the
         # true frame size and bottom-row blocks overhang it
         self.ph = pad64(cfg.height)
+        # the flat path's bottom SB row at m = 12 is the edge strip's
+        # chain (encoder/edge.py)
+        self.edge = not cfg.part_search and height_m(cfg.height) == EDGE_M
         self.seq = SequenceConfig(cfg.width, cfg.height, cfg.bit_depth,
                                   enable_cdef=cfg.enable_cdef,
                                   enable_restoration=cfg.enable_lr,
@@ -284,7 +294,8 @@ class IntraEncoder:
         if cfg.part_search:
             return self._device_encode_part(frames)
         # the spans (utils.trace) tile the call: staging, each plane's
-        # upload and launch, the deblock's enqueue
+        # upload and launch, the edge strip's enqueue (m = 12 heights), the
+        # deblock's enqueue
         with trace.span("enc.stage"):
             yb = pad_plane_bottom(np.stack([f[0] for f in frames]), self.ph)
             uvb = pad_plane_bottom(np.concatenate(
@@ -299,7 +310,8 @@ class IntraEncoder:
             y_mi, y_lev, y_rec = encode_plane_wavefront(
                 yt, BLK, TX_32X32, cfg.qindex, CAND_MODES, bd,
                 tuple(cfg.angle_deltas), valid_h=vh)
-        del yt      # each upload is freed once its launch is queued
+        if not self.edge:
+            del yt  # each upload is freed once its launches are queued
         # U and V ride one wavefront on the batch axis; paired=True makes
         # each (u, v) pair agree on one uv_mode
         with trace.span("enc.upload"):
@@ -308,6 +320,21 @@ class IntraEncoder:
             uv_mi, uv_lev, uv_rec = encode_plane_wavefront(
                 uvt, CBLK, TX_16X16, cfg.qindex, CAND_MODES, bd,
                 valid_h=vhc, paired=True, kf="uv", uv_tx=True)
+        strip = {}
+        if self.edge:
+            # the bottom SB row, after every SB row above it, on the same
+            # stream
+            with trace.span("enc.edge"), \
+                    trace.device_span("dev.edge", self.device):
+                strip["y_emi"], strip["y_elev"] = encode_edge(
+                    yt, y_mi, y_lev, y_rec, BLK, cfg.qindex, CAND_MODES, bd,
+                    tuple(cfg.angle_deltas), valid_h=vh)
+                strip["uv_emi"], strip["uv_elev"] = encode_edge(
+                    uvt, uv_mi, uv_lev, uv_rec, CBLK, cfg.qindex,
+                    CAND_MODES, bd, valid_h=vhc, paired=True, uv_tx=True)
+            trace.count("edge.blocks",
+                        len(frames) * strip_count(cfg.width, BLK))
+            del yt
         del uvt
         lf = self.lf_levels()
         pix = pix_dtype(bd)
@@ -326,7 +353,7 @@ class IntraEncoder:
             done.record(torch.cuda.current_stream(self.device))
         dev = {"n": len(frames), "y_mi": y_mi, "uv_mi": uv_mi,
                "y_lev": y_lev, "uv_lev": uv_lev, "y_rec": y_rec,
-               "uv_rec": uv_rec, "frames": frames, "done": done}
+               "uv_rec": uv_rec, "frames": frames, "done": done, **strip}
         self._queue(dev, threading.Event())
         return dev
 
@@ -344,14 +371,20 @@ class IntraEncoder:
                            np.int32)
         cdf = CdfContext(cfg.qindex)
 
-        def code_one(y_mi, y_lev, u_lev, v_lev, uv_mi):
+        def code_one(y_mi, y_lev, u_lev, v_lev, uv_mi, strip=None):
             trace.count("coder.ahead", int(not entered.is_set()))
+            edge = None
+            if strip is not None:
+                e_mi, e_lev, eu_lev, ev_lev, euv_mi = strip
+                edge = (cand_mode[e_mi], e_lev, eu_lev, ev_lev,
+                        uv_mode[euv_mi], cand_delta[e_mi])
             with trace.span("coder.frame"):
                 # through the module attribute, which a caller may wrap
                 return native.encode_tile_intra(
                     cfg.width, ph, cfg.cdf_update, cand_mode[y_mi], y_lev,
                     u_lev, v_lev, cdf, true_h=cfg.height,
-                    uv_modes=uv_mode[uv_mi], y_deltas=cand_delta[y_mi])
+                    uv_modes=uv_mode[uv_mi], y_deltas=cand_delta[y_mi],
+                    edge=edge)
 
         dev["entered"] = entered
         dev["job"] = coder_pool.copier().submit(self._fetch, dev, code_one)
@@ -375,14 +408,22 @@ class IntraEncoder:
             uv_lev = dev["uv_lev"].cpu().numpy()
             y_rec = host_pixels(dev["y_rec"], bd)
             uv_rec = host_pixels(dev["uv_rec"], bd)
+            strip = None
+            if "y_emi" in dev:
+                strip = [dev[k].cpu().numpy() for k in _D2H_EDGE]
             if done is not None:
                 # the kernel's error word; the copies above already waited
                 from ..cuda.wavefront_kernel import raise_on_error
                 raise_on_error(dev["y_rec"].device)
         pool = coder_pool.coders()
+        # the strip's per frame: (modes, luma levels, U levels, V levels,
+        # uv modes); U and V ride the batch axis [2n, ...] as the planes
+        edge = [None] * n if strip is None else [
+            (strip[0][b], strip[2][b], strip[3][b], strip[3][n + b],
+             strip[1][b]) for b in range(n)]
         return (y_rec, uv_rec), [
             pool.submit(code_one, y_mi[b], y_lev[b], uv_lev[b],
-                        uv_lev[n + b], uv_mi[b]) for b in range(n)]
+                        uv_lev[n + b], uv_mi[b], edge[b]) for b in range(n)]
 
     def _part_scans(self, yt, ut, vt, device):
         """The luma partition scan of yt [N, h, w] and the paired U+V scan
@@ -630,7 +671,8 @@ class IntraEncoder:
         with trace.span("fin.coder"):
             (y_rec, uv_rec), coded = job.result()
             tiles = [f.result() for f in coded]
-        trace.count("d2h.bytes", sum(dev[k].nbytes for k in _D2H))
+        trace.count("d2h.bytes",
+                    sum(dev[k].nbytes for k in _d2h_keys(dev)))
         u_rec, v_rec = uv_rec[:n], uv_rec[n:]
 
         with trace.span("fin.obu"):

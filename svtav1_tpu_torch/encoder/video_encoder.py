@@ -87,7 +87,8 @@ from ..ops.mc import (pad_plane, predict_inter_blocks,
 from ..ops.tf import temporal_filter_frame
 from ..spec.txfm import TX_16X16, TX_32X32
 from .cdef_search import cdef_frame_config_fields
-from .geometry import bottom_force_masks, pad_plane_bottom
+from .geometry import (EDGE_M, bottom_force_masks, height_m,
+                       pad_plane_bottom)
 from .headers import FrameConfig, assemble_frame, assemble_show_existing
 from .intra_encoder import (CAND_MODES, EncoderConfig, IntraEncoder,
                             tile_stack, tile_unstack)
@@ -188,6 +189,13 @@ class VideoEncoder:
                  rc=None, device="cuda"):
         self.cfg = cfg
         self.keyint = max(1, keyint)
+        if self.keyint > 1 and not cfg.part_search and \
+                height_m(cfg.height) == EDGE_M:
+            # the edge strip is coded in key frames only
+            raise ValueError(
+                f"height % 64 == {cfg.height % 64} on the flat low-delay "
+                "path needs 16x16 edge blocks in P frames (not yet "
+                "implemented - use part_search=True)")
         self.pyramid = pyramid and self.keyint > 1
         # key frames get a quality boost (the reference's CRF kf_qindex
         # scaling, EbRateControlProcess.c:782)

@@ -171,7 +171,11 @@ def encode_plane_wavefront(src, bs: int, tx_size: int, qindex: int,
     clamp at valid_h-1 (§7.11.2 bottom-edge rule).
     paired=True: src stacks two planes [U..., V...] on the batch axis and
     each (u, v) pair picks the same candidate (one uv_mode for both).
-    uv_tx=True: each candidate uses its uv_mode-implied tx type."""
+    uv_tx=True: each candidate uses its uv_mode-implied tx type.
+    valid_h = h - bs / 2 (m = 12): the bottom SB row is the edge strip's,
+    coded by encoder.edge.encode_edge after this call: on a card the
+    kernel leaves it, the plain body codes it and encode_edge overwrites
+    it."""
     cands = expand_candidates(modes, angle_deltas)
     rd = rd_params(qindex, bd, cands, kf=kf)
     if src.device.type == "cpu":
@@ -255,6 +259,48 @@ def _edges(rowbuf, colbuf, rs, cs, has_tr, has_bl, bs: int, vh: int,
     return above, left, corner, above_ext, left_ext
 
 
+def intra_preds(cands, above, left, corner, above_ext, left_ext, ha, hl,
+                bs: int, bd: int) -> list:
+    """Each candidate's prediction [N, bs, bs] of N blocks from their
+    edges (above, left [N, bs], corner [N], above_ext, left_ext [N, 2bs],
+    availability ha, hl [N, 1, 1])."""
+    preds = []
+    for mode, delta in cands:
+        if mode == intra.DC_PRED:
+            p = [intra.dc_pred(above, left, a, l, bd)
+                 for a, l in ((True, True), (True, False),
+                              (False, True), (False, False))]
+            pred = torch.where(ha & hl, p[0],
+                               torch.where(ha, p[1],
+                                           torch.where(hl, p[2], p[3])))
+        elif mode in DIRECTIONAL and (delta != 0 or mode not in
+                                      (intra.V_PRED, intra.H_PRED)):
+            pred = dr_pred(mode, delta, above_ext, left_ext, corner, bs, bd)
+        else:
+            pred = intra.predict(mode, above, left, corner)
+        preds.append(pred)
+    return preds
+
+
+def chain(src, pred_s, types, tx_size: int, dqdc, dqac, bd: int):
+    """The normative integer chain of every candidate: src [N, bs, bs],
+    pred_s [C, N, bs, bs], types the C tx types -> (levels, recon [C, N,
+    bs, bs], sse [C, N] float32)."""
+    resid = src[None] - pred_s
+    lev = torch.empty_like(resid)
+    inv = torch.empty_like(resid)
+    for tt in sorted(set(types)):
+        idx = [i for i, ty in enumerate(types) if ty == tt]
+        lv = quantize_dq(fwd_txfm2d(resid[idx], tx_size, tt, bd),
+                         tx_size, dqdc, dqac, bd)
+        lev[idx] = lv
+        inv[idx] = inv_txfm2d(dequantize_dq(lv, tx_size, dqdc, dqac, bd),
+                              tx_size, tt, bd)
+    recb = add_residual_clip(pred_s, inv, bd)
+    sse = ((src[None] - recb) ** 2).sum((-1, -2)).to(torch.float32)
+    return lev, recb, sse
+
+
 def _wavefront_body(src, rd, bs: int, tx_size: int, modes=DEFAULT_MODES,
                     bd: int = 8, angle_deltas=(0,), valid_h: int = None,
                     paired: bool = False, uv_tx: bool = False, extra=None):
@@ -316,41 +362,14 @@ def _wavefront_body(src, rd, bs: int, tx_size: int, modes=DEFAULT_MODES,
         f_ha = ha1.expand(B, D).reshape(-1)[:, None, None]
         f_hl = hl1.expand(B, D).reshape(-1)[:, None, None]
 
-        preds = []
-        for mode, delta in cands:
-            if mode == intra.DC_PRED:
-                p = [intra.dc_pred(f_above, f_left, a, l, bd)
-                     for a, l in ((True, True), (True, False),
-                                  (False, True), (False, False))]
-                pred = torch.where(f_ha & f_hl, p[0],
-                                   torch.where(f_ha, p[1],
-                                               torch.where(f_hl, p[2],
-                                                           p[3])))
-            elif mode in DIRECTIONAL and (delta != 0 or mode not in
-                                          (intra.V_PRED, intra.H_PRED)):
-                pred = dr_pred(mode, delta, f_above_ext, f_left_ext,
-                               f_corner, bs, bd)
-            else:
-                pred = intra.predict(mode, f_above, f_left, f_corner)
-            preds.append(pred)
+        preds = intra_preds(cands, f_above, f_left, f_corner, f_above_ext,
+                            f_left_ext, f_ha, f_hl, bs, bd)
         if extra is not None:
             # inter lanes after the intra candidates: [nE, BD, ...]
             preds += list(x_pred[:, :, rs, cs].transpose(0, 1).reshape(
                 -1, B * D, bs, bs))
-        pred_s = torch.stack(preds)                        # [C, BD, bs, bs]
-        resid = f_src[None] - pred_s
-
-        lev = torch.empty_like(resid)
-        inv = torch.empty_like(resid)
-        for tt in sorted(set(types)):
-            idx = [i for i, ty in enumerate(types) if ty == tt]
-            lv = quantize_dq(fwd_txfm2d(resid[idx], tx_size, tt, bd),
-                             tx_size, dqdc, dqac, bd)
-            lev[idx] = lv
-            inv[idx] = inv_txfm2d(dequantize_dq(lv, tx_size, dqdc, dqac, bd),
-                                  tx_size, tt, bd)
-        recb = add_residual_clip(pred_s, inv, bd)
-        sse = ((f_src[None] - recb) ** 2).sum((-1, -2)).to(torch.float32)
+        lev, recb, sse = chain(f_src, torch.stack(preds), types, tx_size,
+                               dqdc, dqac, bd)     # [C, BD, ...]
         rate = rate_c.expand(-1, B * D)
         if extra is not None:
             lane = lambda a: a[:, :, rs, cs].transpose(0, 1).reshape(-1, B * D)

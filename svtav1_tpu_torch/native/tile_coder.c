@@ -265,14 +265,26 @@ static void write_golomb(RangeEnc *e, int level) {
         enc_bool(e, (x >> i) & 1, 0x4000);
 }
 
-/* returns cul_level (6-bit sum + dc-sign code in bits 6+) */
-static int write_coeffs(RangeEnc *e, Tables *t, const int32_t *lv, int n,
-                        int tx_size_is_32, int plane_type, int txb_skip_ctx,
-                        int dc_sign_ctx) {
+/* The luma transform type symbol of a TX_16X16 block (spec §5.11.47):
+ * its set's intra CDFs by y mode, its symbol count and DCT_DCT's symbol. */
+typedef struct {
+    uint16_t *cdf;             /* [13][17] */
+    int nsyms, dct_sym;
+} TxType;
+
+/* returns cul_level (6-bit sum + dc-sign code in bits 6+).  txs: 3
+ * TX_32X32, 2 TX_16X16, 1 TX_8X8 (square, 2D scan); tt: the luma tx
+ * type symbol's CDF row (the block's y mode), coded after all_zero, or
+ * NULL where the tx set has one type. */
+static int write_coeffs(RangeEnc *e, Tables *t, const int32_t *lv, int txs,
+                        int plane_type, int txb_skip_ctx, int dc_sign_ctx,
+                        const int16_t *scan8, uint16_t *tt, int tt_nsyms,
+                        int tt_sym) {
+    int n = 4 << txs;
     int w = n, h = n;
-    const int16_t *scan = tx_size_is_32 ? t->scan32 : t->scan16;
+    const int16_t *scan = txs == 3 ? t->scan32 : (txs == 2 ? t->scan16
+                                                           : scan8);
     int npix = w * h;
-    int txs = tx_size_is_32 ? 3 : 2;
 
     int eob = 0;
     for (int i = 0; i < npix; i++)
@@ -281,6 +293,7 @@ static int write_coeffs(RangeEnc *e, Tables *t, const int32_t *lv, int n,
     uint16_t *cskip = t->txb_skip + (txs * 13 + txb_skip_ctx) * 3;
     enc_symbol(e, eob == 0, cskip, 2);
     if (eob == 0) return 0;
+    if (tt) enc_symbol(e, tt_sym, tt, tt_nsyms);
 
     /* eob token */
     int eob_pt = 0;
@@ -289,12 +302,15 @@ static int write_coeffs(RangeEnc *e, Tables *t, const int32_t *lv, int n,
     /* eob_multi_size = log2(npix) - 4: 16x16→4, 32x32→6 */
     uint16_t *ecdf;
     int ecdf_n;
-    if (tx_size_is_32) {
+    if (txs == 3) {
         ecdf = t->eob_flag1024 + (plane_type * 2 + 0) * 12;
         ecdf_n = 11;
-    } else {
+    } else if (txs == 2) {
         ecdf = t->eob_flag256 + (plane_type * 2 + 0) * 10;
         ecdf_n = 9;
+    } else {
+        ecdf = t->eob_flag64 + (plane_type * 2 + 0) * 8;
+        ecdf_n = 7;
     }
     enc_symbol(e, eob_pt - 1, ecdf, ecdf_n);
 
@@ -401,11 +417,169 @@ static void enc_partition_edge_split(RangeEnc *e, const uint16_t *icdf,
     enc_symbol_noupd(e, 1 /*split*/, scratch, 2);
 }
 
+/* The flat tile's coding state: the encoder, the tables and the above and
+ * left contexts (per mi for partitions, skip and modes; per 4x4 of each
+ * plane for the coefficients' level sums and dc signs). */
+typedef struct {
+    RangeEnc e;
+    Tables *t;
+    int mi_rows, mi_cols;
+    uint8_t *above_part, *skip_grid, *mode_grid;
+    uint8_t *above_cul[3], *above_av[3];
+    uint8_t left_part[16];
+    uint8_t left_cul[3][16];
+    uint8_t left_av[3][16];
+} Tile;
+
+/* One intra block of bs x bs luma (32 or 16) at (mi_r, mi_c) after its
+ * partition symbol: skip, y mode, angle delta, uv mode (CfL allowed),
+ * uv delta 0, then the coefficients of luma (TX_bs, with tt's tx type
+ * symbol when given) and of U and V (TX_bs/2, implied type). */
+static void code_block(Tile *tl, int mi_r, int mi_c, int bs, int y_mode,
+                       int y_delta, int uv_mode, const int32_t *ylv,
+                       const int32_t *ulv, const int32_t *vlv,
+                       const int16_t *scan8, const TxType *tt) {
+    RangeEnc *e = &tl->e;
+    Tables *t = tl->t;
+    int mi_rows = tl->mi_rows, mi_cols = tl->mi_cols;
+    int bw4 = bs / 4;
+    int cbs = bs / 2;
+    int have_above = mi_r > 0;
+    int have_left = mi_c > 0;
+    int any = 0;
+    for (int i = 0; i < bs * bs && !any; i++) any |= ylv[i] != 0;
+    for (int i = 0; i < cbs * cbs && !any; i++)
+        any |= (ulv[i] != 0) | (vlv[i] != 0);
+    int skip = !any;
+
+    int a_skip = have_above ? tl->skip_grid[(mi_r - 1) * mi_cols + mi_c] : 0;
+    int l_skip = have_left ? tl->skip_grid[mi_r * mi_cols + mi_c - 1] : 0;
+    enc_symbol(e, skip, t->skip + (a_skip + l_skip) * 3, 2);
+
+    int a_mode = have_above ? tl->mode_grid[(mi_r - 1) * mi_cols + mi_c] : 0;
+    int l_mode = have_left ? tl->mode_grid[mi_r * mi_cols + mi_c - 1] : 0;
+    enc_symbol(e, y_mode,
+               t->kf_y + (INTRA_MODE_CONTEXT[a_mode] * 5 +
+                          INTRA_MODE_CONTEXT[l_mode]) * 14, 13);
+    if (y_mode >= 1 && y_mode <= 8)
+        enc_symbol(e, 3 + y_delta, t->angle_delta + (y_mode - 1) * 8, 7);
+    /* uv mode (searched; cfl-allowed 14-symbol CDF) */
+    enc_symbol(e, uv_mode, t->uv_mode + (1 * 13 + y_mode) * 15, 14);
+    if (uv_mode >= 1 && uv_mode <= 8)
+        enc_symbol(e, 3 /*delta 0*/, t->angle_delta + (uv_mode - 1) * 8, 7);
+
+    for (int plane = 0; plane < 3; plane++) {
+        int shift = plane == 0 ? 0 : 1;
+        int units = (bs >> shift) / 4;
+        int au0 = ((mi_c * 4) >> shift) / 4;
+        int lu0 = (((mi_r * 4) >> shift) / 4) % (16 >> shift);
+        if (skip) {
+            for (int k = 0; k < units; k++) {
+                tl->above_cul[plane][au0 + k] = 0;
+                tl->above_av[plane][au0 + k] = 1;
+                tl->left_cul[plane][lu0 + k] = 0;
+                tl->left_av[plane][lu0 + k] = 1;
+            }
+            continue;
+        }
+        const int32_t *lv = plane == 0 ? ylv : (plane == 1 ? ulv : vlv);
+        /* frame-bottom overhang: contexts read over in-frame units only;
+         * beyond-edge left entries reset to 0 after coding
+         * (EbDecParseBlock.c :2117-2133, update_coeff_ctx :1644-1654) */
+        int row_px = (mi_r * 4) >> shift;
+        int valid_px = (mi_rows * 4) >> shift;
+        int units_v = (valid_px - row_px) / 4;
+        if (units_v > units) units_v = units;
+        if (units_v < 0) units_v = 0;
+        int ptype = plane == 0 ? 0 : 1;
+        int tctx, dctx;
+        if (plane == 0) {
+            tctx = 0;
+        } else {
+            int a_nz = 0, l_nz = 0;
+            for (int k = 0; k < units; k++)
+                if (tl->above_av[plane][au0 + k] &&
+                    (tl->above_cul[plane][au0 + k] & 0x3F))
+                    a_nz = 1;
+            for (int k = 0; k < units_v; k++)
+                if (tl->left_av[plane][lu0 + k] &&
+                    (tl->left_cul[plane][lu0 + k] & 0x3F))
+                    l_nz = 1;
+            tctx = 7 + a_nz + l_nz;
+        }
+        {
+            int signs = 0;
+            for (int k = 0; k < units; k++)
+                if (tl->above_av[plane][au0 + k]) {
+                    int s = tl->above_cul[plane][au0 + k] >> 6;
+                    signs += s == 2 ? 1 : (s == 1 ? -1 : 0);
+                }
+            for (int k = 0; k < units_v; k++)
+                if (tl->left_av[plane][lu0 + k]) {
+                    int s = tl->left_cul[plane][lu0 + k] >> 6;
+                    signs += s == 2 ? 1 : (s == 1 ? -1 : 0);
+                }
+            dctx = signs > 0 ? 2 : (signs < 0 ? 1 : 0);
+        }
+        int txs = bs == 32 ? 3 - shift : 2 - shift;
+        const TxType *ty = plane == 0 ? tt : NULL;
+        int cul = write_coeffs(e, t, lv, txs, ptype, tctx, dctx, scan8,
+                               ty ? ty->cdf + y_mode * 17 : NULL,
+                               ty ? ty->nsyms : 0, ty ? ty->dct_sym : 0);
+        for (int k = 0; k < units; k++) {
+            tl->above_cul[plane][au0 + k] = cul;
+            tl->above_av[plane][au0 + k] = 1;
+            tl->left_cul[plane][lu0 + k] = k < units_v ? cul : 0;
+            tl->left_av[plane][lu0 + k] = 1;
+        }
+    }
+
+    int rows = mi_rows - mi_r < bw4 ? mi_rows - mi_r : bw4;
+    for (int i = 0; i < rows; i++) {
+        for (int j = 0; j < bw4; j++) {
+            tl->skip_grid[(mi_r + i) * mi_cols + mi_c + j] = skip;
+            tl->mode_grid[(mi_r + i) * mi_cols + mi_c + j] = y_mode;
+        }
+    }
+}
+
+/* The partition symbol of a block of width bs (64, 32 or 16) at (mi_r,
+ * mi_c) from the above and left partition contexts. */
+static uint16_t *partition_cdf(Tile *tl, int mi_r, int mi_c, int bs) {
+    int bsl = bs == 64 ? 3 : (bs == 32 ? 2 : 1);
+    int a = (tl->above_part[mi_c] >> bsl) & 1;
+    int l = (tl->left_part[mi_r % 16] >> bsl) & 1;
+    return tl->t->partition + ((l * 2 + a) + bsl * 4) * 11;
+}
+
+/* The partition context after a leaf of width bs: 32 - bs / 4. */
+static void set_partition(Tile *tl, int mi_r, int mi_c, int bs) {
+    memset(tl->above_part + mi_c, 32 - bs / 4, bs / 4);
+    memset(tl->left_part + mi_r % 16, 32 - bs / 4, bs / 4);
+}
+
+/* The edge strip of a frame with m = 12 valid mi rows in its bottom SB
+ * row (encoder/edge.py): that row's bottom 32x32 blocks are coded SPLIT
+ * (split_or_horz) into 16x16 NONE blocks, the two in-frame ones of each
+ * (strip block 2 * (32-block column) + j, j = 0 left, 1 right). */
+typedef struct {
+    const int32_t *y_modes;   /* [n] */
+    const int32_t *y_deltas;  /* [n] luma angle deltas -3..3 */
+    const int32_t *y_lev;     /* [n][16][16] */
+    const int32_t *u_lev;     /* [n][8][8] */
+    const int32_t *v_lev;
+    const int32_t *uv_modes;  /* [n] */
+    const int16_t *scan8;     /* [64] the 8x8 2D scan */
+    TxType tx16;              /* the luma TX_16X16 tx type symbol */
+} Strip;
+
 /* Returns tile size, writes into dst.
  * true_h: signaled frame height (<= height, the SB-padded plane height);
  * bottom-row geometry follows encoder/geometry.py FLAT_OK_M.
  * n_symbols (NULL: not asked): the symbols coded, literal and Golomb bits
- * included. */
+ * included.
+ * strip: the edge strip of a frame with m = 12 (NULL for every other
+ * height; an m = 12 frame without it fails). */
 long encode_tile_intra(
     uint8_t *dst, long dst_cap, int width, int height, int update_cdf,
     const int32_t *y_modes,  /* [bh][bw] */
@@ -416,51 +590,47 @@ long encode_tile_intra(
     const int32_t *uv_modes, /* [bh][bw] (NULL -> DC) */
     const int32_t *y_deltas, /* [bh][bw] luma angle deltas -3..3 (NULL
                               * -> 0) */
-    long *n_symbols) {
+    long *n_symbols, const Strip *strip) {
     if (true_h <= 0) true_h = height;
+    Tile tile;
+    Tile *tl = &tile;
     int mi_cols = width / 4;
     int mi_rows = true_h / 4;
     int sb_cols = width / 64;
     int sb_rows = height / 64;
     int bw = width / 32;
+    tl->t = t;
+    tl->mi_rows = mi_rows;
+    tl->mi_cols = mi_cols;
+    RangeEnc *e = &tl->e;
+    enc_init(e, 1 << 16);
+    e->update = update_cdf;
 
-    RangeEnc e;
-    enc_init(&e, 1 << 16);
-    e.update = update_cdf;
-
-    uint8_t *above_part = calloc(mi_cols, 1);
-    uint8_t *skip_grid = calloc(mi_rows * mi_cols, 1);
-    uint8_t *mode_grid = calloc(mi_rows * mi_cols, 1);
+    tl->above_part = calloc(mi_cols, 1);
+    tl->skip_grid = calloc(mi_rows * mi_cols, 1);
+    tl->mode_grid = calloc(mi_rows * mi_cols, 1);
     /* per-plane above ctx: value + avail */
     int aw[3] = {width / 4, width / 8, width / 8};
-    uint8_t *above_cul[3], *above_av[3];
     for (int p = 0; p < 3; p++) {
-        above_cul[p] = calloc(aw[p], 1);
-        above_av[p] = calloc(aw[p], 1);
+        tl->above_cul[p] = calloc(aw[p], 1);
+        tl->above_av[p] = calloc(aw[p], 1);
     }
-    uint8_t left_cul[3][16];
-    uint8_t left_av[3][16];
+    long nb = 0;
 
     for (int sb_r = 0; sb_r < sb_rows; sb_r++) {
-        uint8_t left_part[16];
-        memset(left_part, 0, sizeof(left_part));
-        memset(left_cul, 0, sizeof(left_cul));
-        memset(left_av, 0, sizeof(left_av));
+        memset(tl->left_part, 0, sizeof(tl->left_part));
+        memset(tl->left_cul, 0, sizeof(tl->left_cul));
+        memset(tl->left_av, 0, sizeof(tl->left_av));
         for (int sb_c = 0; sb_c < sb_cols; sb_c++) {
             int mi_c0 = sb_c * 16;
             /* partition SPLIT at 64 (split_or_horz bool when the SB
              * crosses the true frame bottom) */
-            {
-                int bsl = 3;
-                int a = (above_part[mi_c0] >> bsl) & 1;
-                int l = (left_part[0] >> bsl) & 1;
-                int ctx = (l * 2 + a) + bsl * 4;
-                if (sb_r * 16 + 8 < mi_rows)
-                    enc_symbol(&e, 3 /*SPLIT*/, t->partition + ctx * 11, 10);
-                else
-                    enc_partition_edge_split(&e, t->partition + ctx * 11,
-                                             10);
-            }
+            if (sb_r * 16 + 8 < mi_rows)
+                enc_symbol(e, 3 /*SPLIT*/,
+                           partition_cdf(tl, sb_r * 16, mi_c0, 64), 10);
+            else
+                enc_partition_edge_split(
+                    e, partition_cdf(tl, sb_r * 16, mi_c0, 64), 10);
             static const int qoff[4][2] = {{0, 0}, {0, 1}, {1, 0}, {1, 1}};
             for (int q = 0; q < 4; q++) {
                 int qr = qoff[q][0], qc = qoff[q][1];
@@ -468,146 +638,54 @@ long encode_tile_intra(
                 int mi_r = br * 8, mi_c = bc * 8;
                 if (mi_r >= mi_rows)
                     continue;   /* quad below the frame bottom */
+                if (mi_r + 4 >= mi_rows) {
+                    /* the edge strip: split_or_horz SPLIT at 32, then the
+                     * two in-frame 16x16 NONE blocks */
+                    if (!strip) goto fail;
+                    enc_partition_edge_split(
+                        e, partition_cdf(tl, mi_r, mi_c, 32), 10);
+                    for (int j = 0; j < 2; j++) {
+                        int k = bc * 2 + j, c = mi_c + 4 * j;
+                        enc_symbol(e, 0 /*NONE*/,
+                                   partition_cdf(tl, mi_r, c, 16), 10);
+                        code_block(tl, mi_r, c, 16, strip->y_modes[k],
+                                   strip->y_deltas[k], strip->uv_modes[k],
+                                   strip->y_lev + (long)k * 256,
+                                   strip->u_lev + (long)k * 64,
+                                   strip->v_lev + (long)k * 64,
+                                   strip->scan8, &strip->tx16);
+                        set_partition(tl, mi_r, c, 16);
+                    }
+                    continue;
+                }
                 /* partition NONE at 32 */
-                {
-                    int bsl = 2;
-                    int a = (above_part[mi_c] >> bsl) & 1;
-                    int l = (left_part[qr * 8] >> bsl) & 1;
-                    int ctx = (l * 2 + a) + bsl * 4;
-                    enc_symbol(&e, 0 /*NONE*/, t->partition + ctx * 11, 10);
-                }
-
-                int have_above = mi_r > 0;
-                int have_left = mi_c > 0;
-                int y_mode = y_modes[br * bw + bc];
-                const int32_t *ylv = y_lev + ((long)(br * bw + bc)) * 32 * 32;
-                const int32_t *ulv = u_lev + ((long)(br * bw + bc)) * 16 * 16;
-                const int32_t *vlv = v_lev + ((long)(br * bw + bc)) * 16 * 16;
-                int any = 0;
-                for (int i = 0; i < 32 * 32 && !any; i++) any |= ylv[i] != 0;
-                for (int i = 0; i < 16 * 16 && !any; i++)
-                    any |= (ulv[i] != 0) | (vlv[i] != 0);
-                int skip = !any;
-
-                int a_skip = have_above ? skip_grid[(mi_r - 1) * mi_cols + mi_c]
-                                        : 0;
-                int l_skip = have_left ? skip_grid[mi_r * mi_cols + mi_c - 1]
-                                       : 0;
-                enc_symbol(&e, skip, t->skip + (a_skip + l_skip) * 3, 2);
-
-                int a_mode = have_above
-                                 ? mode_grid[(mi_r - 1) * mi_cols + mi_c] : 0;
-                int l_mode = have_left ? mode_grid[mi_r * mi_cols + mi_c - 1]
-                                       : 0;
-                enc_symbol(&e, y_mode,
-                           t->kf_y + (INTRA_MODE_CONTEXT[a_mode] * 5 +
-                                      INTRA_MODE_CONTEXT[l_mode]) * 14, 13);
-                if (y_mode >= 1 && y_mode <= 8)
-                    enc_symbol(&e, 3 + (y_deltas ? y_deltas[br * bw + bc]
-                                                 : 0),
-                               t->angle_delta + (y_mode - 1) * 8, 7);
-                /* uv mode (searched; cfl-allowed 14-symbol CDF) */
-                int uv_mode = uv_modes ? uv_modes[br * bw + bc] : 0;
-                enc_symbol(&e, uv_mode,
-                           t->uv_mode + (1 * 13 + y_mode) * 15, 14);
-                if (uv_mode >= 1 && uv_mode <= 8)
-                    enc_symbol(&e, 3 /*delta 0*/,
-                               t->angle_delta + (uv_mode - 1) * 8, 7);
-
-                if (!skip) {
-                    for (int plane = 0; plane < 3; plane++) {
-                        const int32_t *lv = plane == 0 ? ylv
-                                            : (plane == 1 ? ulv : vlv);
-                        int n = plane == 0 ? 32 : 16;
-                        int shift = plane == 0 ? 0 : 1;
-                        int units = (32 >> shift) / 4;
-                        /* frame-bottom overhang: contexts read over
-                         * in-frame units only; beyond-edge left entries
-                         * reset to 0 after coding (EbDecParseBlock.c
-                         * :2117-2133, update_coeff_ctx :1644-1654) */
-                        int row_px = (mi_r * 4) >> shift;
-                        int valid_px = (mi_rows * 4) >> shift;
-                        int units_v = (valid_px - row_px) / 4;
-                        if (units_v > units) units_v = units;
-                        if (units_v < 0) units_v = 0;
-                        int au0 = ((bc * 32) >> shift) / 4;
-                        int lu0 = (((br * 32) >> shift) / 4) % (16 >> shift);
-                        int ptype = plane == 0 ? 0 : 1;
-                        int tctx, dctx;
-                        if (plane == 0) {
-                            tctx = 0;
-                        } else {
-                            int a_nz = 0, l_nz = 0;
-                            for (int k = 0; k < units; k++)
-                                if (above_av[plane][au0 + k] &&
-                                    (above_cul[plane][au0 + k] & 0x3F))
-                                    a_nz = 1;
-                            for (int k = 0; k < units_v; k++)
-                                if (left_av[plane][lu0 + k] &&
-                                    (left_cul[plane][lu0 + k] & 0x3F))
-                                    l_nz = 1;
-                            tctx = 7 + a_nz + l_nz;
-                        }
-                        {
-                            int signs = 0;
-                            for (int k = 0; k < units; k++)
-                                if (above_av[plane][au0 + k]) {
-                                    int s = above_cul[plane][au0 + k] >> 6;
-                                    signs += s == 2 ? 1 : (s == 1 ? -1 : 0);
-                                }
-                            for (int k = 0; k < units_v; k++)
-                                if (left_av[plane][lu0 + k]) {
-                                    int s = left_cul[plane][lu0 + k] >> 6;
-                                    signs += s == 2 ? 1 : (s == 1 ? -1 : 0);
-                                }
-                            dctx = signs > 0 ? 2 : (signs < 0 ? 1 : 0);
-                        }
-                        int cul = write_coeffs(&e, t, lv, n, plane == 0,
-                                               ptype, tctx, dctx);
-                        for (int k = 0; k < units; k++) {
-                            above_cul[plane][au0 + k] = cul;
-                            above_av[plane][au0 + k] = 1;
-                            left_cul[plane][lu0 + k] = k < units_v ? cul : 0;
-                            left_av[plane][lu0 + k] = 1;
-                        }
-                    }
-                } else {
-                    for (int plane = 0; plane < 3; plane++) {
-                        int shift = plane == 0 ? 0 : 1;
-                        int units = (32 >> shift) / 4;
-                        int au0 = ((bc * 32) >> shift) / 4;
-                        int lu0 = (((br * 32) >> shift) / 4) % (16 >> shift);
-                        for (int k = 0; k < units; k++) {
-                            above_cul[plane][au0 + k] = 0;
-                            above_av[plane][au0 + k] = 1;
-                            left_cul[plane][lu0 + k] = 0;
-                            left_av[plane][lu0 + k] = 1;
-                        }
-                    }
-                }
-
-                int rows8 = mi_rows - mi_r < 8 ? mi_rows - mi_r : 8;
-                for (int i = 0; i < rows8; i++) {
-                    for (int j = 0; j < 8; j++) {
-                        skip_grid[(mi_r + i) * mi_cols + mi_c + j] = skip;
-                        mode_grid[(mi_r + i) * mi_cols + mi_c + j] = y_mode;
-                    }
-                }
+                enc_symbol(e, 0 /*NONE*/, partition_cdf(tl, mi_r, mi_c, 32),
+                           10);
+                long blk = (long)(br * bw + bc);
+                code_block(tl, mi_r, mi_c, 32, y_modes[blk],
+                           y_deltas ? y_deltas[blk] : 0,
+                           uv_modes ? uv_modes[blk] : 0,
+                           y_lev + blk * 32 * 32, u_lev + blk * 16 * 16,
+                           v_lev + blk * 16 * 16, NULL, NULL);
                 /* partition ctx leaf update: 32x32 → value 24 */
-                memset(above_part + mi_c, 24, 8);
-                memset(left_part + qr * 8, 24, 8);
+                set_partition(tl, mi_r, mi_c, 32);
             }
         }
     }
 
-    long nb = (long)enc_done(&e, dst, dst_cap);
-    if (n_symbols) *n_symbols = e.nsym;
-    free(above_part);
-    free(skip_grid);
-    free(mode_grid);
+    nb = (long)enc_done(e, dst, dst_cap);
+    if (n_symbols) *n_symbols = e->nsym;
+    goto done;
+fail:
+    free(e->precarry);
+    nb = -1;
+done:
+    free(tl->above_part);
+    free(tl->skip_grid);
+    free(tl->mode_grid);
     for (int p = 0; p < 3; p++) {
-        free(above_cul[p]);
-        free(above_av[p]);
+        free(tl->above_cul[p]);
+        free(tl->above_av[p]);
     }
     return nb;
 }

@@ -164,16 +164,17 @@ _WRITE_WIN = {4: (5, 9), 6: (5, 9), 8: (4, 10), 14: (1, 13)}
 
 
 def _filter_pass(x, spacing: int, end: int, filter_length: int, level: int,
-                 sharpness: int, bd: int):
-    """Filter the vertical edges at columns spacing, 2*spacing, ... < end
-    of x [..., h, w]."""
-    if level <= 0 or end <= spacing:
+                 sharpness: int, bd: int, start: int = None):
+    """Filter the vertical edges at columns start, start + spacing, ... <
+    end of x [..., h, w] (start defaults to spacing)."""
+    start = spacing if start is None else start
+    if level <= 0 or end <= start:
         return x
     mblim, lim, thr = _thresholds_t(level, sharpness)
     # edge columns made on x's device: no host-to-device copy (which would
     # synchronise the stream)
     dev = x.device
-    cols = (torch.arange(spacing, end, spacing, device=dev)[:, None] +
+    cols = (torch.arange(start, end, spacing, device=dev)[:, None] +
             torch.arange(-7, 7, device=dev)[None, :])       # [E, 14]
     filt = _filter_core(x[..., cols], filter_length, mblim, lim, thr, bd)
     lo, hi = _WRITE_WIN[filter_length]
@@ -188,12 +189,21 @@ def deblock_plane_uniform(plane, spacing: int, filter_length: int,
     """Deblock planes [..., h, w] on a uniform transform grid `spacing`:
     vertical-edge pass, then horizontal-edge pass.  A level of 0 turns a
     pass off.  valid_h: true (unpadded) frame height; horizontal edges at
-    rows >= valid_h lie outside the frame and are not filtered."""
+    rows >= valid_h lie outside the frame and are not filtered.
+    valid_h = h - spacing / 2 (m = 12, the flat path's edge strip): rows
+    h - spacing .. valid_h are spacing/2 transforms, whose vertical edges
+    halfway between the grid's also filter, with the same filter length:
+    both sides' transforms are at least 16 luma or 8 chroma pixels wide,
+    and the strip's edges read and write no pixel of the grid's."""
     h, w = plane.shape[-2], plane.shape[-1]
     vh = h if valid_h is None else valid_h
     x = plane.to(torch.int32)
     x = _filter_pass(x, spacing, w, filter_length, int(level_v), sharpness,
                      bd)
+    if vh == h - spacing // 2 and int(level_v) > 0:
+        x[..., h - spacing:vh, :] = _filter_pass(
+            x[..., h - spacing:vh, :], spacing, w, filter_length,
+            int(level_v), sharpness, bd, start=spacing // 2)
     x = _filter_pass(x.transpose(-1, -2), spacing, min(h, vh), filter_length,
                      int(level_h), sharpness, bd)
     return x.transpose(-1, -2).contiguous()

@@ -229,10 +229,10 @@ def test_tile_coder_ctypes_has_the_c_arguments():
     args = re.search(r"^long encode_tile_intra\(([^)]*)\)", src,
                      re.M).group(1)
     count = len([a for a in args.split(",") if a.strip()])
-    assert count == 14
+    assert count == 15
     assert len(native._load().encode_tile_intra.argtypes) == count
-    assert native._load().encode_tile_intra.argtypes[-1] is \
-        ctypes.POINTER(ctypes.c_long)
+    assert native._load().encode_tile_intra.argtypes[-2:] == [
+        ctypes.POINTER(ctypes.c_long), ctypes.POINTER(native._Strip)]
 
 
 def test_bounded_buffer_drops_the_oldest():
@@ -306,3 +306,50 @@ def test_cli_debug_prints_the_trace(tmp_path, capsys):
                                          if not ln.startswith("Svt[debug]")]]
     assert len(masked) == 2 and "app:" in masked[0]
     assert masked[0] == masked[1]
+
+
+# ---- the edge strip (m = 12 heights): enc.edge, dev.edge, edge.blocks -- #
+
+EH = 112                        # 128x112: m = 12, a strip of 8 blocks
+
+
+def test_edge_span_and_blocks_at_an_m12_height():
+    """At an m = 12 height, device_encode adds one enc.edge span, after
+    the launches and before the deblock, and counts the luma strip blocks
+    it coded (2 per 32 columns a frame); the D2H counter includes the
+    strip's outputs.  The dev.edge device span records nothing on the
+    CPU."""
+    enc = IntraEncoder(EncoderConfig(W, EH, qindex=100, part_search=False),
+                       device="cpu")
+    frames = inputs.moving_frames(W, EH, 2)
+    trace.enable(True)
+    try:
+        t0 = time.perf_counter_ns()
+        before = trace.counters()
+        dev = enc.device_encode(frames)
+        t1 = time.perf_counter_ns()
+        enc.host_finish(dev)
+        after = trace.counters()
+    finally:
+        trace.enable(False)
+    recs = _in(trace.records(), t0, t1)
+    names = [r.name for r in sorted(recs, key=lambda r: r.start_ns)
+             if r.kind == "host"]
+    assert names == ["enc.stage", "enc.upload", "enc.launch", "enc.upload",
+                     "enc.launch", "enc.edge", "enc.deblock"]
+    assert not [r for r in recs if r.kind == "device"]
+    blocks = after.get("edge.blocks", 0) - before.get("edge.blocks", 0)
+    assert blocks == 2 * (2 * W // 32)
+    keys = _D2H + ("y_emi", "uv_emi", "y_elev", "uv_elev")
+    assert after["d2h.bytes"] - before.get("d2h.bytes", 0) == \
+        sum(dev[k].nbytes for k in keys)
+
+
+def test_no_edge_span_or_blocks_without_a_strip(profiled):
+    """A height with m != 12 (the 1080p cells' m = 14, here m = 16) takes
+    the path it took before the strip: no enc.edge span, no edge.blocks,
+    no strip outputs."""
+    assert not [r for r in profiled["recs"] if r.name in ("enc.edge",
+                                                          "dev.edge")]
+    assert "y_emi" not in profiled["dev"]
+    assert not [r for r in profiled["recs"] if r.name == "edge.blocks"]

@@ -103,7 +103,7 @@ def test_quad_tables_match_jax():
 # ---- the CUDA kernel's host-side tables, emulated in numpy ----------- #
 
 
-@pytest.mark.parametrize("bs", [16, 32])
+@pytest.mark.parametrize("bs", [8, 16, 32])
 def test_linear_pred_maps_match_predictors(bs):
     """pred = (E[i0]*(32-sh) + E[i1]*sh + 16) >> 5 over E = [corner,
     above_ext, left_ext] reproduces V, H and every directional mode."""
@@ -183,7 +183,9 @@ def _rshift(x, s):
 @pytest.mark.parametrize("tx_size,tx_type", [
     (T.TX_32X32, T.DCT_DCT), (T.TX_16X16, T.DCT_DCT),
     (T.TX_16X16, T.ADST_DCT), (T.TX_16X16, T.DCT_ADST),
-    (T.TX_16X16, T.ADST_ADST)])
+    (T.TX_16X16, T.ADST_ADST), (T.TX_8X8, T.DCT_DCT),
+    (T.TX_8X8, T.ADST_DCT), (T.TX_8X8, T.DCT_ADST),
+    (T.TX_8X8, T.ADST_ADST)])
 def test_stage_tables_match_transforms(tx_size, tx_type, nets_lib):
     """The kernel's 2D transform flow over the generated networks of
     csrc/txfm_nets.cuh (compiled by gcc) and tx_params equals the port's
