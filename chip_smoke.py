@@ -270,7 +270,15 @@ its last line):
      plane outputs against the plain chain on the CPU: 0 differing
      elements; kernel, plain and bound ms;
  34. the CLI at ``--preset 12 --keyint 1`` on a 3840x2160 Y4M at 8 and 10
-     bits: the first two payloads decode on the card to the recon Y4M.
+     bits: the first two payloads decode on the card to the recon Y4M;
+ 35. the flat path's host staging slots at 3840x2160 10-bit and 1920x1080
+     8-bit, batch 4, after a warm-up that makes both slots: three batches
+     through device_encode behind a held stream without a host sync, every
+     plane the kernel read equal to the old staging (stack, pad, cast);
+     then two batches staged and queued behind a held stream and a third
+     staged, which must wait for the first's pending H2D, the first's
+     device planes still its own; stage_ms and upload_ms a call against
+     the old staging's parts on the same host.
 The CPU halves of the card-against-CPU phases (6, 9, 11, 13, 15, 21, 23,
 28, 30) run in spawned worker processes beside the card's half: those
 that need nothing from the card (``cpu_jobs``) are submitted after the
@@ -312,7 +320,9 @@ cs.phase_build(); cs.phase_tiles(); cs.phase_tiles_card_vs_cpu();
 cs.phase_mesh(); cs.cli_flags(); cs.phase_decode();
 cs.finish_deferred()"``; the 4K phases 33-34 alone: ``python3 -c "import
 chip_smoke as cs; cs.CARD = cs.card(); cs.phase_build(); cs.phase_edge();
-cs.cli_edge()"``; the encoder CLI at every preset 0-13 on the card
+cs.cli_edge()"``; phase 35 alone: ``python3 -c "import chip_smoke as cs;
+cs.CARD = cs.card(); cs.phase_build(); cs.phase_stage()"``; the encoder
+CLI at every preset 0-13 on the card
 (not part of the script's run): ``python3 -c "import chip_smoke as cs;
 cs.CARD = cs.card(); cs.cli_presets()"``.  Imports nothing of JAX or of
 the JAX package.
@@ -3501,6 +3511,168 @@ def cli_edge():
                          recons[:2])
 
 
+def old_staging(enc, frames):
+    """The luma and U+V tensors the flat path uploaded before its staging
+    slots: np.stack, pad_plane_bottom, the cast to the pixel dtype."""
+    y = ie.pad_plane_bottom(np.stack([f[0] for f in frames]), enc.ph)
+    uv = ie.pad_plane_bottom(np.concatenate(
+        [np.stack([f[k] for f in frames]) for k in (1, 2)]), enc.ph // 2)
+    dt = np.uint8 if enc.cfg.bit_depth == 8 else np.int16
+    return [torch.from_numpy(np.ascontiguousarray(a, dt)) for a in (y, uv)]
+
+
+def stage_split(enc, batches):
+    """The CLI's order over the batches (each queued before the previous
+    one's host_finish), recorded: mean ms a call of enc.stage and of the
+    enc.upload spans summed, and the stage.reused samples."""
+    from svtav1_tpu_torch.utils import trace
+    trace.enable(True)
+    try:
+        t0 = time.perf_counter_ns()
+        pending = None
+        for frames in batches:
+            dev = enc.device_encode(frames)
+            if pending is not None:
+                enc.host_finish(pending)
+            pending = dev
+        enc.host_finish(pending)
+        t1 = time.perf_counter_ns()
+    finally:
+        trace.enable(False)
+    recs = [r for r in trace.records() if t0 <= r.start_ns <= t1]
+    ms = lambda name: sum(r.end_ns - r.start_ns for r in recs
+                          if r.kind == "host" and r.name == name) / 1e6
+    reused = [r.n for r in recs
+              if r.kind == "count" and r.name == "stage.reused"]
+    return ms("enc.stage") / len(batches), ms("enc.upload") / len(batches), \
+        reused
+
+
+def phase_stage():
+    """Phase 35: the flat path's host staging slots (``IntraEncoder.
+    _stage``) at 3840x2160 10-bit and 1920x1080 8-bit, batch 4.  A
+    warm-up of three batches in flight makes the size's two slots and the
+    device buffers of three batches.  (a) Behind a spin kernel that holds
+    the stream for about a second, three batches of other frames go
+    through device_encode without a host sync: every plane the wavefront
+    kernel read (cloned on the stream before each launch) equals the old
+    staging element for element, and stage.reused reads 1, 1, 1; each
+    call's ms, whether the slot it took had a pending H2D, and the
+    synchronising calls torch reports (``set_sync_debug_mode``) are
+    printed.  (b) Behind a held stream again, two batches are staged and
+    queued to the card (``_stage``, ``_h2d``, the slot's event) and the
+    third is staged: the first's slot must be pending then, the third's
+    staging must wait for it, and the first batch's device planes must
+    still be its own (the old staging's), not the third's.  Then eight
+    batches in the CLI's order give stage_ms and upload_ms a call (means;
+    every call reuses a slot), and the old staging's two parts on the
+    same host (stack and pad; the cast, pin_memory and H2D enqueue) over
+    the same batches."""
+    import warnings
+    from svtav1_tpu_torch.utils import trace
+    for w, h, bd in ((W4, H4, 10), (1920, 1080, 8)):
+        make = synth_frames if bd == 8 else synth_frames10
+        batches = [make(w, h, BATCH, seed=s) for s in range(4)]
+        cfg = presets.apply_preset(ie.EncoderConfig(w, h, qindex=110,
+                                                    bit_depth=bd), 12)
+        enc = ie.IntraEncoder(cfg, device="cuda")
+        for dev in [enc.device_encode(batches[3]) for _ in range(3)]:
+            enc.host_finish(dev)
+        slots = enc._stage_slots[BATCH]
+        label = f"staging {w}x{h} {bd}-bit B={BATCH}"
+        seen, orig = [], ie.encode_plane_wavefront
+
+        def spy(x, *args, **kw):
+            seen.append(x.clone())
+            return orig(x, *args, **kw)
+
+        ie.encode_plane_wavefront = spy
+        pending, devs, ms = [], [], []
+        n_recs = len(trace.records())
+        trace.enable(True)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as syncs:
+                warnings.simplefilter("always")
+                torch.cuda._sleep(2_000_000_000)
+                for frames in batches[:3]:
+                    pending.append(slots[0].event is not None and
+                                   not slots[0].event.query())
+                    t0 = time.perf_counter()
+                    devs.append(enc.device_encode(frames))
+                    ms.append(round(1e3 * (time.perf_counter() - t0), 3))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            trace.enable(False)
+            ie.encode_plane_wavefront = orig
+        reused = [r.n for r in trace.records()[n_recs:]
+                  if r.kind == "count" and r.name == "stage.reused"]
+        for dev in devs:
+            enc.host_finish(dev)
+        wk.raise_on_error(DEV)
+        diff = [int((got.cpu() != want).sum()) for k, frames in
+                enumerate(batches[:3]) for got, want in
+                zip(seen[2 * k:2 * k + 2], old_staging(enc, frames))]
+        first = str(syncs[0].message).splitlines()[0] if syncs else ""
+        print(f"{label}: (a) three device_encode calls behind a held "
+              f"stream, ms {ms}, slot pending at each call {pending}, "
+              f"synchronising calls reported {len(syncs)} {first!r}, "
+              f"stage.reused {reused}, differing elements of each plane "
+              f"the kernel read against the old staging {diff} [{CARD}]",
+              flush=True)
+        if len(seen) != 6 or any(diff):
+            raise AssertionError(f"{label}: the kernel read other planes "
+                                 "than the old staging's")
+        if reused != [1, 1, 1]:
+            raise AssertionError(f"{label}: a call made a new slot")
+        torch.cuda._sleep(2_000_000_000)
+        staged, ups = [], []
+        for frames in batches[:2]:
+            slot = enc._stage(frames)
+            ups.append([enc._h2d(t) for t in (slot.y, slot.uv)])
+            slot.record(DEV)
+            staged.append(slot)
+        held = slots[0] is staged[0] and not staged[0].event.query()
+        t0 = time.perf_counter()
+        third = enc._stage(batches[2])
+        wait_ms = 1e3 * (time.perf_counter() - t0)
+        done = staged[0].event.query()
+        ups.append([enc._h2d(t) for t in (third.y, third.uv)])
+        torch.cuda.synchronize()
+        diff = [int((got.cpu() != want).sum()) for k, frames in
+                enumerate(batches[:3]) for got, want in
+                zip(ups[k], old_staging(enc, frames))]
+        print(f"{label}: (b) the first slot pending when the third batch "
+              f"came {held}, its staging took {wait_ms:.3f} ms and left "
+              f"the first H2D done {done}; differing elements of each "
+              f"batch's device planes against its old staging {diff} "
+              f"[{CARD}]", flush=True)
+        if not (held and done and third is staged[0]) or any(diff):
+            raise AssertionError(f"{label}: the third batch did not wait "
+                                 "on its slot's pending H2D")
+        stage, up, reused = stage_split(enc, batches * 2)
+        ts, tu = [], []
+        for frames in batches * 2:
+            t0 = time.perf_counter()
+            yb = ie.pad_plane_bottom(np.stack([f[0] for f in frames]),
+                                     enc.ph)
+            uvb = ie.pad_plane_bottom(np.concatenate(
+                [np.stack([f[k] for f in frames]) for k in (1, 2)]),
+                enc.ph // 2)
+            t1 = time.perf_counter()
+            enc._upload(yb), enc._upload(uvb)
+            ts.append(t1 - t0)
+            tu.append(time.perf_counter() - t1)
+        torch.cuda.synchronize()
+        print(f"{label}: slots stage_ms {stage:.3f}, upload_ms {up:.3f} "
+              f"(means over {len(reused)} calls, stage.reused {reused}); "
+              f"the old staging on this host stack + pad "
+              f"{1e3 * np.mean(ts):.3f} ms, cast + pin + H2D enqueue "
+              f"{1e3 * np.mean(tu):.3f} ms [{CARD}]", flush=True)
+        if reused != [1] * len(reused):
+            raise AssertionError(f"{label}: a call made a new slot")
+
+
 CARD = ""
 
 
@@ -3574,7 +3746,7 @@ def main():
              phase_partition, phase_part_launches, phase_filters,
              phase_video, phase_flat_video, phase_flat_pyramid,
              phase_part_pyramid, phase_flat_deltas, phase_preset4,
-             phase_tiles, phase_decode, phase_edge}
+             phase_tiles, phase_decode, phase_edge, phase_stage}
 
     def phase(fn, *args):
         pause_workers(fn in quiet)
@@ -3641,6 +3813,7 @@ def main():
         phase(cli_flags)
         edge_rows = phase(phase_edge)
         phase(cli_edge)
+        phase(phase_stage)
         phase(finish_deferred)
     finally:
         stop_workers()

@@ -2,11 +2,13 @@
 
 Counterpart of the flat (part_search=False) path of
 ``svtav1_tpu/encoder/intra_encoder.py``:
-  1. device stage (``device_encode``): one luma wavefront (32x32 blocks,
-     TX_32X32, 13 candidate modes, their directional ones expanded by the
-     config's angle deltas), one paired U+V wavefront (16x16
-     blocks, TX_16X16, implied chroma tx types, one uv_mode per pair),
-     uniform deblocking.  On a CUDA device the wavefronts run the
+  1. device stage (``device_encode``): the batch's source planes written
+     into one of two host staging slots of its size (pinned on a CUDA
+     device, reused in turn) and copied to the device from there; one
+     luma wavefront (32x32 blocks, TX_32X32, 13 candidate modes, their
+     directional ones expanded by the config's angle deltas), one paired
+     U+V wavefront (16x16 blocks, TX_16X16, implied chroma tx types, one
+     uv_mode per pair), uniform deblocking.  On a CUDA device the wavefronts run the
      hand-written kernel; nothing here synchronises.  Its last step
      queues the batch's host work (``coder_pool``): the copy thread waits
      for the batch's device work, copies its outputs to the host and
@@ -106,6 +108,41 @@ def _d2h_stream(dev: dict):
     for k in _d2h_keys(dev):
         dev[k].record_stream(stream)
     return stream
+
+
+class _Slot:
+    """A flat batch's host staging: its luma [n, ph, w] and U+V
+    [2n, ph/2, w/2] (U at 0..n-1, V at n..2n-1) as pixel tensors, pinned
+    for a CUDA device; numpy views of the same memory (uint16 at 10 bits,
+    the source planes' dtype, so a copy keeps the bits); and the event
+    recorded after their H2D (None before the first)."""
+    __slots__ = ("y", "uv", "y_np", "uv_np", "event")
+
+    def __init__(self, n: int, ph: int, w: int, bd: int, pinned: bool):
+        pix = pix_dtype(bd)
+        self.y = torch.empty((n, ph, w), dtype=pix, pin_memory=pinned)
+        self.uv = torch.empty((2 * n, ph // 2, w // 2), dtype=pix,
+                              pin_memory=pinned)
+        view = np.uint8 if bd == 8 else np.uint16
+        self.y_np, self.uv_np = (t.numpy().view(view)
+                                 for t in (self.y, self.uv))
+        self.event = None
+
+    def record(self, device: torch.device) -> None:
+        """Mark the end of the H2D copies queued so far on device's
+        current stream: the slot may be written again once it has run."""
+        if self.event is None:
+            self.event = torch.cuda.Event()
+        self.event.record(torch.cuda.current_stream(device))
+
+
+def _fill(dst: np.ndarray, planes) -> None:
+    """pad_plane_bottom(np.stack(planes), ph) written into dst [k, ph, w]:
+    each plane, then its last row repeated down to ph."""
+    for b, p in enumerate(planes):
+        h = p.shape[0]
+        np.copyto(dst[b, :h], p, casting="unsafe")
+        dst[b, h:] = dst[b, h - 1]
 
 
 @dataclass
@@ -209,6 +246,9 @@ class IntraEncoder:
         self._fg_n = 0               # per-frame grain_seed counter
         # the devices of the tile columns' scans (None: the encoder's)
         self.tile_devices = None
+        # the flat path's host staging: {batch size: its two _Slots, the
+        # next to use first}
+        self._stage_slots = {}
         if not cfg.part_search:
             # the coder pool codes frames in threads, but the native coder's
             # library and the scan tables it reads load lazily and not
@@ -285,6 +325,34 @@ class IntraEncoder:
             t = t.pin_memory()
         return t.to(device, non_blocking=True)
 
+    def _stage(self, frames) -> _Slot:
+        """A flat batch's source planes written into a staging slot of its
+        size, bottom rows padded as pad_plane_bottom pads them.  Each size
+        has two slots, used in turn and made on first use; a reused slot
+        waits for its last H2D first."""
+        n = len(frames)
+        slots = self._stage_slots.setdefault(n, [])
+        reused = len(slots) == 2
+        if reused:
+            slot = slots.pop(0)
+            if slot.event is not None:
+                slot.event.synchronize()
+        else:
+            slot = _Slot(n, self.ph, self.cfg.width, self.cfg.bit_depth,
+                         self.device.type == "cuda")
+        slots.append(slot)
+        trace.count("stage.reused", int(reused))
+        _fill(slot.y_np, [f[0] for f in frames])
+        _fill(slot.uv_np, [f[1] for f in frames] + [f[2] for f in frames])
+        return slot
+
+    def _h2d(self, t: torch.Tensor) -> torch.Tensor:
+        """A slot's tensor on the encoder's device: a non-blocking copy on
+        a CUDA device, a clone on the CPU (no output shares a slot)."""
+        if self.device.type == "cuda":
+            return t.to(self.device, non_blocking=True)
+        return t.clone()
+
     def device_encode(self, frames):
         """The device stage of a batch of (y, u, v) frames (uint8, or
         uint16 at 10 bits).  On the flat path it is queued without waiting
@@ -293,19 +361,16 @@ class IntraEncoder:
         cfg = self.cfg
         if cfg.part_search:
             return self._device_encode_part(frames)
-        # the spans (utils.trace) tile the call: staging, each plane's
-        # upload and launch, the edge strip's enqueue (m = 12 heights), the
-        # deblock's enqueue
+        # the spans (utils.trace) tile the call: staging (the slot's wait
+        # and writes), each plane's upload and launch, the edge strip's
+        # enqueue (m = 12 heights), the deblock's enqueue
         with trace.span("enc.stage"):
-            yb = pad_plane_bottom(np.stack([f[0] for f in frames]), self.ph)
-            uvb = pad_plane_bottom(np.concatenate(
-                [np.stack([f[1] for f in frames]),
-                 np.stack([f[2] for f in frames])]), self.ph // 2)
+            slot = self._stage(frames)
         bd = cfg.bit_depth
         vh = None if self.ph == cfg.height else cfg.height
         vhc = None if vh is None else vh // 2
         with trace.span("enc.upload"):
-            yt = self._upload(yb)
+            yt = self._h2d(slot.y)
         with trace.span("enc.launch"):
             y_mi, y_lev, y_rec = encode_plane_wavefront(
                 yt, BLK, TX_32X32, cfg.qindex, CAND_MODES, bd,
@@ -315,7 +380,9 @@ class IntraEncoder:
         # U and V ride one wavefront on the batch axis; paired=True makes
         # each (u, v) pair agree on one uv_mode
         with trace.span("enc.upload"):
-            uvt = self._upload(uvb)
+            uvt = self._h2d(slot.uv)
+            if self.device.type == "cuda":
+                slot.record(self.device)
         with trace.span("enc.launch"):
             uv_mi, uv_lev, uv_rec = encode_plane_wavefront(
                 uvt, CBLK, TX_16X16, cfg.qindex, CAND_MODES, bd,
